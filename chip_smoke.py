@@ -4,23 +4,28 @@
   python3 chip_smoke.py            # phases 1-5; needs one CUDA card
   python3 chip_smoke.py --profile  # and phase 6, the time breakdown
 
-Phases, in order; any failure ends the run with a non-zero exit:
+Two paths, each at a model's full width and depth with random weights:
+qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and rwkv6-3b (RWKV-6;
+the same two and the WKV kernel). Phases, in order; any failure ends the
+run with a non-zero exit:
 
 1. environment: card name and power limit, torch and CUDA versions,
    compute capability (9, 0) required; TF32 off for the plain versions;
-2. build: both CUDA sources under ``src/repro_torch/kernels/csrc`` with
-   nvcc, in parallel;
-3. kernels: each kernel at the main path's shapes (batch 4, prompt 128)
-   against its plain PyTorch version on the same inputs, with its time,
-   its bound, the plain version's time and one library call's time;
-4. path: ``repro_torch.launch.serve --arch qwen1.5-4b --batch 4
-   --prompt-len 128 --gen 16`` at full width (40 layers, random weights)
-   with the plan warm-up; zero lazy solves, and launch counts equal to
-   what the dispatch rule implies;
-5. kernel path against plain path: the same config cut to 2 layers, prefill
-   plus 4 decode steps on the card and on the CPU from the same weights,
-   logits held to a stated tolerance;
-6. with ``--profile`` only: the phase 4 path again with everything warm,
+2. build: the three CUDA sources under ``src/repro_torch/kernels/csrc``
+   with nvcc, in parallel;
+3. kernels: each kernel at its path's shapes (batch 4, prompt 128) against
+   its plain PyTorch version on the same inputs, with its time, its bound,
+   the plain version's time and one library call's time where there is
+   one (3a: the GEMMs; 3b: WKV, whose layout copies are timed too);
+4. path (4a qwen1.5-4b, 40 layers; 4b rwkv6-3b, 32 layers):
+   ``repro_torch.launch.serve --arch ARCH --batch 4 --prompt-len 128
+   --gen 16`` with the plan warm-up; zero lazy solves, and launch counts
+   equal to what the dispatch rule implies, counted from 0 for each path;
+5. kernel path against plain path (5a qwen, 5b rwkv): the config cut to 2
+   layers, prefill plus 4 decode steps on the card and on the CPU from the
+   same weights, logits held to a stated tolerance (rwkv's 128-token
+   prefill takes the WKV kernel);
+6. with ``--profile`` only: each phase 4 path again with everything warm,
    prefill and decode steps timed with CUDA events, then once more under
    ``torch.profiler``: device time by kernel and the device's idle share.
 
@@ -44,12 +49,24 @@ PEAK_OPS = {"float32": 67e12,        # f32 on the CUDA cores (data sheet)
             "int8": 1979e12}         # int8 tensor cores, dense (data sheet)
 
 BATCH, PROMPT, GEN = 4, 128, 16
-# launches the dispatch rule implies for qwen1.5-4b (qkv bias, SwiGLU):
-# prefill 7 fat GEMMs a layer + the last-token unembed on the GEMV kernel;
-# decode q, k, v (bias) and gate (silu) fat, wo, w_in, w_out + unembed GEMV
-N_LAYERS = 40
-WANT_MATMUL = 7 * N_LAYERS + GEN * 4 * N_LAYERS
-WANT_GEMV = 1 + GEN * (3 * N_LAYERS + 1)
+# launches the dispatch rule (core/gemm.py: GEMV when M <= 128, K >= 256,
+# N >= 128 and no epilogue) implies for each path, 16 decode steps:
+# * qwen1.5-4b (qkv bias, SwiGLU), 40 layers: prefill 7 fat GEMMs a layer
+#   + the last-token unembed on the GEMV; decode q, k, v (bias) and gate
+#   (silu) fat, wo, w_in, w_out + unembed GEMV;
+# * rwkv6-3b, 32 layers: prefill 11 fat GEMMs a layer (lora_a, w_lora_a,
+#   w_lora_b, r, k, v, g, o, cmix wk + relu, wv, wr) + the unembed GEMV and
+#   one WKV launch a layer (T = 128 takes the chunk branch); decode 3 fat
+#   (w_lora_a N = 32, w_lora_b K = 32, cmix wk + relu) and 8 GEMVs a layer
+#   + the unembed, and no WKV launch (T = 1 is the token scan)
+PATHS = {
+    "qwen1.5-4b": {"vocab": 151936, "want": {
+        "matmul": 7 * 40 + GEN * 4 * 40, "gemv": 1 + GEN * (3 * 40 + 1),
+        "wkv": 0}},
+    "rwkv6-3b": {"vocab": 65536, "want": {
+        "matmul": 11 * 32 + GEN * 3 * 32, "gemv": 1 + GEN * (8 * 32 + 1),
+        "wkv": 32}},
+}
 PATH_TOL = 5e-2  # kernel vs plain logits, bf16 activations (see phase 5)
 
 
@@ -185,10 +202,12 @@ def _inputs(torch, c: Case, gen):
 
 def _library_call(torch, c: Case, a, b, bias):
     """One PyTorch call computing the same product (a yardstick only, never
-    used by the port); None where there is none (int8 with requant)."""
-    if c.a_dtype == "int8":
-        return None
+    used by the port). int8: ``torch._int_mm`` (cuBLASLt int8 x int8 ->
+    int32), the product only: no PyTorch call fuses the requant, bias and
+    saturating cast, so that epilogue is left out of the yardstick."""
     bt = b.t() if c.layout == "col" else b
+    if c.a_dtype == "int8":
+        return lambda: torch._int_mm(a, bt)
     if bias is not None:
         return lambda: torch.addmm(bias, a.float(), bt.float())
     return lambda: torch.mm(a.float(), bt.float())
@@ -213,7 +232,7 @@ def check_kernels(torch) -> dict[str, dict]:
     from repro_torch.core.plancache import PlanCache
     from repro_torch.kernels import ops, ref
 
-    phase("3 kernels against their plain versions (on the card)")
+    phase("3a GEMM kernels against their plain versions (on the card)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
     with use_context(hw="h100", plan_cache=PlanCache()):
@@ -279,51 +298,159 @@ def check_kernels(torch) -> dict[str, dict]:
             if r["case"] == RECORD_CASE[r["kernel"]]}
 
 
+# ------------------------------------------------------------ phase 3b
+@dataclasses.dataclass
+class WkvCase:
+    name: str
+    B: int
+    H: int
+    T: int
+    N: int
+    w0: tuple = (-6.0, 1.0)  # log(-log w) drawn uniform in this range
+    tol: float = 2e-4
+
+
+# the rwkv6-3b path's shape (batch 4 x 40 heads of 64, prompt 128), the
+# reference test's shapes (tests/test_kernels_wkv.py) and its adversarial
+# decay range; tolerances are that test's: rtol = atol = 2e-4, and 1e-3
+# for the adversarial range (decays down to e^-3.3 a step re-centred over
+# a chunk: the factored exponentials lose a few more bits)
+WKV_CASES = [
+    WkvCase("path B4 H40 T128 N64", 4, 40, 128, 64),
+    WkvCase("reference (1, 2, 96, 128)", 1, 2, 96, 128),
+    WkvCase("reference (1, 1, 32, 64)", 1, 1, 32, 64),
+    WkvCase("adversarial decay (1, 2, 64, 32)", 1, 2, 64, 32,
+            w0=(-8.0, 1.2), tol=1e-3),
+]
+
+
+def _wkv_bound(c: WkvCase) -> tuple[float, str]:
+    """Bytes: r, k, v, wlog, y (BH, T, N), u (BH, N), state in and out
+    (BH, N, N), all f32, each once. Operations: per chunk of C = 32 steps
+    the four products, y1 (C x N x N), the strictly causal A and A v
+    (C (C-1) / 2 x N each) and the state update (C x N x N), as 2 ops a
+    multiply-add, and the bonus diagonal (3 C N)."""
+    BH, T, N, C = c.B * c.H, c.T, c.N, 32
+    moved = 4 * (5 * BH * T * N + BH * N + 2 * BH * N * N)
+    ops = BH * (T // C) * (4 * C * N * N + 2 * C * (C - 1) * N + 3 * C * N)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
+
+
+def check_wkv(torch) -> dict:
+    from repro_torch.kernels import wkv
+
+    phase("3b WKV kernel against its plain version (on the card)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    record = None
+    for c in WKV_CASES:
+        BH, T, N = c.B * c.H, c.T, c.N
+        r, k, v = rnd(BH, T, N), rnd(BH, T, N), rnd(BH, T, N)
+        lo, hi = c.w0
+        wl = -torch.exp(lo + (hi - lo) * torch.rand(
+            (BH, T, N), generator=gen, device="cuda"))
+        u = (rnd(c.H, N) * 0.3)[None].expand(c.B, c.H, N).reshape(BH, N)
+        s0 = rnd(BH, N, N) * 0.1
+        args = (r, k, v, wl, u, s0)
+        kern = lambda: wkv.wkv(*args)
+        plain = lambda: wkv.wkv_ref(*args)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        ok = all(bool(((g - w).abs() <= c.tol + c.tol * w.abs()).all())
+                 for g, w in zip(got, want))
+        rec = {"case": c.name, "kernel": "wkv", "shape": [c.B, c.H, T, N],
+               "max_abs_err": err, "tol": c.tol,
+               "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+               "library_ms": None}  # no PyTorch call computes WKV
+        rec["bound_ms"], rec["bound_by"] = _wkv_bound(c)
+        if record is None:
+            # the layout copies time_mix makes around the launch at this
+            # shape: r, k, v (bf16) and the log decay (f32) from (B, T, H,
+            # N) to (B*H, T, N) f32, and y back
+            x16 = torch.randn((c.B, T, c.H, N), device="cuda").bfloat16()
+            x32 = x16.float()
+            y = r.clone()
+            to_bh = lambda x: x.float().transpose(1, 2).reshape(BH, T, N)
+
+            def layout():
+                for x in (x16, x16, x16, x32):
+                    to_bh(x)
+                y.reshape(c.B, c.H, T, N).transpose(1, 2).reshape(
+                    c.B, T, c.H * N)
+            rec["layout_ms"] = time_ms(torch, layout)
+            record = rec
+        print(f"wkv    {c.name:34s} err={err:.3g} tol={c.tol} (rtol = atol) "
+              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms=null bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']})"
+              + (f" layout copies ms={rec['layout_ms']:.4f}"
+                 if "layout_ms" in rec else ""), flush=True)
+        if not ok:
+            raise SystemExit(f"wkv case {c.name!r} disagrees with its plain "
+                             f"version beyond rtol = atol = {c.tol}: max "
+                             f"abs error {err}")
+        del args, got, want
+    return record
+
+
 # ------------------------------------------------------------ phase 4
-def run_path(torch) -> dict[str, int]:
-    from repro_torch.kernels import decode_matvec, matmul
+def _free(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_path(torch, arch: str, label: str) -> dict[str, int]:
+    from repro_torch.kernels import decode_matvec, matmul, wkv
     from repro_torch.launch import serve
 
-    phase("4 path: repro_torch.launch.serve --arch qwen1.5-4b --batch 4 "
-          "--prompt-len 128 --gen 16 (full width, 40 layers)")
+    spec = PATHS[arch]
+    phase(f"{label} path: repro_torch.launch.serve --arch {arch} --batch "
+          f"{BATCH} --prompt-len {PROMPT} --gen {GEN} (full width and depth)")
     torch.cuda.reset_peak_memory_stats()
-    matmul.launches = 0
-    decode_matvec.launches = 0
+    matmul.launches = decode_matvec.launches = wkv.launches = 0
     t0 = time.perf_counter()
-    res = serve.main(["--arch", "qwen1.5-4b", "--batch", str(BATCH),
+    res = serve.main(["--arch", arch, "--batch", str(BATCH),
                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
                       "--plan-cache", ""])
     wall = time.perf_counter() - t0
-    counts = {"matmul": matmul.launches, "gemv": decode_matvec.launches}
+    counts = {"matmul": matmul.launches, "gemv": decode_matvec.launches,
+              "wkv": wkv.launches}
     gen = res["generated"]
     print(f"tokens generated {res['tokens']} in {res['seconds']:.3f}s serving "
           f"({res['tokens'] / res['seconds']:.2f} tok/s), {wall:.1f}s with "
           f"init and warm-up; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"launches: matmul {counts['matmul']} (rule: {WANT_MATMUL}), "
-          f"gemv {counts['gemv']} (rule: {WANT_GEMV})")
+    print(f"launches: {counts} (rule: {spec['want']})")
     if res["lazy_solves"] or res["misses"]:
         raise SystemExit(f"serving was not plan-warm: {res}")
-    if counts != {"matmul": WANT_MATMUL, "gemv": WANT_GEMV}:
+    if counts != spec["want"]:
         raise SystemExit(f"launch counts {counts} differ from the dispatch "
-                         f"rule's {WANT_MATMUL} / {WANT_GEMV}")
+                         f"rule's {spec['want']}")
     if tuple(gen.shape) != (BATCH, GEN) or not (
-            (gen >= 0) & (gen < 151936)).all():
+            (gen >= 0) & (gen < spec["vocab"])).all():
         raise SystemExit(f"bad generated ids {gen.shape}: {gen}")
-    torch.cuda.empty_cache()
+    del res
+    _free(torch)
     return counts
 
 
 # ------------------------------------------------------------ phase 5
-def kernel_vs_plain(torch) -> None:
+def kernel_vs_plain(torch, arch: str, label: str) -> None:
     import numpy as np
 
     from repro_torch import configs as C
     from repro_torch import interop, models
 
-    phase("5 kernel path (card) against plain path (CPU), 2 layers, "
-          "full width")
-    cfg = dataclasses.replace(C.get_config("qwen1.5-4b"), n_layers=2)
+    phase(f"{label} kernel path (card) against plain path (CPU), {arch}, "
+          "2 layers, full width")
+    cfg = dataclasses.replace(C.get_config(arch), n_layers=2)
     params = {"cuda": models.init(cfg, seed=1, device="cuda")}
     params["cpu"] = interop.tree_map(lambda t: t.cpu(), params["cuda"])
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
@@ -345,9 +472,9 @@ def kernel_vs_plain(torch) -> None:
     # bf16 activations: the two paths sum each product in another order, so
     # an activation may round to the neighbouring bf16 value and the flip
     # propagates through 2 layers. Held like the repo's bf16 kernel tests:
-    # |card - cpu| <= tol + tol * |cpu| with tol = 5e-2 (on the CPU, the same
-    # config with a 503-token vocabulary drifted 0.028 at most between f32
-    # and f64 accumulation).
+    # |card - cpu| <= tol + tol * |cpu| with tol = 5e-2 (on the CPU, the
+    # qwen config with a 503-token vocabulary drifted 0.028 at most between
+    # f32 and f64 accumulation).
     ref = logits["cpu"]
     diff = (logits["cuda"] - ref).abs()
     err = diff.max().item()
@@ -363,11 +490,11 @@ def kernel_vs_plain(torch) -> None:
     if not scaled <= PATH_TOL or not bool(same[sure].all()):
         raise SystemExit("kernel path disagrees with the plain path")
     del params
-    torch.cuda.empty_cache()
+    _free(torch)
 
 
 # ------------------------------------------------------------ phase 6
-def profile_path(torch) -> None:
+def profile_path(torch, arch: str, label: str) -> None:
     import numpy as np
 
     from repro_torch import configs as C
@@ -376,8 +503,8 @@ def profile_path(torch) -> None:
     from repro_torch.core.gemm import plan_model
     from repro_torch.core.plancache import PlanCache
 
-    phase("6 profile: the phase 4 path, warm, timed and traced")
-    cfg = C.get_config("qwen1.5-4b")
+    phase(f"{label} profile: the {arch} path, warm, timed and traced")
+    cfg = C.get_config(arch)
     params = models.init(cfg, seed=0, device="cuda")
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(BATCH, PROMPT))).cuda()
@@ -429,12 +556,12 @@ def profile_path(torch) -> None:
     print(f"traced run: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms, idle share "
           f"{1 - busy_us / 1e6 / wall:.3f}")
-    for t, n, key in sorted(rows, reverse=True)[:12]:
+    for t, n, key in sorted(rows, reverse=True)[:14]:
         if t:
             print(f"  {t / 1e3:9.2f} ms {100 * t / busy_us:5.1f}% x{n:<5d} "
                   f"{key[:90]}")
     del params
-    torch.cuda.empty_cache()
+    _free(torch)
 
 
 def main() -> int:
@@ -453,28 +580,37 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
 
-    environment(torch)
+    smi = environment(torch)
     build_kernels()
     record = check_kernels(torch)
-    counts = run_path(torch)
-    kernel_vs_plain(torch)
+    record["wkv"] = check_wkv(torch)
+    counts = {"qwen1.5-4b": run_path(torch, "qwen1.5-4b", "4a")}
+    kernel_vs_plain(torch, "qwen1.5-4b", "5a")
+    counts["rwkv6-3b"] = run_path(torch, "rwkv6-3b", "4b")
+    kernel_vs_plain(torch, "rwkv6-3b", "5b")
     if "--profile" in sys.argv[1:]:
-        profile_path(torch)
+        profile_path(torch, "qwen1.5-4b", "6a")
+        profile_path(torch, "rwkv6-3b", "6b")
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),
            "gemv": ("src/repro_torch/kernels/csrc/decode_matvec.cu",
-                    "src/repro/kernels/decode_matvec.py:83")}
+                    "src/repro/kernels/decode_matvec.py:83"),
+           "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
+                   "src/repro/kernels/wkv.py:86")}
     kernels = []
-    for name in ("matmul", "gemv"):
+    for name in ("matmul", "gemv", "wkv"):
         r = record[name]
+        by_path = {arch: c[name] for arch, c in counts.items() if c[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
-            "replaces": src[name][1], "launches": counts[name],
+            "replaces": src[name][1], "launches": sum(by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "case": r["case"], "shape": r["shape"]})
+            "case": r["case"], "shape": r["shape"],
+            "launches_by_path": by_path})
+    print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

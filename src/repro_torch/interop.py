@@ -15,8 +15,10 @@ import torch
 
 from repro_torch.layers.attention import AttnParams
 from repro_torch.layers.mlp import MlpParams
+from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
 
-_NAMED = {cls.__name__: cls for cls in (AttnParams, MlpParams)}
+_NAMED = {cls.__name__: cls for cls in (
+    AttnParams, MlpParams, RwkvTimeMixParams, RwkvChannelMixParams)}
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

@@ -23,7 +23,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"matmul": 4, "decode_matvec": 4}  # name -> parts
+SOURCES = {"matmul": 4, "decode_matvec": 4, "wkv": 1}  # name -> parts
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")

@@ -1,4 +1,5 @@
-"""Model zoo dispatch (port of ``repro.models``), dense family only.
+"""Model zoo dispatch (port of ``repro.models``): the dense and rwkv
+families (``models.lm.FAMILIES``); the others raise NotImplementedError.
 
 Batch convention: a dict with 'tokens' (B, S). Every entry point takes an
 explicit ``device`` where it allocates: ``cuda`` unless the caller asks for

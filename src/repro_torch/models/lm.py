@@ -1,9 +1,11 @@
-"""Decoder-only LM, dense family (port of ``repro.models.lm``).
+"""Decoder-only LM, dense and RWKV-6 families (port of ``repro.models.lm``).
 
 Parameters are the reference's tree: plain dicts and NamedTuples, layers
 stacked on a leading L axis. ``lax.scan`` over layers becomes a Python loop
-over views of the stacked leaves; the KV cache (L, B, S_max, Hkv, Dh) is
-written in place, the counterpart of the reference's ``donate_argnums``.
+over views of the stacked leaves; the decode state (the dense KV cache
+(L, B, S_max, Hkv, Dh), or the rwkv WKV state (L, B, H, N, N) and token
+shifts (L, B, d)) is written in place, the counterpart of the reference's
+``donate_argnums``.
 
 Entry points: init_lm, forward, init_decode_state, prefill, decode_step.
 """
@@ -18,10 +20,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
+from repro_torch.layers import rwkv as rwkv_lib
+
+FAMILIES = ("dense", "rwkv")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
             "item 9: other model families)")
@@ -60,16 +65,23 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = cm.normal_init(gen, (d, Vp), dt, device=device)
-    params["layers"] = {
+    layers = {
         "ln1": init_norm(cfg, d, lead=(L,), device=device),
         "ln2": init_norm(cfg, d, lead=(L,), device=device),
-        "attn": attn.init_attn(
-            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            qkv_bias=cfg.qkv_bias, dtype=dt, lead=(L,), device=device),
-        "mlp": mlp_lib.init_mlp(
-            gen, d, cfg.d_ff, gated=cfg.gated_mlp, bias=False, dtype=dt,
-            lead=(L,), device=device),
     }
+    if cfg.family == "rwkv":
+        layers["tmix"] = rwkv_lib.init_time_mix(gen, d, dtype=dt, lead=(L,),
+                                                device=device)
+        layers["cmix"] = rwkv_lib.init_channel_mix(
+            gen, d, cfg.d_ff, dtype=dt, lead=(L,), device=device)
+    else:
+        layers["attn"] = attn.init_attn(
+            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, dtype=dt, lead=(L,), device=device)
+        layers["mlp"] = mlp_lib.init_mlp(
+            gen, d, cfg.d_ff, gated=cfg.gated_mlp, bias=False, dtype=dt,
+            lead=(L,), device=device)
+    params["layers"] = layers
     return params
 
 
@@ -93,6 +105,26 @@ def _ffn(cfg: ModelConfig, lp, x):
                        activation=cfg.activation)
 
 
+def _rwkv_block(cfg: ModelConfig, lp, x, tmix_state=None,
+                shifts=(None, None)):
+    """Returns (x, (wkv state, time-mix shift, channel-mix shift))."""
+    h = apply_norm(cfg, lp["ln1"], x)
+    y, (new_state, last_att) = rwkv_lib.time_mix(
+        lp["tmix"], h, n_heads=cfg.n_heads, state=tmix_state,
+        x_prev=shifts[0])
+    x = x + y
+    h2 = apply_norm(cfg, lp["ln2"], x)
+    y2, last_ffn = rwkv_lib.channel_mix(lp["cmix"], h2, x_prev=shifts[1])
+    return x + y2, (new_state, last_att, last_ffn)
+
+
+def _write_rwkv_state(state, i: int, new) -> None:
+    """Layer ``i``'s new (wkv, att_shift, ffn_shift) into the stacked
+    decode state, in place."""
+    for key, t in zip(("wkv", "att_shift", "ffn_shift"), new):
+        state[key][i].copy_(t)
+
+
 # ---------------------------------------------------------------- forward
 def forward(params, tokens, cfg: ModelConfig):
     """tokens (B, S) -> (hidden (B, S, d), aux_loss scalar)."""
@@ -100,6 +132,9 @@ def forward(params, tokens, cfg: ModelConfig):
     x = _embed(params, tokens, cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
+        if cfg.family == "rwkv":
+            x, _ = _rwkv_block(cfg, lp, x)
+            continue
         x = x + attn.self_attention(lp["attn"], apply_norm(cfg, lp["ln1"], x),
                                     **_attn_kw(cfg))
         x = x + _ffn(cfg, lp, x)
@@ -118,10 +153,24 @@ def _logits(params, cfg: ModelConfig, h):
 # ---------------------------------------------------------------- decode
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device):
-    """Contiguous KV cache (L, B, max_len, Hkv, Dh) in the activation dtype
-    with one scalar length for every row."""
+    """dense: contiguous KV cache (L, B, max_len, Hkv, Dh) in the activation
+    dtype with one scalar length for every row. rwkv: the WKV state
+    (L, B, H, N, N) f32 and the token shifts (L, B, d) in the activation
+    dtype; ``max_len`` does not bound it."""
     _check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    L, d = cfg.n_layers, cfg.d_model
+    if cfg.family == "rwkv":
+        H = cfg.n_heads
+        N = d // H
+        return {
+            "wkv": torch.zeros((L, batch, H, N, N), dtype=torch.float32,
+                               device=device),
+            "att_shift": torch.zeros((L, batch, d), dtype=cfg.dtype,
+                                     device=device),
+            "ffn_shift": torch.zeros((L, batch, d), dtype=cfg.dtype,
+                                     device=device),
+        }
+    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"kv": attn.KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -131,9 +180,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 def prefill(params, tokens, cfg: ModelConfig, state):
     """Full-sequence prefill populating the decode state in place.
 
-    Returns (last-token logits (B, Vp) f32, new state)."""
+    Returns (last-token logits (B, Vp) f32, new state). The rwkv family
+    starts from zero state whatever ``state`` holds, as the reference's
+    does, and overwrites it."""
     _check_family(cfg)
     x = _embed(params, tokens, cfg)
+    if cfg.family == "rwkv":
+        for i in range(cfg.n_layers):
+            x, new = _rwkv_block(cfg, _layer(params["layers"], i), x)
+            _write_rwkv_state(state, i, new)
+        h_last = apply_norm(cfg, params["final_norm"], x[:, -1:])
+        return _logits(params, cfg, h_last)[:, 0], state
     S = tokens.shape[1]
     kv = state["kv"]
     for i in range(cfg.n_layers):
@@ -154,6 +211,15 @@ def decode_step(params, tokens, cfg: ModelConfig, state):
     """One decode step. tokens (B, 1) -> (logits (B, Vp) f32, new state)."""
     _check_family(cfg)
     x = _embed(params, tokens, cfg)
+    if cfg.family == "rwkv":
+        for i in range(cfg.n_layers):
+            x, new = _rwkv_block(
+                cfg, _layer(params["layers"], i), x,
+                tmix_state=state["wkv"][i],
+                shifts=(state["att_shift"][i], state["ffn_shift"][i]))
+            _write_rwkv_state(state, i, new)
+        h = apply_norm(cfg, params["final_norm"], x)
+        return _logits(params, cfg, h)[:, 0], state
     kv = state["kv"]
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)

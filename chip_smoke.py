@@ -16,7 +16,8 @@ run with a non-zero exit:
 3. kernels: each kernel at its path's shapes (batch 4, prompt 128) against
    its plain PyTorch version on the same inputs, with its time, its bound,
    the plain version's time and one library call's time where there is
-   one (3a: the GEMMs; 3b: WKV, whose layout copies are timed too);
+   one (3a: the GEMMs, each with the route the wrapper picks and its bound
+   at that route's rate; 3b: WKV, whose layout copies are timed too);
 4. path (4a qwen1.5-4b, 40 layers; 4b rwkv6-3b, 32 layers):
    ``repro_torch.launch.serve --arch ARCH --batch 4 --prompt-len 128
    --gen 16`` with the plan warm-up; zero lazy solves, and launch counts
@@ -27,7 +28,8 @@ run with a non-zero exit:
    prefill takes the WKV kernel);
 6. with ``--profile`` only: each phase 4 path again with everything warm,
    prefill and decode steps timed with CUDA events, then once more under
-   ``torch.profiler``: device time by kernel and the device's idle share.
+   ``torch.profiler``: device time by kernel, the fat GEMM's by route, and
+   the device's idle share.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -46,6 +48,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,        # f32 on the CUDA cores (data sheet)
+            "bfloat16": 989e12,      # bf16 tensor cores, dense (data sheet)
             "int8": 1979e12}         # int8 tensor cores, dense (data sheet)
 
 BATCH, PROMPT, GEN = 4, 128, 16
@@ -122,10 +125,13 @@ def build_kernels() -> None:
 # ------------------------------------------------------------ phase 3
 def time_ms(torch, fn, reps: int = 20) -> float:
     """Median of ``reps`` single calls timed with CUDA events, each after
-    reading a 64 MiB buffer so that no operand starts in the 50 MB L2 (the
+    reading a 256 MiB buffer so that no operand starts in the 50 MB L2 (the
     main path streams 15.8 GB of weights a step: they are always cold). A
-    read leaves no dirty lines whose write-back the timed call would pay."""
-    flush = torch.ones(64 * 2**20, dtype=torch.uint8, device="cuda")
+    read leaves no dirty lines whose write-back the timed call would pay.
+    The read also keeps the card busy (~0.1 ms) while the host enqueues the
+    timed call, so the events time the device, not the host's launch
+    overhead (which phase 6 shows end to end)."""
+    flush = torch.ones(256 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     times = []
@@ -166,10 +172,25 @@ CASES = [
     Case("decode gate + silu", "matmul", 4, 2560, 6912, activation="silu"),
     Case("col layout + bias", "matmul", 512, 2560, 2560, layout="col",
          bias=True),
+    # the W8A8 path's layout: int8 weights (N, K)
     Case("int8 requant -> int8", "matmul", 512, 2560, 2560, a_dtype="int8",
-         b_dtype="int8", out_dtype="int8", bias=True, scale=True),
+         b_dtype="int8", out_dtype="int8", layout="col", bias=True,
+         scale=True),
     Case("ragged + gelu", "matmul", 333, 1000, 777, bias=True,
          activation="gelu"),
+    # rwkv6-3b's decay LoRA pair at prefill
+    Case("rwkv w_lora_a", "matmul", 512, 2560, 32),
+    Case("rwkv w_lora_b", "matmul", 512, 32, 2560),
+    Case("prefill bf16 x bf16", "matmul", 512, 2560, 2560,
+         b_dtype="bfloat16", bias=True),
+    # an f32 output shows the three-term split of an f32 B is exact
+    Case("prefill f32 out", "matmul", 512, 2560, 2560, out_dtype="float32",
+         bias=True),
+    Case("int8 decode col requant", "matmul", 4, 2560, 2560, a_dtype="int8",
+         b_dtype="int8", out_dtype="int8", layout="col", bias=True,
+         scale=True),
+    Case("int8 row -> int32", "matmul", 512, 2560, 2560, a_dtype="int8",
+         b_dtype="int8", out_dtype="int32"),
     Case("decode wo", "gemv", 4, 2560, 2560),
     Case("decode w_in", "gemv", 4, 2560, 6912),
     Case("decode w_out", "gemv", 4, 6912, 2560),
@@ -207,20 +228,32 @@ def _library_call(torch, c: Case, a, b, bias):
     saturating cast, so that epilogue is left out of the yardstick."""
     bt = b.t() if c.layout == "col" else b
     if c.a_dtype == "int8":
-        return lambda: torch._int_mm(a, bt)
+        # cuBLASLt's int8 product takes more than 16 rows only
+        return (lambda: torch._int_mm(a, bt)) if c.M > 16 else None
     if bias is not None:
         return lambda: torch.addmm(bias, a.float(), bt.float())
     return lambda: torch.mm(a.float(), bt.float())
 
 
-def _bound(c: Case, torch) -> tuple[float, str]:
+def _rate(c: Case, route: str) -> float:
+    """The rate of the route a case takes: an f32 B on the tensor cores is
+    three bf16 passes, a bf16 B one; int8 tensor cores; the CUDA-core routes
+    (split-K, CUDA core, the GEMV) at the f32 rate."""
+    if route == "tensor_core":
+        return PEAK_OPS["bfloat16"] / (3 if c.b_dtype == "float32" else 1)
+    if route == "tensor_core_int8":
+        return PEAK_OPS["int8"]
+    return PEAK_OPS["float32"]
+
+
+def _bound(c: Case, torch, route: str) -> tuple[float, str]:
     size = lambda name: getattr(torch, name).itemsize
     moved = (c.M * c.K * size(c.a_dtype) + c.K * c.N * size(c.b_dtype)
              + c.M * c.N * size(c.out_dtype)
              + 4 * c.N * (int(c.bias) + int(c.scale)))
     ops = 2 * c.M * c.K * c.N
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS["int8" if c.a_dtype == "int8" else "float32"]
+    t_ops = ops / _rate(c, route)
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
@@ -230,6 +263,7 @@ def check_kernels(torch) -> dict[str, dict]:
     from repro_torch.core.context import use_context
     from repro_torch.core.gemm import plan_for
     from repro_torch.core.plancache import PlanCache
+    from repro_torch.kernels import matmul as tmm
     from repro_torch.kernels import ops, ref
 
     phase("3a GEMM kernels against their plain versions (on the card)")
@@ -241,7 +275,10 @@ def check_kernels(torch) -> dict[str, dict]:
             out_dtype = getattr(torch, c.out_dtype)
             plan = plan_for(c.M, c.K, c.N, in_dtype=a.dtype,
                             out_dtype=out_dtype, b_layout=c.layout)
+            route = "gemv"
             if c.kernel == "matmul":
+                route = tmm.route(c.M, a.dtype, b.dtype, c.layout,
+                                  tmm.tma_aligned(a, b))
                 kern = lambda: ops.balanced_matmul(
                     a, b, bias, plan=plan, out_dtype=out_dtype,
                     b_layout=c.layout, activation=c.activation,
@@ -271,8 +308,18 @@ def check_kernels(torch) -> dict[str, dict]:
             else:
                 tol = 1.0
             lib = _library_call(torch, c, a, b, bias)
+            if route == "tensor_core" and c.b_dtype == "float32":
+                # a yardstick of one bf16 pass only: another product (B
+                # rounded to bf16), which the port never computes
+                b16 = b.bfloat16()
+                bt16 = b16.t() if c.layout == "col" else b16
+                print(f"       {c.name:22s} bf16_library_ms="
+                      f"{time_ms(torch, lambda: torch.mm(a, bt16)):.4f} "
+                      "(torch.mm(a, b.bfloat16()), one bf16 pass)",
+                      flush=True)
+                del b16, bt16
             rec = {
-                "case": c.name, "kernel": c.kernel,
+                "case": c.name, "kernel": c.kernel, "route": route,
                 "shape": [c.M, c.K, c.N], "layout": c.layout,
                 "dtypes": [c.a_dtype, c.b_dtype, c.out_dtype],
                 "plan": [plan.bm, plan.bk, plan.bn],
@@ -281,10 +328,10 @@ def check_kernels(torch) -> dict[str, dict]:
                 "plain_ms": time_ms(torch, plain),
                 "library_ms": None if lib is None else time_ms(torch, lib),
             }
-            rec["bound_ms"], rec["bound_by"] = _bound(c, torch)
+            rec["bound_ms"], rec["bound_by"] = _bound(c, torch, route)
             results.append(rec)
             print(f"{c.kernel:6s} {c.name:22s} MKN={c.M}x{c.K}x{c.N} "
-                  f"{c.layout} plan={rec['plan']} err={err:.3g} "
+                  f"{c.layout} route={route} plan={rec['plan']} err={err:.3g} "
                   f"tol={tol:.3g} ms={rec['ms']:.4f} "
                   f"plain_ms={rec['plain_ms']:.4f} library_ms="
                   + ("null" if lib is None else f"{rec['library_ms']:.4f}")
@@ -560,6 +607,14 @@ def profile_path(torch, arch: str, label: str) -> None:
         if t:
             print(f"  {t / 1e3:9.2f} ms {100 * t / busy_us:5.1f}% x{n:<5d} "
                   f"{key[:90]}")
+    # the fat GEMM kernel by route: on these paths the tensor-core route
+    # runs at prefill (M = 512) and split-K at decode (M = 4)
+    fat = {name: (sum(t for t, _, k in rows if name in k) / 1e3,
+                  sum(n for _, n, k in rows if name in k))
+           for name in ("mm_wgmma", "mm_split_k", "mm_core")}
+    print("fat GEMM device ms (launches): " + ", ".join(
+        f"{name} {ms:.2f} ({n})" for name, (ms, n) in fat.items())
+        + f", all {sum(ms for ms, _ in fat.values()):.2f}")
     del params
     _free(torch)
 

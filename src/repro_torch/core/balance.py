@@ -6,8 +6,8 @@ tiles and the working-set model come from ``HardwareSpec.candidate_blocks``
 and ``HardwareSpec.working_set``. Under a TPU spec they are exactly the
 reference's (``balance.candidate_blocks`` and the VMEM model of
 ``kernels/matmul.vmem_bytes``), so the plans agree one for one; under
-``h100`` they are the tiles ``csrc/matmul.cu`` is built for and its
-shared-memory footprint.
+``h100`` they are the tiles ``csrc/matmul.cu`` is built for on the GEMM's
+route (``HardwareSpec.gemm_route``) and that route's shared memory.
 """
 from __future__ import annotations
 
@@ -63,12 +63,13 @@ def solve_exhaustive(
     ty_in = pm.itemsize(in_dtype)
     ty_out = pm.itemsize(out_dtype)
     budget = hw.vmem_bytes
-    bms, bks, bns = hw.candidate_blocks(ty_in)
+    route = hw.gemm_route(M, in_dtype, b_layout)
+    bms, bks, bns = hw.candidate_blocks(ty_in, route)
     best: BalanceStep | None = None
     for bm in bms:
         for bn in bns:
             for bk in bks:
-                if hw.working_set(bm, bk, bn, ty_in, ty_out) > budget:
+                if hw.working_set(bm, bk, bn, ty_in, ty_out, route) > budget:
                     break  # bk ascending: larger only grows the working set
                 est = pm.estimate_gemm(
                     hw, M, K, N, bm, bk, bn, in_dtype=in_dtype,

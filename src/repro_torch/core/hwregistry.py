@@ -46,8 +46,9 @@ TPU_V6E = HardwareSpec(
 )
 
 # NVIDIA H100 SXM. Peaks are NVIDIA's data sheet (dense, no sparsity):
-# 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s f32 on the CUDA cores
-# (the rate the port's float kernel runs at), 3.35 TB/s HBM3, 450 GB/s
+# 989 TFLOP/s bf16 and 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s f32
+# on the CUDA cores (each the rate of a route of the port's fat GEMM,
+# ``HardwareSpec.peak_flops``), 3.35 TB/s HBM3, 450 GB/s
 # NVLink each way. Shared memory a block may use: 232,448 bytes; 132 SMs
 # (both read from the card when one is present, see ``get_hw``).
 # vmem_bw is the shared-memory rate, 128 B/clock/SM x 132 SMs x 1.98 GHz

@@ -6,10 +6,11 @@ exactly the reference's plans. What depends on the machine is a property of
 the :class:`HardwareSpec`: the candidate tiles and the working-set model
 (``candidate_blocks`` / ``working_set``, see ``core/balance.py``), the rate
 the kernels compute at (``peak_flops``) and the bytes reckoned for B
-(``b_itemsize``). For ``kind="gpu"`` those describe the hand-written CUDA
-kernels of this package: every product runs on the CUDA cores (floats as
-f32 FMAs, int8 as i32 multiply-adds), and the plan key carries only A's
-dtype, so a float B is reckoned at 4 bytes, its worst case.
+(``b_itemsize``). For ``kind="gpu"`` those describe the routes of the
+hand-written CUDA kernel ``csrc/matmul.cu`` (``kernels/matmul.py``): a GEMM's
+route (``gemm_route``) sets its tiles, its shared memory and its rate. The
+plan key carries only A's dtype, so a float B is reckoned at 4 bytes and as
+the three bf16 passes of an f32 B on the tensor cores, its worst case.
 """
 from __future__ import annotations
 
@@ -60,12 +61,25 @@ class HardwareSpec:
     kind: str = "tpu"       # "tpu" | "gpu"
     sm_count: int = 0       # streaming multiprocessors (GPU)
 
-    def peak_flops(self, dtype) -> float:
-        """Rate the GEMM kernels compute at for inputs of ``dtype``."""
+    def gemm_route(self, M: int, dtype, b_layout: str = "row"
+                   ) -> str | None:
+        """The GPU kernel route a plan of this GEMM is for (None on a TPU)."""
+        if self.kind != "gpu":
+            return None
+        return _mm.plan_route(M, torch_dtype(dtype), b_layout)
+
+    def peak_flops(self, dtype, route: str | None = None) -> float:
+        """Rate the GEMM kernels compute at for inputs of ``dtype`` (on a
+        GPU, on ``route``)."""
         if self.kind == "gpu":
-            # the port's CUDA kernels run every product on the CUDA cores:
-            # floats as f32 FMAs, int8 as i32 multiply-adds, which Hopper
-            # issues at half the f32 rate (64 vs 128 lanes per SM)
+            if route == _mm.TENSOR_CORE:
+                # an f32 B (the worst case of a float B) takes three bf16
+                # passes
+                return self.peak_flops_bf16 / 3
+            if route == _mm.TENSOR_CORE_INT8:
+                return self.peak_flops_int8
+            # CUDA cores: floats as f32 FMAs, int8 as i32 multiply-adds,
+            # which Hopper issues at half the f32 rate (64 vs 128 lanes/SM)
             if is_int_dtype(dtype):
                 return self.peak_flops_f32 / 2
             return self.peak_flops_f32
@@ -82,12 +96,16 @@ class HardwareSpec:
             return 4
         return ty_in
 
-    def candidate_blocks(self, itemsize: int):
-        """(bms, bks, bns) the solver may choose from."""
+    def candidate_blocks(self, itemsize: int, route: str | None = None):
+        """(bms, bks, bns) the solver may choose from (on a GPU, the tiles
+        ``route`` is built for)."""
         if self.kind == "gpu":
-            bms = sorted({bm for bm, _ in _mm.TILES})
-            bns = sorted({bn for _, bn in _mm.TILES})
-            return bms, list(range(32, 1024 + 1, 32)), bns
+            tiles = _mm.TILES[route]
+            bms = sorted({bm for bm, _ in tiles})
+            bns = sorted({bn for _, bn in tiles})
+            bks = ([_mm.TC_BK[route]] if route in _mm.TC_BK
+                   else list(range(_mm.BK_STEP, 1024 + 1, _mm.BK_STEP)))
+            return bms, bks, bns
         sub = SUBLANE[itemsize]
         max_bk = 16384 // itemsize
         bms = sorted(set([sub, 2 * sub, 4 * sub, 64]
@@ -97,12 +115,12 @@ class HardwareSpec:
         return bms, bks, bns
 
     def working_set(self, bm: int, bk: int, bn: int, ty_in: int,
-                    ty_out: int) -> int:
+                    ty_out: int, route: str | None = None) -> int:
         """Bytes of fast memory one block needs (compared with vmem_bytes)."""
         if self.kind == "gpu":
-            if (bm, bn) not in _mm.TILES:
-                return math.inf  # not a tile the kernel is built for
-            return _mm.smem_bytes(bm, bk, bn)
+            if (bm, bn) not in _mm.TILES[route] or not _mm.valid_bk(route, bk):
+                return math.inf  # not a tile the route is built for
+            return _mm.smem_bytes(route, bm, bk, bn)
         return vmem_bytes(bm, bk, bn, ty_in, ty_out)
 
 
@@ -127,8 +145,9 @@ def effective_bw(hw: HardwareSpec, run_bytes: float) -> float:
 def mxu_efficiency(hw: HardwareSpec, bm: int, bk: int, bn: int,
                    itemsize: int) -> float:
     """Fraction of the matrix-unit peak one (bm, bk, bn) block attains
-    (dimension-alignment derate). The GPU candidates are all multiples of
-    the kernel's 16 x 16 thread grid, so nothing is wasted there."""
+    (dimension-alignment derate). The GPU candidates are whole wgmma tiles
+    or multiples of the CUDA-core kernel's 16 x 16 thread grid, so nothing
+    is wasted there."""
     if hw.kind == "gpu":
         return 1.0
 
@@ -151,11 +170,12 @@ class BlockTimes:
 
 
 def block_times(hw: HardwareSpec, bm: int, bk: int, bn: int, *,
-                in_dtype=torch.bfloat16, b_layout: str = "row") -> BlockTimes:
+                in_dtype=torch.bfloat16, b_layout: str = "row",
+                route: str | None = None) -> BlockTimes:
     ty = itemsize(in_dtype)
     ty_b = hw.b_itemsize(ty)
     eff = mxu_efficiency(hw, bm, bk, bn, ty)
-    t_comp = 2.0 * bm * bk * bn / (eff * hw.peak_flops(in_dtype))
+    t_comp = 2.0 * bm * bk * bn / (eff * hw.peak_flops(in_dtype, route))
     t_a = bm * bk * ty / effective_bw(hw, bk * ty)
     b_run = (bk if b_layout == "col" else bn) * ty_b
     t_b = bk * bn * ty_b / effective_bw(hw, b_run)
@@ -164,9 +184,11 @@ def block_times(hw: HardwareSpec, bm: int, bk: int, bn: int, *,
 
 
 def kernel_efficiency(hw: HardwareSpec, bm: int, bk: int, bn: int, *,
-                      in_dtype=torch.bfloat16, b_layout: str = "row") -> float:
+                      in_dtype=torch.bfloat16, b_layout: str = "row",
+                      route: str | None = None) -> float:
     """Modeled single-kernel efficiency: attained / peak."""
-    bt = block_times(hw, bm, bk, bn, in_dtype=in_dtype, b_layout=b_layout)
+    bt = block_times(hw, bm, bk, bn, in_dtype=in_dtype, b_layout=b_layout,
+                     route=route)
     step = max(bt.t_comp, bt.t_a, bt.t_b) + bt.t_acc
     return bt.t_comp * mxu_efficiency(hw, bm, bk, bn, itemsize(in_dtype)) / step
 
@@ -196,13 +218,19 @@ class GemmEstimate:
 
 
 def grid_utilization(hw: HardwareSpec, M: int, N: int, bm: int,
-                     bn: int) -> float:
+                     bn: int, *, route: str | None = None, K: int = 0,
+                     bk: int = 0) -> float:
     """GPU wave quantization: the (M/bm) x (N/bn) grid runs in waves of one
-    block per SM, so a grid of 80 blocks keeps 80 of 132 SMs busy. 1.0 on a
-    TPU, whose grid runs in order on one core."""
+    block per SM, so a grid of 80 blocks keeps 80 of 132 SMs busy; the
+    split-K route's grid is (N/bn) x row groups x K splits. 1.0 on a TPU,
+    whose grid runs in order on one core."""
     if hw.kind != "gpu" or not hw.sm_count:
         return 1.0
-    blocks = -(-M // bm) * -(-N // bn)
+    if route == _mm.SPLIT_K:
+        splits, _ = _mm.split_k(M, K, N, bk, bn, hw.sm_count)
+        blocks = -(-N // bn) * -(-M // _mm.rows_per_group(M)) * splits
+    else:
+        blocks = -(-M // bm) * -(-N // bn)
     waves = -(-blocks // hw.sm_count)
     return blocks / (waves * hw.sm_count)
 
@@ -216,12 +244,13 @@ def estimate_gemm(hw: HardwareSpec, M: int, K: int, N: int, bm: int, bk: int,
     ty_in = itemsize(in_dtype)
     ty_out = itemsize(out_dtype)
     ty_b = hw.b_itemsize(ty_in)
+    route = hw.gemm_route(M, in_dtype, b_layout)
+    util = grid_utilization(hw, M, N, bm, bn, route=route, K=K, bk=bk)
     r = lambda x, b: -(-x // b) * b
     M, K, N = r(M, bm), r(K, bk), r(N, bn)
     eff = kernel_efficiency(hw, bm, bk, bn, in_dtype=in_dtype,
-                            b_layout=b_layout)
-    t_comp = 2.0 * M * K * N / (eff * hw.peak_flops(in_dtype)
-                                * grid_utilization(hw, M, N, bm, bn))
+                            b_layout=b_layout, route=route)
+    t_comp = 2.0 * M * K * N / (eff * hw.peak_flops(in_dtype, route) * util)
     a_mem, b_mem, c_mem = dram_traffic(M, K, N, bm, bn, ty_in=ty_in,
                                        ty_out=ty_out, ty_b=ty_b)
     bw_a = effective_bw(hw, bk * ty_in)

@@ -22,11 +22,11 @@ import functools
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.matmul import BK_STEP, DTYPE_CODE, IN_TYPES
+from repro_torch.kernels.matmul import (  # noqa: F401 (re-exported)
+    BK_STEP, BLOCKS_PER_SM, DTYPE_CODE, IN_TYPES, rows_per_group, split_k)
 
 MAX_ROWS = 128
 THREADS = 256
-BLOCKS_PER_SM = 2  # split K until the grid holds about this many blocks/SM
 
 launches = 0
 
@@ -34,23 +34,6 @@ launches = 0
 def vec_elems(w_dtype: torch.dtype) -> int:
     """W elements per vector load: 16 bytes (8 bytes for int8)."""
     return 8 if w_dtype == torch.int8 else 16 // w_dtype.itemsize
-
-
-def rows_per_group(B: int) -> int:
-    """x rows one block keeps in registers (csrc REPRO_ROWS); more rows go
-    to further grid groups, each streaming W again."""
-    return 1 if B <= 1 else 2 if B <= 2 else 4 if B <= 4 else 8
-
-
-def split_k(B: int, K: int, N: int, bk: int, bn: int, sm_count: int
-            ) -> tuple[int, int]:
-    """(splits, k_per_split) for a grid of ceil(N/bn) x groups blocks."""
-    blocks = -(-N // bn) * -(-B // rows_per_group(B))
-    k_steps = -(-K // bk)
-    want = max(1, -(-BLOCKS_PER_SM * sm_count // blocks))
-    splits = min(k_steps, want)
-    k_per_split = -(-k_steps // splits) * bk
-    return -(-K // k_per_split), k_per_split
 
 
 @functools.cache

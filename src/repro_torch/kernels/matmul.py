@@ -3,11 +3,22 @@
 ``repro.kernels.matmul.matmul``).
 
 ``matmul`` takes the reference's arguments. On a CUDA tensor it launches the
-hand-written kernel, which masks ragged M, N and K edges itself, so nothing
-is padded or copied; on a CPU tensor it runs the plain version
-(``ref.matmul_ref``); on a meta tensor it only returns the output's shape
-(the plan warm-up traces the model there). ``launches`` counts kernel
-launches and nothing else.
+hand-written kernel on one of four routes, which mask ragged M, N and K
+edges themselves, so nothing is padded or copied; on a CPU tensor it runs
+the plain version (``ref.matmul_ref``); on a meta tensor it only returns the
+output's shape (the plan warm-up traces the model there). ``launches``
+counts kernel launches and nothing else.
+
+Routes (``route``, a rule on M, the dtypes, B's layout and alignment, taken
+before the launch; the source's header says what bounds each):
+
+* ``tensor_core``: bf16 A x f32 or bf16 B, M > 32, TMA-aligned. wgmma fed by
+  TMA; an f32 B is split into three bf16 terms (``ref.split_bf16x3``).
+* ``split_k``: M <= 32, any dtypes. B streams once; K is split across
+  blocks, the last block of a tile sums the partials and runs the epilogue.
+* ``tensor_core_int8``: int8 x int8 with B col layout, M > 32, aligned.
+* ``cuda_core``: everything else (f32 A, int8 row, unaligned strides or
+  pointers): f32 / i32 FMAs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -18,11 +29,29 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# (bm, bn) output tiles the kernel is instantiated for (csrc/matmul.cu,
-# REPRO_TILE): a 16 x 16 thread grid, at most 64 accumulators a thread.
-TILES = ((16, 64), (16, 128), (32, 64), (32, 128),
-         (64, 64), (64, 128), (128, 64), (128, 128))
-BK_STEP = 32  # bk is any positive multiple of this
+TENSOR_CORE = "tensor_core"
+SPLIT_K = "split_k"
+TENSOR_CORE_INT8 = "tensor_core_int8"
+CUDA_CORE = "cuda_core"
+ROUTE_CODE = {TENSOR_CORE: 1, SPLIT_K: 2, TENSOR_CORE_INT8: 3, CUDA_CORE: 4}
+
+SPLIT_K_M = 32  # at most this many rows take the split-K route
+
+# (bm, bn) output tiles each route is instantiated for (csrc/matmul.cu):
+# tensor cores: one or two consumer warpgroups of 64 rows, wgmma n128;
+# split-K: bm is the route's row limit (rows go 8 to a block); CUDA cores:
+# a 16 x 16 thread grid, at most 64 accumulators a thread.
+TILES = {
+    TENSOR_CORE: ((64, 128), (128, 128)),
+    TENSOR_CORE_INT8: ((64, 128), (128, 128)),
+    SPLIT_K: ((SPLIT_K_M, 64), (SPLIT_K_M, 128)),
+    CUDA_CORE: ((16, 64), (16, 128), (32, 64), (32, 128),
+                (64, 64), (64, 128), (128, 64), (128, 128)),
+}
+# K of one pipeline stage of a tensor-core route (128 bytes of K: one
+# swizzled row); the other routes take any positive multiple of BK_STEP
+TC_BK = {TENSOR_CORE: 64, TENSOR_CORE_INT8: 128}
+BK_STEP = 32
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
               torch.int16: 3, torch.int32: 4}
@@ -31,12 +60,91 @@ IN_TYPES = ((torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
             (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
             (torch.int8, torch.int8))
 
+# split-K (and the GEMV's): split K until the grid holds about this many
+# blocks per SM
+BLOCKS_PER_SM = 2
+THREADS = 256  # split-K and CUDA-core blocks
+
 launches = 0
 
 
-def smem_bytes(bm: int, bk: int, bn: int) -> int:
-    """Dynamic shared memory of one block: the A and B slices of one bk
-    step, staged in the 4-byte accumulator type, rows padded by one."""
+def route(M: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
+          b_layout: str, aligned: bool = True) -> str:
+    """The kernel route of one call. ``aligned``: A's and B's base pointers
+    and row strides are 16-byte multiples (TMA needs both)."""
+    if M <= SPLIT_K_M:
+        return SPLIT_K
+    if aligned and a_dtype == torch.bfloat16 and b_dtype in (
+            torch.float32, torch.bfloat16):
+        return TENSOR_CORE
+    if (aligned and a_dtype == torch.int8 and b_dtype == torch.int8
+            and b_layout == "col"):
+        return TENSOR_CORE_INT8
+    return CUDA_CORE
+
+
+def plan_route(M: int, a_dtype: torch.dtype, b_layout: str) -> str:
+    """The route a plan is solved for: the plan key records A's dtype only,
+    so B is taken as its worst case (f32 for a float A) and aligned."""
+    b_dtype = torch.int8 if a_dtype == torch.int8 else torch.float32
+    return route(M, a_dtype, b_dtype, b_layout)
+
+
+def tma_aligned(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Base pointers and row strides of contiguous A and B on 16 bytes."""
+    b_row = b.shape[1] * b.element_size()  # (K,N) row or (N,K) col: last dim
+    return (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            and (a.shape[1] * a.element_size()) % 16 == 0 and b_row % 16 == 0)
+
+
+def rows_per_group(M: int) -> int:
+    """Rows one split-K (or GEMV) block keeps in registers (csrc ROWS); more
+    rows go to further grid groups, each streaming B again."""
+    return 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
+
+
+def split_k(M: int, K: int, N: int, bk: int, bn: int, sm_count: int
+            ) -> tuple[int, int]:
+    """(splits, k_per_split) for a grid of ceil(N/bn) x groups blocks: split
+    K (in whole bk steps) until the grid holds ~BLOCKS_PER_SM blocks/SM."""
+    blocks = -(-N // bn) * -(-M // rows_per_group(M))
+    k_steps = -(-K // bk)
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // blocks))
+    splits = min(k_steps, want)
+    k_per_split = -(-k_steps // splits) * bk
+    return -(-K // k_per_split), k_per_split
+
+
+def valid_bk(r: str, bk: int) -> bool:
+    if r in TC_BK:
+        return bk == TC_BK[r]
+    return bk > 0 and bk % BK_STEP == 0
+
+
+def smem_bytes(r: str, bm: int, bk: int, bn: int,
+               b_dtype: torch.dtype | None = None) -> int:
+    """Dynamic shared memory of one block of route ``r`` (csrc/matmul.cu);
+    ``b_dtype`` None takes the route's worst case.
+
+    * tensor_core: 1 KB alignment slack, 4 stages of the A tile (128 bytes
+      of K a row) and, for a bf16 B, its tile beside each; for an f32 B,
+      2 stages of the staged f32 tile and 2 of its three bf16 terms; plus
+      the mbarriers.
+    * tensor_core_int8: 4 stages of (A tile + B tile).
+    * split_k: the A rows of one bk slice and the row layout's reduction
+      buffer, at the most rows a block holds (8) and 16-byte vectors.
+    * cuda_core: the A and B slices of one bk step in the 4-byte
+      accumulator type, rows padded by one.
+    """
+    if r in TC_BK:
+        tile = bn * 128  # one bf16 (int8) B tile of a stage
+        if r == TENSOR_CORE and b_dtype in (None, torch.float32):
+            return (1024 + 4 * bm * 128 + 2 * 64 * bn * 4 + 2 * 3 * tile
+                    + 8 * 2 * (4 + 2 + 2))
+        return 1024 + 4 * (bm * 128 + tile) + 8 * 2 * 4
+    if r == SPLIT_K:
+        rows, vec = 8, 8
+        return (rows * bk + THREADS * rows * vec) * 4
     return bk * ((bm + 1) + (bn + 1)) * 4
 
 
@@ -44,19 +152,32 @@ def smem_bytes(bm: int, bk: int, bn: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = build.load("matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                                 i, p]
+    lib.repro_matmul.argtypes = [p, p, p, p, p, p, p] + [i] * 15 + [p]
     lib.repro_matmul.restype = i
     return lib
 
 
 @functools.cache
-def _smem_optin(index: int) -> int:
-    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+def _props(index: int):
+    return torch.cuda.get_device_properties(index)
+
+
+_tickets: dict[int, torch.Tensor] = {}
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed split-K tickets for ``device``, kept across
+    calls: the last block of each tile resets its own, so no memset runs
+    per call (one stream: launches on it are ordered)."""
+    t = _tickets.get(device.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tickets[device.index] = t
+    return t
 
 
 def _check(a, b, bias, out_scale, *, M, K, N, bm, bk, bn, out_dtype,
-           activation) -> None:
+           activation, r) -> None:
     dev = a.device
     for name, t in (("b", b), ("bias", bias), ("out_scale", out_scale)):
         if t is not None and t.device != dev:
@@ -79,18 +200,20 @@ def _check(a, b, bias, out_scale, *, M, K, N, bm, bk, bn, out_dtype,
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous f32 ({N},), got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if (bm, bn) not in TILES or bk <= 0 or bk % BK_STEP:
-        raise ValueError(f"no kernel for tile (bm={bm}, bk={bk}, bn={bn}): "
-                         f"(bm, bn) in {TILES}, bk a multiple of {BK_STEP}")
-    if max(M * K, K * N, M * N) >= 2**31 or -(-M // bm) > 65535:
+    if (bm, bn) not in TILES[r] or not valid_bk(r, bk):
+        raise ValueError(f"no {r} kernel for tile (bm={bm}, bk={bk}, "
+                         f"bn={bn}): (bm, bn) in {TILES[r]}, bk "
+                         + (f"= {TC_BK[r]}" if r in TC_BK
+                            else f"a multiple of {BK_STEP}"))
+    if (max(M * K, K * N, M * N) >= 2**31
+            or max(-(-M // bm), -(-N // bn)) > 65535):
         raise ValueError(f"GEMM ({M}, {K}, {N}) exceeds the kernel's "
                          "32-bit index and grid limits")
-    need = smem_bytes(bm, bk, bn)
-    have = _smem_optin(dev.index if dev.index is not None
-                       else torch.cuda.current_device())
+    need = smem_bytes(r, bm, bk, bn, b.dtype)
+    have = _props(dev.index).shared_memory_per_block_optin
     if need > have:
-        raise ValueError(f"tile ({bm}, {bk}, {bn}) needs {need} bytes of "
-                         f"shared memory, the device allows {have}")
+        raise ValueError(f"{r} tile ({bm}, {bk}, {bn}) needs {need} bytes "
+                         f"of shared memory, the device allows {have}")
 
 
 def matmul(
@@ -109,7 +232,8 @@ def matmul(
     """C[M,N] = act(A[M,K] @ B * out_scale + bias), B (K,N) row or (N,K) col.
 
     Semantics of :func:`repro_torch.kernels.ref.matmul_ref`. The blocks are
-    the plan's; M, K and N need not be multiples of them.
+    the plan's, for the route :func:`route` picks; M, K and N need not be
+    multiples of them.
     """
     global launches
     if out_dtype is None:
@@ -128,17 +252,31 @@ def matmul(
                               out_scale=out_scale)
     if a.device.type != "cuda":
         raise ValueError(f"matmul kernel runs on cuda, not {a.device}")
+    dev = a.device
+    r = route(M, a.dtype, b.dtype, b_layout, tma_aligned(a, b))
     _check(a, b, bias, out_scale, M=M, K=K, N=N, bm=bm, bk=bk, bn=bn,
-           out_dtype=out_dtype, activation=activation)
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+           out_dtype=out_dtype, activation=activation, r=r)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    splits, k_per_split, ws, tk, vec_ok = 1, K, None, None, 0
+    if r == SPLIT_K:
+        splits, k_per_split = split_k(M, K, N, bk, bn,
+                                      _props(dev.index).multi_processor_count)
+        if splits > 1:
+            ws = torch.empty((splits, M, N), dtype=ref.acc_dtype(a.dtype),
+                             device=dev)
+            tk = tickets(dev, -(-N // bn) * -(-M // rows_per_group(M)))
+        vec = 8 if b.dtype == torch.int8 else 16 // b.element_size()
+        vec_ok = int((b.shape[1] % vec == 0)
+                     and b.data_ptr() % (vec * b.element_size()) == 0)
     err = _lib().repro_matmul(
         a.data_ptr(), b.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if out_scale is None else out_scale.data_ptr(),
-        out.data_ptr(), M, K, N, bm, bk, bn,
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if tk is None else tk.data_ptr(), M, K, N, bm, bk, bn,
         DTYPE_CODE[a.dtype], DTYPE_CODE[b.dtype], DTYPE_CODE[out_dtype],
-        int(b_layout == "col"), ACT_CODE[activation],
-        torch.cuda.current_stream(a.device).cuda_stream)
-    build.check(err, "repro_matmul")
+        int(b_layout == "col"), ACT_CODE[activation], ROUTE_CODE[r], splits,
+        k_per_split, vec_ok, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, f"repro_matmul ({r})")
     launches += 1
     return out

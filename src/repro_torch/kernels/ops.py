@@ -4,7 +4,7 @@
 * ``GemmPlan`` is the solved (bm, bk, bn) of one GEMM signature.
 * ``_clamp_plan`` shrinks a plan for problems smaller than one block: under
   a TPU spec with the reference's alignment rules, under a GPU spec onto the
-  tiles ``csrc/matmul.cu`` is built for.
+  tiles ``csrc/matmul.cu`` is built for on the GEMM's route.
 * ``balanced_matmul`` / ``decode_matvec`` pick the blocks and call the
   kernel wrappers. On CPU tensors they keep the reference's zero-padding to
   the native GEMM size (§5.3.1) around the plain versions; on CUDA tensors
@@ -69,14 +69,16 @@ def _fit(x: int, options: list[int]) -> int:
 
 
 def _clamp_plan(plan: GemmPlan, M: int, K: int, N: int, dtype,
-                hw=None) -> GemmPlan:
+                hw=None, b_layout: str = "row") -> GemmPlan:
     """Shrink blocks for problems smaller than one block."""
     hw = _resolve_hw(hw)
     if hw.kind == "gpu":
-        bms = sorted({bm for bm, _ in _mm.TILES})
-        bns = sorted({bn for _, bn in _mm.TILES})
+        r = _mm.plan_route(M, dtype, b_layout)
+        bms = sorted({bm for bm, _ in _mm.TILES[r]})
+        bns = sorted({bn for _, bn in _mm.TILES[r]})
         step = _mm.BK_STEP
-        bk = max(step, min(plan.bk, -(-K // step) * step) // step * step)
+        bk = _mm.TC_BK.get(r) or max(
+            step, min(plan.bk, -(-K // step) * step) // step * step)
         return GemmPlan(bm=_fit(min(plan.bm, _cover(M, bms)), bms), bk=bk,
                         bn=_fit(min(plan.bn, _cover(N, bns)), bns))
     sub = SUBLANE[dtype.itemsize]
@@ -114,7 +116,8 @@ def balanced_matmul(
         out_scale = out_scale.to(torch.float32).expand(N).contiguous()
     if bias is not None and bias.is_floating_point():
         bias = bias.to(torch.float32)
-    plan = _clamp_plan(plan or GemmPlan(), M, K, N, a.dtype, hw)
+    plan = _clamp_plan(plan or GemmPlan(), M, K, N, a.dtype, hw,
+                       b_layout)
     a = a.contiguous()
     if a.device.type != "cpu":
         return _mm.matmul(a, b, bias, out_scale, bm=plan.bm, bk=plan.bk,

@@ -89,6 +89,24 @@ def matmul_ref(
     return saturating_cast(out, out_dtype)
 
 
+def split_bf16x3(b: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 terms the tensor-core route multiplies in place of an
+    f32 B (csrc/matmul.cu, split8): B1 = hi16(B), B2 = hi16(B - B1),
+    B3 = B - B1 - B2, by truncation. Each difference is exact in f32 and
+    B3 has at most 8 significant bits, so B1 + B2 + B3 == B bit for bit for
+    every f32 of magnitude at least 2**-110 (and 0), and A.B1 + A.B2 + A.B3
+    is the f32 product A.B up to summation order (a bf16 x bf16 product is
+    exact in f32). Below 2**-110 the last bits fall under bf16's smallest
+    subnormal, 2**-133, which bounds the error of such an element."""
+    hi = lambda x: (x.view(torch.int32) & -65536).view(torch.float32)
+    b = b.to(torch.float32).contiguous()
+    b1 = hi(b)
+    r1 = b - b1
+    b2 = hi(r1)
+    return b1.bfloat16(), b2.bfloat16(), (r1 - b2).bfloat16()
+
+
 def gemv_ref(
     x: torch.Tensor,
     w: torch.Tensor,

@@ -241,12 +241,13 @@ def test_h100_plans_fit_the_cuda_kernels():
     cache = _slice_signatures()
     assert len(cache.entries) == 11
     for key, p in cache.entries.items():
-        assert (p.bm, p.bn) in tmm.TILES, key
-        assert p.bk % tmm.BK_STEP == 0, key
-        assert tmm.smem_bytes(p.bm, p.bk, p.bn) <= 232_448, key
-        _, M, K, N, din, *_ = key
-        c = TO._clamp_plan(p, M, K, N, getattr(torch, din), "h100")
-        assert (c.bm, c.bn) in tmm.TILES and c.bk % tmm.BK_STEP == 0, key
+        _, M, K, N, din, _, layout = key
+        r = tmm.plan_route(M, getattr(torch, din), layout)
+        assert (p.bm, p.bn) in tmm.TILES[r], key
+        assert tmm.valid_bk(r, p.bk), key
+        assert tmm.smem_bytes(r, p.bm, p.bk, p.bn) <= 232_448, key
+        c = TO._clamp_plan(p, M, K, N, getattr(torch, din), "h100", layout)
+        assert (c.bm, c.bn) in tmm.TILES[r] and tmm.valid_bk(r, c.bk), key
         if TG._is_skinny(M, K, N):  # the GEMV kernel takes the same blocks
             for w_dt in (torch.float32, torch.bfloat16, torch.int8):
                 lanes = p.bn // tmv.vec_elems(w_dt)
@@ -258,9 +259,16 @@ def test_h100_clamp_stays_in_the_tile_set():
     for plan in (TO.GemmPlan(128, 512, 128), TO.GemmPlan(512, 2048, 1024),
                  TO.GemmPlan(8, 100, 32)):
         for M, K, N in [(1, 1, 1), (5, 33, 70), (700, 5000, 300)]:
-            c = TO._clamp_plan(plan, M, K, N, torch.bfloat16, "h100")
-            assert (c.bm, c.bn) in tmm.TILES
-            assert c.bk % tmm.BK_STEP == 0 and 0 < c.bk <= max(plan.bk, 32)
+            for dt, layout in [(torch.bfloat16, "row"), (torch.int8, "col"),
+                               (torch.int8, "row"), (torch.float32, "row")]:
+                c = TO._clamp_plan(plan, M, K, N, dt, "h100", layout)
+                r = tmm.plan_route(M, dt, layout)
+                assert (c.bm, c.bn) in tmm.TILES[r]
+                assert tmm.valid_bk(r, c.bk)
+                if r in tmm.TC_BK:  # one pipeline stage: fixed by the kernel
+                    assert c.bk == tmm.TC_BK[r]
+                else:
+                    assert 0 < c.bk <= max(plan.bk, tmm.BK_STEP)
 
 
 @pytest.mark.parametrize("B,K,N,bk,bn", [

@@ -17,7 +17,9 @@ run with a non-zero exit:
    its plain PyTorch version on the same inputs, with its time, its bound,
    the plain version's time and one library call's time where there is
    one (3a: the GEMMs, each with the route the wrapper picks and its bound
-   at that route's rate; 3b: WKV, whose layout copies are timed too);
+   at that route's rate, the GEMV's with its K splits, then a sweep of
+   untimed GEMV cases over every dtype pair, layout, 1..128 rows and both
+   routes; 3b: WKV, whose layout copies are timed too);
 4. path (4a qwen1.5-4b, 40 layers; 4b rwkv6-3b, 32 layers):
    ``repro_torch.launch.serve --arch ARCH --batch 4 --prompt-len 128
    --gen 16`` with the plan warm-up; zero lazy solves, and launch counts
@@ -28,8 +30,9 @@ run with a non-zero exit:
    prefill takes the WKV kernel);
 6. with ``--profile`` only: each phase 4 path again with everything warm,
    prefill and decode steps timed with CUDA events, then once more under
-   ``torch.profiler``: device time by kernel, the fat GEMM's by route, and
-   the device's idle share.
+   ``torch.profiler``: device time by kernel, the fat GEMM's by route, the
+   GEMV's by kernel name (one kernel launch per call, or the run fails),
+   and the device's idle share.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -197,7 +200,33 @@ CASES = [
     Case("unembed f32 out", "gemv", 4, 2560, 151936, out_dtype="float32"),
     Case("col layout", "gemv", 4, 2560, 2560, layout="col"),
     Case("ragged", "gemv", 3, 1000, 777),
+    # rwkv6-3b's decode GEMVs that the qwen shapes above do not cover
+    Case("rwkv lora_a", "gemv", 4, 2560, 160),
+    Case("rwkv cmix wv", "gemv", 4, 8960, 2560),
+    Case("rwkv unembed f32 out", "gemv", 4, 2560, 65536, out_dtype="float32"),
+    # more rows: one row group past 8, and a paged-engine-sized batch (W
+    # must cross HBM once, not once per 8 rows)
+    Case("decode wo B=9", "gemv", 9, 2560, 2560),
+    Case("decode wo B=64", "gemv", 64, 2560, 2560),
+    Case("decode wo B=128", "gemv", 128, 2560, 2560),
 ]
+# GEMV cases held to their plain version but not timed: every dtype pair,
+# both layouts, 1..128 rows, ragged K and N, both routes
+GEMV_SWEEP = [
+    Case(f"sweep {a}x{b}->{o} {lay} B={M}", "gemv", M, K, N, a_dtype=a,
+         b_dtype=b, out_dtype=o, layout=lay)
+    for M, K, N in [(1, 2560, 2560), (4, 1000, 776), (33, 2560, 2560),
+                    (64, 992, 136), (128, 2560, 2560), (128, 992, 136)]
+    for a, b, o in [("bfloat16", "float32", "bfloat16"),
+                    ("bfloat16", "float32", "float32"),
+                    ("bfloat16", "bfloat16", "float32"),
+                    ("float32", "float32", "float32"),
+                    ("float32", "bfloat16", "bfloat16"),
+                    ("int8", "int8", "int32"), ("int8", "int8", "int8")]
+    for lay in ("row", "col")
+] + [Case("sweep unaligned col B=64", "gemv", 64, 1001, 300, layout="col"),
+     Case("sweep unaligned int8 row B=9", "gemv", 9, 333, 1001,
+          a_dtype="int8", b_dtype="int8", out_dtype="int16")]
 # the case that stands for each kernel in the JSON record
 RECORD_CASE = {"matmul": "prefill gate + silu", "gemv": "unembed f32 out"}
 
@@ -263,19 +292,22 @@ def check_kernels(torch) -> dict[str, dict]:
     from repro_torch.core.context import use_context
     from repro_torch.core.gemm import plan_for
     from repro_torch.core.plancache import PlanCache
+    from repro_torch.kernels import decode_matvec as tmv
     from repro_torch.kernels import matmul as tmm
     from repro_torch.kernels import ops, ref
 
     phase("3a GEMM kernels against their plain versions (on the card)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
+    props = torch.cuda.get_device_properties(0)
     with use_context(hw="h100", plan_cache=PlanCache()):
-        for c in CASES:
+        for timed, c in [(True, c) for c in CASES] + [
+                (False, c) for c in GEMV_SWEEP]:
             a, b, bias, scale = _inputs(torch, c, gen)
             out_dtype = getattr(torch, c.out_dtype)
             plan = plan_for(c.M, c.K, c.N, in_dtype=a.dtype,
                             out_dtype=out_dtype, b_layout=c.layout)
-            route = "gemv"
+            split, mma = "", False
             if c.kernel == "matmul":
                 route = tmm.route(c.M, a.dtype, b.dtype, c.layout,
                                   tmm.tma_aligned(a, b))
@@ -287,6 +319,18 @@ def check_kernels(torch) -> dict[str, dict]:
                     a, b, out_dtype=out_dtype, b_layout=c.layout, bias=bias,
                     activation=c.activation, out_scale=scale)
             else:
+                route = tmv.route(b, c.layout)
+                bk = min(plan.bk, -(-c.K // tmm.BK_STEP) * tmm.BK_STEP)
+                lp = tmv.launch_plan(c.M, c.K, c.N, bk, plan.bn, a.dtype,
+                                     b.dtype, c.layout, route,
+                                     props.multi_processor_count,
+                                     props.shared_memory_per_block_optin)
+                mma = lp.mt > 0
+                groups = (1 if route == tmv.TMA
+                          else -(-c.M // tmm.rows_per_group(c.M)))
+                split = (f" splits={lp.splits}x{lp.k_per_split} blocks="
+                         f"{-(-c.N // plan.bn) * groups * lp.splits}"
+                         + (f" mma_tiles={lp.mt}" if lp.mt else ""))
                 kern = lambda: ops.decode_matvec(
                     a, b, bk=plan.bk, bn=plan.bn, out_dtype=out_dtype,
                     w_layout=c.layout)
@@ -300,13 +344,23 @@ def check_kernels(torch) -> dict[str, dict]:
             # Same inputs, same f32 (i32) accumulation, another summation
             # order: an f32 result may differ by ~1e-6 relative; a bf16
             # result may round the other way, one bf16 ulp = 2**-7 of the
-            # largest value; an int8 requant result may flip one rint tie.
+            # largest value; an int8 requant result may flip one rint tie;
+            # the GEMV's integer outputs (i32 sums, saturated) are exact.
             if c.out_dtype == "bfloat16":
                 tol = 2.0 ** -7 * max(1.0, peak)
             elif c.out_dtype == "float32":
                 tol = 1e-5 * max(1.0, peak)
             else:
-                tol = 1.0
+                tol = 0.0 if c.kernel == "gemv" else 1.0
+            if not timed:
+                print(f"{c.kernel:6s} {c.name:34s} MKN={c.M}x{c.K}x{c.N} "
+                      f"route={route} plan={[plan.bk, plan.bn]}{split} "
+                      f"err={err:.3g} tol={tol:.3g}", flush=True)
+                if not err <= tol:
+                    raise SystemExit(f"{c.kernel} case {c.name!r} disagrees "
+                                     f"with its plain version: {err} > {tol}")
+                del a, b, bias, scale, got, want
+                continue
             lib = _library_call(torch, c, a, b, bias)
             if route == "tensor_core" and c.b_dtype == "float32":
                 # a yardstick of one bf16 pass only: another product (B
@@ -328,11 +382,14 @@ def check_kernels(torch) -> dict[str, dict]:
                 "plain_ms": time_ms(torch, plain),
                 "library_ms": None if lib is None else time_ms(torch, lib),
             }
-            rec["bound_ms"], rec["bound_by"] = _bound(c, torch, route)
+            # the GEMV's tensor-core consumers run the matmul route's three
+            # bf16 passes of an f32 W
+            rec["bound_ms"], rec["bound_by"] = _bound(
+                c, torch, "tensor_core" if mma else route)
             results.append(rec)
             print(f"{c.kernel:6s} {c.name:22s} MKN={c.M}x{c.K}x{c.N} "
-                  f"{c.layout} route={route} plan={rec['plan']} err={err:.3g} "
-                  f"tol={tol:.3g} ms={rec['ms']:.4f} "
+                  f"{c.layout} route={route} plan={rec['plan']}{split} "
+                  f"err={err:.3g} tol={tol:.3g} ms={rec['ms']:.4f} "
                   f"plain_ms={rec['plain_ms']:.4f} library_ms="
                   + ("null" if lib is None else f"{rec['library_ms']:.4f}")
                   + f" bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})",
@@ -549,6 +606,7 @@ def profile_path(torch, arch: str, label: str) -> None:
     from repro_torch.core.context import use_context
     from repro_torch.core.gemm import plan_model
     from repro_torch.core.plancache import PlanCache
+    from repro_torch.kernels import decode_matvec
 
     phase(f"{label} profile: the {arch} path, warm, timed and traced")
     cfg = C.get_config(arch)
@@ -590,6 +648,7 @@ def profile_path(torch, arch: str, label: str) -> None:
               f"{BATCH * GEN / wall:.1f} tok/s")
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
+        decode_matvec.launches = 0
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             run()
@@ -615,6 +674,23 @@ def profile_path(torch, arch: str, label: str) -> None:
     print("fat GEMM device ms (launches): " + ", ".join(
         f"{name} {ms:.2f} ({n})" for name, (ms, n) in fat.items())
         + f", all {sum(ms for ms, _ in fat.values()):.2f}")
+    # the GEMV by kernel name (route, rows a thread holds, types): one
+    # kernel launch per decode_matvec call, the split-K sum inside it
+    gemv = {}
+    for t, n, key in rows:
+        if "gemv_" in key or "sum_splits" in key:
+            name = key.replace("(anonymous namespace)::", "").split("(")[0]
+            ms, cnt = gemv.get(name, (0.0, 0))
+            gemv[name] = (ms + t / 1e3, cnt + n)
+    for name, (ms, n) in sorted(gemv.items(), key=lambda kv: -kv[1][0]):
+        print(f"  GEMV {ms:9.2f} ms x{n:<5d} {name[:90]}")
+    n_gemv = sum(n for _, n in gemv.values())
+    print(f"GEMV device ms {sum(ms for ms, _ in gemv.values()):.2f}, kernel "
+          f"launches {n_gemv} for {decode_matvec.launches} decode_matvec "
+          "calls")
+    if n_gemv != decode_matvec.launches or any("sum_splits" in k
+                                                for k in gemv):
+        raise SystemExit("the GEMV did not run one kernel launch per call")
     del params
     _free(torch)
 

@@ -116,3 +116,30 @@ def gemv_ref(
 ) -> torch.Tensor:
     """Decode-time skinny GEMM: (B, K) @ W with small B, no epilogue."""
     return matmul_ref(x, w, out_dtype=out_dtype, b_layout=w_layout)
+
+
+def gemv_split_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    splits: int,
+    k_per_split: int,
+    out_dtype: torch.dtype | None = None,
+    w_layout: str = "row",
+) -> torch.Tensor:
+    """The GEMV as its split-K kernel sums it: one f32 (i32) partial per K
+    split [s * k_per_split, (s + 1) * k_per_split), added in split order,
+    then cast."""
+    if out_dtype is None:
+        out_dtype = x.dtype
+    K = x.shape[1]
+    if not (splits - 1) * k_per_split < K <= splits * k_per_split:
+        raise ValueError(f"{splits} splits of {k_per_split} do not cover "
+                         f"K={K} once")
+    total = None
+    for s in range(splits):
+        k0, k1 = s * k_per_split, min(K, (s + 1) * k_per_split)
+        ws = w[:, k0:k1] if w_layout == "col" else w[k0:k1]
+        part = _product(x[:, k0:k1], ws, w_layout)
+        total = part if total is None else total + part
+    return saturating_cast(total, out_dtype)

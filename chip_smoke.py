@@ -19,7 +19,9 @@ run with a non-zero exit:
    one (3a: the GEMMs, each with the route the wrapper picks and its bound
    at that route's rate, the GEMV's with its K splits, then a sweep of
    untimed GEMV cases over every dtype pair, layout, 1..128 rows and both
-   routes; 3b: WKV, whose layout copies are timed too);
+   routes; 3b: WKV through both wrappers, each case with the slice width,
+   blocks and load route its wrapper picks, the path cases at both slice
+   widths, and the layout copies the path no longer makes);
 4. path (4a qwen1.5-4b, 40 layers; 4b rwkv6-3b, 32 layers):
    ``repro_torch.launch.serve --arch ARCH --batch 4 --prompt-len 128
    --gen 16`` with the plan warm-up; zero lazy solves, and launch counts
@@ -32,6 +34,7 @@ run with a non-zero exit:
    prefill and decode steps timed with CUDA events, then once more under
    ``torch.profiler``: device time by kernel, the fat GEMM's by route, the
    GEMV's by kernel name (one kernel launch per call, or the run fails),
+   WKV's with the kernels beside each launch (no copy, or the run fails),
    and the device's idle share.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -412,30 +415,43 @@ class WkvCase:
     N: int
     w0: tuple = (-6.0, 1.0)  # log(-log w) drawn uniform in this range
     tol: float = 2e-4
+    heads: bool = False      # wkv_heads on (B, T, H, N) bf16 r, k, v
+    offset: int = 0          # r, k, v start this many elements into a buffer
 
 
 # the rwkv6-3b path's shape (batch 4 x 40 heads of 64, prompt 128), the
 # reference test's shapes (tests/test_kernels_wkv.py) and its adversarial
 # decay range; tolerances are that test's: rtol = atol = 2e-4, and 1e-3
 # for the adversarial range (decays down to e^-3.3 a step re-centred over
-# a chunk: the factored exponentials lose a few more bits)
+# a chunk: the factored exponentials lose a few more bits). The last two
+# cases are what time_mix launches: bf16 (B, T, H, N) views of the
+# projections and the f32 log decay, read in place; the smoke config's
+# heads of 16 one element off a 16-byte boundary take the scalar loads.
 WKV_CASES = [
     WkvCase("path B4 H40 T128 N64", 4, 40, 128, 64),
     WkvCase("reference (1, 2, 96, 128)", 1, 2, 96, 128),
     WkvCase("reference (1, 1, 32, 64)", 1, 1, 32, 64),
     WkvCase("adversarial decay (1, 2, 64, 32)", 1, 2, 64, 32,
             w0=(-8.0, 1.2), tol=1e-3),
+    WkvCase("path heads bf16 B4 T128 H40 N64", 4, 40, 128, 64, heads=True),
+    WkvCase("unaligned heads bf16 (2, 4, 64, 16)", 2, 4, 64, 16, heads=True,
+            offset=1),
 ]
 
 
 def _wkv_bound(c: WkvCase) -> tuple[float, str]:
     """Bytes: r, k, v, wlog, y (BH, T, N), u (BH, N), state in and out
-    (BH, N, N), all f32, each once. Operations: per chunk of C = 32 steps
-    the four products, y1 (C x N x N), the strictly causal A and A v
-    (C (C-1) / 2 x N each) and the state update (C x N x N), as 2 ops a
-    multiply-add, and the bonus diagonal (3 C N)."""
+    (BH, N, N), all f32, each once (wkv_heads: r, k, v bf16 and u (H, N)).
+    Operations: per chunk of C = 32 steps the four products, y1 (C x N x N),
+    the strictly causal A and A v (C (C-1) / 2 x N each) and the state
+    update (C x N x N), as 2 ops a multiply-add, and the bonus diagonal
+    (3 C N)."""
     BH, T, N, C = c.B * c.H, c.T, c.N, 32
-    moved = 4 * (5 * BH * T * N + BH * N + 2 * BH * N * N)
+    if c.heads:
+        moved = (2 * 3 * BH * T * N
+                 + 4 * (2 * BH * T * N + c.H * N + 2 * BH * N * N))
+    else:
+        moved = 4 * (5 * BH * T * N + BH * N + 2 * BH * N * N)
     ops = BH * (T // C) * (4 * C * N * N + 2 * C * (C - 1) * N + 3 * C * N)
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
     if t_bytes >= t_ops:
@@ -449,51 +465,94 @@ def check_wkv(torch) -> dict:
     phase("3b WKV kernel against its plain version (on the card)")
     gen = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     record = None
     for c in WKV_CASES:
-        BH, T, N = c.B * c.H, c.T, c.N
-        r, k, v = rnd(BH, T, N), rnd(BH, T, N), rnd(BH, T, N)
+        B, H, BH, T, N = c.B, c.H, c.B * c.H, c.T, c.N
         lo, hi = c.w0
-        wl = -torch.exp(lo + (hi - lo) * torch.rand(
-            (BH, T, N), generator=gen, device="cuda"))
-        u = (rnd(c.H, N) * 0.3)[None].expand(c.B, c.H, N).reshape(BH, N)
-        s0 = rnd(BH, N, N) * 0.1
-        args = (r, k, v, wl, u, s0)
-        kern = lambda: wkv.wkv(*args)
-        plain = lambda: wkv.wkv_ref(*args)
+        decay = lambda *shape: -torch.exp(lo + (hi - lo) * torch.rand(
+            shape, generator=gen, device="cuda"))
+        to_bh = lambda x: x.float().transpose(1, 2).reshape(BH, T, N)
+        if c.heads:
+            # (B, T, H, N) views of (B, T, H * N) projections, as time_mix
+            # holds them
+            r, k, v = (rnd(B * T * H * N + c.offset).bfloat16()[c.offset:]
+                       .view(B, T, H, N) for _ in range(3))
+            wl = decay(B, T, H, N)
+            u = rnd(H, N) * 0.3
+            s0 = rnd(B, H, N, N) * 0.1
+            args = (r, k, v, wl, u, s0)
+            call = wkv.wkv_heads
+            u_rows = u[None].expand(B, H, N).reshape(BH, N)
+
+            def plain():
+                y, s = wkv.wkv_ref(to_bh(r), to_bh(k), to_bh(v), to_bh(wl),
+                                   u_rows, s0.reshape(BH, N, N))
+                return (y.reshape(B, H, T, N).transpose(1, 2),
+                        s.reshape(B, H, N, N))
+            strides = [(x.stride(0), x.stride(2), x.stride(1))
+                       for x in (r, k, v, wl)]
+        else:
+            r, k, v = rnd(BH, T, N), rnd(BH, T, N), rnd(BH, T, N)
+            wl = decay(BH, T, N)
+            u = (rnd(H, N) * 0.3)[None].expand(B, H, N).reshape(BH, N)
+            s0 = rnd(BH, N, N) * 0.1
+            args = (r, k, v, wl, u, s0)
+            call = wkv.wkv
+            plain = lambda: wkv.wkv_ref(*args)
+            strides = [(0, x.stride(0), x.stride(1)) for x in (r, k, v, wl)]
+        part = wkv.partition(BH, N, sms, r.element_size())
+        route = wkv.route([(x.data_ptr(), st, x.element_size())
+                           for x, st in zip((r, k, v, wl), strides)])
+        kern = lambda: call(*args)
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         ok = all(bool(((g - w).abs() <= c.tol + c.tol * w.abs()).all())
                  for g, w in zip(got, want))
-        rec = {"case": c.name, "kernel": "wkv", "shape": [c.B, c.H, T, N],
+        rec = {"case": c.name, "kernel": "wkv", "shape": [B, H, T, N],
+               "ms_slice": part.ms, "blocks": part.blocks, "route": route,
                "max_abs_err": err, "tol": c.tol,
                "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
                "library_ms": None}  # no PyTorch call computes WKV
         rec["bound_ms"], rec["bound_by"] = _wkv_bound(c)
-        if record is None:
-            # the layout copies time_mix makes around the launch at this
-            # shape: r, k, v (bf16) and the log decay (f32) from (B, T, H,
-            # N) to (B*H, T, N) f32, and y back
-            x16 = torch.randn((c.B, T, c.H, N), device="cuda").bfloat16()
+        extra = ""
+        if c.name.startswith(("path", "reference (1, 2")):
+            # both slice widths, so that the partition's pick is measured
+            for ms in wkv.SLICES:
+                alt = lambda: call(*args, ms=ms)
+                g2 = alt()
+                torch.cuda.synchronize()
+                e2 = max((g - w).abs().max().item()
+                         for g, w in zip(g2, want))
+                if not all(bool(((g - w).abs() <= c.tol + c.tol * w.abs())
+                                .all()) for g, w in zip(g2, want)):
+                    raise SystemExit(f"wkv case {c.name!r} at ms={ms} "
+                                     f"disagrees: max abs error {e2}")
+                extra += f" ms{ms}_ms={time_ms(torch, alt):.4f}"
+        if c.name == "path B4 H40 T128 N64":
+            # the layout copies time_mix made around the launch before it
+            # read (B, T, H, N) in place: r, k, v (bf16) and the log decay
+            # (f32) to (B*H, T, N) f32, and y back; the path no longer pays
+            # them
+            x16 = torch.randn((B, T, H, N), device="cuda").bfloat16()
             x32 = x16.float()
             y = r.clone()
-            to_bh = lambda x: x.float().transpose(1, 2).reshape(BH, T, N)
 
             def layout():
                 for x in (x16, x16, x16, x32):
                     to_bh(x)
-                y.reshape(c.B, c.H, T, N).transpose(1, 2).reshape(
-                    c.B, T, c.H * N)
+                y.reshape(B, H, T, N).transpose(1, 2).reshape(B, T, H * N)
             rec["layout_ms"] = time_ms(torch, layout)
+            extra += f" old layout copies ms={rec['layout_ms']:.4f}"
+        if c.name.startswith("path heads"):
             record = rec
-        print(f"wkv    {c.name:34s} err={err:.3g} tol={c.tol} (rtol = atol) "
+        print(f"wkv    {c.name:34s} ms_slice={part.ms} blocks={part.blocks} "
+              f"route={route} err={err:.3g} tol={c.tol} (rtol = atol) "
               f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
               f"library_ms=null bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']})"
-              + (f" layout copies ms={rec['layout_ms']:.4f}"
-                 if "layout_ms" in rec else ""), flush=True)
+              f"({rec['bound_by']}){extra}", flush=True)
         if not ok:
             raise SystemExit(f"wkv case {c.name!r} disagrees with its plain "
                              f"version beyond rtol = atol = {c.tol}: max "
@@ -691,6 +750,28 @@ def profile_path(torch, arch: str, label: str) -> None:
     if n_gemv != decode_matvec.launches or any("sum_splits" in k
                                                 for k in gemv):
         raise SystemExit("the GEMV did not run one kernel launch per call")
+    # WKV: its device time, and the kernels the device ran just before and
+    # just after each launch: time_mix hands it (B, T, H, N) views, so no
+    # layout copy may stand beside it
+    wkv_ms = sum(t for t, _, k in rows if "wkv_kernel" in k) / 1e3
+    wkv_n = sum(n for _, n, k in rows if "wkv_kernel" in k)
+    if wkv_n:
+        dev = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        names = [e.name for e in dev]
+        short = lambda nm: nm.replace("(anonymous namespace)::", "").split(
+            "<")[0].split("(")[0][-48:]
+        beside = [names[j] for i, nm in enumerate(names) if "wkv_kernel" in nm
+                  for j in (i - 1, i + 1) if 0 <= j < len(names)]
+        copies = [nm for nm in beside if "copy" in nm.lower()]
+        kinds = sorted({short(nm) for nm in beside})
+        print(f"WKV device ms {wkv_ms:.3f} (launches {wkv_n}); kernels "
+              f"beside its launches: {kinds}; copy kernels among them: "
+              f"{len(copies)}")
+        if copies:
+            raise SystemExit(f"layout copies beside the WKV kernel: "
+                             f"{sorted(set(map(short, copies)))}")
     del params
     _free(torch)
 

@@ -6,7 +6,8 @@ The projections (R, K, V, G, O, the LoRA towers, channel-mix) route through
 WKV recurrence follows the reference's branch rule: a sequence with
 ``T % 32 == 0 and T > 32`` takes the chunk-parallel form, launched as the
 hand-written kernel ``kernels/csrc/wkv.cu`` through
-:func:`repro_torch.kernels.wkv.wkv` (its plain version on a CPU tensor is
+:func:`repro_torch.kernels.wkv.wkv_heads`, which reads the (B, T, H, N)
+projections in place (its plain version on a CPU tensor is
 :func:`wkv_chunk_parallel` below); any other length, decode included, runs
 the token scan :func:`_wkv_step` in plain torch ops, as the reference keeps
 it in XLA code.
@@ -208,16 +209,11 @@ def time_mix(
                             device=x.device)
 
     if T % CHUNK == 0 and T > CHUNK:
-        # (B,T,H,N) -> (B·H,T,N) f32, contiguous: a real copy, the layout
-        # the kernel reads
-        to_bh = lambda t: t.float().transpose(1, 2).reshape(B * H, T, N)
+        # the kernel reads r, k, v and the log decay as (B,T,H,N) where
+        # they lie and writes y in that layout: no copy on the card
         log_w = (-torch.exp(wlog)).reshape(B, T, H, N)
-        y_bh, new_state = wkv_kernel.wkv(
-            to_bh(r), to_bh(k), to_bh(v), to_bh(log_w),
-            u[None].expand(B, H, N).reshape(B * H, N),
-            state.reshape(B * H, N, N))
-        y = y_bh.reshape(B, H, T, N).transpose(1, 2).reshape(B, T, d)
-        new_state = new_state.reshape(B, H, N, N)
+        y, new_state = wkv_kernel.wkv_heads(r, k, v, log_w, u, state)
+        y = y.reshape(B, T, d)
     else:
         w = torch.exp(-torch.exp(wlog)).reshape(B, T, H, N)
         ub = u.expand(B, H, N)

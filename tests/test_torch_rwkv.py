@@ -205,20 +205,21 @@ def test_time_mix_and_channel_mix_match_reference(T, carried, dtype_name):
 
 
 def test_time_mix_chunk_branch_launches_the_wkv_wrapper(monkeypatch):
-    """T % 32 == 0 and T > 32 goes through ``kernels.wkv.wkv``; T = 32
-    and T = 9 take the token scan, as the reference's branch rule says."""
+    """T % 32 == 0 and T > 32 goes through ``kernels.wkv.wkv_heads`` with
+    the (B, T, H, N) projections as they are; T = 32 and T = 9 take the
+    token scan, as the reference's branch rule says."""
     (_, _), (ttm, _) = _layer_params(0)
     calls = []
-    real = TK.wkv
-    monkeypatch.setattr(TK, "wkv", lambda *a: calls.append(a[0].shape)
-                        or real(*a))
+    real = TK.wkv_heads
+    monkeypatch.setattr(TK, "wkv_heads", lambda *a: calls.append(
+        [tuple(x.shape) for x in a[:4]]) or real(*a))
     rng = np.random.default_rng(0)
     with t_use_context(plan_cache=TPlanCache()):
         for T in (64, 32, 9, 96):
             TR.time_mix(ttm, t(rng.normal(size=(2, T, D_MODEL)).astype(
                 np.float32)), n_heads=HEADS)
     N = D_MODEL // HEADS
-    assert calls == [(2 * HEADS, 64, N), (2 * HEADS, 96, N)]
+    assert calls == [[(2, 64, HEADS, N)] * 4, [(2, 96, HEADS, N)] * 4]
 
 
 # ------------------------------------------------------------------ model

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5; needs one CUDA card
-  python3 chip_smoke.py --profile  # and phase 6, the time breakdown
+  python3 chip_smoke.py            # phases 1-5 and 7; needs one CUDA card
+  python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
 
-Two paths, each at a model's full width and depth with random weights:
-qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and rwkv6-3b (RWKV-6;
-the same two and the WKV kernel). Phases, in order; any failure ends the
+Three paths, each at a model's full width and depth with random weights:
+the static server on qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and
+on rwkv6-3b (RWKV-6; the same two and the WKV kernel), and the paged
+continuous-batching engine on qwen1.5-4b. Every decode step and engine
+step runs as a captured CUDA graph. Phases, in order; any failure ends the
 run with a non-zero exit:
 
 1. environment: card name and power limit, torch and CUDA versions,
@@ -25,7 +27,11 @@ run with a non-zero exit:
 4. path (4a qwen1.5-4b, 40 layers; 4b rwkv6-3b, 32 layers):
    ``repro_torch.launch.serve --arch ARCH --batch 4 --prompt-len 128
    --gen 16`` with the plan warm-up; zero lazy solves, and launch counts
-   equal to what the dispatch rule implies, counted from 0 for each path;
+   (eager calls plus graph replays) equal to what the dispatch rule
+   implies, counted from 0 for each path; then the decode step run eagerly
+   and as a CUDA-graph replay from one state: step ms and tok/s of each,
+   and the replay's logits and state equal to the eager step's bit for
+   bit;
 5. kernel path against plain path (5a qwen, 5b rwkv): the config cut to 2
    layers, prefill plus 4 decode steps on the card and on the CPU from the
    same weights, logits held to a stated tolerance (rwkv's 128-token
@@ -35,7 +41,16 @@ run with a non-zero exit:
    ``torch.profiler``: device time by kernel, the fat GEMM's by route, the
    GEMV's by kernel name (one kernel launch per call, or the run fails),
    WKV's with the kernels beside each launch (no copy, or the run fails),
-   and the device's idle share.
+   and the device's idle share; for the eager decode step and for its
+   CUDA-graph replay, the breakdown from the replayed run;
+7. engine path: ``repro_torch.launch.serve --arch qwen1.5-4b --engine
+   --num-slots 8 --kv-block-size 16 --prefill-chunk 128 --prompt-len 128
+   --gen 16`` (16 requests of prompt 128, 64 and 96): every request
+   finishes with in-vocab ids, zero lazy solves and misses, launches equal
+   to the dispatch rule for the ticks and chunks that ran; a warm rerun
+   with the decode tick timed (and, with ``--profile``, a traced one:
+   idle share); one decode tick and one prefill chunk of each bucket,
+   replayed, equal to the same step run eagerly, bit for bit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -77,6 +92,16 @@ PATHS = {
         "wkv": 32}},
 }
 PATH_TOL = 5e-2  # kernel vs plain logits, bf16 activations (see phase 5)
+# phase 7: the paged engine at qwen1.5-4b's width and depth, 8 lanes
+ENGINE_ARGS = ["--arch", "qwen1.5-4b", "--engine", "--num-slots", "8",
+               "--kv-block-size", "16", "--prefill-chunk", "128",
+               "--prompt-len", str(PROMPT), "--gen", str(GEN),
+               "--plan-cache", ""]
+# launches of one engine step (40 layers): a decode tick at 8 rows and a
+# prefill chunk at 32-128 rows both run q, k, v (bias) and gate (silu) on
+# the fat GEMM and wo, w_in, w_out on the GEMV (M <= 128, no epilogue),
+# plus the one unembed GEMV (8 rows, or the chunk's last token)
+ENGINE_STEP = {"matmul": 4 * 40, "gemv": 3 * 40 + 1, "wkv": 0}
 
 
 def phase(name: str) -> None:
@@ -212,6 +237,26 @@ CASES = [
     Case("decode wo B=9", "gemv", 9, 2560, 2560),
     Case("decode wo B=64", "gemv", 64, 2560, 2560),
     Case("decode wo B=128", "gemv", 128, 2560, 2560),
+    # the engine's rows (phase 7): decode ticks at 8 lanes, prefill chunks
+    # of 32, 64 and 128 tokens
+    Case("engine q/k/v + bias M=8", "matmul", 8, 2560, 2560, bias=True),
+    Case("engine gate + silu M=8", "matmul", 8, 2560, 6912,
+         activation="silu"),
+    Case("chunk q/k/v + bias M=32", "matmul", 32, 2560, 2560, bias=True),
+    Case("chunk gate + silu M=32", "matmul", 32, 2560, 6912,
+         activation="silu"),
+    Case("chunk q/k/v + bias M=64", "matmul", 64, 2560, 2560, bias=True),
+    Case("chunk gate + silu M=128", "matmul", 128, 2560, 6912,
+         activation="silu"),
+    Case("engine wo B=8", "gemv", 8, 2560, 2560),
+    Case("engine w_in B=8", "gemv", 8, 2560, 6912),
+    Case("engine w_out B=8", "gemv", 8, 6912, 2560),
+    Case("engine unembed B=8 f32 out", "gemv", 8, 2560, 151936,
+         out_dtype="float32"),
+    Case("chunk w_in B=32", "gemv", 32, 2560, 6912),
+    Case("chunk w_in B=64", "gemv", 64, 2560, 6912),
+    Case("chunk w_in B=128", "gemv", 128, 2560, 6912),
+    Case("chunk w_out B=128", "gemv", 128, 6912, 2560),
 ]
 # GEMV cases held to their plain version but not timed: every dtype pair,
 # both layouts, 1..128 rows, ragged K and N, both routes
@@ -569,28 +614,145 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def _spread(ms: list[float]) -> str:
+    return (f"{statistics.median(ms):.2f} ms (min {min(ms):.2f}, max "
+            f"{max(ms):.2f})")
+
+
+def _clone(state):
+    from repro_torch import interop
+
+    return interop.tree_map(lambda t: t.clone(), state)
+
+
+def _restore(state, saved) -> None:
+    from repro_torch import interop
+
+    for (_, t), (_, s) in zip(interop.tree_items(state),
+                              interop.tree_items(saved)):
+        t.copy_(s)
+
+
+def _differ(torch, a, b) -> list[str]:
+    """Names of the leaves of two state trees that are not equal bit for
+    bit."""
+    from repro_torch import interop
+
+    return [name for (name, x), (_, y) in zip(interop.tree_items(a),
+                                              interop.tree_items(b))
+            if not torch.equal(x, y)]
+
+
+def replay_vs_eager(torch, name: str, captured, raw, params, state,
+                    *inputs) -> None:
+    """One step replayed from its graph and the same step run eagerly from
+    the same state: logits and state equal bit for bit, or the run fails.
+    Captures the step first where its bucket has no graph yet."""
+    from repro_torch.train import graphs
+
+    saved = _clone(state)
+    key = tuple((tuple(graphs.as_tensor(x).shape),
+                 graphs.as_tensor(x).dtype) for x in inputs)
+    if key not in captured.graphs:
+        captured(params, state, *inputs)
+        _restore(state, saved)
+    out = captured(params, state, *inputs).clone()
+    after = _clone(state)
+    _restore(state, saved)
+    want = raw(params, state, *(graphs.as_tensor(x).cuda() for x in inputs))
+    torch.cuda.synchronize()
+    bad = _differ(torch, after, state)
+    same = torch.equal(out, want)
+    print(f"  {name}: replay == eager bit for bit: logits {same}, state "
+          + ("all leaves" if not bad else f"differs in {bad}"), flush=True)
+    if not same or bad:
+        raise SystemExit(f"{name}: the replayed step differs from the eager "
+                         "step")
+
+
+def static_steps(torch, arch: str, label: str) -> None:
+    """The static server's decode step, eager and as a CUDA-graph replay,
+    in one run from one state: step ms (CUDA events between steps, so the
+    host's dispatch shows), tok/s, and the replay against the eager step
+    bit for bit."""
+    import numpy as np
+
+    from repro_torch import configs as C
+    from repro_torch import models
+    from repro_torch.core.context import use_context
+    from repro_torch.core.gemm import plan_model
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.train.servestep import make_serve_step
+
+    phase(f"{label} static decode step of {arch}: eager, then CUDA-graph "
+          "replays, from one state")
+    cfg = C.get_config(arch)
+    V = cfg.vocab_size
+    params = models.init(cfg, seed=0, device="cuda")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, V, size=(BATCH, PROMPT))).cuda()
+    max_len = PROMPT + GEN + 1
+    steps = 6   # 2 warm + 6 eager + 1 capture + 6 replays + 1 = GEN steps
+    with use_context(plan_cache=PlanCache()):
+        plan_model(cfg, batch=BATCH, prompt_len=PROMPT, max_len=max_len)
+        art = make_serve_step(cfg, device="cuda")
+        state = models.init_decode_state(cfg, BATCH, max_len, device="cuda")
+        logits = art.prefill_fn(params, state, prompts)
+
+        def loop(fn, n):
+            nonlocal logits
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(n + 1)]
+            for i in range(n):
+                marks[i].record()
+                logits = fn(params, state, logits[:, :V].argmax(-1)[:, None])
+            marks[n].record()
+            torch.cuda.synchronize()
+            return [marks[i].elapsed_time(marks[i + 1]) for i in range(n)]
+
+        loop(art.decode_raw, 2)
+        eager = loop(art.decode_raw, steps)
+        t0 = time.perf_counter()
+        loop(art.decode_fn, 1)
+        capture_s = time.perf_counter() - t0
+        graph = loop(art.decode_fn, steps)
+        print(f"eager step {_spread(eager)} = "
+              f"{BATCH * 1e3 / statistics.median(eager):.1f} tok/s; graph "
+              f"replay {_spread(graph)} = "
+              f"{BATCH * 1e3 / statistics.median(graph):.1f} tok/s "
+              f"({statistics.median(eager) / statistics.median(graph):.2f}x;"
+              f" first call + capture {capture_s:.2f}s)", flush=True)
+        replay_vs_eager(torch, "decode step", art.decode_fn, art.decode_raw,
+                        params, state, logits[:, :V].argmax(-1)[:, None])
+    del params, state, art
+    _free(torch)
+
+
 def run_path(torch, arch: str, label: str) -> dict[str, int]:
-    from repro_torch.kernels import decode_matvec, matmul, wkv
     from repro_torch.launch import serve
+    from repro_torch.train import graphs
 
     spec = PATHS[arch]
     phase(f"{label} path: repro_torch.launch.serve --arch {arch} --batch "
           f"{BATCH} --prompt-len {PROMPT} --gen {GEN} (full width and depth)")
     torch.cuda.reset_peak_memory_stats()
-    matmul.launches = decode_matvec.launches = wkv.launches = 0
+    graphs.reset_launches()
     t0 = time.perf_counter()
     res = serve.main(["--arch", arch, "--batch", str(BATCH),
                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
                       "--plan-cache", ""])
     wall = time.perf_counter() - t0
-    counts = {"matmul": matmul.launches, "gemv": decode_matvec.launches,
-              "wkv": wkv.launches}
+    # eager launches (prefill, the decode step's first call) plus those of
+    # the decode graph's replays
+    counts = graphs.launches()
+    replayed = dict(graphs.replayed)
     gen = res["generated"]
     print(f"tokens generated {res['tokens']} in {res['seconds']:.3f}s serving "
           f"({res['tokens'] / res['seconds']:.2f} tok/s), {wall:.1f}s with "
           f"init and warm-up; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"launches: {counts} (rule: {spec['want']})")
+    print(f"launches: {counts}, of which graph replays {replayed} (rule: "
+          f"{spec['want']})")
     if res["lazy_solves"] or res["misses"]:
         raise SystemExit(f"serving was not plan-warm: {res}")
     if counts != spec["want"]:
@@ -657,6 +819,29 @@ def kernel_vs_plain(torch, arch: str, label: str) -> None:
 
 
 # ------------------------------------------------------------ phase 6
+def _traced(torch, fn) -> tuple[list, object, float]:
+    """Run ``fn`` once under ``torch.profiler``: (device rows (self device
+    us, count, name) of kernels and copies, the profile, wall s)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels and copies): an operator's row
+    # would count its kernels' time a second time
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    return rows, prof, wall
+
+
+def _busy(rows, wall: float) -> tuple[float, float]:
+    """(device busy ms, idle share) of a traced run."""
+    busy_us = sum(r[0] for r in rows)
+    return busy_us / 1e3, 1 - busy_us / 1e6 / wall
+
+
 def profile_path(torch, arch: str, label: str) -> None:
     import numpy as np
 
@@ -665,62 +850,67 @@ def profile_path(torch, arch: str, label: str) -> None:
     from repro_torch.core.context import use_context
     from repro_torch.core.gemm import plan_model
     from repro_torch.core.plancache import PlanCache
-    from repro_torch.kernels import decode_matvec
+    from repro_torch.train import graphs
+    from repro_torch.train.servestep import make_serve_step
 
-    phase(f"{label} profile: the {arch} path, warm, timed and traced")
+    phase(f"{label} profile: the {arch} path, warm, timed and traced, with "
+          "the decode step eager and as CUDA-graph replays")
     cfg = C.get_config(arch)
     params = models.init(cfg, seed=0, device="cuda")
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(BATCH, PROMPT))).cuda()
     max_len = PROMPT + GEN + 1
+    art = make_serve_step(cfg, device="cuda")
+    # one state for every run (the graph holds its addresses): prefill
+    # rewrites what a run reads
+    state = models.init_decode_state(cfg, BATCH, max_len, device="cuda")
 
-    def run(events=None):
-        state = models.init_decode_state(cfg, BATCH, max_len, device="cuda")
+    def run(step, events=False):
         marks = [torch.cuda.Event(enable_timing=True)
                  for _ in range(GEN + 2)] if events else None
         if marks:
             marks[0].record()
-        logits, state = models.prefill(params, {"tokens": prompts}, cfg,
-                                       state)
+        logits = art.prefill_fn(params, state, prompts)
         for i in range(GEN):
             if marks:
                 marks[i + 1].record()
             tok = logits[:, :cfg.vocab_size].argmax(-1)
-            logits, state = models.decode_step(params, tok[:, None], cfg,
-                                               state)
+            logits = step(params, state, tok[:, None])
         if marks:
             marks[-1].record()
         torch.cuda.synchronize()
         return marks
 
+    traced = {}
     with use_context(plan_cache=PlanCache()):
         plan_model(cfg, batch=BATCH, prompt_len=PROMPT, max_len=max_len)
-        run()  # warm: kernels loaded, library handles made, allocator full
-        t0 = time.perf_counter()
-        marks = run(events=True)
-        wall = time.perf_counter() - t0
-        steps = [marks[i].elapsed_time(marks[i + 1])
-                 for i in range(1, GEN + 1)]
-        print(f"warm run: prefill {marks[0].elapsed_time(marks[1]):.2f} ms, "
-              f"decode step median {statistics.median(steps):.2f} ms (min "
-              f"{min(steps):.2f}, max {max(steps):.2f}), wall {wall:.3f}s = "
-              f"{BATCH * GEN / wall:.1f} tok/s")
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        decode_matvec.launches = 0
-        with torch.profiler.profile(activities=acts) as prof:
+        for name, step in (("eager", art.decode_raw),
+                           ("graph", art.decode_fn)):
+            run(step)  # warm: kernels loaded, graph captured, allocator full
             t0 = time.perf_counter()
-            run()
+            marks = run(step, events=True)
             wall = time.perf_counter() - t0
-    # device-side events only (kernels and copies): an operator's row
-    # would count its kernels' time a second time
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+            steps = [marks[i].elapsed_time(marks[i + 1])
+                     for i in range(1, GEN + 1)]
+            graphs.reset_launches()
+            rows, prof, twall = _traced(torch, lambda: run(step))
+            busy, idle = _busy(rows, twall)
+            traced[name] = (rows, prof, graphs.launches())
+            print(f"{name:5s} decode step: warm run prefill "
+                  f"{marks[0].elapsed_time(marks[1]):.2f} ms, decode step "
+                  f"{_spread(steps)}, wall {wall:.3f}s = "
+                  f"{BATCH * GEN / wall:.1f} tok/s; traced run wall "
+                  f"{twall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
+                  f"share {idle:.3f}", flush=True)
+    rows, prof, counts = traced["graph"]
+    if not any("gemv_" in k for _, _, k in rows):
+        # CUPTI gave the replays without their kernels: the busy time above
+        # still holds them; the breakdown comes from the eager run
+        print("the traced graph run shows no GEMV kernel rows: CUPTI "
+              "reports each replay as one entry on this card; the kernel "
+              "breakdown below is the eager run's")
+        rows, prof, counts = traced["eager"]
     busy_us = sum(r[0] for r in rows)
-    print(f"traced run: wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy_us / 1e3:.1f} ms, idle share "
-          f"{1 - busy_us / 1e6 / wall:.3f}")
     for t, n, key in sorted(rows, reverse=True)[:14]:
         if t:
             print(f"  {t / 1e3:9.2f} ms {100 * t / busy_us:5.1f}% x{n:<5d} "
@@ -734,7 +924,8 @@ def profile_path(torch, arch: str, label: str) -> None:
         f"{name} {ms:.2f} ({n})" for name, (ms, n) in fat.items())
         + f", all {sum(ms for ms, _ in fat.values()):.2f}")
     # the GEMV by kernel name (route, rows a thread holds, types): one
-    # kernel launch per decode_matvec call, the split-K sum inside it
+    # kernel launch per decode_matvec call (eager or replayed), the split-K
+    # sum inside it
     gemv = {}
     for t, n, key in rows:
         if "gemv_" in key or "sum_splits" in key:
@@ -745,10 +936,8 @@ def profile_path(torch, arch: str, label: str) -> None:
         print(f"  GEMV {ms:9.2f} ms x{n:<5d} {name[:90]}")
     n_gemv = sum(n for _, n in gemv.values())
     print(f"GEMV device ms {sum(ms for ms, _ in gemv.values()):.2f}, kernel "
-          f"launches {n_gemv} for {decode_matvec.launches} decode_matvec "
-          "calls")
-    if n_gemv != decode_matvec.launches or any("sum_splits" in k
-                                                for k in gemv):
+          f"launches {n_gemv} for {counts['gemv']} decode_matvec calls")
+    if n_gemv != counts["gemv"] or any("sum_splits" in k for k in gemv):
         raise SystemExit("the GEMV did not run one kernel launch per call")
     # WKV: its device time, and the kernels the device ran just before and
     # just after each launch: time_mix hands it (B, T, H, N) views, so no
@@ -772,8 +961,143 @@ def profile_path(torch, arch: str, label: str) -> None:
         if copies:
             raise SystemExit(f"layout copies beside the WKV kernel: "
                              f"{sorted(set(map(short, copies)))}")
-    del params
+    del params, state, art, traced, rows, prof
     _free(torch)
+
+
+# ------------------------------------------------------------ phase 7
+def _engine_rule(dispatches) -> dict[str, int]:
+    """Launches the dispatch rule implies for the engine steps that ran."""
+    steps = sum(dispatches.values())
+    return {k: n * steps for k, n in ENGINE_STEP.items()}
+
+
+def run_engine(torch, profile: bool) -> dict[str, int]:
+    import numpy as np
+
+    from repro_torch.core.context import use_context
+    from repro_torch.launch import serve
+    from repro_torch.serve import Request
+    from repro_torch.train import graphs
+
+    phase("7 engine path: repro_torch.launch.serve " + " ".join(
+        a if a else "''" for a in ENGINE_ARGS) + " (full width and depth)")
+    torch.cuda.reset_peak_memory_stats()
+    graphs.reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(ENGINE_ARGS)
+    wall = time.perf_counter() - t0
+    counts = graphs.launches()
+    replayed = dict(graphs.replayed)
+    engine, m, trace = res["engine"], res["metrics"], res["trace"]
+    cfg = engine.cfg
+    want = _engine_rule(engine.dispatches)
+    print(f"steps {dict(engine.dispatches)}; launches {counts}, of which "
+          f"graph replays {replayed} (rule: {want}); graphs captured: "
+          f"decode {len(engine.art.decode_fn.graphs)}, prefill chunk "
+          f"{len(engine.art.prefill_fn.graphs)}")
+    if res["lazy_solves"] or res["misses"]:
+        raise SystemExit(f"engine serving was not plan-warm: "
+                         f"{m.plan_cache}")
+    if counts != want:
+        raise SystemExit(f"engine launch counts {counts} differ from the "
+                         f"dispatch rule's {want}")
+    done = engine.finished
+    if len(done) != len(trace) or not all(
+            st.finish_reason == "length"
+            and len(st.tokens) == st.request.budget(engine.max_len)
+            and all(0 <= t < cfg.vocab_size for t in st.tokens)
+            for st in done):
+        raise SystemExit(f"engine: {len(done)} of {len(trace)} requests "
+                         "finished, or a bad token id")
+
+    def report(tag, met, ticks_ms=None):
+        slo = met.slo_summary()["0"]
+        bp = met.block_pool
+        print(f"{tag}: {met.generated_tokens} tokens in {met.wall_s:.3f}s ="
+              f" {met.tokens_per_sec:.1f} tok/s; TTFT p50 "
+              f"{1e3 * slo['p50_ttft_s']:.1f} ms, p99 "
+              f"{1e3 * slo['p99_ttft_s']:.1f} ms; {met.ticks} ticks "
+              f"({1e3 * met.wall_s / met.ticks:.2f} ms a tick on the host "
+              f"clock), {met.admissions} admissions, pool peak "
+              f"{bp['peak_in_use']}/{bp['num_blocks'] - 1} blocks"
+              + ("" if not ticks_ms else
+                 f"; decode tick on the card {_spread(ticks_ms)}"),
+              flush=True)
+
+    report(f"first run (graphs captured in it; {wall:.1f}s with init and "
+           "warm-up)", m)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+
+    # the reruns and checks under the run's context (its warm plans)
+    with use_context(res["context"]):
+        # a warm rerun of the same trace: every step a replay, decode ticks
+        # timed with CUDA events around the call (input copies, replay)
+        again = lambda: [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                         for r in trace]
+        decode = engine.art.decode_fn
+        marks = []
+
+        def timed(*args):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = decode(*args)
+            ev[1].record()
+            marks.append(ev)
+            return out
+
+        engine.art.decode_fn = timed
+        engine.reset()
+        graphs.reset_launches()
+        m2 = engine.run(again())
+        engine.art.decode_fn = decode
+        counts2, want2 = graphs.launches(), _engine_rule(engine.dispatches)
+        report("warm rerun", m2, [a.elapsed_time(b) for a, b in marks])
+        if counts2 != want2 or m2.plan_cache["lazy_solves"] or \
+                m2.plan_cache["misses"]:
+            raise SystemExit(f"warm rerun: launches {counts2} (rule {want2}), "
+                             f"plan cache {m2.plan_cache}")
+        if profile:
+            engine.reset()
+            rows, _, twall = _traced(torch, lambda: engine.run(again()))
+            busy, idle = _busy(rows, twall)
+            print(f"traced rerun: wall {twall * 1e3:.1f} ms, device busy "
+                  f"{busy:.1f} ms, idle share {idle:.3f}")
+            busy_us = sum(r[0] for r in rows)
+            for t, n, key in sorted(rows, reverse=True)[:10]:
+                if t:
+                    print(f"  {t / 1e3:9.2f} ms {100 * t / busy_us:5.1f}% "
+                          f"x{n:<5d} {key[:90]}")
+
+        # replay against eager, bit for bit: a decode tick with every lane live
+        # on distinct blocks, and one chunk of each bucket into lane 0 (one pad
+        # position, whose write goes to the null block)
+        print("replayed steps against the same steps run eagerly:")
+        art, kv = engine.art, engine.state["kv"]
+        lanes, per = engine.num_slots, (engine.num_kv_blocks - 1) \
+            // engine.num_slots
+        bs = engine.kv_block_size
+        table = np.zeros((lanes, art.max_blocks), np.int32)
+        for s in range(lanes):
+            table[s, :per] = 1 + s * per + np.arange(per)
+        kv.table.copy_(torch.from_numpy(table))
+        kv.length.copy_(torch.arange(per * bs - 1, per * bs - 1 - lanes, -1,
+                                     dtype=torch.int32))
+        rng = np.random.default_rng(7)
+        replay_vs_eager(torch, f"decode tick ({lanes} lanes)", art.decode_fn,
+                        art.decode_raw, engine.params, engine.state,
+                        rng.integers(0, cfg.vocab_size, (lanes, 1)),
+                        np.ones(lanes, np.int64))
+        for bucket in art.chunk_buckets:
+            replay_vs_eager(torch, f"prefill chunk @{bucket}", art.prefill_fn,
+                            art.prefill_raw, engine.params, engine.state,
+                            rng.integers(0, cfg.vocab_size, (1, bucket)), 0, 0,
+                            bucket - 1, table[0].astype(np.int64))
+    del res, engine, m, m2, art, kv
+    _free(torch)
+    return counts
 
 
 def main() -> int:
@@ -796,13 +1120,17 @@ def main() -> int:
     build_kernels()
     record = check_kernels(torch)
     record["wkv"] = check_wkv(torch)
+    profile = "--profile" in sys.argv[1:]
     counts = {"qwen1.5-4b": run_path(torch, "qwen1.5-4b", "4a")}
+    static_steps(torch, "qwen1.5-4b", "4a")
     kernel_vs_plain(torch, "qwen1.5-4b", "5a")
     counts["rwkv6-3b"] = run_path(torch, "rwkv6-3b", "4b")
+    static_steps(torch, "rwkv6-3b", "4b")
     kernel_vs_plain(torch, "rwkv6-3b", "5b")
-    if "--profile" in sys.argv[1:]:
+    if profile:
         profile_path(torch, "qwen1.5-4b", "6a")
         profile_path(torch, "rwkv6-3b", "6b")
+    counts["qwen1.5-4b engine"] = run_engine(torch, profile)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

@@ -66,6 +66,12 @@ def _key_from_str(s: str) -> PlanKey | None:
         return None
 
 
+class PlanCacheColdError(RuntimeError):
+    """Raised by :meth:`PlanCache.expect_steady_state` when a region that
+    declared itself warm performed lazy solver work or consulted a
+    signature the warm-up never saw."""
+
+
 @dataclasses.dataclass
 class PlanCacheStats:
     hits: int = 0
@@ -136,6 +142,20 @@ class PlanCache:
             yield self
         finally:
             self._warming -= 1
+
+    @contextlib.contextmanager
+    def expect_steady_state(self, what: str = "steady-state region"):
+        """Assert the block performs zero lazy plan solves and zero misses
+        (the serving engine wraps its loop in this): raises
+        :class:`PlanCacheColdError` otherwise."""
+        before = self.stats.snapshot()
+        yield before
+        lazy = self.stats.lazy_solves - before.lazy_solves
+        misses = self.stats.misses - before.misses
+        if lazy or misses:
+            raise PlanCacheColdError(
+                f"{what} was not plan-warm: {misses} unseen signatures, "
+                f"{lazy} lazy solves ({self.stats})")
 
     # ------------------------------------------------------------- disk
     def load(self, path: str | None = None) -> int:

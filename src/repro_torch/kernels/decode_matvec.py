@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.matmul import (  # noqa: F401 (re-exported)
-    BK_STEP, BLOCKS_PER_SM, DTYPE_CODE, IN_TYPES, rows_per_group, split_k)
+    BK_STEP, BLOCKS_PER_SM, DTYPE_CODE, IN_TYPES, grow_tickets,
+    rows_per_group, split_k)
 
 MAX_ROWS = 128
 THREADS = 256  # consumer threads of a tma block; threads of a cuda_core one
@@ -265,14 +266,8 @@ _tickets: dict[int, torch.Tensor] = {}
 
 
 def tickets(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed split-K tickets for ``device``, kept across
-    calls: the last block of each tile resets its own, so no memset runs
-    per call (one stream: launches on it are ordered)."""
-    t = _tickets.get(device.index)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _tickets[device.index] = t
-    return t
+    """The GEMV's split-K tickets (``matmul.grow_tickets``)."""
+    return grow_tickets(_tickets, device, n)
 
 
 def _check(x, w, *, B, K, N, bk, bn, out_dtype, r) -> None:

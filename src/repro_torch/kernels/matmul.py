@@ -163,17 +163,36 @@ def _props(index: int):
 
 
 _tickets: dict[int, torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []
+
+
+def grow_tickets(store: dict[int, torch.Tensor], device: torch.device,
+                 n: int) -> torch.Tensor:
+    """At least ``n`` zeroed split-K tickets for ``device`` from ``store``,
+    kept across calls: the last block of each tile resets its own, so no
+    memset runs per call (one stream: launches on it are ordered).
+
+    A CUDA graph bakes in the buffer's address, so an outgrown buffer is
+    kept alive (a captured step may still name it), and growing while a
+    graph is being captured raises: the step's eager run before capture
+    sizes the buffer for every launch of that step."""
+    t = store.get(device.index)
+    if t is None or t.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"split-K tickets grow from "
+                f"{0 if t is None else t.numel()} to {n} during CUDA graph "
+                "capture: run the step eagerly once before capturing it")
+        if t is not None:
+            _outgrown.append(t)
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        store[device.index] = t
+    return t
 
 
 def tickets(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed split-K tickets for ``device``, kept across
-    calls: the last block of each tile resets its own, so no memset runs
-    per call (one stream: launches on it are ordered)."""
-    t = _tickets.get(device.index)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _tickets[device.index] = t
-    return t
+    """The fat GEMM's split-K tickets (:func:`grow_tickets`)."""
+    return grow_tickets(_tickets, device, n)
 
 
 def _check(a, b, bias, out_scale, *, M, K, N, bm, bk, bn, out_dtype,

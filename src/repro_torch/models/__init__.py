@@ -24,22 +24,33 @@ def forward(params, batch: dict[str, Any], cfg: ModelConfig):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device=None):
-    return lm.init_decode_state(cfg, batch, max_len,
+                      per_slot: bool = False,
+                      kv_block_size: int | None = None,
+                      num_kv_blocks: int | None = None, device=None):
+    return lm.init_decode_state(cfg, batch, max_len, per_slot=per_slot,
+                                kv_block_size=kv_block_size,
+                                num_kv_blocks=num_kv_blocks,
                                 device=resolve_device(device))
 
 
-def prefill(params, batch: dict[str, Any], cfg: ModelConfig, state):
-    return lm.prefill(params, batch["tokens"], cfg, state)
+def prefill(params, batch: dict[str, Any], cfg: ModelConfig, state,
+            last_pos=None):
+    return lm.prefill(params, batch["tokens"], cfg, state, last_pos=last_pos)
 
 
-def decode_step(params, tokens, cfg: ModelConfig, state):
-    return lm.decode_step(params, tokens, cfg, state)
+def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
+                  true_len, blocks):
+    return lm.prefill_chunk(params, tokens, cfg, state, slot=slot,
+                            start=start, true_len=true_len, blocks=blocks)
+
+
+def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
+    return lm.decode_step(params, tokens, cfg, state, active=active)
 
 
 def param_count(params) -> int:
     return sum(t.numel() for _, t in tree_items(params))
 
 
-__all__ = ["init", "forward", "init_decode_state", "prefill", "decode_step",
-           "param_count"]
+__all__ = ["init", "forward", "init_decode_state", "prefill",
+           "prefill_chunk", "decode_step", "param_count"]

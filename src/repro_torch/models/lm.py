@@ -3,11 +3,14 @@
 Parameters are the reference's tree: plain dicts and NamedTuples, layers
 stacked on a leading L axis. ``lax.scan`` over layers becomes a Python loop
 over views of the stacked leaves; the decode state (the dense KV cache
-(L, B, S_max, Hkv, Dh), or the rwkv WKV state (L, B, H, N, N) and token
-shifts (L, B, d)) is written in place, the counterpart of the reference's
-``donate_argnums``.
+(L, B, S_max, Hkv, Dh) or paged pool (L, blocks, block, Hkv, Dh) with its
+int32 lengths and block table, or the rwkv WKV state (L, B, H, N, N) and
+token shifts (L, B, d)) is written in place, lengths included, the
+counterpart of the reference's ``donate_argnums``: a step captured as a
+CUDA graph keeps writing the same buffers.
 
-Entry points: init_lm, forward, init_decode_state, prefill, decode_step.
+Entry points: init_lm, forward, init_decode_state, prefill, prefill_chunk,
+decode_step.
 """
 from __future__ import annotations
 
@@ -152,14 +155,39 @@ def _logits(params, cfg: ModelConfig, h):
 
 # ---------------------------------------------------------------- decode
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device):
+                      per_slot: bool = False,
+                      kv_block_size: int | None = None,
+                      num_kv_blocks: int | None = None, device):
     """dense: contiguous KV cache (L, B, max_len, Hkv, Dh) in the activation
-    dtype with one scalar length for every row. rwkv: the WKV state
-    (L, B, H, N, N) f32 and the token shifts (L, B, d) in the activation
-    dtype; ``max_len`` does not bound it."""
+    dtype with an int32 length, 0-d (one for every row) or, ``per_slot``,
+    (B,) (the engine's lanes). ``kv_block_size`` switches the per-slot
+    cache to the paged pool: ``num_kv_blocks`` blocks of ``kv_block_size``
+    tokens (block 0 the null block) and a (B, ceil(max_len / block))
+    table. rwkv: the WKV state (L, B, H, N, N) f32 and the token shifts
+    (L, B, d) in the activation dtype; ``max_len`` does not bound it."""
     _check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
+    if kv_block_size:
+        if cfg.family != "dense":
+            raise ValueError(
+                f"paged KV needs a KV-cache family, not {cfg.family!r}")
+        if not per_slot:
+            raise ValueError("paged KV is a per-slot (engine) layout")
+        if num_kv_blocks is None or num_kv_blocks < 2:
+            raise ValueError(
+                f"paged KV needs num_kv_blocks >= 2 (block 0 is the null "
+                f"block), got {num_kv_blocks}")
+        kv = attn.init_paged_kv_cache(
+            batch, num_kv_blocks, kv_block_size, -(-max_len // kv_block_size),
+            cfg.n_kv_heads, cfg.head_dim, cfg.dtype, device=device)
+        shape = (L, *kv.k.shape)
+        return {"kv": kv._replace(
+            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.dtype, device=device))}
     if cfg.family == "rwkv":
+        if per_slot:
+            raise ValueError("per-slot decode state needs a KV-cache family, "
+                             f"not {cfg.family!r}")
         H = cfg.n_heads
         N = d // H
         return {
@@ -174,13 +202,24 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     return {"kv": attn.KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        length=0)}
+        length=torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                           device=device))}
 
 
-def prefill(params, tokens, cfg: ModelConfig, state):
+def _at(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) at position ``pos`` (0-d, or (B,)) of each row:
+    (B, 1, d), a gather with a device index."""
+    idx = pos.reshape(-1, 1, 1).long().expand(x.shape[0], 1, x.shape[2])
+    return torch.gather(x, 1, idx)
+
+
+def prefill(params, tokens, cfg: ModelConfig, state, last_pos=None):
     """Full-sequence prefill populating the decode state in place.
 
-    Returns (last-token logits (B, Vp) f32, new state). The rwkv family
+    Returns (last-token logits (B, Vp) f32, state). ``last_pos`` (0-d or
+    (B,) int tensor) selects the position whose logits are returned
+    instead of the last: the contiguous engine right-pads every prompt to
+    one length and reads each request's true last token. The rwkv family
     starts from zero state whatever ``state`` holds, as the reference's
     does, and overwrites it."""
     _check_family(cfg)
@@ -189,27 +228,72 @@ def prefill(params, tokens, cfg: ModelConfig, state):
         for i in range(cfg.n_layers):
             x, new = _rwkv_block(cfg, _layer(params["layers"], i), x)
             _write_rwkv_state(state, i, new)
-        h_last = apply_norm(cfg, params["final_norm"], x[:, -1:])
-        return _logits(params, cfg, h_last)[:, 0], state
-    S = tokens.shape[1]
+    else:
+        S = tokens.shape[1]
+        kv = state["kv"]
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(cfg, lp["ln1"], x)
+            cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
+            y, _ = attn.prefill_attention(lp["attn"], h, cache,
+                                          rope_theta=cfg.rope_theta,
+                                          chunk=cfg.attn_chunk)
+            x = x + y
+            x = x + _ffn(cfg, lp, x)
+        kv.length.fill_(S)
+    h_last = x[:, -1:] if last_pos is None else _at(x, last_pos)
+    h_last = apply_norm(cfg, params["final_norm"], h_last)
+    return _logits(params, cfg, h_last)[:, 0], state
+
+
+def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
+                  true_len, blocks):
+    """One chunked-prefill step into a paged decode state, in place.
+
+    ``tokens`` (1, C): the next chunk of one request's prompt, right-padded
+    to the bucket C. 0-d int tensors: ``slot`` (the lane), ``start``
+    (tokens earlier chunks wrote), ``true_len`` (real tokens in this
+    chunk); ``blocks`` (max_blocks,) is the lane's block-table row,
+    installed on every chunk (idempotent). Returns (logits (1, Vp) at the
+    chunk's last real token, state). Every position is a tensor, so one
+    captured graph per bucket serves every admission."""
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise ValueError(
+            f"chunked prefill needs a KV-cache family, not {cfg.family!r}")
     kv = state["kv"]
+    if not isinstance(kv, attn.PagedKVCache):
+        raise ValueError("prefill_chunk requires a paged decode state "
+                         "(init_decode_state with kv_block_size)")
+    lane = slot.reshape(1).long()
+    kv.table.index_copy_(0, lane, blocks.reshape(1, -1).to(kv.table.dtype))
+    x = _embed(params, tokens, cfg)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
-        cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
-        y, _ = attn.prefill_attention(lp["attn"], h, cache,
-                                      rope_theta=cfg.rope_theta,
-                                      chunk=cfg.attn_chunk)
+        cache = attn.PagedKVCache(k=kv.k[i], v=kv.v[i], table=kv.table,
+                                  length=kv.length)
+        y, _ = attn.paged_prefill_attention(
+            lp["attn"], h, cache, slot=slot, start=start, true_len=true_len,
+            rope_theta=cfg.rope_theta)
         x = x + y
         x = x + _ffn(cfg, lp, x)
-    new_state = {"kv": attn.KVCache(k=kv.k, v=kv.v, length=S)}
-    h_last = apply_norm(cfg, params["final_norm"], x[:, -1:])
-    return _logits(params, cfg, h_last)[:, 0], new_state
+    kv.length.index_copy_(0, lane,
+                          (start + true_len).reshape(1).to(kv.length.dtype))
+    h_last = apply_norm(cfg, params["final_norm"], _at(x, true_len - 1))
+    return _logits(params, cfg, h_last)[:, 0], state
 
 
-def decode_step(params, tokens, cfg: ModelConfig, state):
-    """One decode step. tokens (B, 1) -> (logits (B, Vp) f32, new state)."""
+def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
+    """One decode step. tokens (B, 1) -> (logits (B, Vp) f32, state).
+
+    ``active`` (B,) int marks the live lanes of a per-slot state: an
+    inactive lane's length does not advance (the dense family only, as in
+    the reference's engine). The lengths advance in place."""
     _check_family(cfg)
+    if active is not None and cfg.family != "dense":
+        raise ValueError(
+            f"per-slot active masks need a KV-cache family, not {cfg.family!r}")
     x = _embed(params, tokens, cfg)
     if cfg.family == "rwkv":
         for i in range(cfg.n_layers):
@@ -221,14 +305,22 @@ def decode_step(params, tokens, cfg: ModelConfig, state):
         h = apply_norm(cfg, params["final_norm"], x)
         return _logits(params, cfg, h)[:, 0], state
     kv = state["kv"]
+    paged = isinstance(kv, attn.PagedKVCache)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
-        cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
-        y, _ = attn.decode_attention(lp["attn"], h, cache,
-                                     rope_theta=cfg.rope_theta)
+        if paged:
+            cache = attn.PagedKVCache(k=kv.k[i], v=kv.v[i], table=kv.table,
+                                      length=kv.length)
+            y, _ = attn.paged_decode_attention(
+                lp["attn"], h, cache, rope_theta=cfg.rope_theta,
+                active=active)
+        else:
+            cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
+            y, _ = attn.decode_attention(lp["attn"], h, cache,
+                                         rope_theta=cfg.rope_theta)
         x = x + y
         x = x + _ffn(cfg, lp, x)
-    new_state = {"kv": attn.KVCache(k=kv.k, v=kv.v, length=kv.length + 1)}
+    kv.length.add_(1 if active is None else active.to(kv.length.dtype))
     h = apply_norm(cfg, params["final_norm"], x)
-    return _logits(params, cfg, h)[:, 0], new_state
+    return _logits(params, cfg, h)[:, 0], state

@@ -4,12 +4,15 @@
   python3 chip_smoke.py            # phases 1-5 and 7; needs one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
 
-Three paths, each at a model's full width and depth with random weights:
+Five paths, each at a model's full width and depth with random weights:
 the static server on qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and
-on rwkv6-3b (RWKV-6; the same two and the WKV kernel), and the paged
-continuous-batching engine on qwen1.5-4b. Every decode step and engine
-step runs as a captured CUDA graph. Phases, in order; any failure ends the
-run with a non-zero exit:
+on rwkv6-3b (RWKV-6; the same two and the WKV kernel), the paged
+continuous-batching engine on qwen1.5-4b, and the W8A8 int8 path
+(``--quantize int8``: weights quantized once at load, every GEMM int8 x
+int8 on the fat GEMM) through the static server and through the engine
+with an int8 KV pool (``--kv-quantize int8``). Every decode step and
+engine step runs as a captured CUDA graph. Phases, in order; any failure
+ends the run with a non-zero exit:
 
 1. environment: card name and power limit, torch and CUDA versions,
    compute capability (9, 0) required; TF32 off for the plain versions;
@@ -19,30 +22,42 @@ run with a non-zero exit:
    its plain PyTorch version on the same inputs, with its time, its bound,
    the plain version's time and one library call's time where there is
    one (3a: the GEMMs, each with the route the wrapper picks and its bound
-   at that route's rate, the GEMV's with its K splits, then a sweep of
+   at that route's rate (int8 inputs at the int8 peak), the GEMV's with
+   its K splits, the W8A8 path's int8 x int8 col cases with its
+   epilogues at every shape its paths give the fat GEMM (split_k at M <=
+   32, tensor_core_int8 above; held exactly), then a sweep of
    untimed GEMV cases over every dtype pair, layout, 1..128 rows and both
    routes; 3b: WKV through both wrappers, each case with the slice width,
    blocks and load route its wrapper picks, the path cases at both slice
    widths, and the layout copies the path no longer makes);
-4. path (4a qwen1.5-4b, 40 layers; 4b rwkv6-3b, 32 layers):
-   ``repro_torch.launch.serve --arch ARCH --batch 4 --prompt-len 128
-   --gen 16`` with the plan warm-up; zero lazy solves, and launch counts
-   (eager calls plus graph replays) equal to what the dispatch rule
-   implies, counted from 0 for each path; then the decode step run eagerly
-   and as a CUDA-graph replay from one state: step ms and tok/s of each,
-   and the replay's logits and state equal to the eager step's bit for
+4. path (4a qwen1.5-4b, 40 layers; 4b rwkv6-3b, 32 layers; 4c qwen1.5-4b
+   with --quantize int8): ``repro_torch.launch.serve --arch ARCH --batch 4
+   --prompt-len 128 --gen 16`` with the plan warm-up; zero lazy solves,
+   and launch counts (eager calls plus graph replays) equal to what the
+   dispatch rule implies, counted from 0 for each path (4c: 17 x (7 x 40
+   + 1) fat GEMMs, no GEMV), peak device memory (4c: and the seconds to
+   quantize at load); then the decode step run eagerly and as a
+   CUDA-graph replay from one state: step ms and tok/s of each, and the
+   replay's logits and state equal to the eager step's bit for bit;
+5. kernel path against plain path (5a qwen, 5b rwkv; 5c, 5d the same with
+   int8 weights): the config cut to 2 layers, prefill plus 4 decode steps
+   on the card and on the CPU from the same weights, logits held to a
+   stated tolerance (rwkv's 128-token prefill takes the WKV kernel); 5c,
+   5d also run the path on the card with the fat GEMM's plain version in
+   matmul.cu's place: logits and state equal to the kernel path's bit for
    bit;
-5. kernel path against plain path (5a qwen, 5b rwkv): the config cut to 2
-   layers, prefill plus 4 decode steps on the card and on the CPU from the
-   same weights, logits held to a stated tolerance (rwkv's 128-token
-   prefill takes the WKV kernel);
 6. with ``--profile`` only: each phase 4 path again with everything warm,
    prefill and decode steps timed with CUDA events, then once more under
    ``torch.profiler``: device time by kernel, the fat GEMM's by route, the
    GEMV's by kernel name (one kernel launch per call, or the run fails),
    WKV's with the kernels beside each launch (no copy, or the run fails),
    and the device's idle share; for the eager decode step and for its
-   CUDA-graph replay, the breakdown from the replayed run;
+   CUDA-graph replay, the breakdown from the replayed run; 6c the int8
+   static path: the fat GEMM by instantiation (split_k, tensor_core_int8),
+   and the decode step's device time (its replays traced) split into the
+   fat GEMM, the two quantizers (281 activation quantizations, the f32
+   unembed re-quantized every step; each captured as a CUDA graph at the
+   step's shapes and traced) and the rest;
 7. engine path: ``repro_torch.launch.serve --arch qwen1.5-4b --engine
    --num-slots 8 --kv-block-size 16 --prefill-chunk 128 --prompt-len 128
    --gen 16`` (16 requests of prompt 128, 64 and 96): every request
@@ -50,7 +65,15 @@ run with a non-zero exit:
    to the dispatch rule for the ticks and chunks that ran; a warm rerun
    with the decode tick timed (and, with ``--profile``, a traced one:
    idle share); one decode tick and one prefill chunk of each bucket,
-   replayed, equal to the same step run eagerly, bit for bit.
+   replayed, equal to the same step run eagerly, bit for bit (the int8
+   pool's blocks and scales included, the null block too);
+7b. the same engine with ``--quantize int8 --kv-quantize int8`` at phase
+   7's 74 blocks: the same checks (281 fat GEMMs a step, no GEMV), the
+   ``kv_cache`` section (16-token int8 blocks of 3,283,200 bytes against
+   6,553,600 bf16 over 40 layers, the pool's bytes against phase 7's, the
+   int8 blocks the same bytes hold, the scale gauges), and the share of
+   token positions equal to phase 7's, printed and not gated (near-tie
+   argmaxes flip at full depth with random weights).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -83,15 +106,36 @@ BATCH, PROMPT, GEN = 4, 128, 16
 #   one WKV launch a layer (T = 128 takes the chunk branch); decode 3 fat
 #   (w_lora_a N = 32, w_lora_b K = 32, cmix wk + relu) and 8 GEMVs a layer
 #   + the unembed, and no WKV launch (T = 1 is the token scan)
+# * qwen1.5-4b int8 (--quantize int8): every GEMM carries out_scale, so
+#   every one takes the fat GEMM (split_k at M = 4, tensor_core_int8 at
+#   M = 512): 7 a layer and the unembed (its f32 weight re-quantized at
+#   every call, the dynamic path), at prefill and at each decode step
 PATHS = {
-    "qwen1.5-4b": {"vocab": 151936, "want": {
-        "matmul": 7 * 40 + GEN * 4 * 40, "gemv": 1 + GEN * (3 * 40 + 1),
-        "wkv": 0}},
-    "rwkv6-3b": {"vocab": 65536, "want": {
-        "matmul": 11 * 32 + GEN * 3 * 32, "gemv": 1 + GEN * (8 * 32 + 1),
-        "wkv": 32}},
+    "qwen1.5-4b": {"arch": "qwen1.5-4b", "args": [], "vocab": 151936,
+                   "want": {"matmul": 7 * 40 + GEN * 4 * 40,
+                            "gemv": 1 + GEN * (3 * 40 + 1), "wkv": 0}},
+    "rwkv6-3b": {"arch": "rwkv6-3b", "args": [], "vocab": 65536,
+                 "want": {"matmul": 11 * 32 + GEN * 3 * 32,
+                          "gemv": 1 + GEN * (8 * 32 + 1), "wkv": 32}},
+    "qwen1.5-4b int8": {"arch": "qwen1.5-4b", "args": ["--quantize", "int8"],
+                        "vocab": 151936,
+                        "want": {"matmul": (GEN + 1) * (7 * 40 + 1),
+                                 "gemv": 0, "wkv": 0}},
 }
+FAT_KERNELS = ("mm_wgmma", "mm_split_k", "mm_core")  # matmul.cu's routes
 PATH_TOL = 5e-2  # kernel vs plain logits, bf16 activations (see phase 5)
+# the same under --quantize int8 (phases 5c, 5d, card against CPU), stated
+# before the first card run from the CPU tests' spread
+# (tests/test_torch_quant.py): with bf16 activations each GEMM re-quantizes
+# its input, so a bf16 rounding flip moves whole int8 steps; the port and
+# the JAX package differed by up to 0.14 (qwen) and 0.20 (rwkv) of
+# (1 + |logit|) over d_model 64-512, and the float path's card-vs-CPU
+# spread was 1.3-1.6x its CPU spread. f32 activations would not tighten it
+# at full width (test_int8_logits_move_by_rounding_flips_at_full_width):
+# what holds the int8 kernels tightly is 5c/5d's second check, the card's
+# path against the same path on the card with the fat GEMM's plain
+# version, bit for bit
+INT8_PATH_TOL = 0.3
 # phase 7: the paged engine at qwen1.5-4b's width and depth, 8 lanes
 ENGINE_ARGS = ["--arch", "qwen1.5-4b", "--engine", "--num-slots", "8",
                "--kv-block-size", "16", "--prefill-chunk", "128",
@@ -102,10 +146,22 @@ ENGINE_ARGS = ["--arch", "qwen1.5-4b", "--engine", "--num-slots", "8",
 # the fat GEMM and wo, w_in, w_out on the GEMV (M <= 128, no epilogue),
 # plus the one unembed GEMV (8 rows, or the chunk's last token)
 ENGINE_STEP = {"matmul": 4 * 40, "gemv": 3 * 40 + 1, "wkv": 0}
+# phase 7b: the same engine with int8 weights and an int8 KV pool: every
+# GEMM of a step on the fat GEMM (7 a layer and the dynamic unembed)
+ENGINE_INT8_ARGS = ["--quantize", "int8", "--kv-quantize", "int8"]
+ENGINE_STEP_INT8 = {"matmul": 7 * 40 + 1, "gemv": 0, "wkv": 0}
+# qwen1.5-4b's pool block of 16 tokens over 40 layers, K and V: 20 kv heads
+# x 128 at 2 bytes (bf16), or at 1 byte plus 2 x 20 f32 scales (int8)
+BF16_BLOCK_BYTES = 40 * 2 * 16 * 20 * 128 * 2
+INT8_BLOCK_BYTES = 40 * (2 * 16 * 20 * 128 + 2 * 4 * 20)
+
+
+_T0 = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"\n=== {name}", flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print(f"\n=== {name} [{time.perf_counter() - _T0:.1f}s]", flush=True)
 
 
 def environment(torch) -> str:
@@ -257,6 +313,35 @@ CASES = [
     Case("chunk w_in B=64", "gemv", 64, 2560, 6912),
     Case("chunk w_in B=128", "gemv", 128, 2560, 6912),
     Case("chunk w_out B=128", "gemv", 128, 6912, 2560),
+] + [
+    # the W8A8 path (--quantize int8): int8 x int8, B (N, K), out_scale
+    # s_x * s_w; every shape a path gives split_k (static decode M = 4,
+    # engine tick M = 8, chunk tail M <= 32: q/k/v, wo and w_in share the
+    # q/k/v and gate shapes) and the prefill and chunk rows on
+    # tensor_core_int8
+    Case(f"W8A8 {name}", "matmul", M, K, N, a_dtype="int8", b_dtype="int8",
+         out_dtype=out, layout="col", bias=bias, activation=act, scale=True)
+    for name, M, K, N, out, bias, act in [
+        ("q/k/v + bias M=4", 4, 2560, 2560, "bfloat16", True, None),
+        ("q/k/v + bias M=8", 8, 2560, 2560, "bfloat16", True, None),
+        ("q/k/v + bias M=32", 32, 2560, 2560, "bfloat16", True, None),
+        ("gate + silu M=4", 4, 2560, 6912, "bfloat16", False, "silu"),
+        ("gate + silu M=8", 8, 2560, 6912, "bfloat16", False, "silu"),
+        ("gate + silu M=32", 32, 2560, 6912, "bfloat16", False, "silu"),
+        ("w_out M=4", 4, 6912, 2560, "bfloat16", False, None),
+        ("w_out M=8", 8, 6912, 2560, "bfloat16", False, None),
+        ("w_out M=32", 32, 6912, 2560, "bfloat16", False, None),
+        ("unembed M=4 f32 out", 4, 2560, 151936, "float32", False, None),
+        ("unembed M=8 f32 out", 8, 2560, 151936, "float32", False, None),
+        ("prefill q/k/v + bias", 512, 2560, 2560, "bfloat16", True, None),
+        ("prefill gate + silu", 512, 2560, 6912, "bfloat16", False, "silu"),
+        ("prefill w_out", 512, 6912, 2560, "bfloat16", False, None),
+        ("chunk q/k/v + bias M=64", 64, 2560, 2560, "bfloat16", True, None),
+        ("chunk q/k/v + bias M=128", 128, 2560, 2560, "bfloat16", True,
+         None),
+        ("rwkv w_lora_a (dynamic)", 512, 2560, 32, "bfloat16", False, None),
+        ("rwkv w_lora_b (dynamic)", 512, 32, 2560, "bfloat16", False, None),
+    ]
 ]
 # GEMV cases held to their plain version but not timed: every dtype pair,
 # both layouts, 1..128 rows, ragged K and N, both routes
@@ -313,13 +398,15 @@ def _library_call(torch, c: Case, a, b, bias):
 
 
 def _rate(c: Case, route: str) -> float:
-    """The rate of the route a case takes: an f32 B on the tensor cores is
-    three bf16 passes, a bf16 B one; int8 tensor cores; the CUDA-core routes
-    (split-K, CUDA core, the GEMV) at the f32 rate."""
+    """The rate a case's operations are bounded by: int8 inputs at the
+    card's int8 peak on any route (the least time the card could take for
+    them); for float inputs, the route's: an f32 B on the tensor cores is
+    three bf16 passes, a bf16 B one; the CUDA-core routes (split-K, CUDA
+    core, the GEMV) at the f32 rate."""
+    if c.a_dtype == "int8":
+        return PEAK_OPS["int8"]
     if route == "tensor_core":
         return PEAK_OPS["bfloat16"] / (3 if c.b_dtype == "float32" else 1)
-    if route == "tensor_core_int8":
-        return PEAK_OPS["int8"]
     return PEAK_OPS["float32"]
 
 
@@ -394,7 +481,13 @@ def check_kernels(torch) -> dict[str, dict]:
             # result may round the other way, one bf16 ulp = 2**-7 of the
             # largest value; an int8 requant result may flip one rint tie;
             # the GEMV's integer outputs (i32 sums, saturated) are exact.
-            if c.out_dtype == "bfloat16":
+            # The W8A8 cases are exact too: an int8 x int8 product sums
+            # exactly in i32 in any order, and the epilogue runs the plain
+            # version's f32 ops in its order (separate roundings, the same
+            # silu), so the output equals it bit for bit.
+            if c.name.startswith("W8A8"):
+                tol = 0.0
+            elif c.out_dtype == "bfloat16":
                 tol = 2.0 ** -7 * max(1.0, peak)
             elif c.out_dtype == "float32":
                 tol = 1e-5 * max(1.0, peak)
@@ -670,7 +763,17 @@ def replay_vs_eager(torch, name: str, captured, raw, params, state,
                          "step")
 
 
-def static_steps(torch, arch: str, label: str) -> None:
+def _params(torch, cfg, quant: bool, seed: int = 0):
+    """The path's weights from ``seed`` on the card, quantized once (as the
+    launcher does at load) for an int8 path."""
+    from repro_torch import models
+    from repro_torch.quant.prequant import quantize_params
+
+    params = models.init(cfg, seed=seed, device="cuda")
+    return quantize_params(params) if quant else params
+
+
+def static_steps(torch, arch: str, label: str, quant: bool = False) -> None:
     """The static server's decode step, eager and as a CUDA-graph replay,
     in one run from one state: step ms (CUDA events between steps, so the
     host's dispatch shows), tok/s, and the replay against the eager step
@@ -684,17 +787,20 @@ def static_steps(torch, arch: str, label: str) -> None:
     from repro_torch.core.plancache import PlanCache
     from repro_torch.train.servestep import make_serve_step
 
-    phase(f"{label} static decode step of {arch}: eager, then CUDA-graph "
+    phase(f"{label} static decode step of {arch}"
+          + (" (int8)" if quant else "") + ": eager, then CUDA-graph "
           "replays, from one state")
     cfg = C.get_config(arch)
     V = cfg.vocab_size
-    params = models.init(cfg, seed=0, device="cuda")
+    params = _params(torch, cfg, quant)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, V, size=(BATCH, PROMPT))).cuda()
     max_len = PROMPT + GEN + 1
     steps = 6   # 2 warm + 6 eager + 1 capture + 6 replays + 1 = GEN steps
-    with use_context(plan_cache=PlanCache()):
-        plan_model(cfg, batch=BATCH, prompt_len=PROMPT, max_len=max_len)
+    with use_context(plan_cache=PlanCache(),
+                     quant_mode="int8" if quant else None):
+        plan_model(cfg, batch=BATCH, prompt_len=PROMPT, max_len=max_len,
+                   params=params)
         art = make_serve_step(cfg, device="cuda")
         state = models.init_decode_state(cfg, BATCH, max_len, device="cuda")
         logits = art.prefill_fn(params, state, prompts)
@@ -728,19 +834,20 @@ def static_steps(torch, arch: str, label: str) -> None:
     _free(torch)
 
 
-def run_path(torch, arch: str, label: str) -> dict[str, int]:
+def run_path(torch, path: str, label: str) -> dict[str, int]:
     from repro_torch.launch import serve
     from repro_torch.train import graphs
 
-    spec = PATHS[arch]
-    phase(f"{label} path: repro_torch.launch.serve --arch {arch} --batch "
-          f"{BATCH} --prompt-len {PROMPT} --gen {GEN} (full width and depth)")
+    spec = PATHS[path]
+    phase(f"{label} path: repro_torch.launch.serve --arch {spec['arch']} "
+          f"--batch {BATCH} --prompt-len {PROMPT} --gen {GEN} "
+          + " ".join(spec["args"]) + " (full width and depth)")
     torch.cuda.reset_peak_memory_stats()
     graphs.reset_launches()
     t0 = time.perf_counter()
-    res = serve.main(["--arch", arch, "--batch", str(BATCH),
+    res = serve.main(["--arch", spec["arch"], "--batch", str(BATCH),
                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
-                      "--plan-cache", ""])
+                      "--plan-cache", "", *spec["args"]])
     wall = time.perf_counter() - t0
     # eager launches (prefill, the decode step's first call) plus those of
     # the decode graph's replays
@@ -750,7 +857,9 @@ def run_path(torch, arch: str, label: str) -> dict[str, int]:
     print(f"tokens generated {res['tokens']} in {res['seconds']:.3f}s serving "
           f"({res['tokens'] / res['seconds']:.2f} tok/s), {wall:.1f}s with "
           f"init and warm-up; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+          + ("" if res["quantize_s"] is None else
+             f"; weights quantized at load in {res['quantize_s']:.3f}s"))
     print(f"launches: {counts}, of which graph replays {replayed} (rule: "
           f"{spec['want']})")
     if res["lazy_solves"] or res["misses"]:
@@ -767,54 +876,108 @@ def run_path(torch, arch: str, label: str) -> dict[str, int]:
 
 
 # ------------------------------------------------------------ phase 5
-def kernel_vs_plain(torch, arch: str, label: str) -> None:
+class _plain_matmul:
+    """Within it, the fat GEMM's wrapper computes its plain version on the
+    card (``ref.matmul_ref`` on the same CUDA tensors) instead of launching
+    ``matmul.cu``: every other op of the path stays the same CUDA op."""
+
+    def __enter__(self):
+        from repro_torch.kernels import matmul as tmm
+        from repro_torch.kernels import ref
+
+        def plain(a, b, bias=None, out_scale=None, *, bm, bk, bn,
+                  out_dtype=None, b_layout="row", activation=None):
+            return ref.matmul_ref(a, b, out_dtype=out_dtype,
+                                  b_layout=b_layout, bias=bias,
+                                  activation=activation, out_scale=out_scale)
+        self.saved, tmm.matmul = tmm.matmul, plain
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import matmul as tmm
+
+        tmm.matmul = self.saved
+
+
+def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False
+                    ) -> None:
+    import contextlib
+
     import numpy as np
 
     from repro_torch import configs as C
     from repro_torch import interop, models
+    from repro_torch.core.context import use_context
 
-    phase(f"{label} kernel path (card) against plain path (CPU), {arch}, "
-          "2 layers, full width")
+    tol = INT8_PATH_TOL if quant else PATH_TOL
+    phase(f"{label} kernel path (card) against plain path (CPU"
+          + ("; and on the card, bit for bit" if quant else "") + f"), {arch},"
+          " 2 layers, full width" + (", --quantize int8" if quant else ""))
     cfg = dataclasses.replace(C.get_config(arch), n_layers=2)
-    params = {"cuda": models.init(cfg, seed=1, device="cuda")}
+    params = {"cuda": _params(torch, cfg, quant, seed=1)}
     params["cpu"] = interop.tree_map(lambda t: t.cpu(), params["cuda"])
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(BATCH, PROMPT)))
-    logits = {}
-    fed = []  # the card's greedy tokens, fed to both paths
-    for dev in ("cuda", "cpu"):
-        state = models.init_decode_state(cfg, BATCH, PROMPT + 5, device=dev)
-        lg, state = models.prefill(params[dev], {"tokens": prompts.to(dev)},
-                                   cfg, state)
-        steps = [lg[:, :cfg.vocab_size].float().cpu()]
-        for i in range(4):
-            if dev == "cuda":
-                fed.append(steps[-1].argmax(-1))
-            lg, state = models.decode_step(params[dev], fed[i][:, None].to(dev),
-                                           cfg, state)
-            steps.append(lg[:, :cfg.vocab_size].float().cpu())
-        logits[dev] = torch.stack(steps)
+    logits, states = {}, {}
+    fed = []  # the card's greedy tokens, fed to every run
+    # int8: a third run on the card with the fat GEMM's plain version in
+    # matmul.cu's place
+    runs = [("cuda", "cuda"), ("cpu", "cpu")] + (
+        [("plain", "cuda")] if quant else [])
+    for run, dev in runs:
+        with use_context(quant_mode="int8" if quant else None), (
+                _plain_matmul() if run == "plain"
+                else contextlib.nullcontext()):
+            state = models.init_decode_state(cfg, BATCH, PROMPT + 5,
+                                             device=dev)
+            lg, state = models.prefill(params[dev],
+                                       {"tokens": prompts.to(dev)}, cfg,
+                                       state)
+            steps = [lg[:, :cfg.vocab_size].float().cpu()]
+            for i in range(4):
+                if run == "cuda":
+                    fed.append(steps[-1].argmax(-1))
+                lg, state = models.decode_step(
+                    params[dev], fed[i][:, None].to(dev), cfg, state)
+                steps.append(lg[:, :cfg.vocab_size].float().cpu())
+        logits[run], states[run] = torch.stack(steps), state
     # bf16 activations: the two paths sum each product in another order, so
     # an activation may round to the neighbouring bf16 value and the flip
     # propagates through 2 layers. Held like the repo's bf16 kernel tests:
     # |card - cpu| <= tol + tol * |cpu| with tol = 5e-2 (on the CPU, the
     # qwen config with a 503-token vocabulary drifted 0.028 at most between
-    # f32 and f64 accumulation).
+    # f32 and f64 accumulation); int8: INT8_PATH_TOL (see there).
     ref = logits["cpu"]
     diff = (logits["cuda"] - ref).abs()
     err = diff.max().item()
     scaled = (diff / (1 + ref.abs())).max().item()
     top2 = ref.topk(2, dim=-1).values
-    sure = (top2[..., 0] - top2[..., 1]) > PATH_TOL * (1 + top2[..., 0].abs())
+    sure = (top2[..., 0] - top2[..., 1]) > tol * (1 + top2[..., 0].abs())
     same = logits["cuda"].argmax(-1) == ref.argmax(-1)
     print(f"logits max |card - cpu| = {err:.4g}, max |card - cpu| / (1 + "
-          f"|cpu|) = {scaled:.4g} (tol {PATH_TOL}); greedy tokens equal at "
+          f"|cpu|) = {scaled:.4g} (tol {tol}); greedy tokens equal at "
           f"{int((same & sure).sum())}/{int(sure.sum())} positions whose "
           f"top-2 margin exceeds the tolerance ({int(same.sum())}/"
           f"{same.numel()} overall)")
-    if not scaled <= PATH_TOL or not bool(same[sure].all()):
+    if not scaled <= tol or not bool(same[sure].all()):
         raise SystemExit("kernel path disagrees with the plain path")
-    del params
+    if quant:
+        # Every GEMM of an int8 path is W8A8, which matmul.cu computes bit
+        # for bit like its plain version (phase 3a), and every other op is
+        # the same CUDA op on the same inputs: the two card runs agree
+        # exactly, logits and state (KV cache, or WKV state and shifts).
+        # The card-vs-CPU spread above is the per-tensor rounding of
+        # another float path, not a kernel's error.
+        bad = _differ(torch, states["cuda"], states["plain"])
+        exact = torch.equal(logits["cuda"], logits["plain"])
+        print(f"card kernel path against card plain path: logits equal bit "
+              f"for bit {exact} (max |d| "
+              f"{(logits['cuda'] - logits['plain']).abs().max().item():.3g}"
+              "), state " + ("equal in every leaf" if not bad
+                             else f"differs in {bad}"))
+        if not exact or bad:
+            raise SystemExit("the int8 kernel path differs from its plain "
+                             "version on the card")
+    del params, states
     _free(torch)
 
 
@@ -842,7 +1005,7 @@ def _busy(rows, wall: float) -> tuple[float, float]:
     return busy_us / 1e3, 1 - busy_us / 1e6 / wall
 
 
-def profile_path(torch, arch: str, label: str) -> None:
+def profile_path(torch, arch: str, label: str, quant: bool = False) -> None:
     import numpy as np
 
     from repro_torch import configs as C
@@ -853,10 +1016,11 @@ def profile_path(torch, arch: str, label: str) -> None:
     from repro_torch.train import graphs
     from repro_torch.train.servestep import make_serve_step
 
-    phase(f"{label} profile: the {arch} path, warm, timed and traced, with "
-          "the decode step eager and as CUDA-graph replays")
+    phase(f"{label} profile: the {arch} path"
+          + (" with --quantize int8" if quant else "") + ", warm, timed and "
+          "traced, with the decode step eager and as CUDA-graph replays")
     cfg = C.get_config(arch)
-    params = models.init(cfg, seed=0, device="cuda")
+    params = _params(torch, cfg, quant)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(BATCH, PROMPT))).cuda()
     max_len = PROMPT + GEN + 1
@@ -882,8 +1046,10 @@ def profile_path(torch, arch: str, label: str) -> None:
         return marks
 
     traced = {}
-    with use_context(plan_cache=PlanCache()):
-        plan_model(cfg, batch=BATCH, prompt_len=PROMPT, max_len=max_len)
+    with use_context(plan_cache=PlanCache(),
+                     quant_mode="int8" if quant else None):
+        plan_model(cfg, batch=BATCH, prompt_len=PROMPT, max_len=max_len,
+                   params=params)
         for name, step in (("eager", art.decode_raw),
                            ("graph", art.decode_fn)):
             run(step)  # warm: kernels loaded, graph captured, allocator full
@@ -902,11 +1068,23 @@ def profile_path(torch, arch: str, label: str) -> None:
                   f"{BATCH * GEN / wall:.1f} tok/s; traced run wall "
                   f"{twall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
                   f"share {idle:.3f}", flush=True)
+        if quant:
+            # the replayed decode steps alone (prefill untraced): a step's
+            # device time by kernel
+            out = [art.prefill_fn(params, state, prompts)]
+
+            def decode_only():
+                for _ in range(GEN):
+                    tok = out[0][:, :cfg.vocab_size].argmax(-1)
+                    out[0] = art.decode_fn(params, state, tok[:, None])
+                torch.cuda.synchronize()
+            step_rows, _, step_wall = _traced(torch, decode_only)
     rows, prof, counts = traced["graph"]
-    if not any("gemv_" in k for _, _, k in rows):
+    decode_kernel = "mm_split_k" if quant else "gemv_"
+    if not any(decode_kernel in k for _, _, k in rows):
         # CUPTI gave the replays without their kernels: the busy time above
         # still holds them; the breakdown comes from the eager run
-        print("the traced graph run shows no GEMV kernel rows: CUPTI "
+        print(f"the traced graph run shows no {decode_kernel} rows: CUPTI "
               "reports each replay as one entry on this card; the kernel "
               "breakdown below is the eager run's")
         rows, prof, counts = traced["eager"]
@@ -919,10 +1097,18 @@ def profile_path(torch, arch: str, label: str) -> None:
     # runs at prefill (M = 512) and split-K at decode (M = 4)
     fat = {name: (sum(t for t, _, k in rows if name in k) / 1e3,
                   sum(n for _, n, k in rows if name in k))
-           for name in ("mm_wgmma", "mm_split_k", "mm_core")}
+           for name in FAT_KERNELS}
     print("fat GEMM device ms (launches): " + ", ".join(
         f"{name} {ms:.2f} ({n})" for name, (ms, n) in fat.items())
         + f", all {sum(ms for ms, _ in fat.values()):.2f}")
+    if quant:
+        # by instantiation: mm_split_k<rows, int8, int8, col> at decode,
+        # mm_wgmma<warpgroups, int8 mode> (tensor_core_int8) at prefill
+        for t, n, key in sorted(rows, reverse=True):
+            if any(name in key for name in FAT_KERNELS):
+                name = key.replace("(anonymous namespace)::", "")
+                print(f"  fat GEMM {t / 1e3:9.2f} ms x{n:<5d} {name[:100]}")
+        step_split(torch, cfg, params, step_rows, step_wall)
     # the GEMV by kernel name (route, rows a thread holds, types): one
     # kernel launch per decode_matvec call (eager or replayed), the split-K
     # sum inside it
@@ -965,14 +1151,147 @@ def profile_path(torch, arch: str, label: str) -> None:
     _free(torch)
 
 
+def _graph_rows(torch, fn, reps: int = 3) -> tuple[float, list]:
+    """``fn`` captured as one CUDA graph, as it runs inside a replayed step:
+    (median ms of a replay with CUDA events, device rows (us, count, name)
+    of one replay, from ``reps`` traced replays). The tracer can miss the
+    first kernels it sees, so a first replay inside the trace absorbs that
+    and a ``spin_kernel`` (``torch.cuda._sleep``) marks where the counted
+    replays start."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    ms = time_ms(torch, g.replay, reps=10)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        g.replay()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            g.replay()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")),
+                 key=lambda e: e.time_range.start)
+    mark = max(i for i, e in enumerate(dev) if "spin_kernel" in e.name)
+    agg = {}
+    for e in dev[mark + 1:]:
+        t, n = agg.get(e.name, (0.0, 0))
+        agg[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    del g
+    return ms, [(t / reps, n / reps, name) for name, (t, n) in agg.items()]
+
+
+def step_split(torch, cfg, params, step_rows, step_wall: float) -> None:
+    """6c: the int8 decode step's device time (its replays traced), split
+    into the fat GEMM, the W8A8 quantizers and the rest. The quantizers
+    are torch ops, not kernels of the port: before each of a step's 281
+    int8 GEMMs, what ``qdense`` runs first (the input's per-tensor
+    quantization: absmax, divide, round, clip, cast; and out_scale =
+    s_x * s_w), and the f32 unembed's re-quantization (the reference's
+    dynamic path). Their kernels in the step cannot be told from the same
+    kernels of other ops by name, so the same calls at the step's shapes
+    are captured as CUDA graphs and traced; the step's rows of the same
+    kernel names are printed beside them."""
+    from repro_torch.layers.quantized import quantize_activation
+    from repro_torch.quant.int8 import combine_scales, quantize_linear
+
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    x = torch.randn((BATCH, d), device="cuda").to(cfg.dtype)
+    h = torch.randn((BATCH, f), device="cuda").to(cfg.dtype)
+    w = params["unembed"]
+    nq, nkv, V = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, \
+        w.shape[1]
+    w_scale = {n: torch.rand((n,), device="cuda") for n in (nq, nkv, d, f, V)}
+    # a layer's q, k, v, wo, gate, w_in and w_out: (input, N)
+    layer = [(x, nq), (x, nkv), (x, nkv), (x, d), (x, f), (x, f), (h, d)]
+
+    def activations():
+        for inp, n in layer * L + [(x, V)]:  # and the unembed's input
+            combine_scales(quantize_activation(inp)[1], w_scale[n])
+
+    per_step = lambda rs: sum(t for t, _, _ in rs) / 1e3 / GEN
+    busy = per_step(step_rows)
+    fat = per_step([r for r in step_rows
+                    if any(k in r[2] for k in FAT_KERNELS)])
+    short = lambda k: k.replace("void ", "").replace("at::native::", "")[:80]
+    parts = {}
+    for name, fn in (("activation quantization", activations),
+                     ("unembed re-quantization", lambda: quantize_linear(w))):
+        ms, rows = _graph_rows(torch, fn)
+        dev = sum(t for t, _, _ in rows) / 1e3
+        parts[name] = dev
+        what = (f"{len(layer) * L + 1} calls with out_scale"
+                if fn is activations else f"{tuple(w.shape)} {w.dtype}")
+        print(f"  {name} ({what}): a replayed graph {ms:.3f} ms, its "
+              f"kernels' device time {dev:.3f} ms, "
+              f"{sum(n for _, n, _ in rows):g} kernels")
+        for t, n, key in sorted(rows, reverse=True)[:8]:
+            same = [r for r in step_rows if r[2] == key]
+            print(f"    {t / 1e3:8.3f} ms x{n:<4g} (step: {per_step(same):.3f}"
+                  f" ms x{sum(r[1] for r in same) / GEN:g}) {short(key)}")
+    copies = per_step([r for r in step_rows if "direct_copy_kernel" in r[2]])
+    rest = busy - fat - sum(parts.values())
+    print(f"int8 decode step, {GEN} replays traced: wall "
+          f"{step_wall * 1e3 / GEN:.2f} ms a step, device busy {busy:.2f} ms "
+          f"(idle share {1 - busy * GEN / 1e3 / step_wall:.3f}) = fat GEMM "
+          f"{fat:.2f} + " + " + ".join(f"{v:.2f} ({k})"
+                                       for k, v in parts.items())
+          + f" + the rest {rest:.2f} (attention, norms, rotary, residuals, "
+          f"copies; direct_copy_kernel in the whole step {copies:.2f})")
+
+
 # ------------------------------------------------------------ phase 7
-def _engine_rule(dispatches) -> dict[str, int]:
+def _engine_rule(dispatches, quant: bool = False) -> dict[str, int]:
     """Launches the dispatch rule implies for the engine steps that ran."""
     steps = sum(dispatches.values())
-    return {k: n * steps for k, n in ENGINE_STEP.items()}
+    step = ENGINE_STEP_INT8 if quant else ENGINE_STEP
+    return {k: n * steps for k, n in step.items()}
 
 
-def run_engine(torch, profile: bool) -> dict[str, int]:
+@dataclasses.dataclass
+class EngineRun:
+    counts: dict        # launches by kernel (eager plus replayed)
+    tokens: dict        # prompt bytes -> generated ids, by request
+    pool_bytes: int     # the KV pool's bytes (the kv_cache section)
+
+
+def _kv_cache_check(m, engine, bf16: EngineRun | None) -> None:
+    """Phase 7b's pool: int8 blocks and scales at about half the bytes of
+    phase 7's bf16 pool of as many blocks, and the blocks the same bytes
+    would buy."""
+    kv = m.kv_cache
+    blocks = engine.num_kv_blocks
+    want = {"kv_dtype": "int8", "quantized": True,
+            "bytes_per_block": INT8_BLOCK_BYTES,
+            "pool_bytes": blocks * INT8_BLOCK_BYTES,
+            "bf16_pool_bytes": blocks * BF16_BLOCK_BYTES}
+    equal_bytes = kv["bf16_pool_bytes"] // kv["bytes_per_block"]
+    print(f"kv_cache: {kv['kv_dtype']} pool of {blocks} blocks, "
+          f"{kv['bytes_per_block']} bytes a block (bf16 {BF16_BLOCK_BYTES}), "
+          f"bytes_ratio {kv['bytes_ratio']:.4f}; pool {kv['pool_bytes'] / 1e9:.3f}"
+          f" GB against phase 7's {bf16.pool_bytes / 1e9:.3f} GB; the same "
+          f"bytes hold {equal_bytes} int8 blocks; scales k mean "
+          f"{kv['scale_k_mean']:.4g} max {kv['scale_k_max']:.4g}, v mean "
+          f"{kv['scale_v_mean']:.4g} max {kv['scale_v_max']:.4g}")
+    if {k: kv[k] for k in want} != want or not (
+            kv["bf16_pool_bytes"] == bf16.pool_bytes
+            and 0 < kv["scale_k_max"] < 1 and 0 < kv["scale_v_max"] < 1):
+        raise SystemExit(f"int8 kv_cache section {kv} differs from {want} "
+                         f"(phase 7's pool: {bf16.pool_bytes} bytes)")
+
+
+def run_engine(torch, profile: bool, bf16: EngineRun | None = None
+               ) -> EngineRun:
+    """Phase 7, or with ``bf16`` (phase 7's run) phase 7b: the same engine
+    with --quantize int8 --kv-quantize int8."""
     import numpy as np
 
     from repro_torch.core.context import use_context
@@ -980,18 +1299,21 @@ def run_engine(torch, profile: bool) -> dict[str, int]:
     from repro_torch.serve import Request
     from repro_torch.train import graphs
 
-    phase("7 engine path: repro_torch.launch.serve " + " ".join(
-        a if a else "''" for a in ENGINE_ARGS) + " (full width and depth)")
+    quant = bf16 is not None
+    args = ENGINE_ARGS + (ENGINE_INT8_ARGS if quant else [])
+    phase(("7b" if quant else "7") + " engine path: repro_torch.launch.serve "
+          + " ".join(a if a else "''" for a in args)
+          + " (full width and depth)")
     torch.cuda.reset_peak_memory_stats()
     graphs.reset_launches()
     t0 = time.perf_counter()
-    res = serve.main(ENGINE_ARGS)
+    res = serve.main(args)
     wall = time.perf_counter() - t0
     counts = graphs.launches()
     replayed = dict(graphs.replayed)
     engine, m, trace = res["engine"], res["metrics"], res["trace"]
     cfg = engine.cfg
-    want = _engine_rule(engine.dispatches)
+    want = _engine_rule(engine.dispatches, quant)
     print(f"steps {dict(engine.dispatches)}; launches {counts}, of which "
           f"graph replays {replayed} (rule: {want}); graphs captured: "
           f"decode {len(engine.art.decode_fn.graphs)}, prefill chunk "
@@ -1028,7 +1350,20 @@ def run_engine(torch, profile: bool) -> dict[str, int]:
     report(f"first run (graphs captured in it; {wall:.1f}s with init and "
            "warm-up)", m)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          " GiB")
+          " GiB" + ("" if res["quantize_s"] is None else
+                    f"; weights quantized at load in {res['quantize_s']:.3f}s"))
+    tokens = {st.request.prompt.tobytes(): st.tokens for st in done}
+    if quant:
+        _kv_cache_check(m, engine, bf16)
+        # information, not a gate: at full depth with random weights
+        # near-tie argmaxes flip, and a flip forks the rest of the stream
+        total = sum(len(t) for t in bf16.tokens.values())
+        match = sum(a == b for k, t in bf16.tokens.items()
+                    for a, b in zip(t, tokens[k]))
+        print(f"tokens equal to phase 7's bf16 engine at {match}/{total} "
+              f"positions ({match / total:.3f}); streams equal "
+              f"{sum(bf16.tokens[k] == tokens[k] for k in tokens)}/"
+              f"{len(tokens)}")
 
     # the reruns and checks under the run's context (its warm plans)
     with use_context(res["context"]):
@@ -1053,7 +1388,8 @@ def run_engine(torch, profile: bool) -> dict[str, int]:
         graphs.reset_launches()
         m2 = engine.run(again())
         engine.art.decode_fn = decode
-        counts2, want2 = graphs.launches(), _engine_rule(engine.dispatches)
+        counts2 = graphs.launches()
+        want2 = _engine_rule(engine.dispatches, quant)
         report("warm rerun", m2, [a.elapsed_time(b) for a, b in marks])
         if counts2 != want2 or m2.plan_cache["lazy_solves"] or \
                 m2.plan_cache["misses"]:
@@ -1095,9 +1431,10 @@ def run_engine(torch, profile: bool) -> dict[str, int]:
                             art.prefill_raw, engine.params, engine.state,
                             rng.integers(0, cfg.vocab_size, (1, bucket)), 0, 0,
                             bucket - 1, table[0].astype(np.int64))
+    pool_bytes = m.kv_cache["pool_bytes"]
     del res, engine, m, m2, art, kv
     _free(torch)
-    return counts
+    return EngineRun(counts, tokens, pool_bytes)
 
 
 def main() -> int:
@@ -1127,10 +1464,17 @@ def main() -> int:
     counts["rwkv6-3b"] = run_path(torch, "rwkv6-3b", "4b")
     static_steps(torch, "rwkv6-3b", "4b")
     kernel_vs_plain(torch, "rwkv6-3b", "5b")
+    counts["qwen1.5-4b int8"] = run_path(torch, "qwen1.5-4b int8", "4c")
+    static_steps(torch, "qwen1.5-4b", "4c", quant=True)
+    kernel_vs_plain(torch, "qwen1.5-4b", "5c", quant=True)
+    kernel_vs_plain(torch, "rwkv6-3b", "5d", quant=True)
     if profile:
         profile_path(torch, "qwen1.5-4b", "6a")
         profile_path(torch, "rwkv6-3b", "6b")
-    counts["qwen1.5-4b engine"] = run_engine(torch, profile)
+        profile_path(torch, "qwen1.5-4b", "6c", quant=True)
+    bf16 = run_engine(torch, profile)
+    counts["qwen1.5-4b engine"] = bf16.counts
+    counts["qwen1.5-4b int8 engine"] = run_engine(torch, profile, bf16).counts
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),
@@ -1150,7 +1494,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "case": r["case"], "shape": r["shape"],
             "launches_by_path": by_path})
-    print(f"card: {smi}")
+    print(f"card: {smi}; all phases in {time.perf_counter() - _T0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

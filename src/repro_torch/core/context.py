@@ -3,7 +3,9 @@
 
 * ``hw``         — the :class:`HardwareSpec` the planner solves for
                    (:mod:`repro_torch.core.hwregistry`, default ``h100``);
-* ``quant_mode`` — only None in this port so far (int8 is a later item);
+* ``quant_mode`` — None (full precision) or ``"int8"``: every ``dense()``
+                   with a float weight takes the dynamic W8A8 path
+                   (``layers.quantized.dynamic_qdense``);
 * ``plan_cache`` — the :class:`PlanCache` serving solved GEMM plans.
 
 There is no kernel-backend field: the device of the tensors decides (CUDA
@@ -22,7 +24,7 @@ from repro_torch.core import hwregistry
 from repro_torch.core.perfmodel import HardwareSpec
 from repro_torch.core.plancache import PlanCache
 
-QUANT_MODES = (None,)
+QUANT_MODES = (None, "int8")
 
 _UNSET = object()
 
@@ -40,9 +42,8 @@ class GemmContext:
         if self.quant_mode == "none":
             self.quant_mode = None
         if self.quant_mode not in QUANT_MODES:
-            raise NotImplementedError(
-                f"quant mode {self.quant_mode!r} is not ported yet "
-                "(ROADMAP queue 1, item 6: int8)")
+            raise ValueError(f"quant mode must be one of {QUANT_MODES} or "
+                             f"'none', got {self.quant_mode!r}")
 
 
 _DEFAULT: GemmContext | None = None

@@ -5,6 +5,9 @@ arrays (``jax.tree.map(np.asarray, params)``) and returns the port's tree
 with the same structure, shapes and dtypes, so both packages compute on the
 same weights. It imports neither ``jax`` nor ``repro``: dicts are walked by
 key and NamedTuples by ``_fields``, matched to the port's classes by name.
+A pre-quantized tree (the reference's ``quant.prequant.quantize_params``,
+whose ``QuantizedLinear`` leaves carry ``bias=None``) converts leaf for leaf
+into the port's ``QuantizedLinear``.
 """
 from __future__ import annotations
 
@@ -16,9 +19,11 @@ import torch
 from repro_torch.layers.attention import AttnParams
 from repro_torch.layers.mlp import MlpParams
 from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
+from repro_torch.quant.int8 import QuantizedLinear
 
 _NAMED = {cls.__name__: cls for cls in (
-    AttnParams, MlpParams, RwkvTimeMixParams, RwkvChannelMixParams)}
+    AttnParams, MlpParams, RwkvTimeMixParams, RwkvChannelMixParams,
+    QuantizedLinear)}
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -72,13 +77,27 @@ def _convert(node: Any, device) -> Any:
     return to_tensor(np.asarray(node), device)
 
 
+def _quantized(tree: Any) -> bool:
+    if isinstance(tree, QuantizedLinear):
+        return True
+    if isinstance(tree, dict):
+        return any(_quantized(v) for v in tree.values())
+    return hasattr(tree, "_fields") and any(_quantized(v) for v in tree)
+
+
 def params_from_jax(tree: Any, cfg, device) -> Any:
     """The reference's parameter tree (numpy leaves) as the port's tree on
-    ``device``. Raises if it does not match what ``init_lm(cfg)`` makes."""
+    ``device``. Raises if it does not match what ``init_lm(cfg)`` makes, or,
+    for a pre-quantized tree, what ``quantize_params(init_lm(cfg))`` makes
+    (both traced on the meta device)."""
     from repro_torch import models
+    from repro_torch.quant.prequant import quantize_params
 
     params = _convert(tree, device)
-    want = dict(tree_items(models.init(cfg, device="meta")))
+    shapes = models.init(cfg, device="meta")
+    if _quantized(params):
+        shapes = quantize_params(shapes)
+    want = dict(tree_items(shapes))
     got = dict(tree_items(params))
     if want.keys() != got.keys():
         raise ValueError(f"tree mismatch: missing {sorted(want - got.keys())},"

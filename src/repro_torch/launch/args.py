@@ -1,6 +1,7 @@
 """Shared launcher arguments (port of ``repro.launch.args``): the context
-layer (``--hw``, ``--plan-cache``, ``--device``, ``--quantize``) and the
-serving-engine layer (``--engine`` and what it honours).
+layer (``--hw``, ``--quantize``, ``--plan-cache``, ``--device``) and the
+serving-engine layer (``--engine`` and what it honours, ``--kv-quantize``
+included).
 
 ``--hw`` defaults to ``$REPRO_TORCH_HW``, else ``h100``; ``--plan-cache ''``
 keeps plans in memory only; ``--device`` defaults to ``cuda`` (there is no
@@ -22,8 +23,10 @@ def add_context_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
         help=f"hardware generation for the GEMM planner/perf model "
              f"({', '.join(list_hw())}; default: $REPRO_TORCH_HW or h100)")
     g.add_argument(
-        "--quantize", default="none", choices=["none"],
-        help="weight quantization (int8 is not ported yet)")
+        "--quantize", default="none", choices=["none", "int8"],
+        help="int8: quantize every projection weight once at load and route "
+             "each GEMM through the W8A8 path (int8 x int8, the per-channel "
+             "requantize in the kernel's epilogue)")
     g.add_argument(
         "--plan-cache", default=None, metavar="PATH",
         help="persistent GEMM plan cache JSON (default: "
@@ -39,9 +42,9 @@ def add_context_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
 def add_serve_engine_args(ap: argparse.ArgumentParser
                           ) -> argparse.ArgumentParser:
     """The serving-engine layer: only the flags this port honours. The
-    reference's ``--kv-quantize`` (ROADMAP queue 1, item 6), ``--spec-*``
-    (item 7) and tracer / registry / auditor flags (item 8) are not
-    defined, so argparse rejects them."""
+    reference's ``--spec-*`` (ROADMAP queue 1, item 7) and tracer /
+    registry / auditor flags (item 8) are not defined, so argparse rejects
+    them."""
     g = ap.add_argument_group("serving engine")
     g.add_argument(
         "--engine", action="store_true",
@@ -68,6 +71,12 @@ def add_serve_engine_args(ap: argparse.ArgumentParser
         "--num-kv-blocks", type=int, default=None, metavar="N",
         help="paged KV pool size in blocks incl. the reserved null block "
              "(default: full num_slots*max_len capacity)")
+    g.add_argument(
+        "--kv-quantize", default="none", choices=["none", "int8"],
+        help="quantize the paged KV pool's blocks (needs --kv-block-size): "
+             "int8 blocks plus per-block, per-kv-head f32 scales, "
+             "dequantized inside the table-walking gather; ~0.5x the pool "
+             "bytes")
     g.add_argument(
         "--prefill-chunk", type=int, default=None, metavar="C",
         help="chunked prefill: at most C prompt tokens a call, padded to "

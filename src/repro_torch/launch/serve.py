@@ -4,20 +4,24 @@ with ``--engine``, the continuous-batching engine over a synthetic trace
 (the dense family).
 
 Start-up follows the reference: build the execution context (loading
-persisted plans), then pre-solve every GEMM signature the run issues on
-the meta device (``plan_model``, or the engine's ``plan_warmup``), so
-serving performs zero lazy plan solves; a warm-up that missed a signature
-ends the run with ``SystemExit``. On the card each decode step (and each
-engine step bucket) runs as a captured CUDA graph (``train.servestep``).
+persisted plans), make the weights from seed 0 (with ``--quantize int8``
+quantized once at load, ``quant.prequant.quantize_params``), then pre-solve
+every GEMM signature the run issues on the meta device (``plan_model``, or
+the engine's ``plan_warmup``), so serving performs zero lazy plan solves; a
+warm-up that missed a signature ends the run with ``SystemExit``. On the
+card each decode step (and each engine step bucket) runs as a captured
+CUDA graph (``train.servestep``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
-      --batch 4 --prompt-len 128 --gen 16
+      --batch 4 --prompt-len 128 --gen 16 [--quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
       --engine --num-slots 8 --kv-block-size 16 --prefill-chunk 128 \\
-      --prompt-len 128 --gen 16
+      --prompt-len 128 --gen 16 [--quantize int8 --kv-quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --metrics-json serve.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
+      --kv-block-size 4 --device cpu --quantize int8 --kv-quantize int8
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.core.gemm import plan_model
 from repro_torch.device import resolve_device
 from repro_torch.launch.args import (add_context_args, add_serve_engine_args,
                                      context_from_args)
+from repro_torch.quant.prequant import quantize_params
 from repro_torch.train.servestep import make_serve_step
 
 
@@ -94,6 +99,9 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
     if args.sched_policy in ("priority", "edf") and not args.kv_block_size:
         raise SystemExit(f"--sched-policy {args.sched_policy} preempts via "
                          "the paged pool: pass --kv-block-size too")
+    if args.kv_quantize != "none" and not args.kv_block_size:
+        raise SystemExit("--kv-quantize stores per-block scales alongside "
+                         "the block pool: pass --kv-block-size too")
     gen = args.max_new_tokens or args.gen
     plen = args.prompt_len
     stop = (args.eos_id,) if args.eos_id is not None else ()
@@ -135,7 +143,8 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
     engine = ServeEngine(
         cfg, params, num_slots=args.num_slots, max_len=max_len,
         prompt_pad=prompt_pad, kv_block_size=args.kv_block_size or None,
-        num_kv_blocks=args.num_kv_blocks, prefill_chunk=args.prefill_chunk,
+        num_kv_blocks=args.num_kv_blocks, kv_quantize=args.kv_quantize,
+        prefill_chunk=args.prefill_chunk,
         prefix_cache=args.prefix_cache,
         prefix_cache_blocks=args.prefix_cache_blocks,
         temperature=args.temperature, top_p=args.top_p,
@@ -148,6 +157,7 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
         _report_warmup(ctx, warm, time.perf_counter() - t0, "engine warm-up")
 
     m = engine.run(trace)
+    qtag = f" quant={ctx.quant_mode}" if ctx.quant_mode else ""
     ptag = (f" paged(block={engine.kv_block_size},"
             f"pool={engine.num_kv_blocks})" if engine.paged else "")
     # rates are None when their denominator never moved (a SimClock run
@@ -156,7 +166,8 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
            else f"{m.tokens_per_tick:.2f} tok/tick")
     occ = (f"{m.mean_occupancy:.2f}" if m.mean_occupancy is not None
            else "n/a")
-    print(f"[engine]{ptag} arch={cfg.name} hw={ctx.hw.name} device={device} "
+    print(f"[engine]{ptag} arch={cfg.name}{qtag} hw={ctx.hw.name} "
+          f"device={device} "
           f"slots={args.num_slots}: {len(trace)} requests, "
           f"{m.generated_tokens} tokens in {m.wall_s:.2f}s ({tps} incl. "
           f"first calls), mean occupancy {occ}/{args.num_slots}, "
@@ -168,6 +179,13 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
               f"{bp['memory_ratio']:.2f}x contiguous, "
               f"{m.deferred_admissions} deferred admissions, "
               f"peak internal frag {bp['peak_fragmentation_tokens']} tokens")
+        kv = m.kv_cache
+        if kv["quantized"]:
+            print(f"[kv-quant] {kv['kv_dtype']} pool: {kv['pool_bytes']} "
+                  f"bytes vs {kv['bf16_pool_bytes']} bf16 "
+                  f"({kv['bytes_ratio']:.3f}x; {kv['bytes_per_block']} bytes "
+                  f"a block), scale max k {kv['scale_k_max']:.4g} v "
+                  f"{kv['scale_v_max']:.4g}")
     if m.prefix_cache:
         px = m.prefix_cache
         print(f"[prefix-cache] hit {px['hit_tokens']}/{px['lookup_tokens']} "
@@ -221,8 +239,22 @@ def main(argv: list[str] | None = None) -> dict:
         if args.smoke:
             cfg = C.smoke(cfg)
         params = models.init(cfg, seed=0, device=device)
+        quantize_s = None
+        if ctx.quant_mode == "int8":
+            # quantize once at load: decode streams int8 weights and the
+            # dequantize rides the GEMM epilogue; the f32 projections are
+            # freed with the float tree
+            t0 = time.perf_counter()
+            params = quantize_params(params)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            quantize_s = time.perf_counter() - t0
+            print(f"[quant] int8 weights quantized at load in "
+                  f"{quantize_s:.2f}s")
         if args.engine:
-            return _run_engine(args, ctx, cfg, params, device)
+            res = _run_engine(args, ctx, cfg, params, device)
+            res["quantize_s"] = quantize_s
+            return res
         rng = np.random.default_rng(0)
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, size=(args.batch, args.prompt_len))).to(device)
@@ -242,7 +274,8 @@ def main(argv: list[str] | None = None) -> dict:
         out = out.cpu()  # waits for the device
         dt = time.perf_counter() - t0
         toks = args.batch * args.gen
-        print(f"[serve] arch={cfg.name} hw={ctx.hw.name} device={device} "
+        qtag = f" quant={ctx.quant_mode}" if ctx.quant_mode else ""
+        print(f"[serve] arch={cfg.name}{qtag} hw={ctx.hw.name} device={device} "
               f"generated {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s "
               f"incl. any first-call kernel build)")
         print("first row:", out[0].numpy()[:12], "...")
@@ -257,7 +290,7 @@ def main(argv: list[str] | None = None) -> dict:
                 f"plan warm-up incomplete: {missed} unseen signatures, "
                 f"{lazy} lazy solves during serving")
     return {"tokens": toks, "seconds": dt, "lazy_solves": lazy,
-            "misses": missed, "generated": out}
+            "misses": missed, "generated": out, "quantize_s": quantize_s}
 
 
 if __name__ == "__main__":

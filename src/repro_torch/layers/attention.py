@@ -23,6 +23,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.layers import common as cm
+from repro_torch.quant import int8 as q8
+from repro_torch.quant.kvcache import KVCacheDtype
 
 NEG_INF = -1e30
 
@@ -251,9 +253,7 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
 
 
 class PagedKVCache(NamedTuple):
-    """Block-pool KV cache (port of the reference's ``PagedKVCache``, in the
-    activation dtype: the int8 pool and its scales are ROADMAP queue 1,
-    item 6).
+    """Block-pool KV cache (port of the reference's ``PagedKVCache``).
 
     K/V live in a flat pool of fixed-size token blocks shared by every slot
     lane; a per-slot block table maps logical positions to pool blocks.
@@ -261,24 +261,95 @@ class PagedKVCache(NamedTuple):
     redirected (inactive-lane, pad-position) writes land in it, so every
     write index is in range and every value a gather reads is finite;
     invalid positions are masked to ``NEG_INF`` before softmax.
+
+    With ``kv_dtype=int8`` the pool stores K/V as int8 with per-block,
+    per-kv-head symmetric absmax scales in ``k_scale`` / ``v_scale``:
+    quantized at write time (:func:`_quantized_scatter`), dequantized
+    inside the table-directed gather. ``k_scale is None`` is the
+    activation-dtype pool.
     """
 
     k: torch.Tensor        # (num_blocks, block_size, Hkv, Dh) [(L, ...)]
-    v: torch.Tensor
+    v: torch.Tensor        # activation dtype, or int8
     table: torch.Tensor    # (num_slots, max_blocks) int32 pool-block ids
     length: torch.Tensor   # (num_slots,) int32 tokens written per slot
+    k_scale: torch.Tensor | None = None   # (num_blocks, Hkv) f32, int8 only
+    v_scale: torch.Tensor | None = None   # [(L, ...)]
 
 
 def init_paged_kv_cache(num_slots, num_blocks, block_size, max_blocks,
                         n_kv_heads, head_dim, dtype=torch.bfloat16, *,
-                        device) -> PagedKVCache:
-    shape = (num_blocks, block_size, n_kv_heads, head_dim)
+                        kv_dtype=None, lead=(), device) -> PagedKVCache:
+    """A zeroed pool in ``dtype`` (or int8, with scales of 1.0: a zero
+    block dequantizes to zero at any scale and every scale a gather reads
+    stays finite); ``lead`` prepends stacking dims (the layer axis) to the
+    pool's leaves."""
+    kvd = KVCacheDtype.parse(kv_dtype)
+    shape = (*lead, num_blocks, block_size, n_kv_heads, head_dim)
+    sd = kvd.storage_dtype if kvd.quantized else dtype
+    scales = lambda: (torch.ones((*lead, num_blocks, n_kv_heads),
+                                 dtype=torch.float32, device=device)
+                      if kvd.quantized else None)
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=torch.zeros(shape, dtype=sd, device=device),
+        v=torch.zeros(shape, dtype=sd, device=device),
         table=torch.zeros((num_slots, max_blocks), dtype=torch.int32,
                           device=device),
-        length=torch.zeros((num_slots,), dtype=torch.int32, device=device))
+        length=torch.zeros((num_slots,), dtype=torch.int32, device=device),
+        k_scale=scales(), v_scale=scales())
+
+
+def reset_paged_kv_cache(cache: PagedKVCache) -> None:
+    """Put a pool back to what :func:`init_paged_kv_cache` made, in place
+    (a captured step holds its addresses): zeros, and an int8 pool's
+    scales 1.0."""
+    for t in (cache.k, cache.v, cache.table, cache.length):
+        t.zero_()
+    if cache.k_scale is not None:
+        cache.k_scale.fill_(1.0)
+        cache.v_scale.fill_(1.0)
+
+
+def _pool_gather(cache: PagedKVCache, idx: torch.Tensor, dtype
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K and V of the pool blocks ``idx`` (any shape, each entry a block
+    id), ``(*idx.shape, block_size, Hkv, Dh)``: an int8 pool dequantized to
+    ``dtype``, an activation-dtype pool as it is stored."""
+    if cache.k_scale is None:
+        return cache.k[idx], cache.v[idx]
+    return (q8.dequantize_block(cache.k[idx], cache.k_scale[idx], dtype),
+            q8.dequantize_block(cache.v[idx], cache.v_scale[idx], dtype))
+
+
+def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv) -> None:
+    """Whole-block dequantize, merge and requantize write into the int8
+    pool, in place (the reference's ``_quantized_scatter``).
+
+    ``blk`` (T,) are the touched pool blocks; ``keep_old`` / ``write_new``
+    (T, block_size) mask block offsets; ``newv`` (T, block_size, Hkv, Dh)
+    holds the incoming values at ``write_new`` offsets. Offsets neither
+    kept nor written are zeroed, so a block's scale depends only on the
+    tokens valid in it.
+
+    Distinct lanes own distinct blocks, so duplicate indices only collide
+    on the null block 0 (inactive decode lanes; a chunk's candidates past
+    its blocks). Its content is never validly read by a live lane, but a
+    vacant lane attends to it, and under W8A8 that lane's row enters the
+    per-tensor activation scale every lane shares. A CUDA ``index_put_``
+    with duplicate indices may keep any of them, so each row writes the
+    merged block of the last row bound for the same block: every duplicate
+    carries the same bytes, the write is deterministic (a replayed step
+    equals its eager run on every block, block 0 included), and the result
+    is what the reference's sequential scatter on the CPU keeps.
+    """
+    old = q8.dequantize_block(pool[blk], scales[blk])
+    merged = torch.where(write_new[..., None, None], newv.float(),
+                         torch.where(keep_old[..., None, None], old, 0.0))
+    qblk, qs = q8.quantize_block(merged)
+    rows = torch.arange(blk.shape[0], device=blk.device)
+    last = torch.where(blk[:, None] == blk[None, :], rows, -1).amax(dim=1)
+    pool[blk] = qblk[last]
+    scales[blk] = qs[last]
 
 
 def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
@@ -292,8 +363,12 @@ def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
     ``x`` is (1, C, d), right-padded to the bucket C. The chunk's K/V
     scatter into the slot's blocks at positions start..start+true_len-1;
     pad positions go to (null block, offset 0), and the table index is
-    clamped to the table, so no index leaves the pool. Queries then attend
-    causally to the slot's whole written prefix through the block table.
+    clamped to the table, so no index leaves the pool. An int8 pool
+    rewrites every block the chunk touches whole: at most C // bs + 2
+    consecutive table entries from start // bs, those past the table sent
+    to the null block. Queries then attend causally to the slot's whole
+    written prefix through the block table (an int8 pool dequantized inside
+    the gather, to the activation dtype).
     """
     B, C, _ = x.shape
     if B != 1:
@@ -306,12 +381,24 @@ def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
     valid = ar < true_len
     # (max_blocks,); indexing with the 0-d tensor itself would read it back
     row = cache.table.index_select(0, slot.reshape(1))[0]
-    blk = torch.where(valid, row[torch.clamp(pos // bs, max=mb - 1)], 0)
-    off = torch.where(valid, pos % bs, 0)
-    cache.k[blk, off] = k[0]
-    cache.v[blk, off] = v[0]
-    kr = cache.k[row].reshape(1, mb * bs, n_kv, hd)
-    vr = cache.v[row].reshape(1, mb * bs, n_kv, hd)
+    if cache.k_scale is None:
+        blk = torch.where(valid, row[torch.clamp(pos // bs, max=mb - 1)], 0)
+        off = torch.where(valid, pos % bs, 0)
+        cache.k[blk, off] = k[0]
+        cache.v[blk, off] = v[0]
+    else:
+        cand = start // bs + torch.arange(C // bs + 2, device=x.device)
+        blk = torch.where(cand < mb, row[torch.clamp(cand, max=mb - 1)], 0)
+        bpos = cand[:, None] * bs + torch.arange(bs, device=x.device)
+        write_new = (bpos >= start) & (bpos < start + true_len)
+        keep_old = bpos < start              # earlier chunks' tokens
+        src = torch.clamp(bpos - start, 0, C - 1)
+        _quantized_scatter(cache.k, cache.k_scale, blk, keep_old, write_new,
+                           k[0][src])
+        _quantized_scatter(cache.v, cache.v_scale, blk, keep_old, write_new,
+                           v[0][src])
+    kr, vr = (g.reshape(1, mb * bs, n_kv, hd)
+              for g in _pool_gather(cache, row, q.dtype))
     n_heads = q.shape[2]
     kr = _repeat_kv(kr, n_heads // n_kv)
     vr = _repeat_kv(vr, n_heads // n_kv)
@@ -337,7 +424,9 @@ def paged_decode_attention(p: AttnParams, x: torch.Tensor,
     ``active`` (num_slots,) marks live lanes; an inactive lane's write goes
     to the null block (its table row may name blocks the allocator gave to
     another request). The table index is clamped to the table, as the
-    reference's is. The caller advances the length.
+    reference's is. On an int8 pool each lane rewrites its current block
+    whole: the offsets before the append point kept, the tail past it
+    zeroed. The caller advances the length.
     """
     B, S1, _ = x.shape
     if S1 != 1:
@@ -350,10 +439,18 @@ def paged_decode_attention(p: AttnParams, x: torch.Tensor,
     blk = cache.table[rows, torch.clamp(pos // bs, max=mb - 1)]
     if active is not None:
         blk = torch.where(active.bool(), blk, 0)            # null-block spill
-    cache.k[blk, pos % bs] = k[:, 0]
-    cache.v[blk, pos % bs] = v[:, 0]
-    gk = cache.k[cache.table].reshape(B, mb * bs, n_kv, hd)
-    gv = cache.v[cache.table].reshape(B, mb * bs, n_kv, hd)
+    if cache.k_scale is None:
+        cache.k[blk, pos % bs] = k[:, 0]
+        cache.v[blk, pos % bs] = v[:, 0]
+    else:
+        ar = torch.arange(bs, device=x.device)[None, :]
+        off = (pos % bs)[:, None]
+        for pool, scales, new in ((cache.k, cache.k_scale, k),
+                                  (cache.v, cache.v_scale, v)):
+            _quantized_scatter(pool, scales, blk, ar < off, ar == off,
+                               new[:, 0][:, None].expand(B, bs, n_kv, hd))
+    gk, gv = (g.reshape(B, mb * bs, n_kv, hd)
+              for g in _pool_gather(cache, cache.table, q.dtype))
     kpos = torch.arange(mb * bs, device=x.device)
     valid = kpos[None, :] <= pos[:, None]
     return _decode_contract(p, q, x, gk, gv, valid), cache

@@ -3,8 +3,9 @@ init, the ``dense()`` GEMM wrapper, norms, rotary embeddings.
 
 Every matmul routes through :func:`dense`, which calls
 ``repro_torch.core.gemm.balanced_gemm``: the planned hand-written kernels on
-a CUDA tensor, their plain versions on a CPU tensor. Only the float path is
-ported; int8 weights are a later item (ROADMAP queue 1, item 6).
+a CUDA tensor, their plain versions on a CPU tensor. A pre-quantized weight
+(:class:`QuantizedLinear`) and, under ``quant_mode="int8"``, a float one
+take the W8A8 path of :mod:`repro_torch.layers.quantized`.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.core.context import current_context
 from repro_torch.core.gemm import balanced_gemm
+from repro_torch.quant.int8 import QuantizedLinear
 
 
 def dense(
@@ -26,13 +28,27 @@ def dense(
 ) -> torch.Tensor:
     """x @ w (+bias, +activation) through the balanced-GEMM substrate.
 
-    ``w`` is a float (K, N) weight. A bf16 ``x`` times an f32 ``w`` is
-    promoted to f32 inside the GEMM, as the reference's ``dot_general``
-    does; the result is cast to ``out_dtype`` (default ``x.dtype``).
+    ``w`` is a float (K, N) weight or a pre-quantized
+    :class:`QuantizedLinear` (int8 (N, K) + per-channel scales; the bias,
+    if any, is taken in f32). A float weight under ``quant_mode="int8"``
+    takes the dynamic W8A8 path (re-quantized at every call). Otherwise a
+    bf16 ``x`` times an f32 ``w`` is promoted to f32 inside the GEMM, as
+    the reference's ``dot_general`` does. The result is cast to
+    ``out_dtype`` (default ``x.dtype``).
     """
-    if current_context().quant_mode is not None:
-        raise NotImplementedError("int8 dense is ROADMAP queue 1, item 6")
-    return balanced_gemm(x, w, bias, out_dtype=out_dtype or x.dtype,
+    out_dtype = out_dtype or x.dtype
+    if isinstance(w, QuantizedLinear):
+        from repro_torch.layers import quantized as qz
+
+        if bias is not None:
+            w = w._replace(bias=bias.to(torch.float32))
+        return qz.qdense(x, w, activation=activation, out_dtype=out_dtype)
+    if current_context().quant_mode == "int8" and x.is_floating_point():
+        from repro_torch.layers import quantized as qz
+
+        return qz.dynamic_qdense(x, w, bias, activation=activation,
+                                 out_dtype=out_dtype)
+    return balanced_gemm(x, w, bias, out_dtype=out_dtype,
                          activation=activation)
 
 

@@ -26,10 +26,12 @@ def forward(params, batch: dict[str, Any], cfg: ModelConfig):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       per_slot: bool = False,
                       kv_block_size: int | None = None,
-                      num_kv_blocks: int | None = None, device=None):
+                      num_kv_blocks: int | None = None, kv_dtype=None,
+                      device=None):
     return lm.init_decode_state(cfg, batch, max_len, per_slot=per_slot,
                                 kv_block_size=kv_block_size,
                                 num_kv_blocks=num_kv_blocks,
+                                kv_dtype=kv_dtype,
                                 device=resolve_device(device))
 
 

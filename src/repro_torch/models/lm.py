@@ -24,6 +24,7 @@ from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import rwkv as rwkv_lib
+from repro_torch.quant.kvcache import KVCacheDtype
 
 FAMILIES = ("dense", "rwkv")
 
@@ -157,16 +158,24 @@ def _logits(params, cfg: ModelConfig, h):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       per_slot: bool = False,
                       kv_block_size: int | None = None,
-                      num_kv_blocks: int | None = None, device):
+                      num_kv_blocks: int | None = None, kv_dtype=None,
+                      device):
     """dense: contiguous KV cache (L, B, max_len, Hkv, Dh) in the activation
     dtype with an int32 length, 0-d (one for every row) or, ``per_slot``,
     (B,) (the engine's lanes). ``kv_block_size`` switches the per-slot
     cache to the paged pool: ``num_kv_blocks`` blocks of ``kv_block_size``
     tokens (block 0 the null block) and a (B, ceil(max_len / block))
-    table. rwkv: the WKV state (L, B, H, N, N) f32 and the token shifts
-    (L, B, d) in the activation dtype; ``max_len`` does not bound it."""
+    table. ``kv_dtype`` (a :class:`KVCacheDtype` or its name) ``"int8"``
+    stores the pool in int8 with (L, num_kv_blocks, Hkv) f32 scales of
+    1.0: the paged layout only. rwkv: the WKV state (L, B, H, N, N) f32
+    and the token shifts (L, B, d) in the activation dtype; ``max_len``
+    does not bound it."""
     _check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
+    kvd = KVCacheDtype.parse(kv_dtype)
+    if kvd.quantized and not kv_block_size:
+        raise ValueError(
+            f"kv_dtype={kvd.value} needs the paged layout (kv_block_size)")
     if kv_block_size:
         if cfg.family != "dense":
             raise ValueError(
@@ -177,13 +186,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
             raise ValueError(
                 f"paged KV needs num_kv_blocks >= 2 (block 0 is the null "
                 f"block), got {num_kv_blocks}")
-        kv = attn.init_paged_kv_cache(
+        return {"kv": attn.init_paged_kv_cache(
             batch, num_kv_blocks, kv_block_size, -(-max_len // kv_block_size),
-            cfg.n_kv_heads, cfg.head_dim, cfg.dtype, device=device)
-        shape = (L, *kv.k.shape)
-        return {"kv": kv._replace(
-            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-            v=torch.zeros(shape, dtype=cfg.dtype, device=device))}
+            cfg.n_kv_heads, cfg.head_dim, cfg.dtype, kv_dtype=kvd, lead=(L,),
+            device=device)}
     if cfg.family == "rwkv":
         if per_slot:
             raise ValueError("per-slot decode state needs a KV-cache family, "
@@ -246,6 +252,13 @@ def prefill(params, tokens, cfg: ModelConfig, state, last_pos=None):
     return _logits(params, cfg, h_last)[:, 0], state
 
 
+def _paged_layer(kv: attn.PagedKVCache, i: int) -> attn.PagedKVCache:
+    """Layer ``i``'s views of the stacked pool (and its scales, int8)."""
+    at = lambda t: None if t is None else t[i]
+    return kv._replace(k=kv.k[i], v=kv.v[i], k_scale=at(kv.k_scale),
+                       v_scale=at(kv.v_scale))
+
+
 def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
                   true_len, blocks):
     """One chunked-prefill step into a paged decode state, in place.
@@ -271,11 +284,9 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
-        cache = attn.PagedKVCache(k=kv.k[i], v=kv.v[i], table=kv.table,
-                                  length=kv.length)
         y, _ = attn.paged_prefill_attention(
-            lp["attn"], h, cache, slot=slot, start=start, true_len=true_len,
-            rope_theta=cfg.rope_theta)
+            lp["attn"], h, _paged_layer(kv, i), slot=slot, start=start,
+            true_len=true_len, rope_theta=cfg.rope_theta)
         x = x + y
         x = x + _ffn(cfg, lp, x)
     kv.length.index_copy_(0, lane,
@@ -310,11 +321,9 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
         if paged:
-            cache = attn.PagedKVCache(k=kv.k[i], v=kv.v[i], table=kv.table,
-                                      length=kv.length)
             y, _ = attn.paged_decode_attention(
-                lp["attn"], h, cache, rope_theta=cfg.rope_theta,
-                active=active)
+                lp["attn"], h, _paged_layer(kv, i),
+                rope_theta=cfg.rope_theta, active=active)
         else:
             cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
             y, _ = attn.decode_attention(lp["attn"], h, cache,

@@ -1,0 +1,54 @@
+"""Pre-quantized parameter trees: quantize weights once at load (port of
+``repro.quant.prequant``).
+
+``quantize_params`` walks a parameter tree once and replaces every
+projection weight of the port's containers with a
+:class:`repro_torch.quant.int8.QuantizedLinear` (int8 (N, K) weights and
+per-channel scales), so decode streams int8 weights and the dequantize
+rides the GEMM epilogue. ``layers.common.dense`` dispatches on the leaf
+type, so no model code changes. Biases stay in their own fields; every
+other leaf (embeddings, norms, the unembed, RWKV's LoRA towers and mixing
+coefficients) stays float, and under ``quant_mode="int8"`` a float weight
+takes the dynamic path (re-quantized at every call), as in the reference.
+
+Stacked layer leaves (L, K, N) quantize per layer: each layer gets its own
+per-output-channel scales, as the reference's vmap over the layer axis
+gives. The reference's MoE and Mamba entries come with those families
+(ROADMAP queue 1, item 9); ``quantize_axes`` (the logical-axes transform
+for sharding) has no counterpart in a port without sharding (item 10).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.layers.attention import AttnParams
+from repro_torch.layers.mlp import MlpParams
+from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
+from repro_torch.quant.int8 import quantize_linear
+
+# Which fields of which containers are GEMM projection weights: RWKV
+# time-mix quantizes its five (d, d) stream projections and channel-mix its
+# three; the LoRA mix/decay towers stay float.
+_PROJECTION_FIELDS: dict[type, tuple[str, ...]] = {
+    AttnParams: ("wq", "wk", "wv", "wo"),
+    MlpParams: ("w_in", "w_gate", "w_out"),
+    RwkvTimeMixParams: ("wr", "wk", "wv", "wg", "wo"),
+    RwkvChannelMixParams: ("wk", "wv", "wr"),
+}
+
+
+def quantize_params(params: Any) -> Any:
+    """The tree with every projection weight a ``QuantizedLinear`` (bias
+    None; biases stay where they are). The float projections are no longer
+    referenced by the result, so dropping the input frees them."""
+    def rec(node):
+        fields = _PROJECTION_FIELDS.get(type(node))
+        if fields is not None:
+            return node._replace(**{
+                f: quantize_linear(getattr(node, f))
+                for f in fields if getattr(node, f) is not None})
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        return node
+
+    return rec(params)

@@ -33,8 +33,12 @@ zeroes it in place.
 Sampling is host-side and per-request: greedy at ``temperature=0``, else
 temperature + top-p from a per-request seeded stream.
 
-Not ported yet: speculative lanes (ROADMAP queue 1, item 7), the int8 KV
-pool (item 6), the tracer, registry and attribution ledger (item 8).
+With ``kv_quantize="int8"`` (paged only) the pool stores int8 blocks with
+per-block, per-kv-head scales: about half the bytes a block, so an
+equal-byte budget holds about twice the blocks (``quant.kvcache``).
+
+Not ported yet: speculative lanes (ROADMAP queue 1, item 7), the tracer,
+registry and attribution ledger (item 8).
 """
 from __future__ import annotations
 
@@ -46,8 +50,10 @@ import numpy as np
 import torch
 
 from repro_torch import interop, models
-from repro_torch.configs.base import ModelConfig, dtype_name
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import current_context
+from repro_torch.layers.attention import PagedKVCache, reset_paged_kv_cache
+from repro_torch.quant.kvcache import KVCacheDtype, kv_block_bytes
 from repro_torch.serve.blockpool import BlockPool
 from repro_torch.serve.metrics import EngineMetrics
 from repro_torch.serve.policy import BudgetController, SchedPolicy, get_policy
@@ -68,13 +74,6 @@ def chunk_buckets(chunk: int) -> tuple[int, ...]:
     return tuple(sorted({max(1, chunk // 4), max(1, chunk // 2), chunk}))
 
 
-def kv_block_bytes(cfg: ModelConfig, block_size: int,
-                   dtype: torch.dtype) -> int:
-    """Bytes one pool block holds across the layers, K and V."""
-    return (cfg.n_layers * 2 * block_size * cfg.n_kv_heads * cfg.head_dim
-            * dtype.itemsize)
-
-
 class ServeEngine:
     def __init__(
         self,
@@ -87,6 +86,7 @@ class ServeEngine:
         pad_id: int = 0,
         kv_block_size: int | None = None,
         num_kv_blocks: int | None = None,
+        kv_quantize: str | KVCacheDtype | None = None,
         prefill_chunk: int | None = None,
         prefix_cache: bool = False,
         prefix_cache_blocks: int | None = None,
@@ -116,6 +116,11 @@ class ServeEngine:
         # sequence
         self._now = clock if clock is not None else time.perf_counter
         self.paged = bool(kv_block_size)
+        self.kv_dtype = KVCacheDtype.parse(kv_quantize)
+        if self.kv_dtype.quantized and not self.paged:
+            raise ValueError(
+                "KV quantization stores per-block scales alongside the "
+                "block pool — it needs the paged engine (kv_block_size)")
         if prefix_cache and not self.paged:
             raise ValueError(
                 "the prefix cache shares KV at block granularity — it "
@@ -149,11 +154,18 @@ class ServeEngine:
         self._warmed = False
         self.reset()
 
+    def _block_bytes(self, kv_dtype: KVCacheDtype) -> int:
+        """Bytes of one pool block over the layers (``kv_block_bytes``)."""
+        return kv_block_bytes(self.kv_block_size, self.cfg.n_kv_heads,
+                              self.cfg.head_dim, kv_dtype,
+                              n_layers=self.cfg.n_layers)
+
     def _new_state(self, device) -> dict:
         return models.init_decode_state(
             self.cfg, self.num_slots, self.max_len, per_slot=True,
             kv_block_size=self.kv_block_size,
-            num_kv_blocks=self.num_kv_blocks, device=device)
+            num_kv_blocks=self.num_kv_blocks, kv_dtype=self.kv_dtype,
+            device=device)
 
     def _rel_now(self) -> float:
         """Seconds on the engine clock since the last reset — the time
@@ -162,19 +174,23 @@ class ServeEngine:
 
     # ------------------------------------------------------------ state
     def reset(self) -> None:
-        """Fresh scheduler, metrics and a zeroed state; the captured steps
+        """Fresh scheduler, metrics and a fresh state; the captured steps
         are kept (their graphs hold the state's addresses, so the state is
-        zeroed in place, never reallocated)."""
+        reset in place, never reallocated, to what ``init_decode_state``
+        makes)."""
         ctx = current_context()
         self._t0 = self._now()
         if self.state is None:
             self.state = self._new_state(self.device)
         else:
-            for _, t in interop.tree_items(self.state):
-                t.zero_()
+            for leaf in self.state.values():
+                if isinstance(leaf, PagedKVCache):
+                    reset_paged_kv_cache(leaf)
+                else:
+                    for _, t in interop.tree_items(leaf):
+                        t.zero_()
         pool = (BlockPool(self.num_kv_blocks, self.kv_block_size,
-                          bytes_per_block=kv_block_bytes(
-                              self.cfg, self.kv_block_size, self.cfg.dtype))
+                          bytes_per_block=self._block_bytes(self.kv_dtype))
                 if self.paged else None)
         cache = (PrefixCache(pool, max_cached_blocks=self.prefix_cache_blocks)
                  if self.prefix_cache_enabled else None)
@@ -207,7 +223,7 @@ class ServeEngine:
             engine_info.update(
                 kv_block_size=self.kv_block_size,
                 num_kv_blocks=self.num_kv_blocks,
-                kv_dtype=dtype_name(self.cfg.dtype),
+                kv_dtype=self.kv_dtype.value,
                 prefill_chunk=self.prefill_chunk,
                 chunk_buckets=list(self.chunk_buckets),
                 prefix_cache=self.prefix_cache_enabled,
@@ -460,17 +476,33 @@ class ServeEngine:
         self.metrics.budget = self.budget.stats()
         if self.paged:
             self.metrics.record_kv_cache(
-                kv_dtype=dtype_name(self.cfg.dtype),
+                kv_dtype=self.kv_dtype.value,
                 bytes_per_block=self.sched.pool.bytes_per_block,
                 num_blocks=self.num_kv_blocks,
-                bf16_bytes_per_block=kv_block_bytes(
-                    self.cfg, self.kv_block_size, torch.bfloat16))
+                bf16_bytes_per_block=self._block_bytes(KVCacheDtype.BF16),
+                scale_stats=self._scale_stats())
         if self.sched.prefix_cache is not None:
             self.metrics.record_prefix_cache(self.sched.prefix_cache)
         self.metrics.slo_burn = self.metrics.slo_burn_summary(
             None if self.ttft_target_ms is None
             else self.ttft_target_ms / 1e3)
         return self.metrics
+
+    def _scale_stats(self) -> dict[str, float] | None:
+        """The dequant-error gauges of an int8 pool: a block's worst-case
+        quantization error is scale/2, so the scales' mean and max bound
+        the cache's drift. Blocks never written keep the initial scale of
+        exactly 1.0 (a requantized block's absmax/127 never lands there)
+        and are left out, unless no block was written."""
+        if not self.kv_dtype.quantized:
+            return None
+        out = {}
+        for name in ("k", "v"):
+            s = getattr(self.state["kv"], f"{name}_scale").double().cpu()
+            s = s[s != 1.0] if (s != 1.0).any() else s
+            out[f"scale_{name}_mean"] = float(s.mean())
+            out[f"scale_{name}_max"] = float(s.max())
+        return out
 
     @property
     def finished(self) -> list[RequestState]:

@@ -110,19 +110,25 @@ class EngineMetrics:
         self.block_pool = stats
 
     def record_kv_cache(self, *, kv_dtype: str, bytes_per_block: int,
-                        num_blocks: int, bf16_bytes_per_block: int) -> None:
+                        num_blocks: int, bf16_bytes_per_block: int,
+                        scale_stats: dict[str, Any] | None = None) -> None:
         """KV-cache storage accounting (paged engines; engine.run, once).
-        ``kv_dtype`` is the pool's storage dtype (the activation dtype: the
-        int8 pool is ROADMAP queue 1, item 6); ``bytes_ratio`` is the pool's
-        bytes relative to the same pool stored bf16."""
+        ``kv_dtype`` is the pool's format (``quant.kvcache.KVCacheDtype``);
+        ``bytes_ratio`` is the pool's bytes relative to the same pool
+        stored bf16 (about 0.5 for int8 with its scales). ``scale_stats``
+        (int8 pools) are the dequant-error gauges: the mean and max of the
+        written blocks' scales (a block's worst-case error is scale/2)."""
         self.kv_cache = {
             "kv_dtype": kv_dtype,
-            "quantized": False,
+            "quantized": kv_dtype != "bf16",
             "bytes_per_block": bytes_per_block,
             "pool_bytes": num_blocks * bytes_per_block,
             "bf16_pool_bytes": num_blocks * bf16_bytes_per_block,
-            "bytes_ratio": bytes_per_block / bf16_bytes_per_block,
+            "bytes_ratio": (bytes_per_block / bf16_bytes_per_block
+                            if bf16_bytes_per_block else None),
         }
+        if scale_stats:
+            self.kv_cache.update(scale_stats)
 
     def record_prefix_cache(self, cache) -> None:
         """Snapshot the radix cache's cumulative counters (engine.run calls

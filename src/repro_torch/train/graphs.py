@@ -14,8 +14,9 @@ bucket (the shapes and dtypes of ``inputs``):
 * every later call copies its inputs into the buffers, replays the graph
   and returns the graph's static logits buffer, valid until the next call.
 
-The state tensors are the graph's own buffers, written in place by every
-replay (the steps update their lengths in place): a call with another
+The state tensors (every leaf: an int8 pool's scales as much as its
+blocks) are the graph's own buffers, written in place by every replay (the
+steps update their lengths in place): a call with another
 state or other parameters than the captured ones raises, since the graph
 holds their addresses (and the TMA descriptors encoded from them). On a
 CPU device a call runs the raw step and nothing else.

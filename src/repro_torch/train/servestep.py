@@ -128,7 +128,10 @@ def make_paged_engine_step(cfg: ModelConfig, *, max_len: int,
                            device) -> PagedEngineArtifacts:
     """Step factory for the paged (block-table) engine: the cache is a pool
     of ``num_kv_blocks`` x ``kv_block_size`` tokens (block 0 reserved), and
-    admission prefill is chunked through the block table."""
+    admission prefill is chunked through the block table. The steps take
+    the state the engine allocates (``init_decode_state``: an int8 pool
+    with its scales under ``kv_quantize="int8"``), so one factory serves
+    both pool formats."""
     _check_engine_family(cfg, "paged engine")
     if kv_block_size < 1:
         raise ValueError(f"kv_block_size must be >= 1, got {kv_block_size}")

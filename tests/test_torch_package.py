@@ -1,5 +1,6 @@
 """Package rules of the port: it imports neither jax nor repro, its CLI
 serves on the CPU only when asked to, and it never falls back silently."""
+import json
 import os
 import subprocess
 import sys
@@ -10,8 +11,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 
+# the int8 slice's modules, each of which must be among those imported
+QUANT_MODULES = ["repro_torch.quant", "repro_torch.quant.int8",
+                 "repro_torch.quant.kvcache", "repro_torch.quant.prequant",
+                 "repro_torch.layers.quantized"]
+
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -21,7 +27,7 @@ sys.path.insert(0, {root!r})
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
-print(len(names), bad)
+print(json.dumps([names, bad]))
 """
 
 
@@ -34,9 +40,10 @@ def _run(args, **kw):
 def test_port_imports_neither_jax_nor_repro():
     res = _run([sys.executable, "-c", _IMPORT_ALL.format(root=ROOT)])
     assert res.returncode == 0, res.stderr
-    n, bad = res.stdout.split(maxsplit=1)
-    assert int(n) >= 20
-    assert bad.strip() == "[]"
+    names, bad = json.loads(res.stdout.splitlines()[-1])
+    assert len(names) >= 20
+    assert set(QUANT_MODULES) <= set(names)
+    assert bad == []
 
 
 def test_serve_cli_runs_on_cpu_when_asked():

@@ -4,14 +4,16 @@
   python3 chip_smoke.py            # phases 1-5 and 7; needs one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
 
-Five paths, each at a model's full width and depth with random weights:
+Six paths, each at a model's full width and depth with random weights:
 the static server on qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and
 on rwkv6-3b (RWKV-6; the same two and the WKV kernel), the paged
-continuous-batching engine on qwen1.5-4b, and the W8A8 int8 path
+continuous-batching engine on qwen1.5-4b, the W8A8 int8 path
 (``--quantize int8``: weights quantized once at load, every GEMM int8 x
 int8 on the fat GEMM) through the static server and through the engine
-with an int8 KV pool (``--kv-quantize int8``). Every decode step and
-engine step runs as a captured CUDA graph. Phases, in order; any failure
+with an int8 KV pool (``--kv-quantize int8``), and the engine decoding
+speculatively (``--spec-draft-config qwen1.5-4b --spec-k 4``: an int8
+draft proposes, the float target verifies). Every decode step and engine
+step runs as a captured CUDA graph. Phases, in order; any failure
 ends the run with a non-zero exit:
 
 1. environment: card name and power limit, torch and CUDA versions,
@@ -25,7 +27,8 @@ ends the run with a non-zero exit:
    at that route's rate (int8 inputs at the int8 peak), the GEMV's with
    its K splits, the W8A8 path's int8 x int8 col cases with its
    epilogues at every shape its paths give the fat GEMM (split_k at M <=
-   32, tensor_core_int8 above; held exactly), then a sweep of
+   32, tensor_core_int8 above; held exactly), the speculative engine's
+   verify pass at 40 rows and its int8 draft's admission, then a sweep of
    untimed GEMV cases over every dtype pair, layout, 1..128 rows and both
    routes; 3b: WKV through both wrappers, each case with the slice width,
    blocks and load route its wrapper picks, the path cases at both slice
@@ -45,7 +48,11 @@ ends the run with a non-zero exit:
    stated tolerance (rwkv's 128-token prefill takes the WKV kernel); 5c,
    5d also run the path on the card with the fat GEMM's plain version in
    matmul.cu's place: logits and state equal to the kernel path's bit for
-   bit;
+   bit; 5e: qwen1.5-4b at 2 layers on a paged state after one prefill
+   chunk a lane, ``verify_step`` over k + 1 = 5 tokens against 5 paged
+   decode steps fed the same tokens, on the bf16 and the int8 pool:
+   logits within PATH_TOL (int8 pool: INT8_KV_VERIFY_TOL) and equal
+   lengths;
 6. with ``--profile`` only: each phase 4 path again with everything warm,
    prefill and decode steps timed with CUDA events, then once more under
    ``torch.profiler``: device time by kernel, the fat GEMM's by route, the
@@ -73,7 +80,17 @@ ends the run with a non-zero exit:
    6,553,600 bf16 over 40 layers, the pool's bytes against phase 7's, the
    int8 blocks the same bytes hold, the scale gauges), and the share of
    token positions equal to phase 7's, printed and not gated (near-tie
-   argmaxes flip at full depth with random weights).
+   argmaxes flip at full depth with random weights);
+7c. phase 7's engine with ``--spec-draft-config qwen1.5-4b --spec-k 4``
+   (the draft int8): in-vocab finishes, zero lazy solves and misses,
+   launches equal to the dispatch rule (a verify pass like a tick, a draft
+   step 280 fat GEMMs and 1 GEMV, k + 1 of them a propose step), the
+   speculation section's committed tokens equal to the tokens generated
+   less one a request, and the verify, propose and draft-admit graphs
+   replayed against their eager steps bit for bit; printed: acceptance,
+   tokens a round, a warm rerun's tok/s, TTFT and round time on the card
+   split into propose and verify, peak memory, the tokens equal to phase
+   7's (and with ``--profile`` a traced rerun).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -150,6 +167,30 @@ ENGINE_STEP = {"matmul": 4 * 40, "gemv": 3 * 40 + 1, "wkv": 0}
 # GEMM of a step on the fat GEMM (7 a layer and the dynamic unembed)
 ENGINE_INT8_ARGS = ["--quantize", "int8", "--kv-quantize", "int8"]
 ENGINE_STEP_INT8 = {"matmul": 7 * 40 + 1, "gemv": 0, "wkv": 0}
+# phase 7c: phase 7's engine decoding speculatively, the draft qwen1.5-4b
+# itself (the only config with the target's vocabulary) with int8 weights
+# (--spec-draft-quantize int8, the default); k = 4
+SPEC_K = 4
+# phase 5e on the int8 pool: the verify pass quantizes a block's new tokens
+# at once where decode requantizes the block at every token, so the keys
+# and values differ by up to a scale step besides the routes' summation
+# order. Held to the reference's pin for the int8 pool's storage history
+# (tests/test_paged_kv.py: 0.1); the CPU rehearsal at 2 layers, bf16
+# activations, d_model 64 / 256 / 640 gave 0.052 / 0.044 / 0.036 of
+# (1 + |logit|), the bf16 pool 0 / 0 / 0.019
+INT8_KV_VERIFY_TOL = 0.1
+ENGINE_SPEC_ARGS = ["--spec-draft-config", "qwen1.5-4b", "--spec-k",
+                    str(SPEC_K)]
+# launches of its steps: the verify pass at 8 x 5 = 40 rows takes the fat
+# GEMM and the GEMV like a tick (q, k, v (bias) and gate (silu) fat; wo,
+# w_in, w_out and the unembed GEMV at M = 40); a draft step (its
+# admission's prefill of 128 tokens and each of the propose step's k + 1
+# decodes) runs every projection on the fat GEMM (W8A8, out_scale) and its
+# float unembed on the GEMV
+DRAFT_STEP = {"matmul": 7 * 40, "gemv": 1, "wkv": 0}
+SPEC_RULE = {"spec-verify": ENGINE_STEP, "admit": DRAFT_STEP,
+             "spec-draft": {k: (SPEC_K + 1) * n
+                            for k, n in DRAFT_STEP.items()}}
 # qwen1.5-4b's pool block of 16 tokens over 40 layers, K and V: 20 kv heads
 # x 128 at 2 bytes (bf16), or at 1 byte plus 2 x 20 f32 scales (int8)
 BF16_BLOCK_BYTES = 40 * 2 * 16 * 20 * 128 * 2
@@ -313,6 +354,18 @@ CASES = [
     Case("chunk w_in B=64", "gemv", 64, 2560, 6912),
     Case("chunk w_in B=128", "gemv", 128, 2560, 6912),
     Case("chunk w_out B=128", "gemv", 128, 6912, 2560),
+    # speculation (phase 7c): the target's verify pass at 8 lanes x (k + 1
+    # = 5) rows, and the draft admission's last-token unembed
+    Case("verify q/k/v + bias M=40", "matmul", 40, 2560, 2560, bias=True),
+    Case("verify gate + silu M=40", "matmul", 40, 2560, 6912,
+         activation="silu"),
+    Case("verify wo B=40", "gemv", 40, 2560, 2560),
+    Case("verify w_in B=40", "gemv", 40, 2560, 6912),
+    Case("verify w_out B=40", "gemv", 40, 6912, 2560),
+    Case("verify unembed B=40 f32 out", "gemv", 40, 2560, 151936,
+         out_dtype="float32"),
+    Case("draft admit unembed B=1 f32 out", "gemv", 1, 2560, 151936,
+         out_dtype="float32"),
 ] + [
     # the W8A8 path (--quantize int8): int8 x int8, B (N, K), out_scale
     # s_x * s_w; every shape a path gives split_k (static decode M = 4,
@@ -338,6 +391,12 @@ CASES = [
         ("prefill w_out", 512, 6912, 2560, "bfloat16", False, None),
         ("chunk q/k/v + bias M=64", 64, 2560, 2560, "bfloat16", True, None),
         ("chunk q/k/v + bias M=128", 128, 2560, 2560, "bfloat16", True,
+         None),
+        # the int8 draft's admission (phase 7c): its prompt of 128 in one
+        # shot
+        ("draft admit gate + silu M=128", 128, 2560, 6912, "bfloat16", False,
+         "silu"),
+        ("draft admit w_out M=128", 128, 6912, 2560, "bfloat16", False,
          None),
         ("rwkv w_lora_a (dynamic)", 512, 2560, 32, "bfloat16", False, None),
         ("rwkv w_lora_b (dynamic)", 512, 32, 2560, "bfloat16", False, None),
@@ -981,6 +1040,75 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False
     _free(torch)
 
 
+def verify_vs_decode(torch) -> None:
+    """Phase 5e: the target's verify pass (k + 1 tokens a lane in one
+    step) against k + 1 paged decode steps fed the same tokens, from copies
+    of one paged state, on the bf16 and the int8 pool. On the card the two
+    take other routes (verify: 40 rows, the fat GEMM's tensor_core and the
+    GEMV at B = 40; decode: 8 rows, split_k and the GEMV at B = 8), so they
+    differ by summation order and are held to PATH_TOL; on the int8 pool
+    to INT8_KV_VERIFY_TOL (see there)."""
+    import numpy as np
+
+    from repro_torch import configs as C
+    from repro_torch import models
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+
+    phase(f"5e verify_step over k + 1 = {SPEC_K + 1} tokens against "
+          f"{SPEC_K + 1} paged decode steps (card), qwen1.5-4b, 2 layers, "
+          "full width, bf16 and int8 pools")
+    cfg = dataclasses.replace(C.get_config("qwen1.5-4b"), n_layers=2)
+    V = cfg.vocab_size
+    params = _params(torch, cfg, False, seed=2)
+    lanes, bs = 8, 16
+    max_len = PROMPT + GEN + 1
+    mb = -(-max_len // bs)
+    dev = lambda x: torch.as_tensor(np.asarray(x), device="cuda")
+    for kv_dtype, tol in (("bf16", PATH_TOL), ("int8", INT8_KV_VERIFY_TOL)):
+        rng = np.random.default_rng(2)
+        with use_context(plan_cache=PlanCache()):
+            state = models.init_decode_state(
+                cfg, lanes, max_len, per_slot=True, kv_block_size=bs,
+                num_kv_blocks=lanes * mb + 1, device="cuda",
+                kv_dtype=None if kv_dtype == "bf16" else kv_dtype)
+            # one prefill chunk a lane (prompts of 128, 64 and 96); the
+            # last lane stays vacant
+            for lane in range(lanes - 1):
+                n = (PROMPT, PROMPT // 2, 3 * PROMPT // 4)[lane % 3]
+                models.prefill_chunk(
+                    params, dev(rng.integers(0, V, (1, PROMPT))), cfg, state,
+                    slot=dev(lane), start=dev(0), true_len=dev(n),
+                    blocks=dev(1 + lane * mb + np.arange(mb)))
+            seq = _clone(state)
+            toks = rng.integers(0, V, (lanes, SPEC_K + 1))
+            active = dev([1] * (lanes - 1) + [0])
+            ver, _ = models.verify_step(params, dev(toks), cfg, state,
+                                        active=active)
+            dec = torch.stack([models.decode_step(
+                params, dev(toks[:, i:i + 1]), cfg, seq, active=active)[0]
+                for i in range(SPEC_K + 1)], dim=1)
+        torch.cuda.synchronize()
+        ver, dec = ver[:lanes - 1, :, :V].cpu(), dec[:lanes - 1, :, :V].cpu()
+        scaled = (ver - dec).abs() / (1 + dec.abs())
+        worst = np.unravel_index(int(scaled.argmax()), tuple(scaled.shape))
+        same = (ver.argmax(-1) == dec.argmax(-1)).float().mean().item()
+        lengths = state["kv"].length.tolist()
+        print(f"{kv_dtype} pool: max |verify - decode| / (1 + |decode|) = "
+              f"{scaled.max().item():.4g} (tol {tol}) at (lane, "
+              f"position, token) {tuple(int(i) for i in worst)}: verify "
+              f"{ver[worst].item():.6g} decode {dec[worst].item():.6g}; "
+              f"greedy tokens equal at {same:.3f} of positions; lengths "
+              f"{lengths} == {seq['kv'].length.tolist()}", flush=True)
+        if not scaled.max().item() <= tol or \
+                lengths != seq["kv"].length.tolist():
+            raise SystemExit(f"5e: verify differs from sequential decode "
+                             f"on the {kv_dtype} pool")
+        del state, seq, ver, dec
+    del params
+    _free(torch)
+
+
 # ------------------------------------------------------------ phase 6
 def _traced(torch, fn) -> tuple[list, object, float]:
     """Run ``fn`` once under ``torch.profiler``: (device rows (self device
@@ -1288,6 +1416,49 @@ def _kv_cache_check(m, engine, bf16: EngineRun | None) -> None:
                          f"(phase 7's pool: {bf16.pool_bytes} bytes)")
 
 
+def _report(tag, met, step: str = "", step_ms=None) -> None:
+    """One engine run's throughput, TTFT, ticks and pool peak, and the
+    card's time of one kind of step where it was timed."""
+    slo = met.slo_summary()["0"]
+    bp = met.block_pool
+    print(f"{tag}: {met.generated_tokens} tokens in {met.wall_s:.3f}s ="
+          f" {met.tokens_per_sec:.1f} tok/s; TTFT p50 "
+          f"{1e3 * slo['p50_ttft_s']:.1f} ms, p99 "
+          f"{1e3 * slo['p99_ttft_s']:.1f} ms; {met.ticks} ticks "
+          f"({1e3 * met.wall_s / met.ticks:.2f} ms a tick on the host "
+          f"clock), {met.admissions} admissions, pool peak "
+          f"{bp['peak_in_use']}/{bp['num_blocks'] - 1} blocks"
+          + ("" if not step_ms else
+             f"; {step} on the card {_spread(step_ms)}"), flush=True)
+
+
+def _traced_rerun(torch, engine, requests) -> None:
+    """The engine's trace once more under ``torch.profiler``: the idle
+    share of the card and its device time by kernel."""
+    engine.reset()
+    rows, _, twall = _traced(torch, lambda: engine.run(requests()))
+    busy, idle = _busy(rows, twall)
+    print(f"traced rerun: wall {twall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {idle:.3f}")
+    busy_us = sum(r[0] for r in rows)
+    for t, n, key in sorted(rows, reverse=True)[:10]:
+        if t:
+            print(f"  {t / 1e3:9.2f} ms {100 * t / busy_us:5.1f}% "
+                  f"x{n:<5d} {key[:90]}")
+
+
+def _same_tokens(base: dict, tokens: dict) -> str:
+    """The share of positions and of whole streams equal to another run's
+    (information, not a gate: at full depth with random weights near-tie
+    argmaxes flip between routes, and a flip forks the rest of the
+    stream)."""
+    total = sum(len(t) for t in base.values())
+    match = sum(a == b for k, t in base.items() for a, b in zip(t, tokens[k]))
+    return (f"{match}/{total} positions ({match / total:.3f}); streams "
+            f"equal {sum(base[k] == tokens[k] for k in tokens)}/"
+            f"{len(tokens)}")
+
+
 def run_engine(torch, profile: bool, bf16: EngineRun | None = None
                ) -> EngineRun:
     """Phase 7, or with ``bf16`` (phase 7's run) phase 7b: the same engine
@@ -1333,21 +1504,7 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
         raise SystemExit(f"engine: {len(done)} of {len(trace)} requests "
                          "finished, or a bad token id")
 
-    def report(tag, met, ticks_ms=None):
-        slo = met.slo_summary()["0"]
-        bp = met.block_pool
-        print(f"{tag}: {met.generated_tokens} tokens in {met.wall_s:.3f}s ="
-              f" {met.tokens_per_sec:.1f} tok/s; TTFT p50 "
-              f"{1e3 * slo['p50_ttft_s']:.1f} ms, p99 "
-              f"{1e3 * slo['p99_ttft_s']:.1f} ms; {met.ticks} ticks "
-              f"({1e3 * met.wall_s / met.ticks:.2f} ms a tick on the host "
-              f"clock), {met.admissions} admissions, pool peak "
-              f"{bp['peak_in_use']}/{bp['num_blocks'] - 1} blocks"
-              + ("" if not ticks_ms else
-                 f"; decode tick on the card {_spread(ticks_ms)}"),
-              flush=True)
-
-    report(f"first run (graphs captured in it; {wall:.1f}s with init and "
+    _report(f"first run (graphs captured in it; {wall:.1f}s with init and "
            "warm-up)", m)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB" + ("" if res["quantize_s"] is None else
@@ -1355,15 +1512,8 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
     tokens = {st.request.prompt.tobytes(): st.tokens for st in done}
     if quant:
         _kv_cache_check(m, engine, bf16)
-        # information, not a gate: at full depth with random weights
-        # near-tie argmaxes flip, and a flip forks the rest of the stream
-        total = sum(len(t) for t in bf16.tokens.values())
-        match = sum(a == b for k, t in bf16.tokens.items()
-                    for a, b in zip(t, tokens[k]))
-        print(f"tokens equal to phase 7's bf16 engine at {match}/{total} "
-              f"positions ({match / total:.3f}); streams equal "
-              f"{sum(bf16.tokens[k] == tokens[k] for k in tokens)}/"
-              f"{len(tokens)}")
+        print("tokens equal to phase 7's bf16 engine at "
+              + _same_tokens(bf16.tokens, tokens))
 
     # the reruns and checks under the run's context (its warm plans)
     with use_context(res["context"]):
@@ -1390,22 +1540,14 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
         engine.art.decode_fn = decode
         counts2 = graphs.launches()
         want2 = _engine_rule(engine.dispatches, quant)
-        report("warm rerun", m2, [a.elapsed_time(b) for a, b in marks])
+        _report("warm rerun", m2, "decode tick",
+                [a.elapsed_time(b) for a, b in marks])
         if counts2 != want2 or m2.plan_cache["lazy_solves"] or \
                 m2.plan_cache["misses"]:
             raise SystemExit(f"warm rerun: launches {counts2} (rule {want2}), "
                              f"plan cache {m2.plan_cache}")
         if profile:
-            engine.reset()
-            rows, _, twall = _traced(torch, lambda: engine.run(again()))
-            busy, idle = _busy(rows, twall)
-            print(f"traced rerun: wall {twall * 1e3:.1f} ms, device busy "
-                  f"{busy:.1f} ms, idle share {idle:.3f}")
-            busy_us = sum(r[0] for r in rows)
-            for t, n, key in sorted(rows, reverse=True)[:10]:
-                if t:
-                    print(f"  {t / 1e3:9.2f} ms {100 * t / busy_us:5.1f}% "
-                          f"x{n:<5d} {key[:90]}")
+            _traced_rerun(torch, engine, again)
 
         # replay against eager, bit for bit: a decode tick with every lane live
         # on distinct blocks, and one chunk of each bucket into lane 0 (one pad
@@ -1435,6 +1577,182 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
     del res, engine, m, m2, art, kv
     _free(torch)
     return EngineRun(counts, tokens, pool_bytes)
+
+
+def run_spec_engine(torch, profile: bool, bf16: EngineRun) -> dict:
+    """Phase 7c: phase 7's engine decoding speculatively (an int8
+    qwen1.5-4b draft proposing k = 4 tokens a lane, the float target
+    verifying them). Gated: every request finishes with in-vocab ids, zero
+    lazy solves and misses, launches equal to the dispatch rule for the
+    steps that ran, the speculation section's committed tokens equal to
+    the tokens generated less each request's first, and the verify,
+    propose and draft-admit graphs each replayed once against their eager
+    step from one state, bit for bit. Printed: acceptance, tokens a round,
+    the round's card time split into propose and verify, tok/s and TTFT
+    of a warm rerun, peak memory, and the tokens equal to phase 7's."""
+    import numpy as np
+
+    from repro_torch.core.context import use_context
+    from repro_torch.launch import serve
+    from repro_torch.serve import Request
+    from repro_torch.train import graphs
+
+    args = ENGINE_ARGS + ENGINE_SPEC_ARGS
+    phase("7c speculative engine path: repro_torch.launch.serve "
+          + " ".join(a if a else "''" for a in args)
+          + " (full width and depth; the draft int8)")
+    torch.cuda.reset_peak_memory_stats()
+    graphs.reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(args)
+    wall = time.perf_counter() - t0
+    counts = graphs.launches()
+    replayed = dict(graphs.replayed)
+    engine, m, trace = res["engine"], res["metrics"], res["trace"]
+    cfg, art = engine.cfg, engine.spec_art
+
+    def rule(dispatches) -> dict[str, int]:
+        out = dict.fromkeys(ENGINE_STEP, 0)
+        for name, n in dispatches.items():
+            for k, per in SPEC_RULE.get(name, ENGINE_STEP).items():
+                out[k] += n * per
+        return out
+
+    want = rule(engine.dispatches)
+    print(f"steps {dict(engine.dispatches)}; launches {counts}, of which "
+          f"graph replays {replayed} (rule: {want}); graphs captured: "
+          f"verify {len(art.verify_fn.graphs)}, propose "
+          f"{len(art.propose_fn.graphs)}, draft admit "
+          f"{len(art.draft_admit_fn.graphs)}, prefill chunk "
+          f"{len(engine.art.prefill_fn.graphs)}")
+    if res["lazy_solves"] or res["misses"]:
+        raise SystemExit(f"speculative engine serving was not plan-warm: "
+                         f"{m.plan_cache}")
+    if counts != want:
+        raise SystemExit(f"speculative engine launch counts {counts} differ "
+                         f"from the dispatch rule's {want}")
+    done = engine.finished
+    if len(done) != len(trace) or not all(
+            st.finish_reason == "length"
+            and len(st.tokens) == st.request.budget(engine.max_len)
+            and all(0 <= t < cfg.vocab_size for t in st.tokens)
+            for st in done):
+        raise SystemExit(f"7c: {len(done)} of {len(trace)} requests "
+                         "finished, or a bad token id")
+    sp = m.speculation
+    print(f"speculation: {sp['rounds']} rounds, accepted "
+          f"{sp['accepted_tokens']}/{sp['proposed_tokens']} proposals "
+          f"(acceptance rate {sp['acceptance_rate']:.4f}), "
+          f"{sp['mean_committed_per_round']:.3f} tokens committed a lane "
+          f"a round, {sp['bonus_tokens']} bonus tokens; draft_s "
+          f"{sp['draft_s']:.3f} verify_s {sp['verify_s']:.3f} (host clock, "
+          "first run)")
+    if sp["committed_tokens"] != m.generated_tokens - len(trace):
+        raise SystemExit(f"7c: committed_tokens {sp['committed_tokens']} != "
+                         f"generated {m.generated_tokens} - requests "
+                         f"{len(trace)}")
+    _report(f"first run (graphs captured in it; {wall:.1f}s with init, "
+            "the draft's quantization and warm-up)", m)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB (target f32 weights, int8 draft, both states)")
+    tokens = {st.request.prompt.tobytes(): st.tokens for st in done}
+    print("tokens equal to phase 7's engine at "
+          + _same_tokens(bf16.tokens, tokens))
+
+    with use_context(res["context"]):
+        again = lambda: [Request(prompt=r.prompt,
+                                 max_new_tokens=r.max_new_tokens)
+                         for r in trace]
+        steps = {"propose": art.propose_fn, "verify": art.verify_fn}
+        marks = {name: [] for name in steps}
+
+        def timed(name):
+            def call(*a):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = steps[name](*a)
+                ev[1].record()
+                marks[name].append(ev)
+                return out
+            return call
+
+        art.propose_fn, art.verify_fn = timed("propose"), timed("verify")
+        engine.reset()
+        graphs.reset_launches()
+        m2 = engine.run(again())
+        art.propose_fn, art.verify_fn = steps["propose"], steps["verify"]
+        counts2, want2 = graphs.launches(), rule(engine.dispatches)
+        ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in marks.items()}
+        rounds = [p + v for p, v in zip(ms["propose"], ms["verify"])]
+        _report("warm rerun", m2, "round (propose + verify)", rounds)
+        sp2 = m2.speculation
+        print(f"warm rerun round on the card: propose {_spread(ms['propose'])}"
+              f", verify {_spread(ms['verify'])}; host clock draft_s "
+              f"{sp2['draft_s']:.3f} verify_s {sp2['verify_s']:.3f} over "
+              f"{sp2['rounds']} lane-rounds ({len(rounds)} rounds)",
+              flush=True)
+        if counts2 != want2 or m2.plan_cache["lazy_solves"] or \
+                m2.plan_cache["misses"]:
+            raise SystemExit(f"7c warm rerun: launches {counts2} (rule "
+                             f"{want2}), plan cache {m2.plan_cache}")
+        # the host's share of a round after the verify pass: the (lanes,
+        # k + 1, Vp) f32 logits brought to the host (inside verify_s), then
+        # greedy_rows lane by lane (after it), on the host clock
+        from repro_torch.serve import spec as spec_lib
+
+        logits = torch.randn((engine.num_slots, SPEC_K + 1, cfg.padded_vocab),
+                             device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = logits.cpu().numpy()
+        t1 = time.perf_counter()
+        for row in host:
+            spec_lib.greedy_rows(row, cfg.vocab_size)
+        t2 = time.perf_counter()
+        print(f"host side of a round: {host.nbytes / 1e6:.1f} MB of logits "
+              f"to the host {1e3 * (t1 - t0):.2f} ms, greedy_rows over "
+              f"{len(host)} lanes {1e3 * (t2 - t1):.2f} ms (host clock)")
+        del logits, host
+        if profile:
+            _traced_rerun(torch, engine, again)
+
+        # replay against eager, bit for bit: the verify pass with lanes
+        # near their table's end (windows run onto the null-padded entry,
+        # so the null block takes duplicate writes) and one vacant lane;
+        # the propose step with two lanes catching up; a draft admission
+        print("replayed steps against the same steps run eagerly:")
+        kv = engine.state["kv"]
+        lanes, bs = engine.num_slots, engine.kv_block_size
+        per = (engine.num_kv_blocks - 1) // lanes
+        table = np.zeros((lanes, engine.art.max_blocks), np.int32)
+        for s_ in range(lanes):
+            table[s_, :per] = 1 + s_ * per + np.arange(per)
+        kv.table.copy_(torch.from_numpy(table))
+        kv.length.copy_(torch.arange(per * bs - 1, per * bs - 1 - lanes, -1,
+                                     dtype=torch.int32))
+        rng = np.random.default_rng(9)
+        live = np.array([1] * (lanes - 1) + [0], np.int64)
+        replay_vs_eager(torch, f"verify ({lanes} lanes x {SPEC_K + 1})",
+                        art.verify_fn, art.verify_raw, engine.params,
+                        engine.state,
+                        rng.integers(0, cfg.vocab_size, (lanes, SPEC_K + 1)),
+                        live)
+        engine.draft_state["kv"].length.copy_(
+            torch.arange(100, 100 + lanes, dtype=torch.int32))
+        replay_vs_eager(torch, f"propose (k = {SPEC_K})", art.propose_fn,
+                        art.propose_raw, engine.spec_draft_params,
+                        engine.draft_state,
+                        rng.integers(0, cfg.vocab_size, (lanes, 1)),
+                        np.arange(lanes) % 2,
+                        rng.integers(0, cfg.vocab_size, (lanes, 1)), live)
+        prompt = rng.integers(0, cfg.vocab_size, (1, engine.prompt_pad))
+        replay_vs_eager(torch, "draft admit", art.draft_admit_fn,
+                        art.draft_admit_raw, engine.spec_draft_params,
+                        engine.draft_state, prompt, 3, 100)
+    del res, engine, m, m2, art, kv
+    _free(torch)
+    return counts
 
 
 def main() -> int:
@@ -1468,6 +1786,7 @@ def main() -> int:
     static_steps(torch, "qwen1.5-4b", "4c", quant=True)
     kernel_vs_plain(torch, "qwen1.5-4b", "5c", quant=True)
     kernel_vs_plain(torch, "rwkv6-3b", "5d", quant=True)
+    verify_vs_decode(torch)
     if profile:
         profile_path(torch, "qwen1.5-4b", "6a")
         profile_path(torch, "rwkv6-3b", "6b")
@@ -1475,6 +1794,7 @@ def main() -> int:
     bf16 = run_engine(torch, profile)
     counts["qwen1.5-4b engine"] = bf16.counts
     counts["qwen1.5-4b int8 engine"] = run_engine(torch, profile, bf16).counts
+    counts["qwen1.5-4b spec engine"] = run_spec_engine(torch, profile, bf16)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

@@ -1,7 +1,7 @@
 """Shared launcher arguments (port of ``repro.launch.args``): the context
 layer (``--hw``, ``--quantize``, ``--plan-cache``, ``--device``) and the
 serving-engine layer (``--engine`` and what it honours, ``--kv-quantize``
-included).
+and speculative decoding's ``--spec-*`` included).
 
 ``--hw`` defaults to ``$REPRO_TORCH_HW``, else ``h100``; ``--plan-cache ''``
 keeps plans in memory only; ``--device`` defaults to ``cuda`` (there is no
@@ -42,9 +42,8 @@ def add_context_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
 def add_serve_engine_args(ap: argparse.ArgumentParser
                           ) -> argparse.ArgumentParser:
     """The serving-engine layer: only the flags this port honours. The
-    reference's ``--spec-*`` (ROADMAP queue 1, item 7) and tracer /
-    registry / auditor flags (item 8) are not defined, so argparse rejects
-    them."""
+    reference's tracer / registry / auditor flags (ROADMAP queue 1, item 8)
+    are not defined, so argparse rejects them."""
     g = ap.add_argument_group("serving engine")
     g.add_argument(
         "--engine", action="store_true",
@@ -123,6 +122,20 @@ def add_serve_engine_args(ap: argparse.ArgumentParser
     g.add_argument(
         "--top-p", type=float, default=1.0, metavar="P",
         help="nucleus sampling mass (with --temperature > 0)")
+    g.add_argument(
+        "--spec-draft-config", default=None, metavar="ARCH",
+        help="enable speculative decoding: draft-model architecture "
+             "(repro_torch.configs name) that proposes tokens for the target "
+             "to verify in one batched pass (paged engine, greedy only; "
+             "--smoke shrinks the draft alongside the target)")
+    g.add_argument(
+        "--spec-k", type=int, default=4, metavar="K",
+        help="speculation depth: the draft proposes K tokens a lane a "
+             "round, the target verifies K+1 positions (default 4)")
+    g.add_argument(
+        "--spec-draft-quantize", default="int8", choices=["none", "int8"],
+        help="quantize the draft's weights once at load (the --quantize "
+             "int8 recipe; default int8: the draft exists to be cheap)")
     g.add_argument(
         "--metrics-json", default=None, metavar="PATH",
         help="write the engine's serve metrics JSON here")

@@ -22,6 +22,13 @@ CUDA graph (``train.servestep``).
       --kv-block-size 4 --device cpu --metrics-json serve.json
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --quantize int8 --kv-quantize int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
+      --kv-block-size 4 --device cpu --spec-draft-config qwen1.5-4b
+
+With ``--spec-draft-config`` the engine decodes speculatively: the draft
+(built from seed 0 like the target, shrunk with it under ``--smoke``, and
+quantized to int8 at load unless ``--spec-draft-quantize none``) proposes
+``--spec-k`` tokens a lane a round and the target verifies them.
 """
 from __future__ import annotations
 
@@ -102,6 +109,25 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
     if args.kv_quantize != "none" and not args.kv_block_size:
         raise SystemExit("--kv-quantize stores per-block scales alongside "
                          "the block pool: pass --kv-block-size too")
+    spec_kwargs = {}
+    if args.spec_draft_config:
+        if not args.kv_block_size:
+            raise SystemExit("--spec-draft-config needs the paged engine: "
+                             "pass --kv-block-size too")
+        if args.temperature > 0:
+            raise SystemExit("speculative decoding verifies greedy argmax "
+                             "chains: --temperature must be 0")
+        dcfg = C.get_config(args.spec_draft_config)
+        if args.smoke:
+            dcfg = C.smoke(dcfg)
+        dparams = models.init(dcfg, seed=0, device=device)
+        dquant = None
+        if args.spec_draft_quantize == "int8":
+            # the target's --quantize recipe, once at load
+            dparams = quantize_params(dparams)
+            dquant = "int8"
+        spec_kwargs = dict(spec_draft_cfg=dcfg, spec_draft_params=dparams,
+                           spec_k=args.spec_k, spec_draft_quant=dquant)
     gen = args.max_new_tokens or args.gen
     plen = args.prompt_len
     stop = (args.eos_id,) if args.eos_id is not None else ()
@@ -150,7 +176,8 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
         temperature=args.temperature, top_p=args.top_p,
         sched_policy=args.sched_policy, ttft_target_ms=args.ttft_target_ms,
         max_prefill_chunks=args.max_prefill_chunks,
-        clock=SimClock(args.sim_clock) if args.sim_clock else None)
+        clock=SimClock(args.sim_clock) if args.sim_clock else None,
+        **spec_kwargs)
     if not args.no_warmup:
         t0 = time.perf_counter()
         warm = engine.plan_warmup()
@@ -186,6 +213,17 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
                   f"({kv['bytes_ratio']:.3f}x; {kv['bytes_per_block']} bytes "
                   f"a block), scale max k {kv['scale_k_max']:.4g} v "
                   f"{kv['scale_v_max']:.4g}")
+    pc = m.plan_cache
+    if m.speculation["enabled"]:
+        sp = m.speculation
+        print(f"[spec] draft={sp['draft_arch']}"
+              + (f"({sp['draft_quant']})" if sp["draft_quant"] else "")
+              + f" k={sp['spec_k']}: {sp['rounds']} rounds, accepted "
+              f"{sp['accepted_tokens']}/{sp['proposed_tokens']} proposals "
+              f"({sp['acceptance_rate']:.2f}), "
+              f"{sp['mean_committed_per_round']:.2f} tokens/round, "
+              f"draft {sp['draft_s']:.2f}s / verify {sp['verify_s']:.2f}s, "
+              f"lazy_solves={pc['lazy_solves']}")
     if m.prefix_cache:
         px = m.prefix_cache
         print(f"[prefix-cache] hit {px['hit_tokens']}/{px['lookup_tokens']} "
@@ -196,7 +234,6 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
         print(f"[sched] policy={m.policy} preemptions={m.preemptions} "
               f"resumes={m.resumes} deadline_missed={m.deadline_missed} "
               f"deferred={m.deferred_admissions}")
-    pc = m.plan_cache
     print(f"[plan-cache] serving: hits={pc['hits']} misses={pc['misses']} "
           f"lazy_solves={pc['lazy_solves']} "
           f"steady_state={pc['steady_state']}")

@@ -1,6 +1,7 @@
 """GQA self-attention for training, prefill and decode, with a contiguous
 KV cache (static batching and the engine's per-slot lanes) or a paged
-block pool (port of ``repro/layers/attention.py:26-582``).
+block pool, and the speculative verify pass over it (port of
+``repro/layers/attention.py:26-690``).
 
 Attention itself stays in plain torch ops, as the reference keeps it in
 plain XLA code (no Pallas kernel); the q/k/v/o projections route through
@@ -188,19 +189,22 @@ def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
 
 
 def _decode_contract(p: AttnParams, q, x, gk, gv, valid) -> torch.Tensor:
-    """The masked single-query contraction of every decode path: q
-    (B, 1, H, Dh) against the (B, S, Hkv, Dh) keys and values in the
-    cache's storage dtype, accumulated in f32; ``valid`` (B, S)."""
-    B = x.shape[0]
+    """The masked contraction of every decode path and of the verify pass:
+    q (B, S, H, Dh) against the (B, K, Hkv, Dh) keys and values in the
+    cache's storage dtype, accumulated in f32; ``valid`` (B, K) for one
+    query a row (decode), (B, S, K) for S (verify)."""
+    B, S = x.shape[:2]
     n_heads, n_kv = q.shape[2], gk.shape[2]
     kr = _repeat_kv(gk, n_heads // n_kv)
     vr = _repeat_kv(gv, n_heads // n_kv)
     s = torch.einsum("bqhd,bkhd->bhqk",
                      _scaled(q).to(kr.dtype).float(), kr.float())
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    if valid.dim() == 2:
+        valid = valid[:, None, :]
+    s = torch.where(valid[:, None], s, NEG_INF)
     prob = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", prob.to(vr.dtype).float(), vr.float())
-    return cm.dense(o.reshape(B, 1, -1).to(x.dtype), p.wo)
+    return cm.dense(o.reshape(B, S, -1).to(x.dtype), p.wo)
 
 
 def _qkv_rotary(p: AttnParams, x, n_kv: int, hd: int, positions,
@@ -352,6 +356,69 @@ def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv) -> None:
     scales[blk] = qs[last]
 
 
+def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int
+                ) -> None:
+    """Write the K/V of W consecutive positions a lane into the pool, in
+    place: the one pool write of prefill, decode and verify, for both
+    formats.
+
+    ``k``, ``v`` (B, W, Hkv, Dh) hold lane b's values at positions
+    ``start[b] + j``; the first ``n`` (0-d or (B,)) are real, the rest
+    padding. ``row`` (B, max_blocks) are the lanes' table rows, ``spill``
+    (B,) bool or None marks lanes whose writes go to the null block
+    (inactive lanes: a vacant lane's row may name blocks the allocator gave
+    to another request). Positions and blocks past the table go to the
+    null block too: a verify window near a lane's budget runs past
+    ``max_len``, and a clamped index would alias the last owned block.
+
+    Activation-dtype pool: each real position goes to (its block, offset),
+    each pad position to (null block, offset 0). Duplicate destinations
+    (all in block 0) carry the last such row's value, so a CUDA
+    ``index_put_``, which may keep any of them, writes deterministic bytes
+    (a replayed step equals its eager run, block 0 included) and keeps what
+    the reference's sequential scatter on the CPU keeps.
+
+    int8 pool: ``span`` consecutive table entries from ``start // bs`` are
+    rewritten whole (:func:`_quantized_scatter`): offsets before ``start``
+    kept, the window's real positions written, the rest zeroed.
+    """
+    B, W = k.shape[:2]
+    bs = cache.k.shape[1]
+    mb = row.shape[1]
+    dev = k.device
+    start = start.reshape(-1, 1)                         # (B or 1, 1)
+    end = start + (n.reshape(-1, 1) if isinstance(n, torch.Tensor) else n)
+    lanes = torch.arange(B, device=dev)[:, None]
+    live = True if spill is None else ~spill.bool()[:, None]
+    if cache.k_scale is None:
+        pos = start + torch.arange(W, device=dev)[None, :]        # (B, W)
+        real = pos < end
+        ok = real & live & (pos < mb * bs)
+        blk = torch.where(ok, row[lanes, torch.clamp(pos // bs, max=mb - 1)],
+                          0).reshape(-1)
+        off = torch.where(real, pos % bs, 0).reshape(-1)
+        key = blk * bs + off
+        rows = torch.arange(B * W, device=dev)
+        last = torch.where(key[:, None] == key[None, :], rows, -1).amax(dim=1)
+        for pool, new in ((cache.k, k), (cache.v, v)):
+            pool[blk, off] = new.reshape(B * W, *new.shape[2:])[last]
+        return
+    cand = start // bs + torch.arange(span, device=dev)[None, :]  # (B, T)
+    ok = (cand < mb) & live
+    blk = torch.where(ok, row[lanes, torch.clamp(cand, max=mb - 1)], 0)
+    bpos = cand[:, :, None] * bs + torch.arange(bs, device=dev)   # (B, T, bs)
+    at = start[:, :, None]
+    write_new = (bpos >= at) & (bpos < end[:, :, None])
+    keep_old = bpos < at
+    src = torch.clamp(bpos - at, 0, W - 1)
+    for pool, scales, new in ((cache.k, cache.k_scale, k),
+                              (cache.v, cache.v_scale, v)):
+        _quantized_scatter(
+            pool, scales, blk.reshape(-1), keep_old.expand_as(bpos).reshape(
+                -1, bs), write_new.expand_as(bpos).reshape(-1, bs),
+            new[lanes[:, :, None], src].reshape(-1, bs, *new.shape[2:]))
+
+
 def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
                             cache: PagedKVCache, *, slot, start, true_len,
                             rope_theta: float = 10000.0
@@ -362,13 +429,13 @@ def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
 
     ``x`` is (1, C, d), right-padded to the bucket C. The chunk's K/V
     scatter into the slot's blocks at positions start..start+true_len-1;
-    pad positions go to (null block, offset 0), and the table index is
-    clamped to the table, so no index leaves the pool. An int8 pool
-    rewrites every block the chunk touches whole: at most C // bs + 2
-    consecutive table entries from start // bs, those past the table sent
-    to the null block. Queries then attend causally to the slot's whole
-    written prefix through the block table (an int8 pool dequantized inside
-    the gather, to the activation dtype).
+    pad positions go to (null block, offset 0), so no index leaves the
+    pool. An int8 pool rewrites every block the chunk touches whole: at
+    most C // bs + 2 consecutive table entries from start // bs, those past
+    the table sent to the null block (:func:`_pool_write`). Queries then
+    attend causally to the slot's whole written prefix through the block
+    table (an int8 pool dequantized inside the gather, to the activation
+    dtype).
     """
     B, C, _ = x.shape
     if B != 1:
@@ -378,27 +445,11 @@ def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
     ar = torch.arange(C, device=x.device)
     pos = start + ar
     q, k, v = _qkv_rotary(p, x, n_kv, hd, pos[None, :], rope_theta)
-    valid = ar < true_len
-    # (max_blocks,); indexing with the 0-d tensor itself would read it back
-    row = cache.table.index_select(0, slot.reshape(1))[0]
-    if cache.k_scale is None:
-        blk = torch.where(valid, row[torch.clamp(pos // bs, max=mb - 1)], 0)
-        off = torch.where(valid, pos % bs, 0)
-        cache.k[blk, off] = k[0]
-        cache.v[blk, off] = v[0]
-    else:
-        cand = start // bs + torch.arange(C // bs + 2, device=x.device)
-        blk = torch.where(cand < mb, row[torch.clamp(cand, max=mb - 1)], 0)
-        bpos = cand[:, None] * bs + torch.arange(bs, device=x.device)
-        write_new = (bpos >= start) & (bpos < start + true_len)
-        keep_old = bpos < start              # earlier chunks' tokens
-        src = torch.clamp(bpos - start, 0, C - 1)
-        _quantized_scatter(cache.k, cache.k_scale, blk, keep_old, write_new,
-                           k[0][src])
-        _quantized_scatter(cache.v, cache.v_scale, blk, keep_old, write_new,
-                           v[0][src])
+    # (1, max_blocks); indexing with the 0-d tensor itself would read it back
+    row = cache.table.index_select(0, slot.reshape(1))
+    _pool_write(cache, k, v, row, start, true_len, None, C // bs + 2)
     kr, vr = (g.reshape(1, mb * bs, n_kv, hd)
-              for g in _pool_gather(cache, row, q.dtype))
+              for g in _pool_gather(cache, row[0], q.dtype))
     n_heads = q.shape[2]
     kr = _repeat_kv(kr, n_heads // n_kv)
     vr = _repeat_kv(vr, n_heads // n_kv)
@@ -423,10 +474,10 @@ def paged_decode_attention(p: AttnParams, x: torch.Tensor,
 
     ``active`` (num_slots,) marks live lanes; an inactive lane's write goes
     to the null block (its table row may name blocks the allocator gave to
-    another request). The table index is clamped to the table, as the
-    reference's is. On an int8 pool each lane rewrites its current block
-    whole: the offsets before the append point kept, the tail past it
-    zeroed. The caller advances the length.
+    another request), and so does a position past the table. On an int8
+    pool each lane rewrites its current block whole: the offsets before
+    the append point kept, the tail past it zeroed (:func:`_pool_write`).
+    The caller advances the length.
     """
     B, S1, _ = x.shape
     if S1 != 1:
@@ -435,22 +486,45 @@ def paged_decode_attention(p: AttnParams, x: torch.Tensor,
     mb = cache.table.shape[1]
     pos = cache.length                                      # (B,)
     q, k, v = _qkv_rotary(p, x, n_kv, hd, pos[:, None], rope_theta)
-    rows = torch.arange(B, device=x.device)
-    blk = cache.table[rows, torch.clamp(pos // bs, max=mb - 1)]
-    if active is not None:
-        blk = torch.where(active.bool(), blk, 0)            # null-block spill
-    if cache.k_scale is None:
-        cache.k[blk, pos % bs] = k[:, 0]
-        cache.v[blk, pos % bs] = v[:, 0]
-    else:
-        ar = torch.arange(bs, device=x.device)[None, :]
-        off = (pos % bs)[:, None]
-        for pool, scales, new in ((cache.k, cache.k_scale, k),
-                                  (cache.v, cache.v_scale, v)):
-            _quantized_scatter(pool, scales, blk, ar < off, ar == off,
-                               new[:, 0][:, None].expand(B, bs, n_kv, hd))
+    _pool_write(cache, k, v, cache.table, pos, 1,
+                None if active is None else ~active.bool(), 1)
     gk, gv = (g.reshape(B, mb * bs, n_kv, hd)
               for g in _pool_gather(cache, cache.table, q.dtype))
     kpos = torch.arange(mb * bs, device=x.device)
     valid = kpos[None, :] <= pos[:, None]
+    return _decode_contract(p, q, x, gk, gv, valid), cache
+
+
+def paged_verify_attention(p: AttnParams, x: torch.Tensor,
+                           cache: PagedKVCache, *,
+                           rope_theta: float = 10000.0,
+                           active: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, PagedKVCache]:
+    """Speculative-verify step: S candidate tokens per lane in one pass
+    (the reference's ``paged_verify_attention``).
+
+    ``x`` is (B, S, d): for every lane, the last committed token followed
+    by the draft's S - 1 proposals. All S keys and values are written
+    through the block table at positions ``length .. length + S - 1``
+    (:func:`_pool_write`: an inactive lane's writes, and a position past
+    the table, go to the null block; an int8 pool rewrites the S // bs + 2
+    candidate blocks whole), then each query attends causally through the
+    table, so position i's scores are what i sequential
+    :func:`paged_decode_attention` steps compute for the same tokens. A
+    lane's rejected tail stays in its blocks until the next round rewrites
+    those positions; causality keeps any committable query from attending
+    it. The caller (``lm.verify_step``) advances the lengths and the engine
+    rewinds the rejected tail.
+    """
+    B, S, _ = x.shape
+    bs, n_kv, hd = cache.k.shape[1:]
+    mb = cache.table.shape[1]
+    pos = cache.length[:, None] + torch.arange(S, device=x.device)  # (B, S)
+    q, k, v = _qkv_rotary(p, x, n_kv, hd, pos, rope_theta)
+    _pool_write(cache, k, v, cache.table, cache.length, S,
+                None if active is None else ~active.bool(), S // bs + 2)
+    gk, gv = (g.reshape(B, mb * bs, n_kv, hd)
+              for g in _pool_gather(cache, cache.table, q.dtype))
+    kpos = torch.arange(mb * bs, device=x.device)
+    valid = kpos[None, None, :] <= pos[:, :, None]          # (B, S, K)
     return _decode_contract(p, q, x, gk, gv, valid), cache

@@ -50,9 +50,13 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
     return lm.decode_step(params, tokens, cfg, state, active=active)
 
 
+def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
+    return lm.verify_step(params, tokens, cfg, state, active=active)
+
+
 def param_count(params) -> int:
     return sum(t.numel() for _, t in tree_items(params))
 
 
 __all__ = ["init", "forward", "init_decode_state", "prefill",
-           "prefill_chunk", "decode_step", "param_count"]
+           "prefill_chunk", "decode_step", "verify_step", "param_count"]

@@ -10,7 +10,7 @@ counterpart of the reference's ``donate_argnums``: a step captured as a
 CUDA graph keeps writing the same buffers.
 
 Entry points: init_lm, forward, init_decode_state, prefill, prefill_chunk,
-decode_step.
+decode_step, verify_step.
 """
 from __future__ import annotations
 
@@ -333,3 +333,40 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
     kv.length.add_(1 if active is None else active.to(kv.length.dtype))
     h = apply_norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, h)[:, 0], state
+
+
+def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
+    """Speculative-verify step: S candidate tokens a lane in one pass, into
+    a paged decode state, in place.
+
+    ``tokens`` (B, S): per lane, the last committed token followed by the
+    draft's S - 1 proposals. Returns (logits (B, S, Vp) f32 at every fed
+    position, state): the engine's greedy acceptance compares each
+    proposal with the target's own argmax at the same position. All S
+    keys and values are written through the block table
+    (``attn.paged_verify_attention``) and every active lane's length
+    advances by S in place; the engine rewinds the rejected tail (blocks
+    were allocated at budget, so a rewind never touches the allocator).
+    The dense family only: the port has no MoE yet (ROADMAP queue 1, item
+    9), and rwkv has no KV cache to verify against."""
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise ValueError(
+            f"speculative verify needs a KV-cache family, not {cfg.family!r}")
+    kv = state["kv"]
+    if not isinstance(kv, attn.PagedKVCache):
+        raise ValueError("verify_step requires a paged decode state "
+                         "(init_decode_state with kv_block_size)")
+    S = tokens.shape[1]
+    x = _embed(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = apply_norm(cfg, lp["ln1"], x)
+        y, _ = attn.paged_verify_attention(
+            lp["attn"], h, _paged_layer(kv, i), rope_theta=cfg.rope_theta,
+            active=active)
+        x = x + y
+        x = x + _ffn(cfg, lp, x)
+    kv.length.add_(S if active is None else S * active.to(kv.length.dtype))
+    h = apply_norm(cfg, params["final_norm"], x)
+    return _logits(params, cfg, h), state

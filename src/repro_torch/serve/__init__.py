@@ -8,9 +8,10 @@ the card; the scheduler (``scheduler``) maps one onto the other through
 cache is a block pool indexed by per-slot block tables and prompts prefill
 chunk by chunk; ``prefixcache`` deduplicates shared prompt prefixes over
 those tables; ``policy`` orders admission, preempts and adapts the
-per-tick prefill budget; ``engine`` runs the tick loop and ``metrics``
-reports it. Speculative decoding (``repro.serve.spec``) is ROADMAP queue 1,
-item 7.
+per-tick prefill budget; ``spec`` holds speculative decoding's acceptance
+rule and rollback math (a draft model proposes k tokens a lane, the target
+verifies them in one batched pass: ``train.servestep.make_spec_step``);
+``engine`` runs the tick loop and ``metrics`` reports it.
 """
 from repro_torch.serve.blockpool import BlockPool, blocks_for
 from repro_torch.serve.engine import ServeEngine, chunk_buckets
@@ -23,6 +24,8 @@ from repro_torch.serve.prefixcache import PrefixCache
 from repro_torch.serve.request import (Request, RequestState, bursty_trace,
                                        shared_prefix_trace, synthetic_trace)
 from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve.spec import (SpecStats, accept_prefix, draft_sync,
+                                    verify_rewind)
 
 __all__ = [
     "ServeEngine", "EngineMetrics", "Request", "RequestState",
@@ -30,5 +33,6 @@ __all__ = [
     "chunk_buckets", "synthetic_trace", "shared_prefix_trace",
     "bursty_trace", "SchedPolicy", "FifoPolicy", "PriorityPolicy",
     "EdfPolicy", "PrefixAffinityPolicy", "POLICIES", "get_policy",
-    "BudgetController", "SimClock",
+    "BudgetController", "SimClock", "SpecStats", "accept_prefix",
+    "verify_rewind", "draft_sync",
 ]

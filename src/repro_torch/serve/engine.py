@@ -37,8 +37,16 @@ With ``kv_quantize="int8"`` (paged only) the pool stores int8 blocks with
 per-block, per-kv-head scales: about half the bytes a block, so an
 equal-byte budget holds about twice the blocks (``quant.kvcache``).
 
-Not ported yet: speculative lanes (ROADMAP queue 1, item 7), the tracer,
-registry and attribution ledger (item 8).
+With a draft model (``spec_draft_cfg``; paged, greedy and non-preemptive
+only) every decode tick is a speculative round (``serve.spec``): the draft
+proposes k tokens a lane in one captured step, the target verifies the
+k + 1 positions in another, and the host commits each lane's accepted
+prefix plus one bonus token, then rewinds both models' device lengths in
+place (the captured graphs hold their addresses). Every committed token is
+the target's own argmax, so the output equals non-speculative decode.
+
+Not ported yet: the tracer, registry and attribution ledger (ROADMAP queue
+1, item 8).
 """
 from __future__ import annotations
 
@@ -60,8 +68,9 @@ from repro_torch.serve.policy import BudgetController, SchedPolicy, get_policy
 from repro_torch.serve.prefixcache import PrefixCache
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve import spec as spec_lib
 from repro_torch.train.servestep import (
-    make_engine_step, make_paged_engine_step)
+    make_engine_step, make_paged_engine_step, make_spec_step)
 
 
 def chunk_buckets(chunk: int) -> tuple[int, ...]:
@@ -97,6 +106,10 @@ class ServeEngine:
         ttft_target_ms: float | None = None,
         max_prefill_chunks: int = 4,
         clock=None,
+        spec_draft_cfg: ModelConfig | None = None,
+        spec_draft_params=None,
+        spec_k: int = 4,
+        spec_draft_quant: str | None = None,
     ):
         self.cfg = cfg
         self.params = params
@@ -121,6 +134,36 @@ class ServeEngine:
             raise ValueError(
                 "KV quantization stores per-block scales alongside the "
                 "block pool — it needs the paged engine (kv_block_size)")
+        self.spec = spec_draft_cfg is not None
+        self.spec_k = int(spec_k) if self.spec else 0
+        self.spec_draft_cfg = spec_draft_cfg
+        self.spec_draft_params = spec_draft_params
+        self.spec_draft_quant = spec_draft_quant
+        if self.spec:
+            if spec_draft_params is None:
+                raise ValueError(
+                    "speculative decoding needs draft params "
+                    "(spec_draft_params) alongside spec_draft_cfg")
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding rewinds per-slot lengths over "
+                    "budget-allocated blocks — it needs the paged engine "
+                    "(kv_block_size)")
+            if temperature and temperature > 0.0:
+                raise ValueError(
+                    f"speculative decoding verifies greedily; engine "
+                    f"temperature={temperature} is incompatible (submit-"
+                    f"time validation rejects per-request sampling too)")
+            if self.sched_policy.preemptive:
+                raise ValueError(
+                    f"policy {self.sched_policy.name!r} preempts mid-"
+                    f"decode; speculative lanes don't support preemption "
+                    f"yet — use a non-preemptive policy (fifo/prefix)")
+            if spec_draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size={spec_draft_cfg.vocab_size} != "
+                    f"target vocab_size={cfg.vocab_size} — proposals must "
+                    f"share the token space")
         if prefix_cache and not self.paged:
             raise ValueError(
                 "the prefix cache shares KV at block granularity — it "
@@ -150,7 +193,11 @@ class ServeEngine:
             self.art = make_engine_step(cfg, max_len=max_len,
                                         prompt_pad=prompt_pad,
                                         device=self.device)
+        self.spec_art = (make_spec_step(
+            cfg, spec_draft_cfg, max_len=max_len, prompt_pad=prompt_pad,
+            spec_k=self.spec_k, device=self.device) if self.spec else None)
         self.state = None
+        self.draft_state = None
         self._warmed = False
         self.reset()
 
@@ -167,6 +214,13 @@ class ServeEngine:
             num_kv_blocks=self.num_kv_blocks, kv_dtype=self.kv_dtype,
             device=device)
 
+    def _new_draft_state(self, device) -> dict:
+        """The draft's per-slot contiguous cache (prompts admit in one
+        padded shot, so it needs no pool)."""
+        return models.init_decode_state(self.spec_draft_cfg, self.num_slots,
+                                        self.max_len, per_slot=True,
+                                        device=device)
+
     def _rel_now(self) -> float:
         """Seconds on the engine clock since the last reset — the time
         base every stamp, deadline and ``arrival_s`` lives in."""
@@ -182,13 +236,16 @@ class ServeEngine:
         self._t0 = self._now()
         if self.state is None:
             self.state = self._new_state(self.device)
+            if self.spec:
+                self.draft_state = self._new_draft_state(self.device)
         else:
-            for leaf in self.state.values():
-                if isinstance(leaf, PagedKVCache):
-                    reset_paged_kv_cache(leaf)
-                else:
-                    for _, t in interop.tree_items(leaf):
-                        t.zero_()
+            for state in (self.state, self.draft_state or {}):
+                for leaf in state.values():
+                    if isinstance(leaf, PagedKVCache):
+                        reset_paged_kv_cache(leaf)
+                    else:
+                        for _, t in interop.tree_items(leaf):
+                            t.zero_()
         pool = (BlockPool(self.num_kv_blocks, self.kv_block_size,
                           bytes_per_block=self._block_bytes(self.kv_dtype))
                 if self.paged else None)
@@ -196,14 +253,25 @@ class ServeEngine:
                  if self.prefix_cache_enabled else None)
         self.sched = SlotScheduler(self.num_slots, max_len=self.max_len,
                                    pool=pool, prefix_cache=cache,
-                                   policy=self.sched_policy)
+                                   policy=self.sched_policy, spec=self.spec)
+        if self.spec:
+            # per-lane draft bookkeeping: lag marks lanes whose draft KV is
+            # one token behind the committed stream (a fully accepted
+            # round's last proposal was never fed back); catch_tok is that
+            # token, re-fed by the next propose step
+            self._lag = np.zeros((self.num_slots,), bool)
+            self._catch_tok = np.full((self.num_slots,), self.pad_id,
+                                      np.int64)
+            self.spec_stats = spec_lib.SpecStats(spec_k=self.spec_k)
         self.budget = BudgetController(
             None if self.ttft_target_ms is None
             else self.ttft_target_ms / 1e3,
             max_chunks=self.max_prefill_chunks)
         self._next_tok = np.full((self.num_slots,), self.pad_id, np.int64)
-        # step calls by phase ("decode", "admit", "prefill-chunk@<bucket>"):
-        # with the dispatch rule they give the kernel launches of a run
+        # step calls by phase ("decode", "admit" (the draft's, under
+        # speculation), "prefill-chunk@<bucket>", "spec-draft",
+        # "spec-verify"): with the dispatch rule they give the kernel
+        # launches of a run
         self.dispatches: collections.Counter = collections.Counter()
         engine_info = {
             "arch": self.cfg.name,
@@ -228,6 +296,12 @@ class ServeEngine:
                 chunk_buckets=list(self.chunk_buckets),
                 prefix_cache=self.prefix_cache_enabled,
                 prefix_cache_blocks=self.prefix_cache_blocks)
+        engine_info["spec"] = self.spec
+        if self.spec:
+            engine_info.update(
+                spec_k=self.spec_k,
+                spec_draft_arch=self.spec_draft_cfg.name,
+                spec_draft_quant=self.spec_draft_quant)
         self.metrics = EngineMetrics(engine=engine_info)
 
     # ------------------------------------------------------------ warm-up
@@ -235,15 +309,19 @@ class ServeEngine:
         """Pre-solve every GEMM signature the engine's steps issue by running
         the raw steps on the meta device (the engine-shaped counterpart of
         ``core.gemm.plan_model``): one chunked-prefill step per bucket (or
-        the admit step) plus the decode tick. Marks the engine warm:
+        the admit step) plus the decode tick, and under speculation the
+        target's (num_slots, k + 1) verify pass and the draft's admit and
+        propose steps (the draft's int8 signatures run under the target's
+        context, so its unembed stays float). Marks the engine warm:
         later ``run`` calls assert steady state. The graphs are captured
         after this, at each bucket's first call."""
         cache = current_context().plan_cache
         before = cache.stats.snapshot()
         meta = lambda shape: torch.empty(shape, dtype=torch.int64,
                                          device="meta")
-        params = interop.tree_map(
-            lambda t: torch.empty_like(t, device="meta"), self.params)
+        on_meta = lambda tree: interop.tree_map(
+            lambda t: torch.empty_like(t, device="meta"), tree)
+        params = on_meta(self.params)
         state = self._new_state("meta")
         with cache.warmup():
             if self.paged:
@@ -254,8 +332,17 @@ class ServeEngine:
             else:
                 self.art.admit_raw(params, state, meta((1, self.prompt_pad)),
                                    meta(()), meta(()))
-            self.art.decode_raw(params, state, meta((self.num_slots, 1)),
-                                meta((self.num_slots,)))
+            toks, active = meta((self.num_slots, 1)), meta((self.num_slots,))
+            self.art.decode_raw(params, state, toks, active)
+            if self.spec:
+                art, dparams = self.spec_art, on_meta(self.spec_draft_params)
+                dstate = self._new_draft_state("meta")
+                art.verify_raw(params, state,
+                               meta((self.num_slots, self.spec_k + 1)), active)
+                art.draft_admit_raw(dparams, dstate,
+                                    meta((1, self.prompt_pad)), meta(()),
+                                    meta(()))
+                art.propose_raw(dparams, dstate, toks, active, toks, active)
         self._warmed = True
         solved = cache.stats.warm_solves - before.warm_solves
         signatures = len(cache.warm_keys)
@@ -268,6 +355,11 @@ class ServeEngine:
             raise ValueError(
                 f"prompt_len={request.prompt_len} exceeds the engine's "
                 f"prompt_pad={self.prompt_pad}")
+        if self.spec and request.prompt_len > self.prompt_pad:
+            raise ValueError(
+                f"prompt_len={request.prompt_len} exceeds prompt_pad="
+                f"{self.prompt_pad}: the speculative draft model admits "
+                f"prompts in one padded shot even on the paged engine")
         return self.sched.submit(
             request, now_s if now_s is not None else self._rel_now())
 
@@ -347,6 +439,31 @@ class ServeEngine:
                                        st.slot, req.prompt_len)
             self._first_token(st, logits.cpu().numpy(), self._rel_now())
 
+    def _bind_admissions(self, now: float) -> None:
+        """Paged path: bind queue heads to free lanes and allocate their KV
+        blocks; the target's prompts prefill chunk by chunk over the next
+        ticks. Under speculation each admission also prefills the draft's
+        per-slot cache in one shot (the draft does not share the target's
+        prefix cache: it always takes the whole prompt)."""
+        while True:
+            st = self.sched.admit_next(now)
+            if st is None:
+                return
+            if self.spec:
+                self._draft_admit(st)
+
+    def _draft_admit(self, st: RequestState) -> None:
+        """Prefill the draft for a newly admitted lane, overwriting what the
+        lane's previous occupant left in the draft cache, and clear the
+        lane's lag."""
+        req = st.request
+        prompt = np.full((1, self.prompt_pad), self.pad_id, np.int64)
+        prompt[0, : req.prompt_len] = req.prompt
+        self.dispatches["admit"] += 1
+        self.spec_art.draft_admit_fn(self.spec_draft_params, self.draft_state,
+                                     prompt, st.slot, req.prompt_len)
+        self._lag[st.slot] = False
+
     def _chunk_shape(self, remaining: int) -> tuple[int, int]:
         """(bucket_len, true_len) for the next prefill chunk."""
         if remaining >= self.prefill_chunk:
@@ -382,17 +499,97 @@ class ServeEngine:
         self._first_token(st, logits.cpu().numpy(), self._rel_now())
         return 1
 
+    def _spec_round(self, mask: np.ndarray) -> int:
+        """One speculative round for the decode-ready lanes: the draft's
+        k-step propose, one (num_slots, k + 1) target verify, then greedy
+        acceptance per lane on the host (``serve.spec`` holds the math).
+
+        Every committed token is the target's own argmax at its position,
+        so the output equals non-speculative decode token for token. The
+        rejected tail rewinds both models' per-slot lengths: read from the
+        card, adjusted on the host and written back in place, since the
+        verify, decode and prefill graphs hold the target's length tensor
+        and the propose and admit graphs the draft's (blocks were
+        allocated at budget: the allocator is untouched)."""
+        k = self.spec_k
+        self.dispatches["spec-draft"] += 1
+        self.dispatches["spec-verify"] += 1
+        t0 = time.perf_counter()
+        start_toks = np.where(mask, self._next_tok, self.pad_id)
+        catch_mask = mask & self._lag
+        proposals = self.spec_art.propose_fn(
+            self.spec_draft_params, self.draft_state,
+            self._catch_tok[:, None], catch_mask.astype(np.int64),
+            start_toks[:, None], mask.astype(np.int64))
+        np_props = proposals.cpu().numpy()                 # (num_slots, k)
+        t1 = time.perf_counter()
+        fed = np.concatenate(
+            [start_toks[:, None],
+             np.where(mask[:, None], np_props, self.pad_id)],
+            axis=1)                                        # (num_slots, k+1)
+        logits = self.spec_art.verify_fn(self.params, self.state, fed,
+                                         mask.astype(np.int64))
+        np_logits = logits.cpu().numpy()           # (num_slots, k+1, Vp)
+        t2 = time.perf_counter()
+        self.spec_stats.draft_s += t1 - t0
+        self.spec_stats.verify_s += t2 - t1
+        now = self._rel_now()
+        # post-verify lengths: every active lane advanced by k + 1; the
+        # acceptance walk decides how far each rolls back
+        tgt_len = self.state["kv"].length.cpu().numpy().copy()
+        drf_len = self.draft_state["kv"].length.cpu().numpy().copy()
+        produced = 0
+        for slot in np.flatnonzero(mask):
+            st = self.sched.slots[slot]
+            self.sched.advance_written(slot, k + 1)
+            greedy = spec_lib.greedy_rows(np_logits[slot],
+                                          self.cfg.vocab_size)
+            committed, n_accepted = spec_lib.accept_prefix(np_props[slot],
+                                                           greedy)
+            finished = False
+            n_committed = 0
+            for i, tok in enumerate(committed):
+                st.append(tok, now, tick=self.sched.tick)
+                self._next_tok[slot] = tok
+                n_committed += 1
+                produced += 1
+                reason = ("length" if len(st.tokens) >= self._budget(st)
+                          else st.should_stop())
+                if reason:
+                    # committed[:n_accepted] are accepted proposals and
+                    # committed[n_accepted] the bonus: a finish at index i
+                    # used min(i + 1, n_accepted) proposals
+                    n_accepted = min(n_accepted, i + 1)
+                    self._finish(st, reason, now)
+                    finished = True
+                    break
+            self.spec_stats.record_round(k, n_accepted, n_committed)
+            if finished:
+                continue
+            # the target's KV covers every committed token but the newest
+            rewind = spec_lib.verify_rewind(k, n_accepted)
+            self.sched.rewind(slot, rewind)
+            tgt_len[slot] -= rewind
+            committed_len = st.request.prompt_len + len(st.tokens)
+            drf_len[slot], lag = spec_lib.draft_sync(committed_len,
+                                                     n_accepted, k)
+            self._lag[slot] = lag
+            if lag:
+                self._catch_tok[slot] = st.tokens[-2]
+        self.state["kv"].length.copy_(torch.from_numpy(tgt_len))
+        self.draft_state["kv"].length.copy_(torch.from_numpy(drf_len))
+        return produced
+
     def tick(self) -> int:
         """One engine tick: deadline sweep, admissions (plus, paged, up to
         ``budget.chunks_per_tick()`` prefill chunks), then one masked
-        decode step for the decode-ready lanes. Returns the number of
-        tokens generated."""
+        decode step (under speculation, one round) for the decode-ready
+        lanes. Returns the number of tokens generated."""
         now = self._rel_now()
         for st in self.sched.expire_deadlines(now):
             self.metrics.record_request(st)
         if self.paged:
-            while self.sched.admit_next(now) is not None:
-                pass
+            self._bind_admissions(now)
             produced = 0
             # the budget controller's knob: how much of this tick goes to
             # prefill (TTFT) vs decode (throughput), over the same buckets
@@ -404,7 +601,9 @@ class ServeEngine:
             produced = self._admit_all(now)
         mask = self.sched.decode_mask()
         ready = int(mask.sum())
-        if ready:
+        if ready and self.spec:
+            produced += self._spec_round(mask)
+        elif ready:
             toks = np.where(mask, self._next_tok, self.pad_id)
             self.dispatches["decode"] += 1
             logits = self.art.decode_fn(self.params, self.state,
@@ -483,6 +682,10 @@ class ServeEngine:
                 scale_stats=self._scale_stats())
         if self.sched.prefix_cache is not None:
             self.metrics.record_prefix_cache(self.sched.prefix_cache)
+        if self.spec:
+            self.metrics.record_speculation(
+                self.spec_stats, draft_arch=self.spec_draft_cfg.name,
+                draft_quant=self.spec_draft_quant)
         self.metrics.slo_burn = self.metrics.slo_burn_summary(
             None if self.ttft_target_ms is None
             else self.ttft_target_ms / 1e3)

@@ -2,10 +2,10 @@
 occupancy and plan-cache warmth — exportable as JSON (port of
 ``repro.serve.metrics``).
 
-The ``EngineMetrics.to_dict`` schema is the reference's, less the sections
-of what the port does not have yet: ``speculation`` (ROADMAP queue 1,
-item 7) and the traced-run ``timing`` / ``attribution`` sections (item
-8). Every leaf the port exports matches a pattern of the reference's
+The ``EngineMetrics.to_dict`` schema is the reference's, ``speculation``
+included (``{"enabled": false}`` unless the engine speculates), less the
+traced-run ``timing`` / ``attribution`` sections, which come with the
+tracer (ROADMAP queue 1, item 8). Every leaf the port exports matches a pattern of the reference's
 golden schema (``tests/test_metrics_schema.py``; checked by
 ``tests/test_torch_engine.py``).
 
@@ -51,6 +51,8 @@ class EngineMetrics:
     kv_cache: dict[str, Any] = dataclasses.field(default_factory=dict)
     prefix_cache: dict[str, Any] = dataclasses.field(default_factory=dict)
     plan_cache: dict[str, Any] = dataclasses.field(default_factory=dict)
+    speculation: dict[str, Any] = dataclasses.field(
+        default_factory=lambda: {"enabled": False})
     # SLO burn-rate monitor (always exported; deterministic)
     slo_burn: dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -134,6 +136,15 @@ class EngineMetrics:
         """Snapshot the radix cache's cumulative counters (engine.run calls
         this once per run; the cache object is reset with the engine)."""
         self.prefix_cache = cache.stats()
+
+    def record_speculation(self, stats, *, draft_arch: str | None = None,
+                           draft_quant: str | None = None) -> None:
+        """Snapshot the engine's SpecStats into the ``speculation``
+        section (engine.run, once per run with speculation enabled)."""
+        out = stats.to_dict()
+        out["draft_arch"] = draft_arch
+        out["draft_quant"] = draft_quant
+        self.speculation = out
 
     def record_plan_cache(self, before: PlanCacheStats,
                           after: PlanCacheStats) -> None:
@@ -274,6 +285,7 @@ class EngineMetrics:
             "block_pool": dict(self.block_pool),
             "kv_cache": dict(self.kv_cache),
             "prefix_cache": dict(self.prefix_cache),
+            "speculation": dict(self.speculation),
             "plan_cache": dict(self.plan_cache),
         }
         return out

@@ -5,8 +5,7 @@ ids); a :class:`RequestState` is the engine's host-side bookkeeping for it —
 which slot lane it occupies, its per-request token buffer, and the tick/wall
 timestamps the metrics layer turns into TTFT and per-token latency. Both are
 plain Python (numpy): the device only ever sees fixed-shape slot tensors,
-never a request object. Port of ``repro.serve.request`` without the
-speculative-decoding pieces (ROADMAP queue 1, item 7).
+never a request object. Port of ``repro.serve.request``.
 """
 from __future__ import annotations
 
@@ -70,10 +69,28 @@ class Request:
             raise ValueError("max_new_tokens must be >= 1")
         self.stop_ids = tuple(int(s) for s in self.stop_ids)
 
-    def validate(self, now_s: float = 0.0) -> None:
+    def validate(self, now_s: float = 0.0, *, spec: bool = False) -> None:
         """Submit-time validation (scheduler.submit): reject out-of-range
         sampling knobs and already-expired deadlines with a clear error
-        instead of a silent misbehavior deep in the engine."""
+        instead of a silent misbehavior deep in the engine.
+
+        ``spec=True`` (the engine runs speculative decoding) additionally
+        rejects non-greedy sampling: the acceptance rule compares draft
+        proposals against the target's argmax, so a sampled request would
+        silently decode greedily mid-tick — refuse it up front until
+        sampled verification lands."""
+        if spec and self.temperature is not None and self.temperature > 0.0:
+            raise ValueError(
+                f"request {self.request_id}: temperature="
+                f"{self.temperature} is incompatible with speculative "
+                f"decoding (--spec-k) — greedy verification only; submit "
+                f"with temperature=0/None or disable speculation")
+        if spec and self.top_p is not None and self.top_p < 1.0:
+            raise ValueError(
+                f"request {self.request_id}: top_p={self.top_p} is "
+                f"incompatible with speculative decoding (--spec-k) — "
+                f"greedy verification only; submit with top_p=1/None or "
+                f"disable speculation")
         if self.max_new_tokens < 1:
             raise ValueError(
                 f"request {self.request_id}: max_new_tokens must be >= 1, "
@@ -145,6 +162,9 @@ class RequestState:
     cached_tokens: int = 0               # prompt tokens served by the
                                          # prefix cache (never prefilled)
     preemptions: int = 0                 # times evicted-and-requeued
+    kv_written: int = -1                 # tracked KV length under
+                                         # speculation (-1: derived from
+                                         # prefill progress + tokens)
     admission_index: int = -1            # nth admission of this engine run
     rng: np.random.Generator | None = dataclasses.field(
         default=None, repr=False)
@@ -172,7 +192,16 @@ class RequestState:
     @property
     def live_kv_tokens(self) -> int:
         """Tokens written into this lane's KV (prefill progress plus
-        decode tokens generated since the last (re)admission)."""
+        decode tokens generated since the last (re)admission).
+
+        Under speculative decoding the device writes ahead of the token
+        buffer (a verify pass lands k + 1 keys before acceptance is
+        known), so the engine tracks the written length explicitly via
+        ``SlotScheduler.advance_written``/``rewind``; ``kv_written >= 0``
+        overrides the derived count until the round's rewind re-converges
+        the two."""
+        if self.kv_written >= 0:
+            return self.kv_written
         return self.prefill_done + max(0, len(self.tokens)
                                        - self.resumed_tokens)
 

@@ -61,7 +61,8 @@ class SlotScheduler:
     def __init__(self, num_slots: int, *, max_len: int,
                  pool: BlockPool | None = None,
                  prefix_cache: PrefixCache | None = None,
-                 policy: str | SchedPolicy | None = None, tracer=None):
+                 policy: str | SchedPolicy | None = None,
+                 spec: bool = False, tracer=None):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if prefix_cache is not None and pool is None:
@@ -73,6 +74,9 @@ class SlotScheduler:
         self.pool = pool
         self.prefix_cache = prefix_cache
         self.policy = get_policy(policy)
+        # speculative decoding: submit-time validation rejects requests
+        # the greedy-verify engine cannot serve (non-greedy sampling)
+        self.spec = bool(spec)
         # lifecycle event sink (repro.obs.trace); NULL_TRACER when untraced
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.queue: list[Request] = []
@@ -90,7 +94,7 @@ class SlotScheduler:
 
     # ------------------------------------------------------------ queue
     def submit(self, request: Request, now_s: float = 0.0) -> Request:
-        request.validate(now_s)
+        request.validate(now_s, spec=self.spec)
         if request.prompt_len >= self.max_len:
             raise ValueError(
                 f"prompt_len={request.prompt_len} does not fit max_len="
@@ -236,6 +240,44 @@ class SlotScheduler:
             slot=slot, cached_tokens=cached_tokens)
         return st
 
+    # ------------------------------------------------- speculative lengths
+    def advance_written(self, slot: int, n_tokens: int) -> RequestState:
+        """Mark ``n_tokens`` extra KV positions written into lane ``slot``
+        (a speculative verify pass writes k + 1 keys before acceptance is
+        known). Switches the lane's ``live_kv_tokens`` from the derived
+        count to explicit tracking until :meth:`rewind` re-converges it."""
+        st = self.slots[slot]
+        if st is None:
+            raise ValueError(f"advance_written on vacant slot {slot}")
+        if n_tokens < 0:
+            raise ValueError(f"advance_written by {n_tokens} < 0")
+        st.kv_written = st.live_kv_tokens + n_tokens
+        return st
+
+    def rewind(self, slot: int, n_tokens: int) -> RequestState:
+        """Roll lane ``slot``'s written KV length back by ``n_tokens`` —
+        the rejected tail of a speculative verify round. Pure length
+        bookkeeping: the lane's blocks were allocated at budget during
+        admission and stay allocated (the allocator is never touched), and
+        the stale keys past the new length are causally masked until the
+        next round overwrites them. The engine applies the same decrement
+        to the device-side per-slot length."""
+        st = self.slots[slot]
+        if st is None:
+            raise ValueError(f"rewind of vacant slot {slot}")
+        if n_tokens < 0:
+            raise ValueError(f"rewind by {n_tokens} < 0")
+        have = st.live_kv_tokens
+        if n_tokens > have:
+            raise ValueError(
+                f"rewind of {n_tokens} tokens exceeds slot {slot}'s "
+                f"written length {have}")
+        st.kv_written = have - n_tokens
+        if n_tokens:
+            self.tracer.request_event("rewind", st.request.request_id,
+                                      slot=slot, n=n_tokens)
+        return st
+
     # ------------------------------------------------------- preemption
     def preempt(self, slot: int, now_s: float = 0.0) -> RequestState:
         """Evict a decode-phase lane and requeue its request for resume.
@@ -257,6 +299,7 @@ class SlotScheduler:
         # written-length tracking restarts at resume (prefill_done is
         # rebuilt there); a post-round lane's tracked value equals the
         # derived count anyway, so nothing is lost
+        st.kv_written = -1
         if self.pool is not None and st.blocks:
             if self.prefix_cache is not None:
                 written = st.full_sequence()[:-1]

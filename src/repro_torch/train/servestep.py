@@ -1,6 +1,7 @@
 """Serving step factories (port of ``repro.train.servestep``): the static
-server's decode, and the continuous-batching engine's decode tick, admit
-and chunked prefill.
+server's decode, the continuous-batching engine's decode tick, admit and
+chunked prefill, and speculative decoding's verify, draft admit and
+propose.
 
 The reference compiles each step with ``jax.jit`` and donates the state;
 here each ``*_fn`` is a :class:`repro_torch.train.graphs.CapturedStep`:
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
@@ -163,5 +166,80 @@ def make_paged_engine_step(cfg: ModelConfig, *, max_len: int,
         chunk_buckets=buckets, max_blocks=-(-max_len // kv_block_size))
 
 
+@dataclasses.dataclass
+class SpecArtifacts:
+    """Steps of speculative decoding over the paged engine, each captured.
+
+    ``verify_fn(params, state, tokens, active)``: one verify pass of the
+    target over (num_slots, spec_k + 1) tokens (per lane, the last
+    committed token and the draft's k proposals) into the paged state;
+    logits at every fed position. ``draft_admit_fn(dparams, dstate,
+    prompt, slot, true_len)``: a one-shot prompt prefill into the draft's
+    per-slot contiguous cache. ``propose_fn(dparams, dstate, catch_tok,
+    catch_active, start_tok, active)``: one graph that runs a masked
+    catch-up decode (re-feeding the token a fully accepted round left
+    behind) and then k greedy draft decodes chained by in-graph argmax over
+    the true vocab; returns the (num_slots, k) proposals and updates the
+    draft state in place. A speculative round is two replays, whatever k.
+    All three see one shape each, so the engine's plan warm-up solves
+    their GEMM signatures before serving.
+    """
+
+    verify_fn: Callable
+    draft_admit_fn: Callable
+    propose_fn: Callable
+    verify_raw: Callable
+    draft_admit_raw: Callable
+    propose_raw: Callable
+    spec_k: int
+
+
+def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
+                   max_len: int, prompt_pad: int, spec_k: int,
+                   device) -> SpecArtifacts:
+    """Step factory for speculative decoding: the target's verify pass on
+    the paged engine's state, and the draft's admit and propose on its own
+    per-slot contiguous state (``init_decode_state(draft_cfg, num_slots,
+    max_len, per_slot=True)``)."""
+    _check_engine_family(cfg, "speculative verify")
+    _check_engine_family(draft_cfg, "draft model")
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    if draft_cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(
+            f"draft/target vocab mismatch ({draft_cfg.vocab_size} vs "
+            f"{cfg.vocab_size}) — proposals must share the token space")
+    if not 0 < prompt_pad < max_len:
+        raise ValueError(
+            f"need 0 < prompt_pad ({prompt_pad}) < max_len ({max_len})")
+
+    def verify(params, state, tokens, active):
+        return models.verify_step(params, tokens, cfg, state,
+                                  active=active)[0]
+
+    def draft_admit(dparams, dstate, prompt, slot, true_len):
+        return _slot_admit(dparams, dstate, prompt, slot, true_len,
+                           cfg=draft_cfg, prompt_pad=prompt_pad)
+
+    def propose(dparams, dstate, catch_tok, catch_active, start_tok, active):
+        models.decode_step(dparams, catch_tok, draft_cfg, dstate,
+                           active=catch_active)
+        tok, proposals = start_tok, []
+        for _ in range(spec_k):
+            logits, _ = models.decode_step(dparams, tok, draft_cfg, dstate,
+                                           active=active)
+            tok = logits[:, :draft_cfg.vocab_size].argmax(-1)[:, None]
+            proposals.append(tok[:, 0])
+        return torch.stack(proposals, dim=1)
+
+    return SpecArtifacts(
+        verify_fn=CapturedStep(verify, device),
+        draft_admit_fn=CapturedStep(draft_admit, device),
+        propose_fn=CapturedStep(propose, device),
+        verify_raw=verify, draft_admit_raw=draft_admit, propose_raw=propose,
+        spec_k=spec_k)
+
+
 __all__ = ["ServeArtifacts", "EngineArtifacts", "PagedEngineArtifacts",
-           "make_serve_step", "make_engine_step", "make_paged_engine_step"]
+           "SpecArtifacts", "make_serve_step", "make_engine_step",
+           "make_paged_engine_step", "make_spec_step"]

@@ -173,8 +173,9 @@ def test_plan_warmup_then_run_makes_zero_lazy_solves(setup):
 
 def test_metrics_json_matches_the_golden_schema(setup):
     """Every leaf of the port's metrics JSON matches a pattern (and type)
-    of the reference's golden schema; the port exports no speculation and
-    no traced-run sections."""
+    of the reference's golden schema; the port exports the speculation
+    section (``{"enabled": false}`` on these runs) and no traced-run
+    sections."""
     _, tcfg, _, tparams = setup
     V = tcfg.vocab_size
     runs = [
@@ -206,7 +207,8 @@ def test_metrics_json_matches_the_golden_schema(setup):
             d = json.loads(engine.run(trace).to_json())
         assert set(d) == {"engine", "aggregate", "requests", "slo",
                           "slo_burn", "budget", "block_pool", "kv_cache",
-                          "prefix_cache", "plan_cache"}
+                          "prefix_cache", "speculation", "plan_cache"}
+        assert d["speculation"] == {"enabled": False}
         for path, value in walk(d):
             pattern = match(path)
             assert pattern is not None, f"unknown metrics key: {path}"

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7; needs one CUDA card
+  python3 chip_smoke.py            # phases 1-5, 7 and 8; needs one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
+  python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
 Six paths, each at a model's full width and depth with random weights:
 the static server on qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and
@@ -90,7 +91,27 @@ ends the run with a non-zero exit:
    replayed against their eager steps bit for bit; printed: acceptance,
    tokens a round, a warm rerun's tok/s, TTFT and round time on the card
    split into propose and verify, peak memory, the tokens equal to phase
-   7's (and with ``--profile`` a traced rerun).
+   7's (and with ``--profile`` a traced rerun);
+8. the flight recorder, the balance auditor and measured plans (8a: phase
+   7's engine with ``--trace-out`` and ``--metrics-interval-ticks 8``;
+   8b: 7c's the same): the trace validates (the port's own
+   ``validate_chrome_trace``), ``PHASES`` covers every span, every tick
+   has its expire, bind and step spans, the attribution reconciles (0
+   within 1e-9), zero lazy solves, launches equal to the rule, the tokens
+   equal to the untraced run's, replays equal to eager steps; 8b also the
+   ``serve_spec`` gauges against the speculation section. Printed from a
+   warm traced rerun: host and device ms by phase (p50 / p99 of a span,
+   total a tick), the engine's host share, and the top GEMM signatures'
+   measured seconds a call against the ``h100`` model's. 8c: phase 7's
+   engine with ``--measure-plans --rebalance-drifted`` in its own context
+   and plan cache: every (signature, launched plan) the refinement timed
+   held to the plain version at 3a's tolerance, the refined cache
+   round-tripped through its JSON, zero lazy solves, the rule, a valid
+   trace, replays equal to eager; printed: measured / refined / kept, old
+   -> new kernel ms of each refined signature (and the GEMV's at both
+   plans where the key is skinny), the decode tick before and after. The
+   traces, metrics and the refined plans go to ``build/phase8/`` (or
+   ``--out DIR``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -482,6 +503,27 @@ def _bound(c: Case, torch, route: str) -> tuple[float, str]:
     return 1e3 * t_ops, "operations"
 
 
+def _tolerance(kernel: str, out_dtype: str, peak: float,
+               exact: bool = False) -> float:
+    """How far a GEMM kernel's result may lie from its plain version's on
+    the same inputs (phases 3a and 8c). Same f32 (i32) accumulation,
+    another summation order: an f32 result may differ by ~1e-6 relative; a
+    bf16 result may round the other way, one bf16 ulp = 2**-7 of the
+    largest value; an int8 requant result may flip one rint tie; the
+    GEMV's integer outputs (i32 sums, saturated) are exact. ``exact``: the
+    W8A8 cases, where an int8 x int8 product sums exactly in i32 in any
+    order and the epilogue runs the plain version's f32 ops in its order
+    (separate roundings, the same silu), so the output equals it bit for
+    bit."""
+    if exact:
+        return 0.0
+    if out_dtype == "bfloat16":
+        return 2.0 ** -7 * max(1.0, peak)
+    if out_dtype == "float32":
+        return 1e-5 * max(1.0, peak)
+    return 0.0 if kernel == "gemv" else 1.0
+
+
 def check_kernels(torch) -> dict[str, dict]:
     from repro_torch.core.context import use_context
     from repro_torch.core.gemm import plan_for
@@ -535,23 +577,8 @@ def check_kernels(torch) -> dict[str, dict]:
             want = plain()
             err = (got.double() - want.double()).abs().max().item()
             peak = want.double().abs().max().item()
-            # Same inputs, same f32 (i32) accumulation, another summation
-            # order: an f32 result may differ by ~1e-6 relative; a bf16
-            # result may round the other way, one bf16 ulp = 2**-7 of the
-            # largest value; an int8 requant result may flip one rint tie;
-            # the GEMV's integer outputs (i32 sums, saturated) are exact.
-            # The W8A8 cases are exact too: an int8 x int8 product sums
-            # exactly in i32 in any order, and the epilogue runs the plain
-            # version's f32 ops in its order (separate roundings, the same
-            # silu), so the output equals it bit for bit.
-            if c.name.startswith("W8A8"):
-                tol = 0.0
-            elif c.out_dtype == "bfloat16":
-                tol = 2.0 ** -7 * max(1.0, peak)
-            elif c.out_dtype == "float32":
-                tol = 1e-5 * max(1.0, peak)
-            else:
-                tol = 0.0 if c.kernel == "gemv" else 1.0
+            tol = _tolerance(c.kernel, c.out_dtype, peak,
+                             exact=c.name.startswith("W8A8"))
             if not timed:
                 print(f"{c.kernel:6s} {c.name:34s} MKN={c.M}x{c.K}x{c.N} "
                       f"route={route} plan={[plan.bk, plan.bn]}{split} "
@@ -1459,6 +1486,85 @@ def _same_tokens(base: dict, tokens: dict) -> str:
             f"{len(tokens)}")
 
 
+def _lane_tables(torch, engine):
+    """Every lane live on distinct blocks near its table's end; returns
+    the block table written into the state."""
+    import numpy as np
+
+    kv = engine.state["kv"]
+    lanes, bs = engine.num_slots, engine.kv_block_size
+    per = (engine.num_kv_blocks - 1) // lanes
+    table = np.zeros((lanes, engine.art.max_blocks), np.int32)
+    for s_ in range(lanes):
+        table[s_, :per] = 1 + s_ * per + np.arange(per)
+    kv.table.copy_(torch.from_numpy(table))
+    kv.length.copy_(torch.arange(per * bs - 1, per * bs - 1 - lanes, -1,
+                                 dtype=torch.int32))
+    return table
+
+
+def _engine_replays(torch, engine) -> None:
+    """Replay against eager, bit for bit: a decode tick with every lane
+    live on distinct blocks, and one chunk of each bucket into lane 0 (one
+    pad position, whose write goes to the null block)."""
+    import numpy as np
+
+    print("replayed steps against the same steps run eagerly:")
+    art, cfg, lanes = engine.art, engine.cfg, engine.num_slots
+    table = _lane_tables(torch, engine)
+    rng = np.random.default_rng(7)
+    replay_vs_eager(torch, f"decode tick ({lanes} lanes)", art.decode_fn,
+                    art.decode_raw, engine.params, engine.state,
+                    rng.integers(0, cfg.vocab_size, (lanes, 1)),
+                    np.ones(lanes, np.int64))
+    for bucket in art.chunk_buckets:
+        replay_vs_eager(torch, f"prefill chunk @{bucket}", art.prefill_fn,
+                        art.prefill_raw, engine.params, engine.state,
+                        rng.integers(0, cfg.vocab_size, (1, bucket)), 0, 0,
+                        bucket - 1, table[0].astype(np.int64))
+
+
+def _spec_replays(torch, engine) -> None:
+    """Replay against eager, bit for bit: the verify pass with lanes near
+    their table's end (windows run onto the null-padded entry, so the null
+    block takes duplicate writes) and one vacant lane; the propose step
+    with two lanes catching up; a draft admission."""
+    import numpy as np
+
+    print("replayed steps against the same steps run eagerly:")
+    art, cfg, lanes = engine.spec_art, engine.cfg, engine.num_slots
+    _lane_tables(torch, engine)
+    rng = np.random.default_rng(9)
+    live = np.array([1] * (lanes - 1) + [0], np.int64)
+    replay_vs_eager(torch, f"verify ({lanes} lanes x {SPEC_K + 1})",
+                    art.verify_fn, art.verify_raw, engine.params,
+                    engine.state,
+                    rng.integers(0, cfg.vocab_size, (lanes, SPEC_K + 1)),
+                    live)
+    engine.draft_state["kv"].length.copy_(
+        torch.arange(100, 100 + lanes, dtype=torch.int32))
+    replay_vs_eager(torch, f"propose (k = {SPEC_K})", art.propose_fn,
+                    art.propose_raw, engine.spec_draft_params,
+                    engine.draft_state,
+                    rng.integers(0, cfg.vocab_size, (lanes, 1)),
+                    np.arange(lanes) % 2,
+                    rng.integers(0, cfg.vocab_size, (lanes, 1)), live)
+    prompt = rng.integers(0, cfg.vocab_size, (1, engine.prompt_pad))
+    replay_vs_eager(torch, "draft admit", art.draft_admit_fn,
+                    art.draft_admit_raw, engine.spec_draft_params,
+                    engine.draft_state, prompt, 3, 100)
+
+
+def _spec_rule(dispatches) -> dict[str, int]:
+    """Launches the dispatch rule implies for the speculative engine's
+    steps that ran."""
+    out = dict.fromkeys(ENGINE_STEP, 0)
+    for name, n in dispatches.items():
+        for k, per in SPEC_RULE.get(name, ENGINE_STEP).items():
+            out[k] += n * per
+    return out
+
+
 def run_engine(torch, profile: bool, bf16: EngineRun | None = None
                ) -> EngineRun:
     """Phase 7, or with ``bf16`` (phase 7's run) phase 7b: the same engine
@@ -1549,37 +1655,14 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
         if profile:
             _traced_rerun(torch, engine, again)
 
-        # replay against eager, bit for bit: a decode tick with every lane live
-        # on distinct blocks, and one chunk of each bucket into lane 0 (one pad
-        # position, whose write goes to the null block)
-        print("replayed steps against the same steps run eagerly:")
-        art, kv = engine.art, engine.state["kv"]
-        lanes, per = engine.num_slots, (engine.num_kv_blocks - 1) \
-            // engine.num_slots
-        bs = engine.kv_block_size
-        table = np.zeros((lanes, art.max_blocks), np.int32)
-        for s in range(lanes):
-            table[s, :per] = 1 + s * per + np.arange(per)
-        kv.table.copy_(torch.from_numpy(table))
-        kv.length.copy_(torch.arange(per * bs - 1, per * bs - 1 - lanes, -1,
-                                     dtype=torch.int32))
-        rng = np.random.default_rng(7)
-        replay_vs_eager(torch, f"decode tick ({lanes} lanes)", art.decode_fn,
-                        art.decode_raw, engine.params, engine.state,
-                        rng.integers(0, cfg.vocab_size, (lanes, 1)),
-                        np.ones(lanes, np.int64))
-        for bucket in art.chunk_buckets:
-            replay_vs_eager(torch, f"prefill chunk @{bucket}", art.prefill_fn,
-                            art.prefill_raw, engine.params, engine.state,
-                            rng.integers(0, cfg.vocab_size, (1, bucket)), 0, 0,
-                            bucket - 1, table[0].astype(np.int64))
+        _engine_replays(torch, engine)
     pool_bytes = m.kv_cache["pool_bytes"]
-    del res, engine, m, m2, art, kv
+    del res, engine, m, m2
     _free(torch)
     return EngineRun(counts, tokens, pool_bytes)
 
 
-def run_spec_engine(torch, profile: bool, bf16: EngineRun) -> dict:
+def run_spec_engine(torch, profile: bool, bf16: EngineRun) -> EngineRun:
     """Phase 7c: phase 7's engine decoding speculatively (an int8
     qwen1.5-4b draft proposing k = 4 tokens a lane, the float target
     verifying them). Gated: every request finishes with in-vocab ids, zero
@@ -1610,14 +1693,7 @@ def run_spec_engine(torch, profile: bool, bf16: EngineRun) -> dict:
     replayed = dict(graphs.replayed)
     engine, m, trace = res["engine"], res["metrics"], res["trace"]
     cfg, art = engine.cfg, engine.spec_art
-
-    def rule(dispatches) -> dict[str, int]:
-        out = dict.fromkeys(ENGINE_STEP, 0)
-        for name, n in dispatches.items():
-            for k, per in SPEC_RULE.get(name, ENGINE_STEP).items():
-                out[k] += n * per
-        return out
-
+    rule = _spec_rule
     want = rule(engine.dispatches)
     print(f"steps {dict(engine.dispatches)}; launches {counts}, of which "
           f"graph replays {replayed} (rule: {want}); graphs captured: "
@@ -1717,40 +1793,432 @@ def run_spec_engine(torch, profile: bool, bf16: EngineRun) -> dict:
         if profile:
             _traced_rerun(torch, engine, again)
 
-        # replay against eager, bit for bit: the verify pass with lanes
-        # near their table's end (windows run onto the null-padded entry,
-        # so the null block takes duplicate writes) and one vacant lane;
-        # the propose step with two lanes catching up; a draft admission
-        print("replayed steps against the same steps run eagerly:")
-        kv = engine.state["kv"]
-        lanes, bs = engine.num_slots, engine.kv_block_size
-        per = (engine.num_kv_blocks - 1) // lanes
-        table = np.zeros((lanes, engine.art.max_blocks), np.int32)
-        for s_ in range(lanes):
-            table[s_, :per] = 1 + s_ * per + np.arange(per)
-        kv.table.copy_(torch.from_numpy(table))
-        kv.length.copy_(torch.arange(per * bs - 1, per * bs - 1 - lanes, -1,
-                                     dtype=torch.int32))
-        rng = np.random.default_rng(9)
-        live = np.array([1] * (lanes - 1) + [0], np.int64)
-        replay_vs_eager(torch, f"verify ({lanes} lanes x {SPEC_K + 1})",
-                        art.verify_fn, art.verify_raw, engine.params,
-                        engine.state,
-                        rng.integers(0, cfg.vocab_size, (lanes, SPEC_K + 1)),
-                        live)
-        engine.draft_state["kv"].length.copy_(
-            torch.arange(100, 100 + lanes, dtype=torch.int32))
-        replay_vs_eager(torch, f"propose (k = {SPEC_K})", art.propose_fn,
-                        art.propose_raw, engine.spec_draft_params,
-                        engine.draft_state,
-                        rng.integers(0, cfg.vocab_size, (lanes, 1)),
-                        np.arange(lanes) % 2,
-                        rng.integers(0, cfg.vocab_size, (lanes, 1)), live)
-        prompt = rng.integers(0, cfg.vocab_size, (1, engine.prompt_pad))
-        replay_vs_eager(torch, "draft admit", art.draft_admit_fn,
-                        art.draft_admit_raw, engine.spec_draft_params,
-                        engine.draft_state, prompt, 3, 100)
-    del res, engine, m, m2, art, kv
+        _spec_replays(torch, engine)
+    del res, engine, m, m2, art
+    _free(torch)
+    return EngineRun(counts, tokens, 0)
+
+
+# ------------------------------------------------------------ phase 8
+# where phase 8 writes its traces, metrics and refined plans: ``--out
+# DIR`` on the command line, else build/phase8 (gitignored)
+TRACE_DIR = os.path.join(ROOT, "build", "phase8")
+TRACE_ARGS = ["--metrics-interval-ticks", "8"]
+ATTRIB_TOP = 6  # signatures printed with measured against modeled seconds
+
+
+def _trace_args(name: str) -> list[str]:
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    base = os.path.join(TRACE_DIR, name)
+    return ["--trace-out", base + ".trace.json", "--metrics-json",
+            base + ".metrics.json"] + TRACE_ARGS
+
+
+def _check_trace(path: str, m, steps: set[str], requests: int) -> None:
+    """The saved trace validates (the port's validate_chrome_trace: the
+    card has no JAX), every span's phase is in PHASES, every tick has its
+    expire, bind and step spans, and the attribution reconciles."""
+    import collections
+
+    from repro_torch.obs import PHASES, validate_chrome_trace
+
+    with open(path) as f:
+        obj = json.load(f)
+    info = validate_chrome_trace(
+        obj, require_phases=("expire", "bind", "prefill-chunk", "sample")
+        + tuple(sorted(steps)), min_requests=requests)
+    stray = set(info["phase_spans"]) - set(PHASES)
+    by_tick = collections.defaultdict(set)
+    for ev in obj["traceEvents"]:
+        if ev.get("ph") == "X" and ev.get("cat") == "phase":
+            by_tick[ev["args"]["tick"]].add(ev["name"])
+    bare = [t for t in range(m.ticks)
+            if not ({"expire", "bind"} <= by_tick[t]
+                    and by_tick[t] & (steps | {"prefill-chunk"}))]
+    recon = m.attribution["reconciliation_error"]
+    print(f"trace {os.path.relpath(path, ROOT)}: {info['events']} events, "
+          f"spans {info['phase_spans']}, {info['completed_requests']} "
+          f"requests, {info['counter_samples']} counter samples; "
+          f"{m.ticks} ticks; reconciliation error {recon!r}", flush=True)
+    if stray or bare or recon is None or abs(recon) > 1e-9:
+        raise SystemExit(f"trace {path}: phases outside PHASES {stray}, "
+                         f"ticks without their spans {bare[:10]}, "
+                         f"reconciliation error {recon}")
+
+
+def _phase_table(engine, m, label: str) -> dict:
+    """Host ms a tick of each phase (p50 / p99 of its spans, and its total
+    over the ticks) and, for a device phase, the same of its CUDA-event
+    device time; the engine's host share of the wall time."""
+    import numpy as np
+
+    from repro_torch.obs import PHASES
+
+    tr = engine.tracer
+    host, dev = tr.phase_durations(), tr.device_durations()
+    out, device_total = {}, 0.0
+    print(f"{label}: {m.ticks} ticks, {1e3 * m.wall_s / m.ticks:.3f} ms a "
+          "tick on the host clock; by phase (ms: p50 / p99 of one span, "
+          "total a tick):")
+    for name in sorted(host):
+        h = 1e3 * np.asarray(host[name])
+        row = {"kind": PHASES[name], "spans": len(h),
+               "host_p50": float(np.percentile(h, 50)),
+               "host_p99": float(np.percentile(h, 99)),
+               "host_tick": float(h.sum() / m.ticks)}
+        line = (f"  {name:14s} {row['kind']:6s} x{len(h):<4d} host "
+                f"{row['host_p50']:8.3f} / {row['host_p99']:8.3f} / "
+                f"{row['host_tick']:8.3f}")
+        if PHASES[name] == "device":
+            d = 1e3 * np.asarray(dev[name])
+            device_total += float(d.sum())
+            row.update(dev_p50=float(np.percentile(d, 50)),
+                       dev_p99=float(np.percentile(d, 99)),
+                       dev_tick=float(d.sum() / m.ticks))
+            line += (f"   device {row['dev_p50']:8.3f} / "
+                     f"{row['dev_p99']:8.3f} / {row['dev_tick']:8.3f}")
+        out[name] = row
+        print(line)
+    wall = 1e3 * m.wall_s
+    share = 1.0 - device_total / wall
+    print(f"  device phases' device time {device_total:.2f} ms of "
+          f"{wall:.2f} ms wall: host share (the card idle) {share:.4f}",
+          flush=True)
+    return {"phases": out, "host_share": share,
+            "tick_ms": wall / m.ticks}
+
+
+def _attrib_top(m) -> None:
+    a = m.attribution
+    print(f"attribution: {a['signatures']} signatures, {a['drifted_count']} "
+          f"drifted, bound shares {a['bound_share']}; top by device "
+          "seconds (measured per call against the h100 model's t_total):")
+    for r in a["by_device_s"][:ATTRIB_TOP]:
+        print(f"  {r['m']:>4d}x{r['k']}x{r['n']} {r['in_dtype']}->"
+              f"{r['out_dtype']} plan=({r['bm']}, {r['bk']}, {r['bn']}) "
+              f"calls={r['calls']} device {1e3 * r['device_s']:.2f} ms "
+              f"(share {r['share']:.3f}), per call measured "
+              f"{1e6 * r['measured_per_call_s']:.1f} us, modeled "
+              f"{1e6 * r['t_total_s']:.1f} us, ratio "
+              f"{r['measured_vs_modeled']:.2f} ({r['bound']}-bound)")
+
+
+def run_traced_engine(torch, label: str, base: EngineRun) -> dict:
+    """Phase 8a (``base`` phase 7's run) or 8b (``base`` 7c's): the same
+    engine through the launcher with the flight recorder on
+    (``--trace-out``, ``--metrics-interval-ticks 8``). Gated: the trace
+    validates and covers every tick, the attribution reconciles, zero lazy
+    solves and misses, launches equal to the dispatch rule, the tokens
+    equal to ``base``'s untraced run, replays equal to eager steps.
+    Printed: a warm traced rerun's host and device ms by phase, its host
+    share, and the top signatures measured against modeled."""
+    from repro_torch.core.context import use_context
+    from repro_torch.launch import serve
+    from repro_torch.serve import Request
+    from repro_torch.train import graphs
+
+    spec = label == "8b"
+    args = (ENGINE_ARGS + (ENGINE_SPEC_ARGS if spec else [])
+            + _trace_args(label))
+    phase(f"{label} traced {'speculative ' if spec else ''}engine: "
+          "repro_torch.launch.serve "
+          + " ".join(a if a else "''" for a in args))
+    graphs.reset_launches()
+    res = serve.main(args)
+    counts = graphs.launches()
+    engine, m, trace = res["engine"], res["metrics"], res["trace"]
+    want = (_spec_rule if spec else _engine_rule)(engine.dispatches)
+    tokens = {st.request.prompt.tobytes(): st.tokens for st in engine.finished}
+    print(f"steps {dict(engine.dispatches)}; launches {counts} (rule "
+          f"{want}); tokens equal to the untraced run's at "
+          + _same_tokens(base.tokens, tokens))
+    if res["lazy_solves"] or res["misses"] or counts != want \
+            or tokens != base.tokens:
+        raise SystemExit(f"{label}: plan cache {m.plan_cache}, launches "
+                         f"{counts} (rule {want}), or tokens that differ "
+                         "from the untraced run's")
+    steps = {"spec-draft", "spec-verify"} if spec else {"decode"}
+    _check_trace(args[args.index("--trace-out") + 1], m, steps, len(trace))
+    if spec:
+        gauges = engine.registry.collect()
+        sp = m.speculation
+        print(f"registry: {len(engine.registry.snapshots)} snapshots; "
+              f"serve_spec gauges rounds "
+              f"{gauges['repro_serve_spec_rounds']:.0f}, acceptance_rate "
+              f"{gauges['repro_serve_spec_acceptance_rate']:.4f}")
+        if gauges["repro_serve_spec_rounds"] != sp["rounds"]:
+            raise SystemExit("8b: the serve_spec gauges differ from the "
+                             "speculation section")
+    with use_context(res["context"]):
+        again = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                 for r in trace]
+        engine.reset()
+        graphs.reset_launches()
+        m2 = engine.run(again)
+        if graphs.launches() != (_spec_rule if spec else _engine_rule)(
+                engine.dispatches) or m2.plan_cache["lazy_solves"]:
+            raise SystemExit(f"{label} warm rerun: launches "
+                             f"{graphs.launches()}, plan cache "
+                             f"{m2.plan_cache}")
+        table = _phase_table(engine, m2, f"{label} warm traced rerun")
+        recon = m2.attribution["reconciliation_error"]
+        if recon is None or abs(recon) > 1e-9:
+            raise SystemExit(f"{label} warm rerun: reconciliation error "
+                             f"{recon}")
+        _attrib_top(m2)
+        if not spec:
+            _reconcile(torch, engine, lambda: [
+                Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                for r in trace], table)
+        (_spec_replays if spec else _engine_replays)(torch, engine)
+    del res, engine, m, m2
+    _free(torch)
+    return {"counts": counts, "table": table, "tokens": tokens}
+
+
+def _reconcile(torch, engine, requests, table: dict) -> dict:
+    """The card's idle time in the engine's wall W, counted two ways on one
+    more warm traced run, this one under ``torch.profiler``: phase 8's host
+    share 1 - D/W (D: the device phases' CUDA-event time) and phase 7's
+    profiler idle share 1 - K/W (K: the union of the kernels' and copies'
+    device intervals). D - K is time inside a device span with no kernel
+    running; the lengths of the gaps between kernels say what fills it,
+    and W against the unprofiled rerun's what the profiler itself costs."""
+    from repro_torch.obs import PHASES
+
+    engine.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        m = engine.run(requests())
+    dev = engine.tracer.device_durations()
+    d_ms = 1e3 * sum(sum(v) for k, v in dev.items()
+                     if PHASES[k] == "device")
+    w_ms = 1e3 * m.wall_s
+    busy = []
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in prof.events()
+                             if str(e.device_type).endswith("CUDA")):
+        if busy and start <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], end)
+        else:
+            busy.append([start, end])
+    if not busy:
+        raise SystemExit("8a: the profiler saw no device activity")
+    k_ms = sum(end - start for start, end in busy) / 1e3  # us -> ms
+    gaps = [(b[0] - a[1]) / 1e3 for a, b in zip(busy, busy[1:])]
+    edges = w_ms - (busy[-1][1] - busy[0][0]) / 1e3
+    out = {"wall_ms": w_ms, "device_ms": d_ms, "kernel_ms": k_ms,
+           "unprofiled_wall_ms": table["tick_ms"] * m.ticks,
+           "host_share": 1 - d_ms / w_ms, "idle_share": 1 - k_ms / w_ms,
+           "in_span_share": (d_ms - k_ms) / w_ms, "edges_ms": edges,
+           "gaps": {}}
+    print(f"profiled warm rerun: wall {w_ms:.2f} ms (unprofiled "
+          f"{out['unprofiled_wall_ms']:.2f}), device phases' CUDA-event "
+          f"time {d_ms:.2f} ms, kernels and copies busy {k_ms:.2f} ms in "
+          f"{len(busy)} stretches; host share 1 - D/W "
+          f"{out['host_share']:.4f}, profiler idle share 1 - K/W "
+          f"{out['idle_share']:.4f}, in a device span with no kernel "
+          f"(D - K)/W {out['in_span_share']:.4f}; gaps between kernels "
+          "(count, total ms):", flush=True)
+    for lo, hi in ((0, 0.005), (0.005, 0.05), (0.05, 1.0),
+                   (1.0, float("inf"))):
+        g = [x for x in gaps if lo <= x < hi]
+        out["gaps"][f"{lo}-{hi} ms"] = (len(g), sum(g))
+        print(f"  {lo:g}-{hi:g} ms: {len(g)}, {sum(g):.2f}")
+    print(f"  before the first and after the last kernel: {edges:.2f} ms",
+          flush=True)
+    del prof
+    return out
+
+
+def run_measured_engine(torch, traced: dict) -> dict:
+    """Phase 8c: phase 7's engine with ``--measure-plans`` (the warm-up's
+    plans refined by CUDA-event timings of the fat GEMM at each plan and
+    its neighbouring built tiles, before the first call) and
+    ``--rebalance-drifted``, in its own context and plan cache. Gated:
+    every (signature, launched plan) the refinement timed, and every final
+    plan, matches the plain version at phase 3a's tolerance with each
+    epilogue (none, bias, silu), and on a skinny key the GEMV at the
+    plan's (bk, bn) too (the launcher's timing is wrapped through
+    ``serve.main(measure_factory=)``; these launches are not counted),
+    the refined cache round-trips through its JSON, the engine under it
+    makes zero lazy solves, its launches equal the rule, its trace
+    validates and its replays equal its eager steps. Printed, not gated: measured / refined / kept, old -> new
+    kernel ms of each refined signature (and the GEMV's at both plans for
+    a skinny one), and the decode tick's device ms before (8a) and
+    after."""
+    from repro_torch.core import autotune
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.core.context import use_context
+    from repro_torch.core.gemm import _is_skinny
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.serve import Request
+    from repro_torch.train import graphs
+
+    cache_path = os.path.join(TRACE_DIR, "8c.plans.json")
+    args = (ENGINE_ARGS + ["--measure-plans", "--rebalance-drifted",
+                           "--plan-cache", cache_path] + _trace_args("8c"))
+    phase("8c measured plans: repro_torch.launch.serve "
+          + " ".join(a if a else "''" for a in args))
+    if os.path.exists(cache_path):
+        os.remove(cache_path)
+    seconds, checked, checkers = {}, [], {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def check(what, got, want, kernel, dtype):
+        err = (got.double() - want.double()).abs().max().item()
+        tol = _tolerance(kernel, str(dtype).removeprefix("torch."),
+                         want.double().abs().max().item())
+        checked.append((what, err, tol))
+        if not err <= tol:
+            raise SystemExit(f"8c: {what} disagrees with its plain "
+                             f"version: {err} > {tol}")
+
+    def checking(M, K, N, **kw):
+        """The launcher's timing, each launched plan held against the plain
+        version first: the fat GEMM with each epilogue the engine fuses
+        at a plan key (none, bias, silu), and on a skinny key the GEMV at
+        the (bk, bn) it would take from the candidate, as passed and as
+        launched."""
+        fn = autotune.wallclock_measure_fn(M, K, N, **kw)
+        din, dout, lay = kw["in_dtype"], kw["out_dtype"], kw["b_layout"]
+        sig = (M, K, N, din, dout, lay)
+        a, b = autotune.gemm_inputs(M, K, N, in_dtype=din, b_layout=lay,
+                                    device="cuda")
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        fat, gemv = set(), set()
+
+        def measured(plan):
+            p = fn.launched(plan)
+            with graphs.counted():
+                t = fn(plan)
+                if p not in fat:
+                    fat.add(p)
+                    for bi, act in ((None, None), (bias, None),
+                                    (None, "silu")):
+                        got = ops.balanced_matmul(
+                            a, b, bi, plan=p, out_dtype=dout, b_layout=lay,
+                            activation=act)
+                        want = ref.matmul_ref(a, b, out_dtype=dout,
+                                              b_layout=lay, bias=bi,
+                                              activation=act)
+                        check(f"fat GEMM {sig} at {p} "
+                              + ("+ bias" if bi is not None else act
+                                 or "bare"), got, want, "matmul", dout)
+                for q in ((plan, p) if _is_skinny(M, K, N) else ()):
+                    if (q.bk, q.bn) in gemv:
+                        continue
+                    gemv.add((q.bk, q.bn))
+                    got = ops.decode_matvec(a, b, bk=q.bk, bn=q.bn,
+                                            out_dtype=dout, w_layout=lay)
+                    want = ref.gemv_ref(a, b, out_dtype=dout, w_layout=lay)
+                    check(f"GEMV {sig} at bk={q.bk} bn={q.bn}", got, want,
+                          "gemv", dout)
+            seconds[(sig, p)] = t
+            return t
+
+        measured.launched = fn.launched
+        checkers[sig] = measured
+        return measured
+
+    graphs.reset_launches()
+    res = serve.main(args, measure_factory=checking)
+    counts = graphs.launches()
+    engine, m, trace, ctx = (res["engine"], res["metrics"], res["trace"],
+                             res["context"])
+    stats, changed = res["measured"]["stats"], res["measured"]["changed"]
+    want = _engine_rule(engine.dispatches)
+    fats = sum(w.startswith("fat") for w, *_ in checked)
+    print(f"refinement: {stats}; {fats // 3} (signature, plan) pairs timed, "
+          f"each held against its plain version with every epilogue (none, "
+          f"bias, silu), and {len(checked) - fats} GEMV (signature, bk, bn) "
+          f"at the skinny keys' candidates (worst err/tol "
+          f"{max(e / t if t else e for _, e, t in checked):.3g}); "
+          f"rebalance: {res['rebalanced']}")
+    if fats != 3 * stats["measured"]:
+        raise SystemExit(f"8c: {stats['measured']} measurements, "
+                         f"{fats // 3} checked")
+    # a plan --rebalance-drifted re-solved after the refinement is held too
+    late = 0
+    for key in ctx.plan_cache.warm_keys:
+        _, M, K, N, din, dout, lay = key
+        sig = (M, K, N, getattr(torch, din), getattr(torch, dout), lay)
+        plan = ctx.plan_cache.entries[key]
+        if (sig, checkers[sig].launched(plan)) not in seconds:
+            checkers[sig](plan)
+            late += 1
+    print(f"final plans of the {len(ctx.plan_cache.warm_keys)} warm keys: "
+          f"{late} not timed by the refinement, held now")
+    # each warm signature's fat GEMM at its solved plan: measured against
+    # the h100 model (the calibration's input)
+    print("fat GEMM at the solved plan, measured (CUDA events, L2 evicted) "
+          "against the h100 model's t_total:")
+    for key in sorted(ctx.plan_cache.warm_keys):
+        _, M, K, N, din, dout, lay = key
+        sig = (M, K, N, getattr(torch, din), getattr(torch, dout), lay)
+        old = changed.get(key, (ctx.plan_cache.entries[key],))[0]
+        p = ops._clamp_plan(old, M, K, N, sig[3], ctx.hw, lay)
+        est = pm.estimate_gemm(ctx.hw, M, K, N, p.bm, p.bk, p.bn,
+                               in_dtype=sig[3], out_dtype=sig[4],
+                               b_layout=lay)
+        ms = 1e3 * seconds[(sig, p)]
+        print(f"  {M:>4d}x{K}x{N} {din}->{dout} {lay} "
+              f"{ctx.hw.gemm_route(M, sig[3], lay):11s} plan=({p.bm}, "
+              f"{p.bk}, {p.bn}) measured {ms:.4f} ms, modeled "
+              f"{1e3 * est.t_total:.4f} ms, ratio {ms / 1e3 / est.t_total:.2f}")
+    for key, (old, new) in sorted(changed.items()):
+        _, M, K, N, din, dout, lay = key
+        sig = (M, K, N, getattr(torch, din), getattr(torch, dout), lay)
+        launched = ops._clamp_plan(old, M, K, N, sig[3], ctx.hw, lay)
+        line = (f"  {M}x{K}x{N} {din}->{dout} {lay}: ({old.bm}, {old.bk}, "
+                f"{old.bn}) {1e3 * seconds[(sig, launched)]:.4f} ms -> "
+                f"({new.bm}, {new.bk}, {new.bn}) "
+                f"{1e3 * seconds[(sig, new)]:.4f} ms (fat GEMM)")
+        if _is_skinny(M, K, N):  # the GEMV shares the key
+            a, w = autotune.gemm_inputs(M, K, N, in_dtype=sig[3],
+                                        b_layout=lay, device="cuda")
+            gemv = {p: time_ms(torch, lambda p=p: ops.decode_matvec(
+                a, w, bk=p.bk, bn=p.bn, out_dtype=sig[4], w_layout=lay))
+                for p in (old, new)}
+            line += (f"; GEMV {gemv[old]:.4f} ms -> {gemv[new]:.4f} ms"
+                     + (" (slower)" if gemv[new] > gemv[old] else ""))
+            del a, w
+        print(line, flush=True)
+    loaded = PlanCache(path=cache_path)
+    n = loaded.load()
+    same = (loaded.entries == ctx.plan_cache.entries
+            and loaded.balance == ctx.plan_cache.balance)
+    print(f"refined cache {os.path.relpath(cache_path, ROOT)}: {n} plans "
+          f"loaded back, equal to the engine's: {same}")
+    if not same or res["lazy_solves"] or res["misses"] or counts != want:
+        raise SystemExit(f"8c: cache round trip {same}, plan cache "
+                         f"{m.plan_cache}, launches {counts} (rule {want})")
+    _check_trace(args[args.index("--trace-out") + 1], m, {"decode"},
+                 len(trace))
+    tokens = {st.request.prompt.tobytes(): st.tokens for st in engine.finished}
+    print("tokens equal to 8a's (solved plans) at "
+          + _same_tokens(traced["tokens"], tokens) + " (printed, not gated: "
+          "other tiles sum in another order)")
+    with use_context(ctx):
+        again = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                 for r in trace]
+        engine.reset()
+        m2 = engine.run(again)
+        if m2.plan_cache["lazy_solves"] or m2.plan_cache["misses"]:
+            raise SystemExit(f"8c warm rerun: plan cache {m2.plan_cache}")
+        table = _phase_table(engine, m2, "8c warm traced rerun (refined)")
+        before = traced["table"]["phases"]["decode"]
+        after = table["phases"]["decode"]
+        print(f"decode tick on the card: {before['dev_p50']:.3f} ms p50 "
+              f"(8a, solved plans) -> {after['dev_p50']:.3f} ms p50 "
+              f"(refined); host ms a tick {traced['table']['tick_ms']:.3f} "
+              f"-> {table['tick_ms']:.3f} (printed, not gated)")
+        _attrib_top(m2)
+        _engine_replays(torch, engine)
+    del res, engine, m, m2
     _free(torch)
     return counts
 
@@ -1776,6 +2244,9 @@ def main() -> int:
     record = check_kernels(torch)
     record["wkv"] = check_wkv(torch)
     profile = "--profile" in sys.argv[1:]
+    if "--out" in sys.argv[1:]:
+        global TRACE_DIR
+        TRACE_DIR = os.path.abspath(sys.argv[sys.argv.index("--out") + 1])
     counts = {"qwen1.5-4b": run_path(torch, "qwen1.5-4b", "4a")}
     static_steps(torch, "qwen1.5-4b", "4a")
     kernel_vs_plain(torch, "qwen1.5-4b", "5a")
@@ -1794,7 +2265,14 @@ def main() -> int:
     bf16 = run_engine(torch, profile)
     counts["qwen1.5-4b engine"] = bf16.counts
     counts["qwen1.5-4b int8 engine"] = run_engine(torch, profile, bf16).counts
-    counts["qwen1.5-4b spec engine"] = run_spec_engine(torch, profile, bf16)
+    spec = run_spec_engine(torch, profile, bf16)
+    counts["qwen1.5-4b spec engine"] = spec.counts
+    traced = run_traced_engine(torch, "8a", bf16)
+    counts["qwen1.5-4b traced engine"] = traced["counts"]
+    counts["qwen1.5-4b traced spec engine"] = run_traced_engine(
+        torch, "8b", spec)["counts"]
+    counts["qwen1.5-4b measured engine"] = run_measured_engine(
+        torch, traced)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

@@ -30,6 +30,24 @@ from repro_torch.kernels.ops import GemmPlan
 # amortize weight streaming and the x-stationary GEMV kernel wins.
 SKINNY_M = 128
 
+# Observers of plan *consultation* (distinct from the plan cache's solver
+# listeners): called on every ``plan_for`` resolution, hit or miss, so an
+# attribution ledger can count how often each GEMM signature is
+# dispatched by a phase. fn(key, plan).
+_dispatch_listeners: list = []
+
+
+def add_dispatch_listener(fn) -> None:
+    """Register ``fn(key, plan)`` called on every plan_for consultation."""
+    _dispatch_listeners.append(fn)
+
+
+def remove_dispatch_listener(fn) -> None:
+    try:
+        _dispatch_listeners.remove(fn)
+    except ValueError:
+        pass
+
 
 def plan_for(
     M: int, K: int, N: int,
@@ -58,6 +76,9 @@ def plan_for(
         cache.put(key, plan,
                   balance=None if step is None else BalanceSnapshot(
                       t_comp=step.t_comp, t_mem=step.t_mem))
+    if _dispatch_listeners:
+        for fn in _dispatch_listeners:
+            fn(key, plan)
     return plan
 
 

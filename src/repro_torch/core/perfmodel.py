@@ -168,6 +168,10 @@ class BlockTimes:
     t_b: float
     t_acc: float
 
+    @property
+    def compute_bound(self) -> bool:  # Eq. 4
+        return self.t_comp >= max(self.t_a, self.t_b)
+
 
 def block_times(hw: HardwareSpec, bm: int, bk: int, bn: int, *,
                 in_dtype=torch.bfloat16, b_layout: str = "row",

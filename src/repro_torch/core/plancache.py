@@ -43,6 +43,15 @@ class BalanceSnapshot:
     t_comp: float
     t_mem: float
 
+    @property
+    def t_total(self) -> float:
+        return max(self.t_comp, self.t_mem)
+
+    @property
+    def ratio(self) -> float | None:
+        """Balance ratio t_comp/t_mem; None when the memory side is zero."""
+        return None if self.t_mem <= 0 else self.t_comp / self.t_mem
+
 
 def plan_key(
     hw_name: str, M: int, K: int, N: int,
@@ -108,12 +117,31 @@ class PlanCache:
         self._warming = 0
         # distinct keys consulted during the current/most recent warm-up
         self.warm_keys: set[PlanKey] = set()
+        # solver-event observers fn(event, key), event in miss /
+        # warm_solve / lazy_solve: a traced engine puts a lazy solve on
+        # its timeline
+        self._listeners: list = []
+
+    # --------------------------------------------------------- listeners
+    def add_listener(self, fn) -> None:
+        """Register ``fn(event, key)`` for miss/warm_solve/lazy_solve."""
+        self._listeners.append(fn)
+
+    def remove_listener(self, fn) -> None:
+        with contextlib.suppress(ValueError):
+            self._listeners.remove(fn)
+
+    def _notify(self, event: str, key: PlanKey) -> None:
+        for fn in self._listeners:
+            fn(event, key)
 
     # ------------------------------------------------------------ lookup
     def get(self, key: PlanKey) -> GemmPlan | None:
         plan = self.entries.get(key)
         if plan is None:
             self.stats.misses += 1
+            if self._listeners:
+                self._notify("miss", key)
         else:
             self.stats.hits += 1
         if self._warming:
@@ -129,6 +157,21 @@ class PlanCache:
             self.stats.warm_solves += 1
         else:
             self.stats.lazy_solves += 1
+        if self._listeners:
+            self._notify("warm_solve" if self._warming else "lazy_solve",
+                         key)
+        return plan
+
+    def update(self, key: PlanKey, plan: GemmPlan,
+               balance: BalanceSnapshot | None = None) -> GemmPlan:
+        """Replace an entry in place (measured refinement, drift re-solve)
+        without touching the warm/lazy solver counters: a refined plan is
+        maintenance, not a cache miss."""
+        self.entries[key] = plan
+        if balance is not None:
+            self.balance[key] = balance
+        else:
+            self.balance.pop(key, None)
         return plan
 
     @contextlib.contextmanager

@@ -1,7 +1,10 @@
 """Shared launcher arguments (port of ``repro.launch.args``): the context
 layer (``--hw``, ``--quantize``, ``--plan-cache``, ``--device``) and the
-serving-engine layer (``--engine`` and what it honours, ``--kv-quantize``
-and speculative decoding's ``--spec-*`` included).
+serving-engine layer (``--engine`` and what it honours, ``--kv-quantize``,
+speculative decoding's ``--spec-*``, and the flight recorder, registry,
+measured plan tuning and balance auditor: ``--trace-out``,
+``--trace-ring-events``, ``--metrics-interval-ticks``, ``--measure-plans``,
+``--attrib-tol``, ``--rebalance-drifted``).
 
 ``--hw`` defaults to ``$REPRO_TORCH_HW``, else ``h100``; ``--plan-cache ''``
 keeps plans in memory only; ``--device`` defaults to ``cuda`` (there is no
@@ -41,9 +44,7 @@ def add_context_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def add_serve_engine_args(ap: argparse.ArgumentParser
                           ) -> argparse.ArgumentParser:
-    """The serving-engine layer: only the flags this port honours. The
-    reference's tracer / registry / auditor flags (ROADMAP queue 1, item 8)
-    are not defined, so argparse rejects them."""
+    """The serving-engine layer: the reference's flags, with its defaults."""
     g = ap.add_argument_group("serving engine")
     g.add_argument(
         "--engine", action="store_true",
@@ -139,6 +140,40 @@ def add_serve_engine_args(ap: argparse.ArgumentParser
     g.add_argument(
         "--metrics-json", default=None, metavar="PATH",
         help="write the engine's serve metrics JSON here")
+    g.add_argument(
+        "--trace-out", default=None, metavar="PATH",
+        help="flight recorder: write a Chrome trace-event JSON of the run "
+             "(phase spans, on the card with each device phase's CUDA-event "
+             "time in its args, and per-request async spans; load in "
+             "Perfetto or chrome://tracing). Also adds the `timing` and "
+             "`attribution` sections to the metrics JSON")
+    g.add_argument(
+        "--trace-ring-events", type=int, default=65536, metavar="N",
+        help="tracer ring-buffer capacity in events; oldest events drop "
+             "past it (default 65536 ~ 16k ticks of phase spans)")
+    g.add_argument(
+        "--metrics-interval-ticks", type=int, default=None, metavar="N",
+        help="snapshot the counter registry every N engine ticks and "
+             "write its Prometheus text exposition next to "
+             "--metrics-json (default: end-of-run publish only)")
+    g.add_argument(
+        "--measure-plans", action="store_true",
+        help="refine warm-up plans in place by timing the fat GEMM kernel "
+             "at each plan and its neighbouring built tiles (CUDA events "
+             "on the card, the plain version on the CPU; core.autotune) "
+             "and persist the refined plans")
+    g.add_argument(
+        "--attrib-tol", type=float, default=0.25, metavar="F",
+        help="balance-auditor drift tolerance: a cached plan whose "
+             "current model evaluation deviates from its solve-time "
+             "snapshot by more than F (relative t_total or balance "
+             "ratio) is flagged drifted (default 0.25)")
+    g.add_argument(
+        "--rebalance-drifted", action="store_true",
+        help="after a traced run, feed the warm plans the balance "
+             "auditor flagged as drifted into autotune.refine_cached_"
+             "plans(resolve=True) — model re-solve + hillclimb — and "
+             "persist the restored plans (needs --trace-out)")
     return ap
 
 

@@ -24,6 +24,20 @@ CUDA graph (``train.servestep``).
       --kv-block-size 4 --device cpu --quantize int8 --kv-quantize int8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --spec-draft-config qwen1.5-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
+      --kv-block-size 4 --device cpu --plan-cache '' --trace-out t.json \\
+      --metrics-json m.json --metrics-interval-ticks 2 --measure-plans \\
+      --rebalance-drifted
+
+With ``--trace-out`` the engine runs under the flight recorder: the Chrome
+trace is written there, the metrics JSON gains the ``timing`` and
+``attribution`` sections, and with ``--metrics-interval-ticks`` the
+registry's Prometheus text goes next to the metrics JSON (``.prom``).
+``--measure-plans`` refines the warm-up's plans by timing the fat GEMM
+kernel at each plan and its neighbouring tiles before the first call (so
+the CUDA graphs are captured with the refined plans);
+``--rebalance-drifted`` re-solves the plans the balance auditor flags as
+drifted after a traced run.
 
 With ``--spec-draft-config`` the engine decodes speculatively: the draft
 (built from seed 0 like the target, shrunk with it under ``--smoke``, and
@@ -92,11 +106,95 @@ def _report_warmup(ctx, warm: dict, seconds: float, label: str) -> None:
           + (f", persisted to {saved}" if saved else "") + ")")
 
 
-def _run_engine(args, ctx, cfg, params, device) -> dict:
+def _measure_plans(ctx, device, measure_factory=None) -> dict:
+    """--measure-plans: refine the warm-up's plans with CUDA-event timings
+    of the fat GEMM kernel (the plain version's host time on the CPU;
+    ``core.autotune``) and persist the refined set. ``measure_factory``
+    replaces the timing (``refine_cached_plans``'s). Returns the
+    refinement counts and, by plan key, each refined plan's (old, new)."""
+    from repro_torch.core.autotune import refine_cached_plans
+
+    cache = ctx.plan_cache
+    old = dict(cache.entries)
+    t0 = time.perf_counter()
+    stats = refine_cached_plans(cache, device=device,
+                                measure_factory=measure_factory)
+    saved = cache.save()
+    changed = {k: (old[k], p) for k, p in cache.entries.items()
+               if k in old and p != old[k]}
+    print(f"[plan-cache] measured refinement {time.perf_counter()-t0:.2f}s: "
+          f"{stats['measured']} measurements, {stats['refined']} plans "
+          f"refined, {stats['kept']} kept"
+          + (f", persisted to {saved}" if saved else ""))
+    for k, (a, b) in sorted(changed.items()):
+        print(f"[plan-cache] refined {k[1]}x{k[2]}x{k[3]} {k[4]} {k[6]}: "
+              f"({a.bm}, {a.bk}, {a.bn}) -> ({b.bm}, {b.bk}, {b.bn})")
+    return {"stats": stats, "changed": changed}
+
+
+def _report_attrib(ctx, engine, m, *, rebalance: bool) -> dict | None:
+    """Print the balance auditor's verdict and, with --rebalance-drifted,
+    feed the drifted warm plans through a model re-solve + hill-climb.
+    Returns the rebalance counts (None when nothing was rebalanced).
+
+    The metrics JSON keeps the audited (pre-rebalance) attribution: the
+    re-solve restores the cache for the next run, it does not rewrite the
+    evidence that triggered it.
+    """
+    a = m.attribution
+    if not a:
+        return None
+    recon = a.get("reconciliation_error")
+    print(f"[attrib] {a['signatures']} signatures: attributed "
+          f"{a['attributed_device_s']:.3f}s of {a['traced_device_s']:.3f}s "
+          f"traced GEMM-phase device time (recon err "
+          + (f"{recon:.3f}" if recon is not None else "n/a")
+          + "), bound shares "
+          + ", ".join(f"{k}={v:.2f}" if v is not None else f"{k}=n/a"
+                      for k, v in sorted(a["bound_share"].items()))
+          + f", drifted={a['drifted_count']}")
+    rows = a.get("by_device_s") or []
+    if rows:
+        top = rows[0]
+        print(f"[attrib] top signature {top['key']}: "
+              f"{top['device_s']:.3f}s ({top['share']:.2f} share, "
+              f"{top['calls']} calls, bound={top['bound']})")
+    for k in a.get("drifted", []):
+        row = next((r for r in rows if r["key"] == k), None)
+        sug = ""
+        if row is not None and row.get("suggested_bm") is not None:
+            sug = (f" -> suggest bm={row['suggested_bm']} "
+                   f"bk={row['suggested_bk']} bn={row['suggested_bn']} "
+                   f"(x{row['suggested_gain']:.2f} modeled)")
+        print(f"[attrib] drifted: {k}{sug}")
+    if not rebalance:
+        return None
+    keys = engine.attrib.drifted_keys()
+    if not keys:
+        print("[attrib] rebalance: no drifted warm plans, nothing to do")
+        return None
+    from repro_torch.core.autotune import model_measure_fn, refine_cached_plans
+
+    t0 = time.perf_counter()
+    stats = refine_cached_plans(
+        ctx.plan_cache, keys=keys, resolve=True,
+        measure_factory=lambda M, K, N, **kw: model_measure_fn(
+            M, K, N, hw=ctx.hw, **kw))
+    saved = ctx.plan_cache.save()
+    print(f"[attrib] rebalanced {len(keys)} drifted plans in "
+          f"{time.perf_counter()-t0:.2f}s: {stats['refined']} refined, "
+          f"{stats['kept']} kept"
+          + (f", persisted to {saved}" if saved else ""))
+    return stats
+
+
+def _run_engine(args, ctx, cfg, params, device,
+                measure_factory=None) -> dict:
     """--engine: continuous batching over a mixed-length synthetic trace
     (with --prefix-cache a shared-header trace, with --bursty-trace bursts
     of mixed-priority traffic). Returns the engine, its metrics and the
     plan-cache counters of serving."""
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serve import (ServeEngine, SimClock, bursty_trace,
                                    shared_prefix_trace, synthetic_trace)
 
@@ -166,6 +264,11 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
             max_new_tokens=[gen, max(1, gen // 2), max(1, gen // 4)],
             stop_ids=stop, seed=0)
         max_len = plen + gen + 1
+    if args.rebalance_drifted and not args.trace_out:
+        raise SystemExit("--rebalance-drifted needs the balance auditor's "
+                         "traced attribution: pass --trace-out too")
+    tracer = (Tracer(ring_events=args.trace_ring_events)
+              if args.trace_out else None)
     engine = ServeEngine(
         cfg, params, num_slots=args.num_slots, max_len=max_len,
         prompt_pad=prompt_pad, kv_block_size=args.kv_block_size or None,
@@ -177,11 +280,17 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
         sched_policy=args.sched_policy, ttft_target_ms=args.ttft_target_ms,
         max_prefill_chunks=args.max_prefill_chunks,
         clock=SimClock(args.sim_clock) if args.sim_clock else None,
-        **spec_kwargs)
+        tracer=tracer, metrics_interval_ticks=args.metrics_interval_ticks,
+        attrib_tol=args.attrib_tol, **spec_kwargs)
+    measured = None
     if not args.no_warmup:
         t0 = time.perf_counter()
         warm = engine.plan_warmup()
         _report_warmup(ctx, warm, time.perf_counter() - t0, "engine warm-up")
+        if args.measure_plans:
+            # before the first call: each bucket's graph is captured at
+            # its first call, with the refined plans
+            measured = _measure_plans(ctx, device, measure_factory)
 
     m = engine.run(trace)
     qtag = f" quant={ctx.quant_mode}" if ctx.quant_mode else ""
@@ -240,23 +349,43 @@ def _run_engine(args, ctx, cfg, params, device) -> dict:
     first = engine.finished[0]
     print(f"first finished: id={first.request.request_id} "
           f"reason={first.finish_reason} tokens={first.tokens[:12]} ...")
+    rebalanced = None
+    if tracer is not None:
+        obj = tracer.save(args.trace_out)
+        t = m.timing
+        print(f"[trace] {len(obj['traceEvents'])} events "
+              f"({t.get('events_dropped', 0)} dropped) -> {args.trace_out}; "
+              f"host {t.get('host_s', 0.0):.3f}s / device "
+              f"{t.get('device_s', 0.0):.3f}s across "
+              f"{len(t.get('phases', {}))} phases")
+        rebalanced = _report_attrib(ctx, engine, m,
+                                    rebalance=args.rebalance_drifted)
     if args.metrics_json:
         m.to_json(args.metrics_json)
         print(f"[engine] metrics written to {args.metrics_json}")
+        if args.metrics_interval_ticks:
+            prom_path = args.metrics_json + ".prom"
+            with open(prom_path, "w") as f:
+                f.write(engine.registry.to_prometheus_text())
+            print(f"[registry] {len(engine.registry.snapshots)} snapshots, "
+                  f"exposition written to {prom_path}")
     if not args.no_warmup and (pc["lazy_solves"] or pc["misses"]):
         raise SystemExit(
             f"plan warm-up incomplete: {pc['misses']} unseen signatures, "
             f"{pc['lazy_solves']} lazy solves during serving")
     return {"engine": engine, "metrics": m, "trace": trace, "context": ctx,
             "tokens": m.generated_tokens, "seconds": m.wall_s,
-            "lazy_solves": pc["lazy_solves"], "misses": pc["misses"]}
+            "lazy_solves": pc["lazy_solves"], "misses": pc["misses"],
+            "measured": measured, "rebalanced": rebalanced}
 
 
-def main(argv: list[str] | None = None) -> dict:
+def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
     """Run the server; returns what it printed as numbers (tokens, seconds,
     plan-cache counters; with --engine also the engine, its metrics, the
-    trace and the execution context) for callers that drive it
-    in-process."""
+    trace, the execution context, and what --measure-plans and
+    --rebalance-drifted changed) for callers that drive it in-process.
+    ``measure_factory``: the timing --measure-plans refines with, in place
+    of ``core.autotune.wallclock_measure_fn``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-4b")
     ap.add_argument("--smoke", action="store_true")
@@ -289,7 +418,8 @@ def main(argv: list[str] | None = None) -> dict:
             print(f"[quant] int8 weights quantized at load in "
                   f"{quantize_s:.2f}s")
         if args.engine:
-            res = _run_engine(args, ctx, cfg, params, device)
+            res = _run_engine(args, ctx, cfg, params, device,
+                              measure_factory)
             res["quantize_s"] = quantize_s
             return res
         rng = np.random.default_rng(0)

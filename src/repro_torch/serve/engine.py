@@ -45,12 +45,20 @@ prefix plus one bonus token, then rewinds both models' device lengths in
 place (the captured graphs hold their addresses). Every committed token is
 the target's own argmax, so the output equals non-speculative decode.
 
-Not ported yet: the tracer, registry and attribution ledger (ROADMAP queue
-1, item 8).
+Observability (``repro_torch.obs``), off unless a tracer is passed: the
+tracer records phase spans (``expire``, ``bind``, ``prefill-chunk``,
+``admit``, ``decode``, ``sample``, ``spec-draft``, ``spec-verify``, and the
+prefix cache's ``reclaim``) and request events; on a CUDA device each span
+of a device phase also records a CUDA event pair, resolved at a snapshot
+or the end of the run (``obs.trace``). The attribution ledger profiles the
+GEMM signatures of each step during ``plan_warmup`` and counts step calls
+by phase (``dispatches``) on the hot path; a traced run ends with the
+metrics' ``timing`` and ``attribution`` sections, and the registry
+mirrors the subsystems' counters every ``metrics_interval_ticks`` ticks
+and at the end of the run.
 """
 from __future__ import annotations
 
-import collections
 import time
 from typing import Iterable
 
@@ -61,6 +69,9 @@ from repro_torch import interop, models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import current_context
 from repro_torch.layers.attention import PagedKVCache, reset_paged_kv_cache
+from repro_torch.obs.attrib import AttributionLedger
+from repro_torch.obs.registry import Registry, prom_name
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.quant.kvcache import KVCacheDtype, kv_block_bytes
 from repro_torch.serve.blockpool import BlockPool
 from repro_torch.serve.metrics import EngineMetrics
@@ -110,6 +121,10 @@ class ServeEngine:
         spec_draft_params=None,
         spec_k: int = 4,
         spec_draft_quant: str | None = None,
+        tracer=None,
+        registry: Registry | None = None,
+        metrics_interval_ticks: int | None = None,
+        attrib_tol: float = 0.25,
     ):
         self.cfg = cfg
         self.params = params
@@ -128,6 +143,18 @@ class ServeEngine:
         # burst arrivals become deterministic functions of the event
         # sequence
         self._now = clock if clock is not None else time.perf_counter
+        # observability: the tracer keeps its own clock and never reads
+        # self._now (under SimClock a reading advances time, so tracing on
+        # or off must not change the engine's readings); NULL_TRACER makes
+        # every hook a no-op
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.tracer.time_device(self.device)
+        self.registry = registry if registry is not None else Registry()
+        self.metrics_interval_ticks = metrics_interval_ticks
+        # the balance auditor: step profiles captured by plan_warmup, step
+        # calls counted on the hot path (a plain int add), joined with the
+        # traced phase seconds at the end of a traced run
+        self.attrib = AttributionLedger(tol=attrib_tol)
         self.paged = bool(kv_block_size)
         self.kv_dtype = KVCacheDtype.parse(kv_quantize)
         if self.kv_dtype.quantized and not self.paged:
@@ -201,6 +228,15 @@ class ServeEngine:
         self._warmed = False
         self.reset()
 
+    @property
+    def dispatches(self) -> dict[str, int]:
+        """Step calls by phase tag ("decode", "admit" (the draft's, under
+        speculation), "prefill-chunk@<bucket>", "spec-draft",
+        "spec-verify") since the last reset: the attribution ledger's
+        counts, which with the dispatch rule give a run's kernel
+        launches."""
+        return self.attrib.dispatches
+
     def _block_bytes(self, kv_dtype: KVCacheDtype) -> int:
         """Bytes of one pool block over the layers (``kv_block_bytes``)."""
         return kv_block_bytes(self.kv_block_size, self.cfg.n_kv_heads,
@@ -233,6 +269,8 @@ class ServeEngine:
         reset in place, never reallocated, to what ``init_decode_state``
         makes)."""
         ctx = current_context()
+        self.tracer.reset()
+        self.attrib.reset_run()
         self._t0 = self._now()
         if self.state is None:
             self.state = self._new_state(self.device)
@@ -249,11 +287,13 @@ class ServeEngine:
         pool = (BlockPool(self.num_kv_blocks, self.kv_block_size,
                           bytes_per_block=self._block_bytes(self.kv_dtype))
                 if self.paged else None)
-        cache = (PrefixCache(pool, max_cached_blocks=self.prefix_cache_blocks)
+        cache = (PrefixCache(pool, max_cached_blocks=self.prefix_cache_blocks,
+                             tracer=self.tracer)
                  if self.prefix_cache_enabled else None)
         self.sched = SlotScheduler(self.num_slots, max_len=self.max_len,
                                    pool=pool, prefix_cache=cache,
-                                   policy=self.sched_policy, spec=self.spec)
+                                   policy=self.sched_policy, spec=self.spec,
+                                   tracer=self.tracer)
         if self.spec:
             # per-lane draft bookkeeping: lag marks lanes whose draft KV is
             # one token behind the committed stream (a fully accepted
@@ -268,11 +308,6 @@ class ServeEngine:
             else self.ttft_target_ms / 1e3,
             max_chunks=self.max_prefill_chunks)
         self._next_tok = np.full((self.num_slots,), self.pad_id, np.int64)
-        # step calls by phase ("decode", "admit" (the draft's, under
-        # speculation), "prefill-chunk@<bucket>", "spec-draft",
-        # "spec-verify"): with the dispatch rule they give the kernel
-        # launches of a run
-        self.dispatches: collections.Counter = collections.Counter()
         engine_info = {
             "arch": self.cfg.name,
             "num_slots": self.num_slots,
@@ -323,26 +358,42 @@ class ServeEngine:
             lambda t: torch.empty_like(t, device="meta"), tree)
         params = on_meta(self.params)
         state = self._new_state("meta")
+        # each step runs under an attribution capture: the ledger records
+        # which GEMM signatures one execution of the step consults, and how
+        # often (the profile it joins with the traced phase seconds)
+        capture = self.attrib.capture
         with cache.warmup():
             if self.paged:
                 for bucket in self.chunk_buckets:
-                    self.art.prefill_raw(params, state, meta((1, bucket)),
-                                         meta(()), meta(()), meta(()),
-                                         meta((self.art.max_blocks,)))
+                    with capture(f"prefill-chunk@{bucket}"):
+                        self.art.prefill_raw(
+                            params, state, meta((1, bucket)), meta(()),
+                            meta(()), meta(()), meta((self.art.max_blocks,)))
             else:
-                self.art.admit_raw(params, state, meta((1, self.prompt_pad)),
-                                   meta(()), meta(()))
+                with capture("admit"):
+                    self.art.admit_raw(params, state,
+                                       meta((1, self.prompt_pad)), meta(()),
+                                       meta(()))
             toks, active = meta((self.num_slots, 1)), meta((self.num_slots,))
-            self.art.decode_raw(params, state, toks, active)
+            with capture("decode"):
+                self.art.decode_raw(params, state, toks, active)
             if self.spec:
                 art, dparams = self.spec_art, on_meta(self.spec_draft_params)
                 dstate = self._new_draft_state("meta")
-                art.verify_raw(params, state,
-                               meta((self.num_slots, self.spec_k + 1)), active)
-                art.draft_admit_raw(dparams, dstate,
-                                    meta((1, self.prompt_pad)), meta(()),
-                                    meta(()))
-                art.propose_raw(dparams, dstate, toks, active, toks, active)
+                with capture("spec-verify"):
+                    art.verify_raw(params, state,
+                                   meta((self.num_slots, self.spec_k + 1)),
+                                   active)
+                # the draft's admission runs inside the engine's "admit"
+                # spans (speculation needs the paged engine, so the
+                # contiguous admit tag is never live beside it)
+                with capture("admit"):
+                    art.draft_admit_raw(dparams, dstate,
+                                        meta((1, self.prompt_pad)), meta(()),
+                                        meta(()))
+                with capture("spec-draft"):
+                    art.propose_raw(dparams, dstate, toks, active, toks,
+                                    active)
         self._warmed = True
         solved = cache.stats.warm_solves - before.warm_solves
         signatures = len(cache.warm_keys)
@@ -415,6 +466,8 @@ class ServeEngine:
         st.append(tok, now, tick=self.sched.tick)
         if first_ever:
             self.budget.observe_ttft(now - st.request.submitted_s)
+            self.tracer.request_event("first-token", st.request.request_id,
+                                      slot=st.slot)
         self._next_tok[st.slot] = tok
         reason = ("length" if len(st.tokens) >= self._budget(st)
                   else st.should_stop())
@@ -434,10 +487,12 @@ class ServeEngine:
             req = st.request
             prompt = np.full((1, self.prompt_pad), self.pad_id, np.int64)
             prompt[0, : req.prompt_len] = req.prompt
-            self.dispatches["admit"] += 1
-            logits = self.art.admit_fn(self.params, self.state, prompt,
-                                       st.slot, req.prompt_len)
-            self._first_token(st, logits.cpu().numpy(), self._rel_now())
+            self.attrib.dispatch("admit")
+            with self.tracer.phase("admit", slot=st.slot):
+                logits = self.art.admit_fn(self.params, self.state, prompt,
+                                           st.slot, req.prompt_len)
+                np_logits = logits.cpu().numpy()
+            self._first_token(st, np_logits, self._rel_now())
 
     def _bind_admissions(self, now: float) -> None:
         """Paged path: bind queue heads to free lanes and allocate their KV
@@ -459,9 +514,11 @@ class ServeEngine:
         req = st.request
         prompt = np.full((1, self.prompt_pad), self.pad_id, np.int64)
         prompt[0, : req.prompt_len] = req.prompt
-        self.dispatches["admit"] += 1
-        self.spec_art.draft_admit_fn(self.spec_draft_params, self.draft_state,
-                                     prompt, st.slot, req.prompt_len)
+        self.attrib.dispatch("admit")
+        with self.tracer.phase("admit", slot=st.slot, draft=True):
+            self.spec_art.draft_admit_fn(self.spec_draft_params,
+                                         self.draft_state, prompt, st.slot,
+                                         req.prompt_len)
         self._lag[st.slot] = False
 
     def _chunk_shape(self, remaining: int) -> tuple[int, int]:
@@ -490,10 +547,14 @@ class ServeEngine:
         chunk[0, :n] = seq[start: start + n]
         blocks = np.zeros((self.art.max_blocks,), np.int64)
         blocks[: len(st.blocks)] = st.blocks
-        self.dispatches[f"prefill-chunk@{bucket}"] += 1
-        logits = self.art.prefill_fn(self.params, self.state, chunk, st.slot,
-                                     start, n, blocks)
+        self.attrib.dispatch(f"prefill-chunk@{bucket}")
+        with self.tracer.phase("prefill-chunk", slot=st.slot, n=n,
+                               bucket=bucket):
+            logits = self.art.prefill_fn(self.params, self.state, chunk,
+                                         st.slot, start, n, blocks)
         self.sched.prefill_advance(st.slot, n)
+        self.tracer.request_event("chunk", st.request.request_id,
+                                  slot=st.slot, n=n, done=st.prefill_done)
         if st.prefilling:
             return 0
         self._first_token(st, logits.cpu().numpy(), self._rel_now())
@@ -512,9 +573,11 @@ class ServeEngine:
         and the propose and admit graphs the draft's (blocks were
         allocated at budget: the allocator is untouched)."""
         k = self.spec_k
-        self.dispatches["spec-draft"] += 1
-        self.dispatches["spec-verify"] += 1
+        tr = self.tracer
+        self.attrib.dispatch("spec-draft")
+        self.attrib.dispatch("spec-verify")
         t0 = time.perf_counter()
+        m0 = tr.device_mark()
         start_toks = np.where(mask, self._next_tok, self.pad_id)
         catch_mask = mask & self._lag
         proposals = self.spec_art.propose_fn(
@@ -523,6 +586,7 @@ class ServeEngine:
             start_toks[:, None], mask.astype(np.int64))
         np_props = proposals.cpu().numpy()                 # (num_slots, k)
         t1 = time.perf_counter()
+        m1 = tr.device_mark()
         fed = np.concatenate(
             [start_toks[:, None],
              np.where(mask[:, None], np_props, self.pad_id)],
@@ -531,15 +595,31 @@ class ServeEngine:
                                          mask.astype(np.int64))
         np_logits = logits.cpu().numpy()           # (num_slots, k+1, Vp)
         t2 = time.perf_counter()
+        m2 = tr.device_mark()
         self.spec_stats.draft_s += t1 - t0
         self.spec_stats.verify_s += t2 - t1
+        if tr.enabled:
+            # externally timed spans with the same clock readings as
+            # SpecStats: the summed spans reconcile with draft_s/verify_s
+            tr.phase_span("spec-draft", t0, t1, marks=(m0, m1))
+            tr.phase_span("spec-verify", t1, t2, marks=(m1, m2))
         now = self._rel_now()
+        with tr.phase("sample", n=int(mask.sum())):
+            produced = self._accept(mask, np_props, np_logits, now)
+        return produced
+
+    def _accept(self, mask: np.ndarray, np_props: np.ndarray,
+                np_logits: np.ndarray, now: float) -> int:
+        """A speculative round's host side: each lane's accepted prefix
+        and bonus token committed, its lengths rewound. Returns tokens
+        produced."""
+        k = self.spec_k
         # post-verify lengths: every active lane advanced by k + 1; the
         # acceptance walk decides how far each rolls back
         tgt_len = self.state["kv"].length.cpu().numpy().copy()
         drf_len = self.draft_state["kv"].length.cpu().numpy().copy()
         produced = 0
-        for slot in np.flatnonzero(mask):
+        for slot in np.flatnonzero(mask).tolist():
             st = self.sched.slots[slot]
             self.sched.advance_written(slot, k + 1)
             greedy = spec_lib.greedy_rows(np_logits[slot],
@@ -585,11 +665,15 @@ class ServeEngine:
         ``budget.chunks_per_tick()`` prefill chunks), then one masked
         decode step (under speculation, one round) for the decode-ready
         lanes. Returns the number of tokens generated."""
+        tr = self.tracer
+        tr.set_tick(self.sched.tick)
         now = self._rel_now()
-        for st in self.sched.expire_deadlines(now):
-            self.metrics.record_request(st)
+        with tr.phase("expire"):
+            for st in self.sched.expire_deadlines(now):
+                self.metrics.record_request(st)
         if self.paged:
-            self._bind_admissions(now)
+            with tr.phase("bind"):
+                self._bind_admissions(now)
             produced = 0
             # the budget controller's knob: how much of this tick goes to
             # prefill (TTFT) vs decode (throughput), over the same buckets
@@ -605,21 +689,24 @@ class ServeEngine:
             produced += self._spec_round(mask)
         elif ready:
             toks = np.where(mask, self._next_tok, self.pad_id)
-            self.dispatches["decode"] += 1
-            logits = self.art.decode_fn(self.params, self.state,
-                                        toks[:, None], mask.astype(np.int64))
-            np_logits = logits.cpu().numpy()
+            self.attrib.dispatch("decode")
+            with tr.phase("decode", n=ready):
+                logits = self.art.decode_fn(self.params, self.state,
+                                            toks[:, None],
+                                            mask.astype(np.int64))
+                np_logits = logits.cpu().numpy()
             now = self._rel_now()
-            for slot in np.flatnonzero(mask):
-                st = self.sched.slots[slot]
-                tok = self._sample(np_logits[slot], st)
-                st.append(tok, now, tick=self.sched.tick)
-                self._next_tok[slot] = tok
-                produced += 1
-                reason = ("length" if len(st.tokens) >= self._budget(st)
-                          else st.should_stop())
-                if reason:
-                    self._finish(st, reason, now)
+            with tr.phase("sample", n=ready):
+                for slot in np.flatnonzero(mask).tolist():
+                    st = self.sched.slots[slot]
+                    tok = self._sample(np_logits[slot], st)
+                    st.append(tok, now, tick=self.sched.tick)
+                    self._next_tok[slot] = tok
+                    produced += 1
+                    reason = ("length" if len(st.tokens) >= self._budget(st)
+                              else st.should_stop())
+                    if reason:
+                        self._finish(st, reason, now)
         if self.paged:
             self.metrics.record_block_pool(
                 self.sched.pool, self.sched.live_tokens(),
@@ -628,7 +715,32 @@ class ServeEngine:
         # computed); mid-prefill lanes are visible in the prefill metrics
         self.metrics.record_tick(ready, produced, self.sched.pending)
         self.sched.tick += 1
+        if (self.metrics_interval_ticks
+                and self.sched.tick % self.metrics_interval_ticks == 0):
+            self._publish_registry()
+            self.registry.snapshot(tick=self.sched.tick)
+            if tr.enabled:
+                self._emit_counters()
         return produced
+
+    def _emit_counters(self) -> None:
+        """Counter tracks at the snapshot cadence (traced runs only):
+        engine progress, pool pressure, and the attributed device seconds
+        by bound class (resolving the CUDA events recorded so far, one
+        synchronize)."""
+        tr = self.tracer
+        m = self.metrics
+        tr.counter("engine_progress", {
+            "generated_tokens": m.generated_tokens,
+            "queued": self.sched.pending,
+        })
+        if self.paged:
+            tr.counter("block_pool", {
+                "blocks_in_use": self.sched.pool.blocks_in_use,
+                "free_blocks": self.sched.pool.free_blocks,
+            })
+        tr.counter("attrib_device_s", self.attrib.class_seconds(
+            tr.device_durations(), cache=current_context().plan_cache))
 
     # ------------------------------------------------------------ driving
     def run(self, requests: Iterable[Request] = ()) -> EngineMetrics:
@@ -655,13 +767,26 @@ class ServeEngine:
                     self.sched.submit(r, now)
             self.tick()
 
-        if self._warmed:
-            with cache.expect_steady_state("serve-engine loop"):
+        listener = None
+        if self.tracer.enabled:
+            # plan-solve events on the timeline: none fire in steady
+            # state, so a "plan-lazy_solve" instant is the regression
+            tr = self.tracer
+
+            def listener(event, key):
+                tr.instant(f"plan-{event}", key="|".join(map(str, key)))
+            cache.add_listener(listener)
+        try:
+            if self._warmed:
+                with cache.expect_steady_state("serve-engine loop"):
+                    while pending or not self.sched.idle:
+                        step()
+            else:
                 while pending or not self.sched.idle:
                     step()
-        else:
-            while pending or not self.sched.idle:
-                step()
+        finally:
+            if listener is not None:
+                cache.remove_listener(listener)
         self.metrics.wall_s = self._rel_now() - t_start
         self.metrics.record_plan_cache(before, cache.stats.snapshot())
         counters = self.sched.counters()
@@ -689,7 +814,73 @@ class ServeEngine:
         self.metrics.slo_burn = self.metrics.slo_burn_summary(
             None if self.ttft_target_ms is None
             else self.ttft_target_ms / 1e3)
+        if self.tracer.enabled:
+            self.metrics.timing = self.tracer.phase_summary()
+            for name, durs in self.tracer.phase_durations().items():
+                h = self.registry.histogram(
+                    f"repro_serve_phase_{prom_name(name)}_seconds",
+                    "engine phase span duration (s)")
+                for d in durs:
+                    h.observe(d)
+            # the balance auditor's join: the device phases' seconds (on
+            # the card, their CUDA-event seconds) apportioned over the
+            # GEMM signatures, each cached plan held to the model and its
+            # solve-time snapshot. Reads cache.entries directly: the
+            # steady-state counters are untouched
+            self.metrics.attribution = self.attrib.summarize(
+                self.tracer.device_durations(), cache=cache)
+            self._publish_attrib(self.metrics.attribution)
+        self._publish_registry()
+        if self.metrics_interval_ticks:
+            self.registry.snapshot(tick=self.sched.tick)
         return self.metrics
+
+    def _publish_attrib(self, a: dict) -> None:
+        """Mirror the attribution summary into ``repro_attrib_*`` gauges
+        plus a measured-vs-modeled ratio histogram."""
+        reg = self.registry
+        reg.ingest("attrib", {
+            "signatures": a["signatures"],
+            "drifted": a["drifted_count"],
+            "attributed_device_s": a["attributed_device_s"],
+            "traced_device_s": a["traced_device_s"],
+            "unattributed_device_s": a["unattributed_device_s"],
+            "reconciliation_error": a["reconciliation_error"],
+            "bound_s": a["bound_s"],
+        })
+        h = reg.histogram(
+            "repro_attrib_measured_vs_modeled",
+            "per-signature measured/modeled device seconds ratio",
+            buckets=(0.25, 0.5, 0.9, 1.1, 2.0, 8.0, 64.0, 1024.0))
+        for row in a["by_device_s"]:
+            if row["measured_vs_modeled"] is not None:
+                h.observe(row["measured_vs_modeled"])
+
+    def _publish_registry(self) -> None:
+        """Mirror the subsystem counters into the registry (gauges named
+        ``repro_serve_*`` / ``repro_plan_cache_*``). The dicts the metrics
+        JSON is built from are the source of truth; the registry re-homes
+        them. The kv_cache section (whose scale gauges read the card) is
+        filled at the end of a run only."""
+        reg = self.registry
+        m = self.metrics
+        reg.ingest("serve", {
+            "ticks": m.ticks,
+            "generated_tokens": m.generated_tokens,
+            "occupancy_sum": m.occupancy_sum,
+            "queue_peak": m.queue_peak,
+        })
+        reg.ingest("serve_sched", self.sched.counters())
+        reg.ingest("serve_budget", self.budget.stats())
+        if m.kv_cache:
+            reg.ingest("serve_kv", m.kv_cache)
+        if self.spec:
+            self.spec_stats.publish(reg)
+        pcs = current_context().plan_cache.stats
+        reg.ingest("plan_cache", {
+            "hits": pcs.hits, "misses": pcs.misses,
+            "warm_solves": pcs.warm_solves, "lazy_solves": pcs.lazy_solves,
+        })
 
     def _scale_stats(self) -> dict[str, float] | None:
         """The dequant-error gauges of an int8 pool: a block's worst-case

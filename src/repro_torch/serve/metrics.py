@@ -3,13 +3,18 @@ occupancy and plan-cache warmth — exportable as JSON (port of
 ``repro.serve.metrics``).
 
 The ``EngineMetrics.to_dict`` schema is the reference's, ``speculation``
-included (``{"enabled": false}`` unless the engine speculates), less the
-traced-run ``timing`` / ``attribution`` sections, which come with the
-tracer (ROADMAP queue 1, item 8). Every leaf the port exports matches a pattern of the reference's
-golden schema (``tests/test_metrics_schema.py``; checked by
+included (``{"enabled": false}`` unless the engine speculates). Every leaf
+the port exports matches a pattern of the reference's golden schema
+(``tests/test_metrics_schema.py``; checked by
 ``tests/test_torch_engine.py``).
 
 Conventions worth restating at the source:
+
+* The ``timing`` (per-phase host seconds: count, total, mean, p50, p99,
+  and the host/device split) and ``attribution`` (the balance auditor's
+  per-signature join, ``obs.attrib``) sections exist only on traced runs
+  (an attached ``repro_torch.obs.Tracer``); untraced metrics JSON is the
+  same as without a tracer.
 
 * Ratios whose denominator never moved are ``None``, not ``0.0``: a
   SimClock run can legitimately finish inside one clock resolution step
@@ -51,6 +56,9 @@ class EngineMetrics:
     kv_cache: dict[str, Any] = dataclasses.field(default_factory=dict)
     prefix_cache: dict[str, Any] = dataclasses.field(default_factory=dict)
     plan_cache: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # traced runs only
+    timing: dict[str, Any] = dataclasses.field(default_factory=dict)
+    attribution: dict[str, Any] = dataclasses.field(default_factory=dict)
     speculation: dict[str, Any] = dataclasses.field(
         default_factory=lambda: {"enabled": False})
     # SLO burn-rate monitor (always exported; deterministic)
@@ -288,6 +296,10 @@ class EngineMetrics:
             "speculation": dict(self.speculation),
             "plan_cache": dict(self.plan_cache),
         }
+        if self.timing:
+            out["timing"] = dict(self.timing)
+        if self.attribution:
+            out["attribution"] = dict(self.attribution)
         return out
 
     def to_json(self, path: str | None = None, **kw) -> str:

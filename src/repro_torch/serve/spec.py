@@ -107,8 +107,7 @@ class SpecStats:
     ``bonus`` the target-argmax tokens committed on top of them (<= 1
     per round — fewer only when a stop/length finish truncates the
     round). ``draft_s``/``verify_s`` split speculative tick time between
-    the two dispatches. (The reference's ``publish`` into the counter
-    registry comes with the registry, ROADMAP queue 1, item 8.)"""
+    the two dispatches."""
 
     spec_k: int = 0
     rounds: int = 0
@@ -153,6 +152,11 @@ class SpecStats:
             "draft_s": self.draft_s,
             "verify_s": self.verify_s,
         }
+
+    def publish(self, registry, prefix: str = "serve_spec") -> int:
+        """Mirror the counters into a :class:`repro_torch.obs.Registry` as
+        ``repro_serve_spec_*`` gauges; returns how many were set."""
+        return registry.ingest(prefix, self.to_dict())
 
 
 def greedy_rows(logits: np.ndarray, vocab_size: int) -> np.ndarray:

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5, 7 and 8; needs one CUDA card
+  python3 chip_smoke.py            # phases 1-5, 7, 8 and 9; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
-Six paths, each at a model's full width and depth with random weights:
+Six paths (and the MoE family's, phase 9), each at a model's full width
+and depth with random weights:
 the static server on qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and
 on rwkv6-3b (RWKV-6; the same two and the WKV kernel), the paged
 continuous-batching engine on qwen1.5-4b, the W8A8 int8 path
@@ -113,6 +114,22 @@ ends the run with a non-zero exit:
    traces, metrics and the refined plans go to ``build/phase8/`` (or
    ``--out DIR``).
 
+9. the MoE family, olmoe-1b-7b at its full width and depth (16 layers,
+   64 experts of 1024, top-8, d 2048, f32 weights, bf16 activations):
+   9a the static path (``--arch olmoe-1b-7b``) and 9b with ``--quantize
+   int8``, phase 4's gates (launches: the router on the fat GEMM at every
+   M; 9b 17 x (5 x 16 + 1) fat GEMMs, no GEMV), the decode step eager
+   against replayed, and its device time split into the fat GEMM, the
+   GEMV, the expert tables' cast at every call (9b: their
+   dequantization), the expert products and the rest; 9c, 9d phase 5's
+   card against CPU at 2 layers, and the stack run layer by layer from
+   the CPU's input to each layer: a token whose top-8 set differs on the
+   card may do so only where the CPU's gap between its 8th and 9th
+   probability is at most SWAP_GAP, each layer's output, dispatched by
+   the CPU's verdict, is held to PATH_TOL (INT8_PATH_TOL), and so are the
+   end-to-end logits that no swap reaches; 9e, 9f phase 7's engine and
+   7b's on olmoe, the pool's bytes a block olmoe's.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
 """
@@ -159,6 +176,21 @@ PATHS = {
                         "vocab": 151936,
                         "want": {"matmul": (GEN + 1) * (7 * 40 + 1),
                                  "gemv": 0, "wkv": 0}},
+    # olmoe-1b-7b (64 experts of 1024, top-8, no qkv bias), 16 layers: the
+    # router (2048 x 64 experts, f32 x f32: N = 64 < 128, never the GEMV)
+    # takes the fat GEMM at every M; q, k, v, wo the fat GEMM at prefill
+    # (M = 512) and the GEMV at decode (M = 4), then the unembed GEMV; the
+    # expert products are batched matmuls outside the kernels, as the
+    # reference's einsums are outside its Pallas kernels
+    "olmoe-1b-7b": {"arch": "olmoe-1b-7b", "args": [], "vocab": 50304,
+                    "want": {"matmul": 5 * 16 + GEN * 16,
+                             "gemv": 1 + GEN * (4 * 16 + 1), "wkv": 0}},
+    # int8: q, k, v, wo, the dynamic router and the dynamic unembed, every
+    # one with out_scale on the fat GEMM, at prefill and each decode step
+    "olmoe-1b-7b int8": {"arch": "olmoe-1b-7b",
+                         "args": ["--quantize", "int8"], "vocab": 50304,
+                         "want": {"matmul": (GEN + 1) * (5 * 16 + 1),
+                                  "gemv": 0, "wkv": 0}},
 }
 FAT_KERNELS = ("mm_wgmma", "mm_split_k", "mm_core")  # matmul.cu's routes
 PATH_TOL = 5e-2  # kernel vs plain logits, bf16 activations (see phase 5)
@@ -216,6 +248,24 @@ SPEC_RULE = {"spec-verify": ENGINE_STEP, "admit": DRAFT_STEP,
 # x 128 at 2 bytes (bf16), or at 1 byte plus 2 x 20 f32 scales (int8)
 BF16_BLOCK_BYTES = 40 * 2 * 16 * 20 * 128 * 2
 INT8_BLOCK_BYTES = 40 * (2 * 16 * 20 * 128 + 2 * 4 * 20)
+# phase 9: the MoE family. olmoe-1b-7b's engine step (16 layers): a tick
+# at 8 rows and a chunk at 32-128 rows both run q, k, v, wo on the GEMV
+# and the router on the fat GEMM, plus the unembed GEMV; int8: all five
+# and the dynamic unembed on the fat GEMM. Its pool block of 16 tokens:
+# 16 kv heads x 128, K and V, over 16 layers (131 KB a token in bf16)
+ENGINES = {
+    "qwen1.5-4b": {"step": ENGINE_STEP, "step_int8": ENGINE_STEP_INT8,
+                   "block_bytes": (BF16_BLOCK_BYTES, INT8_BLOCK_BYTES)},
+    "olmoe-1b-7b": {"step": {"matmul": 16, "gemv": 4 * 16 + 1, "wkv": 0},
+                    "step_int8": {"matmul": 5 * 16 + 1, "gemv": 0, "wkv": 0},
+                    "block_bytes": (16 * 2 * 16 * 16 * 128 * 2,
+                                    16 * (2 * 16 * 16 * 128 + 2 * 4 * 16))},
+}
+# phases 9c, 9d: a router near-tie may rank another 8th expert on the card
+# than on the CPU, which moves the token by a whole expert's share. Such a
+# swap (from one input to the layer) is allowed where the CPU's gap
+# between its 8th and 9th router probabilities is at most SWAP_GAP
+SWAP_GAP = 1e-3
 
 
 _T0 = time.perf_counter()
@@ -422,6 +472,36 @@ CASES = [
         ("rwkv w_lora_a (dynamic)", 512, 2560, 32, "bfloat16", False, None),
         ("rwkv w_lora_b (dynamic)", 512, 32, 2560, "bfloat16", False, None),
     ]
+] + [
+    # olmoe-1b-7b (phase 9): attention at prefill on the fat GEMM; the
+    # router, f32 x f32 with N = 64, at every M its paths give it (static
+    # decode 4, engine tick 8, chunks 32, 64 and 128, static prefill 512:
+    # split_k to 32, cuda_core above)
+    Case("olmoe prefill q/k/v/wo", "matmul", 512, 2048, 2048),
+] + [
+    Case(f"olmoe router M={M}", "matmul", M, 2048, 64, a_dtype="float32",
+         out_dtype="float32")
+    for M in (4, 8, 32, 64, 128, 512)
+] + [
+    # q/k/v/wo at decode (4), on a tick (8) and in the chunks; the
+    # unembed at decode, on a tick and at a chunk's last token
+    Case(f"olmoe q/k/v/wo B={M}", "gemv", M, 2048, 2048)
+    for M in (4, 8, 32, 64, 128)
+] + [
+    Case(f"olmoe unembed B={M} f32 out", "gemv", M, 2048, 50304,
+         out_dtype="float32")
+    for M in (1, 4, 8)
+] + [
+    # olmoe under --quantize int8: q/k/v/wo, the router and the unembed
+    # (both float weights re-quantized at every call), out_scale s_x * s_w
+    Case(f"W8A8 olmoe {name}", "matmul", M, 2048, N, a_dtype="int8",
+         b_dtype="int8", out_dtype=out, layout="col", scale=True)
+    for name, M, N, out in
+    [(f"q/k/v/wo M={M}", M, 2048, "bfloat16") for M in (4, 8, 32, 64, 128,
+                                                          512)]
+    + [(f"router M={M} f32 out", M, 64, "float32")
+       for M in (4, 8, 32, 64, 128, 512)]
+    + [(f"unembed M={M} f32 out", M, 50304, "float32") for M in (1, 4, 8)]
 ]
 # GEMV cases held to their plain version but not timed: every dtype pair,
 # both layouts, 1..128 rows, ragged K and N, both routes
@@ -916,8 +996,91 @@ def static_steps(torch, arch: str, label: str, quant: bool = False) -> None:
               f" first call + capture {capture_s:.2f}s)", flush=True)
         replay_vs_eager(torch, "decode step", art.decode_fn, art.decode_raw,
                         params, state, logits[:, :V].argmax(-1)[:, None])
+        if cfg.family == "moe":
+            moe_split(torch, cfg, params, art, state, prompts, quant)
     del params, state, art
     _free(torch)
+
+
+def moe_split(torch, cfg, params, art, state, prompts, quant: bool) -> None:
+    """Phases 9a, 9b: the MoE decode step's device time by kernel, its GEN
+    replays traced after a fresh prefill, split into the fat GEMM (the
+    router), the GEMV (q, k, v, wo, the unembed), the expert tables' cast
+    at every call (the reference's ``w.astype(x.dtype)``: 1.61 GB of f32
+    read and 0.81 GB of bf16 written a layer; int8: the dequantization),
+    the expert products (batched matmuls) and the rest. The cast and the
+    products are torch ops whose kernels cannot be told from others by
+    name, so they are captured alone as CUDA graphs at the step's shapes
+    and traced, as step_split does for the int8 quantizers."""
+    from repro_torch import interop
+    from repro_torch.layers import moe
+
+    V, L, E = cfg.vocab_size, cfg.n_layers, cfg.n_experts
+    dt = cfg.dtype
+    out = [art.prefill_fn(params, state, prompts)]
+
+    def decode_only():
+        for _ in range(GEN):
+            tok = out[0][:, :V].argmax(-1)
+            out[0] = art.decode_fn(params, state, tok[:, None])
+        torch.cuda.synchronize()
+
+    step_rows, _, step_wall = _traced(torch, decode_only)
+    tables = params["layers"]["moe"]
+
+    def cast():
+        for i in range(L):
+            lay = interop.tree_map(lambda t: t[i], tables)
+            for w in (lay.w_in, lay.w_gate, lay.w_out):
+                moe._maybe_dequant(w, dt).to(dt)
+
+    # the products at a decode step's shapes: Ce = 8 slots an expert; a
+    # dequantized table keeps the (N, K) int8 layout's strides
+    d, f = cfg.d_model, cfg.d_ff
+    xe = torch.randn((E, 8, d), device="cuda").to(dt)
+    h = torch.randn((E, 8, f), device="cuda").to(dt)
+    table = lambda k, n: (
+        torch.randn((E, n, k), device="cuda").to(dt).transpose(-1, -2)
+        if quant else torch.randn((E, k, n), device="cuda").to(dt))
+    w_in, w_out = table(d, f), table(f, d)
+
+    def products():
+        for _ in range(L):
+            torch.bmm(xe, w_in)
+            torch.bmm(xe, w_in)
+            torch.bmm(h, w_out)
+
+    per_step = lambda rs: sum(t for t, _, _ in rs) / 1e3 / GEN
+    busy = per_step(step_rows)
+    fat = per_step([r for r in step_rows
+                    if any(k in r[2] for k in FAT_KERNELS)])
+    gemv = per_step([r for r in step_rows if "gemv_" in r[2]])
+    parts = {}
+    for name, fn in (("expert-table " + ("dequantization" if quant
+                                         else "cast"), cast),
+                     ("expert products", products)):
+        ms, rows = _graph_rows(torch, fn)
+        dev = sum(t for t, _, _ in rows) / 1e3
+        names = {k for _, _, k in rows}
+        same = per_step([r for r in step_rows if r[2] in names])
+        parts[name] = dev
+        print(f"  {name} ({L} layers x 3 tables, captured alone): a "
+              f"replayed graph {ms:.3f} ms, its kernels' device time "
+              f"{dev:.3f} ms, {sum(n for _, n, _ in rows):g} kernels; the "
+              f"step's kernels of the same names {same:.3f} ms")
+    del xe, h, w_in, w_out
+    rest = busy - fat - gemv - sum(parts.values())
+    print(f"MoE decode step{' (int8)' if quant else ''}, {GEN} replays "
+          f"traced: wall {step_wall * 1e3 / GEN:.2f} ms a step, device busy "
+          f"{busy:.2f} ms (idle share {1 - busy * GEN / 1e3 / step_wall:.3f})"
+          f" = fat GEMM {fat:.2f} + GEMV {gemv:.2f} + "
+          + " + ".join(f"{v:.2f} ({k})" for k, v in parts.items())
+          + f" + the rest {rest:.2f} (routing, dispatch, attention, norms)",
+          flush=True)
+    for t, n, key in sorted(step_rows, reverse=True)[:12]:
+        if t:
+            print(f"  {t / 1e3 / GEN:8.3f} ms x{n / GEN:<6g} "
+                  f"{key.replace('void ', '')[:90]}")
 
 
 def run_path(torch, path: str, label: str) -> dict[str, int]:
@@ -984,6 +1147,146 @@ class _plain_matmul:
         tmm.matmul = self.saved
 
 
+class _RouterLog:
+    """Within it, every MoE layer call records its router's verdict (the
+    layer's own ``_top_k_gates``, wrapped; the path's arguments stay as
+    they are): per call the probabilities, gates and experts, the sorted
+    top-k set and the gap between the k-th and the (k + 1)-th probability.
+    ``force``: a verdict (probs, gates, idx) the calls return in place of
+    their own, on their own device, so that a layer dispatches its tokens
+    as another run did."""
+
+    def __init__(self, force=None):
+        self.force = force
+
+    def __enter__(self):
+        from repro_torch.layers import moe
+
+        self.calls, self.saved = [], moe._top_k_gates
+
+        def recorded(logits, top_k, norm_topk):
+            probs, gates, idx = self.saved(logits, top_k, norm_topk)
+            top = probs.topk(top_k + 1, dim=-1).values
+            self.calls.append({
+                "verdict": tuple(t.cpu() for t in (probs, gates, idx)),
+                "set": idx.sort(-1).values.cpu(),
+                "gap": (top[:, top_k - 1] - top[:, top_k]).cpu()})
+            if self.force is not None:
+                return tuple(t.to(logits.device) for t in self.force)
+            return probs, gates, idx
+
+        moe._top_k_gates = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe
+
+        moe._top_k_gates = self.saved
+
+
+def _swaps(torch, cfg, own: dict, ref: dict, step: int, layer: int,
+           S: int, reached, swaps: list) -> bool:
+    """One layer call's swaps (a token whose top-k set differs between two
+    runs' verdicts), appended to ``swaps`` as (step, layer, row, position,
+    ``ref``'s gap between its k-th and (k + 1)-th probability), and the
+    compared logits (each step's last position, by row) they reach marked
+    in ``reached`` (steps, rows). A swap moves its token by a whole
+    expert's share: it reaches its own token's logits and, below the last
+    layer, every later position of its row (through the next layers'
+    attention); where the call's capacity binds (an expert holds Ce
+    assignments or more, so the order in the buckets decides drops), every
+    row's. Returns whether the capacity binds."""
+    from repro_torch.layers import moe
+
+    T = own["set"].shape[0]
+    Cs = moe._round8(int(cfg.capacity_factor * T * cfg.top_k))
+    Ce = moe._round8(int(cfg.capacity_factor * Cs / cfg.n_experts))
+    loads = [int(torch.bincount(v["set"].flatten(),
+                                minlength=cfg.n_experts).max())
+             for v in (own, ref)]
+    binds = max(loads) >= Ce
+    for t in (own["set"] != ref["set"]).any(-1).nonzero().flatten().tolist():
+        row, pos = divmod(t, S)
+        swaps.append((step, layer, row, pos, float(ref["gap"][t])))
+        rows = slice(None) if binds else row
+        if layer < cfg.n_layers - 1:
+            reached[step:, rows] = True
+        elif pos == S - 1 or binds:
+            reached[step, rows] = True
+    return binds
+
+
+def _router_by_layer(torch, cfg, params, prompts, fed) -> dict:
+    """The stack of an MoE config run layer by layer on the card and on
+    the CPU, each layer fed the CPU's input to it (prefill, then a decode
+    step for each of ``fed``), so that a router swap (a token whose top-k
+    set differs) is the layer's own near-tie and not the echo of an
+    earlier layer's swap. The layer's body is ``models.lm``'s: the port's
+    attention and its ``_ffn``. The card's layer then dispatches its
+    tokens by the CPU's verdict, so its output is held against the CPU's
+    on every token: the kernels' and the ops' numerics alone.
+
+    Returns the swaps (``_swaps``), the token calls compared, the calls
+    whose capacity binds, the largest |card - cpu| / (1 + |cpu|) of a
+    layer's output, and the CPU's logits of each step (the path's ops on
+    the CPU, so equal to its CPU run's bit for bit)."""
+    from repro_torch import models
+    from repro_torch.layers import attention as attn
+    from repro_torch.models import lm
+
+    states = {d: models.init_decode_state(cfg, BATCH, PROMPT + 5, device=d)
+              for d in ("cuda", "cpu")}
+    L, steps = cfg.n_layers, len(fed) + 1
+    swaps, calls, bound, logits, layer_err = [], 0, 0, [], 0.0
+    reached = torch.zeros((steps, BATCH), dtype=torch.bool)
+
+    def layer(d, i, x, step, log):
+        lp = lm._layer(params[d]["layers"], i)
+        kv = states[d]["kv"]
+        cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
+        h = lm.apply_norm(cfg, lp["ln1"], x)
+        if step == 0:
+            y, _ = attn.prefill_attention(lp["attn"], h, cache,
+                                          rope_theta=cfg.rope_theta,
+                                          chunk=cfg.attn_chunk)
+        else:
+            y, _ = attn.decode_attention(lp["attn"], h, cache,
+                                         rope_theta=cfg.rope_theta)
+        x = x + y
+        with log:
+            return x + lm._ffn(cfg, lp, x)
+
+    for step in range(steps):
+        toks = prompts if step == 0 else fed[step - 1][:, None]
+        S = toks.shape[1]
+        x = lm._embed(params["cpu"], toks, cfg)
+        for i in range(L):
+            cpu_log = _RouterLog()
+            want = layer("cpu", i, x, step, cpu_log)
+            ref = cpu_log.calls[0]
+            card_log = _RouterLog(force=ref["verdict"])
+            got = layer("cuda", i, x.to("cuda"), step, card_log)
+            bound += _swaps(torch, cfg, card_log.calls[0], ref, step, i, S,
+                            reached, swaps)
+            w, g = (t.float().reshape(-1, cfg.d_model)
+                    for t in (want, got.cpu()))
+            layer_err = max(layer_err,
+                            ((g - w).abs() / (1 + w.abs())).max().item())
+            calls += BATCH * S
+            x = want
+        h = lm.apply_norm(cfg, params["cpu"]["final_norm"], x[:, -1:])
+        logits.append(lm._logits(params["cpu"], cfg, h)[:, 0,
+                                                      :cfg.vocab_size])
+        for d, st in states.items():
+            if step == 0:
+                st["kv"].length.fill_(PROMPT)
+            else:
+                st["kv"].length.add_(1)
+    del states
+    return {"swaps": swaps, "calls": calls, "bound": bound,
+            "layer_err": layer_err, "cpu": torch.stack(logits).float()}
+
+
 def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False
                     ) -> None:
     import contextlib
@@ -1009,10 +1312,13 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False
     # matmul.cu's place
     runs = [("cuda", "cuda"), ("cpu", "cpu")] + (
         [("plain", "cuda")] if quant else [])
+    moe = cfg.family == "moe"
+    routers = {}
     for run, dev in runs:
+        router = _RouterLog() if moe else contextlib.nullcontext()
         with use_context(quant_mode="int8" if quant else None), (
                 _plain_matmul() if run == "plain"
-                else contextlib.nullcontext()):
+                else contextlib.nullcontext()), router:
             state = models.init_decode_state(cfg, BATCH, PROMPT + 5,
                                              device=dev)
             lg, state = models.prefill(params[dev],
@@ -1026,19 +1332,66 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False
                     params[dev], fed[i][:, None].to(dev), cfg, state)
                 steps.append(lg[:, :cfg.vocab_size].float().cpu())
         logits[run], states[run] = torch.stack(steps), state
+        if moe:
+            routers[run] = router.calls
     # bf16 activations: the two paths sum each product in another order, so
     # an activation may round to the neighbouring bf16 value and the flip
     # propagates through 2 layers. Held like the repo's bf16 kernel tests:
     # |card - cpu| <= tol + tol * |cpu| with tol = 5e-2 (on the CPU, the
     # qwen config with a 503-token vocabulary drifted 0.028 at most between
-    # f32 and f64 accumulation); int8: INT8_PATH_TOL (see there).
-    ref = logits["cpu"]
-    diff = (logits["cuda"] - ref).abs()
-    err = diff.max().item()
-    scaled = (diff / (1 + ref.abs())).max().item()
+    # f32 and f64 accumulation); int8: INT8_PATH_TOL (see there). MoE: a
+    # token the card routes to another expert set than the CPU moves by a
+    # whole expert's share, and its row (and, where capacity binds, every
+    # row) with it. So the MoE gates are: run layer by layer from the CPU's
+    # input to each layer, every swap is a near-tie on the CPU (gap at
+    # most SWAP_GAP) and every layer's output, dispatched alike, within
+    # tol; end to end, the logits that no swap of the two runs reaches
+    # within tol.
+    held = torch.ones(logits["cpu"].shape[:2], dtype=torch.bool)
+    if moe:
+        with use_context(quant_mode="int8" if quant else None):
+            rb = _router_by_layer(torch, cfg, params, prompts, fed)
+        if not torch.equal(rb["cpu"], logits["cpu"]):
+            raise SystemExit(f"{label}: the layer-by-layer run's CPU logits "
+                             "differ from the path's")
+        swaps = rb["swaps"]
+        worst = max((g for *_, g in swaps), default=0.0)
+        print(f"router, layer by layer from the CPU's input to each layer: "
+              f"{rb['calls']} token calls, {len(swaps)} swaps (a top-"
+              f"{cfg.top_k} set that differs between the card and the CPU), "
+              f"largest CPU gap between the {cfg.top_k}th and "
+              f"{cfg.top_k + 1}th probability among them {worst:.3g} "
+              f"(allowed {SWAP_GAP}); capacity bound in {rb['bound']} of "
+              f"{cfg.n_layers * held.shape[0]} layer calls; each layer's "
+              f"output, dispatched by the CPU's verdict, within "
+              f"{rb['layer_err']:.4g} of 1 + |cpu| (tol {tol})")
+        for step, layer, row, pos, gap in swaps:
+            print(f"  swap: step {step} layer {layer} row {row} position "
+                  f"{pos}: CPU gap {gap:.3g}")
+        if worst > SWAP_GAP or not rb["layer_err"] <= tol:
+            raise SystemExit(f"{label}: a router swap with a CPU gap of "
+                             f"{worst} > {SWAP_GAP}, or a layer's output "
+                             f"{rb['layer_err']} > {tol} from the CPU's")
+        reached, e2e = torch.zeros_like(held), []
+        for c, (own, ref) in enumerate(zip(routers["cuda"], routers["cpu"],
+                                           strict=True)):
+            step, layer = divmod(c, cfg.n_layers)
+            _swaps(torch, cfg, own, ref, step, layer,
+                   PROMPT if step == 0 else 1, reached, e2e)
+        held = ~reached
+        print(f"end to end: {len(e2e)} swaps (largest CPU gap "
+              f"{max((g for *_, g in e2e), default=0.0):.3g}, an earlier "
+              f"swap's echo among them); logits held at {int(held.sum())} "
+              f"of {held.numel()} (step, row) entries, the others reached by "
+              f"a swap")
+    card, ref = logits["cuda"][held], logits["cpu"][held]
+    diff = (card - ref).abs()
+    top = lambda t: t.max().item() if t.numel() else 0.0
+    err = top(diff)
+    scaled = top(diff / (1 + ref.abs()))
     top2 = ref.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > tol * (1 + top2[..., 0].abs())
-    same = logits["cuda"].argmax(-1) == ref.argmax(-1)
+    same = card.argmax(-1) == ref.argmax(-1)
     print(f"logits max |card - cpu| = {err:.4g}, max |card - cpu| / (1 + "
           f"|cpu|) = {scaled:.4g} (tol {tol}); greedy tokens equal at "
           f"{int((same & sure).sum())}/{int(sure.sum())} positions whose "
@@ -1404,10 +1757,11 @@ def step_split(torch, cfg, params, step_rows, step_wall: float) -> None:
 
 
 # ------------------------------------------------------------ phase 7
-def _engine_rule(dispatches, quant: bool = False) -> dict[str, int]:
+def _engine_rule(dispatches, quant: bool = False,
+                 arch: str = "qwen1.5-4b") -> dict[str, int]:
     """Launches the dispatch rule implies for the engine steps that ran."""
     steps = sum(dispatches.values())
-    step = ENGINE_STEP_INT8 if quant else ENGINE_STEP
+    step = ENGINES[arch]["step_int8" if quant else "step"]
     return {k: n * steps for k, n in step.items()}
 
 
@@ -1418,21 +1772,24 @@ class EngineRun:
     pool_bytes: int     # the KV pool's bytes (the kv_cache section)
 
 
-def _kv_cache_check(m, engine, bf16: EngineRun | None) -> None:
-    """Phase 7b's pool: int8 blocks and scales at about half the bytes of
-    phase 7's bf16 pool of as many blocks, and the blocks the same bytes
-    would buy."""
+def _kv_cache_check(m, engine, bf16: EngineRun | None,
+                    arch: str = "qwen1.5-4b") -> None:
+    """Phase 7b's (9f's) pool: int8 blocks and scales at about half the
+    bytes of phase 7's (9e's) bf16 pool of as many blocks, and the blocks
+    the same bytes would buy."""
     kv = m.kv_cache
     blocks = engine.num_kv_blocks
+    bf16_block, int8_block = ENGINES[arch]["block_bytes"]
     want = {"kv_dtype": "int8", "quantized": True,
-            "bytes_per_block": INT8_BLOCK_BYTES,
-            "pool_bytes": blocks * INT8_BLOCK_BYTES,
-            "bf16_pool_bytes": blocks * BF16_BLOCK_BYTES}
+            "bytes_per_block": int8_block,
+            "pool_bytes": blocks * int8_block,
+            "bf16_pool_bytes": blocks * bf16_block}
     equal_bytes = kv["bf16_pool_bytes"] // kv["bytes_per_block"]
     print(f"kv_cache: {kv['kv_dtype']} pool of {blocks} blocks, "
-          f"{kv['bytes_per_block']} bytes a block (bf16 {BF16_BLOCK_BYTES}), "
+          f"{kv['bytes_per_block']} bytes a block (bf16 {bf16_block}), "
           f"bytes_ratio {kv['bytes_ratio']:.4f}; pool {kv['pool_bytes'] / 1e9:.3f}"
-          f" GB against phase 7's {bf16.pool_bytes / 1e9:.3f} GB; the same "
+          f" GB against the bf16 engine's {bf16.pool_bytes / 1e9:.3f} GB; "
+          f"the same "
           f"bytes hold {equal_bytes} int8 blocks; scales k mean "
           f"{kv['scale_k_mean']:.4g} max {kv['scale_k_max']:.4g}, v mean "
           f"{kv['scale_v_mean']:.4g} max {kv['scale_v_max']:.4g}")
@@ -1565,10 +1922,14 @@ def _spec_rule(dispatches) -> dict[str, int]:
     return out
 
 
-def run_engine(torch, profile: bool, bf16: EngineRun | None = None
+def run_engine(torch, profile: bool, bf16: EngineRun | None = None,
+               arch: str = "qwen1.5-4b", label: str | None = None
                ) -> EngineRun:
     """Phase 7, or with ``bf16`` (phase 7's run) phase 7b: the same engine
-    with --quantize int8 --kv-quantize int8."""
+    with --quantize int8 --kv-quantize int8; with ``arch`` olmoe-1b-7b,
+    phases 9e and 9f. Besides phase 7's checks, the pool's bytes a block
+    are the config's, and the warm rerun times the decode tick and each
+    prefill chunk with CUDA events."""
     import numpy as np
 
     from repro_torch.core.context import use_context
@@ -1577,8 +1938,10 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
     from repro_torch.train import graphs
 
     quant = bf16 is not None
-    args = ENGINE_ARGS + (ENGINE_INT8_ARGS if quant else [])
-    phase(("7b" if quant else "7") + " engine path: repro_torch.launch.serve "
+    args = (["--arch", arch] + ENGINE_ARGS[2:]
+            + (ENGINE_INT8_ARGS if quant else []))
+    label = label or ("7b" if quant else "7")
+    phase(label + " engine path: repro_torch.launch.serve "
           + " ".join(a if a else "''" for a in args)
           + " (full width and depth)")
     torch.cuda.reset_peak_memory_stats()
@@ -1590,7 +1953,7 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
     replayed = dict(graphs.replayed)
     engine, m, trace = res["engine"], res["metrics"], res["trace"]
     cfg = engine.cfg
-    want = _engine_rule(engine.dispatches, quant)
+    want = _engine_rule(engine.dispatches, quant, arch)
     print(f"steps {dict(engine.dispatches)}; launches {counts}, of which "
           f"graph replays {replayed} (rule: {want}); graphs captured: "
           f"decode {len(engine.art.decode_fn.graphs)}, prefill chunk "
@@ -1617,9 +1980,17 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
                     f"; weights quantized at load in {res['quantize_s']:.3f}s"))
     tokens = {st.request.prompt.tobytes(): st.tokens for st in done}
     if quant:
-        _kv_cache_check(m, engine, bf16)
-        print("tokens equal to phase 7's bf16 engine at "
+        _kv_cache_check(m, engine, bf16, arch)
+        print("tokens equal to the bf16 engine's at "
               + _same_tokens(bf16.tokens, tokens))
+    elif m.kv_cache["bytes_per_block"] != ENGINES[arch]["block_bytes"][0]:
+        raise SystemExit(f"{label}: {m.kv_cache['bytes_per_block']} bytes a "
+                         f"pool block, {arch} needs "
+                         f"{ENGINES[arch]['block_bytes'][0]}")
+    else:
+        print(f"kv_cache: bf16 pool of {engine.num_kv_blocks} blocks of "
+              f"{m.kv_cache['bytes_per_block']} bytes "
+              f"({m.kv_cache['pool_bytes'] / 1e9:.3f} GB)")
 
     # the reruns and checks under the run's context (its warm plans)
     with use_context(res["context"]):
@@ -1627,27 +1998,35 @@ def run_engine(torch, profile: bool, bf16: EngineRun | None = None
         # timed with CUDA events around the call (input copies, replay)
         again = lambda: [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens)
                          for r in trace]
-        decode = engine.art.decode_fn
-        marks = []
+        decode, chunk = engine.art.decode_fn, engine.art.prefill_fn
+        marks, chunks = [], {}
 
-        def timed(*args):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = decode(*args)
-            ev[1].record()
-            marks.append(ev)
-            return out
+        def timed(step, log):
+            def call(*args):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = step(*args)
+                ev[1].record()
+                log(args, ev)
+                return out
+            return call
 
-        engine.art.decode_fn = timed
+        engine.art.decode_fn = timed(decode, lambda a, ev: marks.append(ev))
+        engine.art.prefill_fn = timed(chunk, lambda a, ev: chunks.setdefault(
+            graphs.as_tensor(a[2]).shape[1], []).append(ev))
         engine.reset()
         graphs.reset_launches()
         m2 = engine.run(again())
-        engine.art.decode_fn = decode
+        engine.art.decode_fn, engine.art.prefill_fn = decode, chunk
         counts2 = graphs.launches()
-        want2 = _engine_rule(engine.dispatches, quant)
+        want2 = _engine_rule(engine.dispatches, quant, arch)
         _report("warm rerun", m2, "decode tick",
                 [a.elapsed_time(b) for a, b in marks])
+        print("prefill chunks on the card (CUDA events around the call): "
+              + "; ".join(f"@{n} {_spread([a.elapsed_time(b) for a, b in ev])}"
+                          f" x{len(ev)}" for n, ev in sorted(chunks.items())),
+              flush=True)
         if counts2 != want2 or m2.plan_cache["lazy_solves"] or \
                 m2.plan_cache["misses"]:
             raise SystemExit(f"warm rerun: launches {counts2} (rule {want2}), "
@@ -2273,6 +2652,18 @@ def main() -> int:
         torch, "8b", spec)["counts"]
     counts["qwen1.5-4b measured engine"] = run_measured_engine(
         torch, traced)
+    # 9: the MoE family, olmoe-1b-7b at its full width and depth
+    moe = "olmoe-1b-7b"
+    counts[moe] = run_path(torch, moe, "9a")
+    static_steps(torch, moe, "9a")
+    counts[moe + " int8"] = run_path(torch, moe + " int8", "9b")
+    static_steps(torch, moe, "9b", quant=True)
+    kernel_vs_plain(torch, moe, "9c")
+    kernel_vs_plain(torch, moe, "9d", quant=True)
+    moe_bf16 = run_engine(torch, False, arch=moe, label="9e")
+    counts[moe + " engine"] = moe_bf16.counts
+    counts[moe + " int8 engine"] = run_engine(
+        torch, False, moe_bf16, arch=moe, label="9f").counts
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

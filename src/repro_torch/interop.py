@@ -18,12 +18,13 @@ import torch
 
 from repro_torch.layers.attention import AttnParams
 from repro_torch.layers.mlp import MlpParams
+from repro_torch.layers.moe import MoeParams
 from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
 from repro_torch.quant.int8 import QuantizedLinear
 
 _NAMED = {cls.__name__: cls for cls in (
-    AttnParams, MlpParams, RwkvTimeMixParams, RwkvChannelMixParams,
-    QuantizedLinear)}
+    AttnParams, MlpParams, MoeParams, RwkvTimeMixParams,
+    RwkvChannelMixParams, QuantizedLinear)}
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

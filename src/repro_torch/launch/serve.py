@@ -1,7 +1,7 @@
 """Serving driver (port of ``repro.launch.serve``): the static-batch
-server (prefill once, then greedy decode step by step; both families) and,
-with ``--engine``, the continuous-batching engine over a synthetic trace
-(the dense family).
+server (prefill once, then greedy decode step by step; the dense, moe and
+rwkv families) and, with ``--engine``, the continuous-batching engine over
+a synthetic trace (the KV-cache families, dense and moe).
 
 Start-up follows the reference: build the execution context (loading
 persisted plans), make the weights from seed 0 (with ``--quantize int8``
@@ -17,6 +17,8 @@ CUDA graph (``train.servestep``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
       --engine --num-slots 8 --kv-block-size 16 --prefill-chunk 128 \\
       --prompt-len 128 --gen 16 [--quantize int8 --kv-quantize int8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      [--engine --kv-block-size 16] [--quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --metrics-json serve.json

@@ -1,1 +1,2 @@
-"""Layers of the dense LM: dense/norms/rotary, MLP, attention."""
+"""Layers of the LMs: dense/norms/rotary, MLP, MoE, attention, RWKV-6,
+W8A8."""

@@ -1,5 +1,6 @@
-"""Model zoo dispatch (port of ``repro.models``): the dense and rwkv
-families (``models.lm.FAMILIES``); the others raise NotImplementedError.
+"""Model zoo dispatch (port of ``repro.models``): the dense, moe and rwkv
+families (``models.lm.FAMILIES``); the others (hybrid, encdec, vlm) raise
+NotImplementedError.
 
 Batch convention: a dict with 'tokens' (B, S). Every entry point takes an
 explicit ``device`` where it allocates: ``cuda`` unless the caller asks for

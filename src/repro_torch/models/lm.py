@@ -1,13 +1,14 @@
-"""Decoder-only LM, dense and RWKV-6 families (port of ``repro.models.lm``).
+"""Decoder-only LM, dense, MoE and RWKV-6 families (port of
+``repro.models.lm``).
 
 Parameters are the reference's tree: plain dicts and NamedTuples, layers
 stacked on a leading L axis. ``lax.scan`` over layers becomes a Python loop
-over views of the stacked leaves; the decode state (the dense KV cache
-(L, B, S_max, Hkv, Dh) or paged pool (L, blocks, block, Hkv, Dh) with its
-int32 lengths and block table, or the rwkv WKV state (L, B, H, N, N) and
-token shifts (L, B, d)) is written in place, lengths included, the
-counterpart of the reference's ``donate_argnums``: a step captured as a
-CUDA graph keeps writing the same buffers.
+over views of the stacked leaves; the decode state (the KV cache of the
+dense and MoE families (L, B, S_max, Hkv, Dh) or paged pool (L, blocks,
+block, Hkv, Dh) with its int32 lengths and block table, or the rwkv WKV
+state (L, B, H, N, N) and token shifts (L, B, d)) is written in place,
+lengths included, the counterpart of the reference's ``donate_argnums``:
+a step captured as a CUDA graph keeps writing the same buffers.
 
 Entry points: init_lm, forward, init_decode_state, prefill, prefill_chunk,
 decode_step, verify_step.
@@ -23,10 +24,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import rwkv as rwkv_lib
 from repro_torch.quant.kvcache import KVCacheDtype
 
-FAMILIES = ("dense", "rwkv")
+FAMILIES = ("dense", "moe", "rwkv")
+KV_FAMILIES = ("dense", "moe")  # the families with a KV cache
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -82,9 +85,15 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device) -> dict[str, Any]:
         layers["attn"] = attn.init_attn(
             gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             qkv_bias=cfg.qkv_bias, dtype=dt, lead=(L,), device=device)
-        layers["mlp"] = mlp_lib.init_mlp(
-            gen, d, cfg.d_ff, gated=cfg.gated_mlp, bias=False, dtype=dt,
-            lead=(L,), device=device)
+        if cfg.family == "moe":
+            layers["moe"] = moe_lib.init_moe(
+                gen, d, cfg.d_ff, cfg.n_experts, gated=cfg.gated_mlp,
+                dtype=dt, lead=(L,), device=device)
+        if cfg.family == "dense" or cfg.dense_residual:
+            # arctic's dense_residual: a dense FFN beside the experts
+            layers["mlp"] = mlp_lib.init_mlp(
+                gen, d, cfg.d_ff, gated=cfg.gated_mlp, bias=False, dtype=dt,
+                lead=(L,), device=device)
     params["layers"] = layers
     return params
 
@@ -104,9 +113,23 @@ def _embed(params, tokens, cfg: ModelConfig) -> torch.Tensor:
     return cm.embed_lookup(params["embed"], tokens).to(cfg.dtype)
 
 
-def _ffn(cfg: ModelConfig, lp, x):
-    return mlp_lib.mlp(lp["mlp"], apply_norm(cfg, lp["ln2"], x),
-                       activation=cfg.activation)
+def _ffn_aux(cfg: ModelConfig, lp, x, token_mask=None):
+    """The block's FFN on ln2(x): (y, the MoE layer's aux loss or None).
+    ``token_mask`` marks the live tokens that compete for expert capacity
+    (None: every token)."""
+    h = apply_norm(cfg, lp["ln2"], x)
+    if cfg.family != "moe":
+        return mlp_lib.mlp(lp["mlp"], h, activation=cfg.activation), None
+    y, aux = moe_lib.moe_ffn(
+        lp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        activation=cfg.activation, token_mask=token_mask)
+    if cfg.dense_residual:
+        y = y + mlp_lib.mlp(lp["mlp"], h, activation=cfg.activation)
+    return y, aux
+
+
+def _ffn(cfg: ModelConfig, lp, x, token_mask=None):
+    return _ffn_aux(cfg, lp, x, token_mask)[0]
 
 
 def _rwkv_block(cfg: ModelConfig, lp, x, tmix_state=None,
@@ -134,6 +157,7 @@ def forward(params, tokens, cfg: ModelConfig):
     """tokens (B, S) -> (hidden (B, S, d), aux_loss scalar)."""
     _check_family(cfg)
     x = _embed(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.family == "rwkv":
@@ -141,9 +165,14 @@ def forward(params, tokens, cfg: ModelConfig):
             continue
         x = x + attn.self_attention(lp["attn"], apply_norm(cfg, lp["ln1"], x),
                                     **_attn_kw(cfg))
-        x = x + _ffn(cfg, lp, x)
+        y, a = _ffn_aux(cfg, lp, x)
+        x = x + y
+        if a is not None:
+            aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe":
+        aux = aux / cfg.n_layers
+    return x, aux
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -160,16 +189,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       kv_block_size: int | None = None,
                       num_kv_blocks: int | None = None, kv_dtype=None,
                       device):
-    """dense: contiguous KV cache (L, B, max_len, Hkv, Dh) in the activation
-    dtype with an int32 length, 0-d (one for every row) or, ``per_slot``,
-    (B,) (the engine's lanes). ``kv_block_size`` switches the per-slot
-    cache to the paged pool: ``num_kv_blocks`` blocks of ``kv_block_size``
-    tokens (block 0 the null block) and a (B, ceil(max_len / block))
-    table. ``kv_dtype`` (a :class:`KVCacheDtype` or its name) ``"int8"``
-    stores the pool in int8 with (L, num_kv_blocks, Hkv) f32 scales of
-    1.0: the paged layout only. rwkv: the WKV state (L, B, H, N, N) f32
-    and the token shifts (L, B, d) in the activation dtype; ``max_len``
-    does not bound it."""
+    """dense and moe: contiguous KV cache (L, B, max_len, Hkv, Dh) in the
+    activation dtype with an int32 length, 0-d (one for every row) or,
+    ``per_slot``, (B,) (the engine's lanes). ``kv_block_size`` switches the
+    per-slot cache to the paged pool: ``num_kv_blocks`` blocks of
+    ``kv_block_size`` tokens (block 0 the null block) and a (B,
+    ceil(max_len / block)) table. ``kv_dtype`` (a :class:`KVCacheDtype` or
+    its name) ``"int8"`` stores the pool in int8 with (L, num_kv_blocks,
+    Hkv) f32 scales of 1.0: the paged layout only. rwkv: the WKV state (L,
+    B, H, N, N) f32 and the token shifts (L, B, d) in the activation dtype;
+    ``max_len`` does not bound it."""
     _check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
     kvd = KVCacheDtype.parse(kv_dtype)
@@ -177,7 +206,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
         raise ValueError(
             f"kv_dtype={kvd.value} needs the paged layout (kv_block_size)")
     if kv_block_size:
-        if cfg.family != "dense":
+        if cfg.family not in KV_FAMILIES:
             raise ValueError(
                 f"paged KV needs a KV-cache family, not {cfg.family!r}")
         if not per_slot:
@@ -271,7 +300,7 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
     chunk's last real token, state). Every position is a tensor, so one
     captured graph per bucket serves every admission."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in KV_FAMILIES:
         raise ValueError(
             f"chunked prefill needs a KV-cache family, not {cfg.family!r}")
     kv = state["kv"]
@@ -281,6 +310,9 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
     lane = slot.reshape(1).long()
     kv.table.index_copy_(0, lane, blocks.reshape(1, -1).to(kv.table.dtype))
     x = _embed(params, tokens, cfg)
+    # pad positions must not compete for expert capacity
+    live = ((torch.arange(tokens.shape[1], device=x.device) < true_len)[None]
+            if cfg.family == "moe" else None)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
@@ -288,7 +320,7 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
             lp["attn"], h, _paged_layer(kv, i), slot=slot, start=start,
             true_len=true_len, rope_theta=cfg.rope_theta)
         x = x + y
-        x = x + _ffn(cfg, lp, x)
+        x = x + _ffn(cfg, lp, x, live)
     kv.length.index_copy_(0, lane,
                           (start + true_len).reshape(1).to(kv.length.dtype))
     h_last = apply_norm(cfg, params["final_norm"], _at(x, true_len - 1))
@@ -299,10 +331,11 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
     """One decode step. tokens (B, 1) -> (logits (B, Vp) f32, state).
 
     ``active`` (B,) int marks the live lanes of a per-slot state: an
-    inactive lane's length does not advance (the dense family only, as in
-    the reference's engine). The lengths advance in place."""
+    inactive lane's length does not advance, and under MoE its token takes
+    no expert capacity (the KV-cache families only, as in the reference's
+    engine). The lengths advance in place."""
     _check_family(cfg)
-    if active is not None and cfg.family != "dense":
+    if active is not None and cfg.family not in KV_FAMILIES:
         raise ValueError(
             f"per-slot active masks need a KV-cache family, not {cfg.family!r}")
     x = _embed(params, tokens, cfg)
@@ -317,6 +350,8 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
         return _logits(params, cfg, h)[:, 0], state
     kv = state["kv"]
     paged = isinstance(kv, attn.PagedKVCache)
+    live = ((active > 0)[:, None]
+            if active is not None and cfg.family == "moe" else None)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
@@ -329,7 +364,7 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
             y, _ = attn.decode_attention(lp["attn"], h, cache,
                                          rope_theta=cfg.rope_theta)
         x = x + y
-        x = x + _ffn(cfg, lp, x)
+        x = x + _ffn(cfg, lp, x, live)
     kv.length.add_(1 if active is None else active.to(kv.length.dtype))
     h = apply_norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, h)[:, 0], state
@@ -347,18 +382,21 @@ def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
     (``attn.paged_verify_attention``) and every active lane's length
     advances by S in place; the engine rewinds the rejected tail (blocks
     were allocated at budget, so a rewind never touches the allocator).
-    The dense family only: the port has no MoE yet (ROADMAP queue 1, item
-    9), and rwkv has no KV cache to verify against."""
+    Under MoE a live lane's S tokens are all real, and a vacant lane's take
+    no expert capacity (``active`` broadcast over the S positions). rwkv
+    has no KV cache to verify against."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in KV_FAMILIES:
         raise ValueError(
             f"speculative verify needs a KV-cache family, not {cfg.family!r}")
     kv = state["kv"]
     if not isinstance(kv, attn.PagedKVCache):
         raise ValueError("verify_step requires a paged decode state "
                          "(init_decode_state with kv_block_size)")
-    S = tokens.shape[1]
+    B, S = tokens.shape
     x = _embed(params, tokens, cfg)
+    live = ((active > 0)[:, None].expand(B, S)
+            if active is not None and cfg.family == "moe" else None)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = apply_norm(cfg, lp["ln1"], x)
@@ -366,7 +404,7 @@ def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
             lp["attn"], h, _paged_layer(kv, i), rope_theta=cfg.rope_theta,
             active=active)
         x = x + y
-        x = x + _ffn(cfg, lp, x)
+        x = x + _ffn(cfg, lp, x, live)
     kv.length.add_(S if active is None else S * active.to(kv.length.dtype))
     h = apply_norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, h), state

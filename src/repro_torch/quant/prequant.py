@@ -13,9 +13,12 @@ takes the dynamic path (re-quantized at every call), as in the reference.
 
 Stacked layer leaves (L, K, N) quantize per layer: each layer gets its own
 per-output-channel scales, as the reference's vmap over the layer axis
-gives. The reference's MoE and Mamba entries come with those families
-(ROADMAP queue 1, item 9); ``quantize_axes`` (the logical-axes transform
-for sharding) has no counterpart in a port without sharding (item 10).
+gives. MoE expert tables (L, E, d, f) / (L, E, f, d) quantize per layer
+and expert the same way, and ``moe_ffn`` dequantizes them at every call;
+the router stays float (under ``quant_mode="int8"`` it takes the dynamic
+path). The reference's Mamba entry comes with the hybrid family (ROADMAP
+queue 1, item 9); ``quantize_axes`` (the logical-axes transform for
+sharding) has no counterpart in a port without sharding (item 10).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any
 
 from repro_torch.layers.attention import AttnParams
 from repro_torch.layers.mlp import MlpParams
+from repro_torch.layers.moe import MoeParams
 from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
 from repro_torch.quant.int8 import quantize_linear
 
@@ -32,6 +36,7 @@ from repro_torch.quant.int8 import quantize_linear
 _PROJECTION_FIELDS: dict[type, tuple[str, ...]] = {
     AttnParams: ("wq", "wk", "wv", "wo"),
     MlpParams: ("w_in", "w_gate", "w_out"),
+    MoeParams: ("w_in", "w_gate", "w_out"),
     RwkvTimeMixParams: ("wr", "wk", "wv", "wg", "wo"),
     RwkvChannelMixParams: ("wk", "wv", "wr"),
 }

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.lm import KV_FAMILIES
 from repro_torch.train.graphs import CapturedStep
 
 
@@ -36,7 +37,7 @@ class ServeArtifacts:
 
 
 def make_serve_step(cfg: ModelConfig, *, device) -> ServeArtifacts:
-    """The static-batch server's steps, for both families."""
+    """The static-batch server's steps, for every ported family."""
 
     def decode(params, state, tokens):
         return models.decode_step(params, tokens, cfg, state)[0]
@@ -49,10 +50,10 @@ def make_serve_step(cfg: ModelConfig, *, device) -> ServeArtifacts:
 
 
 def _check_engine_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in KV_FAMILIES:
         raise ValueError(
-            f"the {what} needs a KV-cache family (dense; moe is ROADMAP "
-            f"queue 1, item 9), got {cfg.family!r}")
+            f"the {what} needs a KV-cache family {KV_FAMILIES}, got "
+            f"{cfg.family!r}")
 
 
 def _slot_admit(params, state, prompt, slot, true_len, *, cfg, prompt_pad):

@@ -15,6 +15,8 @@ SRC = os.path.join(ROOT, "src")
 QUANT_MODULES = ["repro_torch.quant", "repro_torch.quant.int8",
                  "repro_torch.quant.kvcache", "repro_torch.quant.prequant",
                  "repro_torch.layers.quantized"]
+# the MoE slice's module
+MOE_MODULES = ["repro_torch.layers.moe"]
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -43,6 +45,7 @@ def test_port_imports_neither_jax_nor_repro():
     names, bad = json.loads(res.stdout.splitlines()[-1])
     assert len(names) >= 20
     assert set(QUANT_MODULES) <= set(names)
+    assert set(MOE_MODULES) <= set(names)
     assert bad == []
 
 

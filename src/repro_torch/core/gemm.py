@@ -129,12 +129,15 @@ def plan_model(
     prompt_len: int,
     max_len: int,
     params: Any = None,
+    extras: dict[str, Any] | None = None,
 ) -> dict[str, int]:
     """Pre-solve every GEMM plan a model config will issue when serving.
 
     Runs prefill (``prompt_len`` tokens) and one decode step on the meta
     device under the active context. ``params`` may be the real parameter
-    tree (its shapes and dtypes are used) or None for the config's own.
+    tree (its shapes and dtypes are used) or None for the config's own;
+    ``extras`` the prefill batch's other inputs (encdec's ``frames``), of
+    which only the shapes and dtypes are used.
     Returns 'signatures' (distinct GEMM signatures the model issues),
     'solved' (solver invocations this warm-up) and 'from_cache'.
     """
@@ -148,11 +151,13 @@ def plan_model(
         params = interop.tree_map(
             lambda t: torch.empty_like(t, device="meta"), params)
     state = models.init_decode_state(cfg, batch, max_len, device="meta")
-    tokens = torch.empty((batch, prompt_len), dtype=torch.int64,
-                         device="meta")
+    inputs = {"tokens": torch.empty((batch, prompt_len), dtype=torch.int64,
+                                    device="meta")}
+    for k, v in (extras or {}).items():
+        inputs[k] = torch.empty_like(v, device="meta")
     tok = torch.empty((batch, 1), dtype=torch.int64, device="meta")
     with cache.warmup():
-        _, state = models.prefill(params, {"tokens": tokens}, cfg, state)
+        _, state = models.prefill(params, inputs, cfg, state)
         models.decode_step(params, tok, cfg, state)
     solved = cache.stats.warm_solves - before.warm_solves
     signatures = len(cache.warm_keys)

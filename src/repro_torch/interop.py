@@ -17,13 +17,14 @@ import numpy as np
 import torch
 
 from repro_torch.layers.attention import AttnParams
+from repro_torch.layers.mamba import MambaParams
 from repro_torch.layers.mlp import MlpParams
 from repro_torch.layers.moe import MoeParams
 from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
 from repro_torch.quant.int8 import QuantizedLinear
 
 _NAMED = {cls.__name__: cls for cls in (
-    AttnParams, MlpParams, MoeParams, RwkvTimeMixParams,
+    AttnParams, MambaParams, MlpParams, MoeParams, RwkvTimeMixParams,
     RwkvChannelMixParams, QuantizedLinear)}
 
 

@@ -125,8 +125,12 @@ __device__ __forceinline__ float act_c(float x) {
   if constexpr (A == ACT_RELU) return fmaxf(x, 0.f);
   if constexpr (A == ACT_RELU2) { const float r = fmaxf(x, 0.f); return r * r; }
   if constexpr (A == ACT_GELU) {  // tanh approximation, jax.nn.gelu's default
+    // in the plain version's order (torch's gelu(approximate="tanh"):
+    // x^3 first, then x + kappa x^3), so an int8 x int8 product, exact in
+    // i32, leaves this epilogue bit-equal to it
     const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+    const float x3 = x * x * x;
+    return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x3)));
   }
   if constexpr (A == ACT_SILU) return x / (1.f + expf(-x));
   return x;

@@ -1,7 +1,9 @@
 """Serving driver (port of ``repro.launch.serve``): the static-batch
-server (prefill once, then greedy decode step by step; the dense, moe and
-rwkv families) and, with ``--engine``, the continuous-batching engine over
-a synthetic trace (the KV-cache families, dense and moe).
+server (prefill once, then greedy decode step by step; the dense, moe,
+rwkv, hybrid and encdec families; encdec's frame embeddings are drawn from
+the prompts' generator, as the reference's launcher draws them) and, with
+``--engine``, the continuous-batching engine over a synthetic trace (the
+KV-cache families, dense and moe).
 
 Start-up follows the reference: build the execution context (loading
 persisted plans), make the weights from seed 0 (with ``--quantize int8``
@@ -19,6 +21,10 @@ CUDA graph (``train.servestep``).
       --prompt-len 128 --gen 16 [--quantize int8 --kv-quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       [--engine --kv-block-size 16] [--quantize int8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      [--quantize int8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      [--quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --metrics-json serve.json
@@ -62,13 +68,16 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.args import (add_context_args, add_serve_engine_args,
                                      context_from_args)
 from repro_torch.quant.prequant import quantize_params
-from repro_torch.train.servestep import make_serve_step
+from repro_torch.train.servestep import (make_serve_step,
+                                         prefill_input_shapes)
 
 
 def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
-                max_len: int, eos_id: int | None = None,
-                pad_id: int = 0) -> torch.Tensor:
-    """prompts: (B, P) int64 on the model's device. Returns (B, gen_len).
+                max_len: int, extras: dict | None = None,
+                eos_id: int | None = None, pad_id: int = 0) -> torch.Tensor:
+    """prompts: (B, P) int64 on the model's device; ``extras`` the
+    family's other prefill inputs (encdec: ``frames``). Returns (B,
+    gen_len).
 
     With ``eos_id``, generation stops per sequence at the first stop token:
     the stop token is kept, the tail is ``pad_id``, and a finished row
@@ -78,7 +87,8 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
     B = prompts.shape[0]
     art = make_serve_step(cfg, device=prompts.device)
     state = models.init_decode_state(cfg, B, max_len, device=prompts.device)
-    logits = art.prefill_fn(params, state, prompts)
+    logits = art.prefill_fn(params, state, {"tokens": prompts,
+                                            **(extras or {})})
     out = []
     finished = torch.zeros((B,), dtype=torch.bool, device=prompts.device)
     tok = logits[:, : cfg.vocab_size].argmax(-1)
@@ -427,19 +437,27 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
         rng = np.random.default_rng(0)
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, size=(args.batch, args.prompt_len))).to(device)
+        # the family's other inputs (encdec's frame embeddings, the
+        # frontend stub): standard normals from the same generator
+        extras = {
+            k: torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(device)
+            for k, (shape, _) in prefill_input_shapes(
+                cfg, args.batch, args.prompt_len).items() if k != "tokens"}
 
         max_len = args.prompt_len + args.gen + 1
         if not args.no_warmup:
             t0 = time.perf_counter()
             warm = plan_model(cfg, batch=args.batch,
                               prompt_len=args.prompt_len, max_len=max_len,
-                              params=params)
+                              params=params, extras=extras)
             _report_warmup(ctx, warm, time.perf_counter() - t0, "warm-up")
         warm_stats = ctx.plan_cache.stats.snapshot()
 
         t0 = time.perf_counter()
         out = serve_batch(cfg, params, prompts, gen_len=args.gen,
-                          max_len=max_len, eos_id=args.eos_id)
+                          max_len=max_len, extras=extras,
+                          eos_id=args.eos_id)
         out = out.cpu()  # waits for the device
         dt = time.perf_counter() - t0
         toks = args.batch * args.gen

@@ -1,2 +1,2 @@
-"""Layers of the LMs: dense/norms/rotary, MLP, MoE, attention, RWKV-6,
-W8A8."""
+"""Layers of the models: dense/norms/rotary, MLP, MoE, attention (self,
+cached, paged and cross), RWKV-6, Mamba-2, W8A8."""

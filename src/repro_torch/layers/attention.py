@@ -1,7 +1,7 @@
 """GQA self-attention for training, prefill and decode, with a contiguous
 KV cache (static batching and the engine's per-slot lanes) or a paged
-block pool, and the speculative verify pass over it (port of
-``repro/layers/attention.py:26-690``).
+block pool, the speculative verify pass over it, and cross-attention
+(port of ``repro/layers/attention.py``).
 
 Attention itself stays in plain torch ops, as the reference keeps it in
 plain XLA code (no Pallas kernel); the q/k/v/o projections route through
@@ -134,20 +134,50 @@ def self_attention(
     n_kv_heads: int,
     head_dim: int,
     rope_theta: float = 10000.0,
+    causal: bool = True,
     chunk: int | None = 1024,
+    positions: torch.Tensor | None = None,
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence causal GQA self-attention (forward without cache)."""
+    """Full-sequence GQA self-attention (forward without cache).
+    ``positions`` (B or 1, S) default to 0..S-1; ``use_rope=False`` (the
+    encoder-decoder's encoder) leaves q and k unrotated."""
     B, S, _ = x.shape
     q = cm.dense(x, p.wq, p.bq).reshape(B, S, n_heads, head_dim)
     k = cm.dense(x, p.wk, p.bk).reshape(B, S, n_kv_heads, head_dim)
     v = cm.dense(x, p.wv, p.bv).reshape(B, S, n_kv_heads, head_dim)
-    sin, cos = cm.rotary_embedding(torch.arange(S, device=x.device)[None, :],
-                                   head_dim, rope_theta)
-    q = cm.apply_rotary(q, sin, cos)
-    k = cm.apply_rotary(k, sin, cos)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        sin, cos = cm.rotary_embedding(positions, head_dim, rope_theta)
+        q = cm.apply_rotary(q, sin, cos)
+        k = cm.apply_rotary(k, sin, cos)
     k = _repeat_kv(k, n_heads // n_kv_heads)
     v = _repeat_kv(v, n_heads // n_kv_heads)
-    o = attention_core(q, k, v, causal=True, chunk=chunk)
+    o = attention_core(q, k, v, causal=causal, chunk=chunk)
+    return cm.dense(o.reshape(B, S, n_heads * head_dim), p.wo)
+
+
+def cross_attention(
+    p: AttnParams,
+    x: torch.Tensor,
+    kv_src: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """Cross-attention: queries from x (B, S, d), keys and values from
+    ``kv_src`` (B, Sk, d); no rope, no causal mask."""
+    B, S, _ = x.shape
+    Sk = kv_src.shape[1]
+    q = cm.dense(x, p.wq, p.bq).reshape(B, S, n_heads, head_dim)
+    k = cm.dense(kv_src, p.wk, p.bk).reshape(B, Sk, n_kv_heads, head_dim)
+    v = cm.dense(kv_src, p.wv, p.bv).reshape(B, Sk, n_kv_heads, head_dim)
+    k = _repeat_kv(k, n_heads // n_kv_heads)
+    v = _repeat_kv(v, n_heads // n_kv_heads)
+    o = attention_core(q, k, v, causal=False, chunk=chunk)
     return cm.dense(o.reshape(B, S, n_heads * head_dim), p.wo)
 
 
@@ -229,7 +259,9 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     length (``lm.decode_step``, by the active lanes). A vacant lane may sit
     at ``length == S_max``, where the reference's ``mode="drop"`` scatter
     writes nothing: here its index is clamped to S_max - 1 and the old
-    value written back, so the write is a no-op there too.
+    value written back, so the write is a no-op there too. A 0-d length
+    past the cache writes at S_max - 1 instead, where the reference's
+    ``dynamic_update_slice`` clamps its start, and every slot stays valid.
     """
     B, S1, _ = x.shape
     if S1 != 1:
@@ -249,7 +281,7 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
             c[rows, at] = torch.where(keep, c[rows, at], new[:, 0])
         valid = kpos[None, :] <= pos[:, None]
     else:
-        at = pos.reshape(1).long()
+        at = pos.clamp(max=S_max - 1).reshape(1).long()
         cache.k.index_copy_(1, at, k)
         cache.v.index_copy_(1, at, v)
         valid = (kpos <= pos).expand(B, S_max)

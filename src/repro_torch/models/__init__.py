@@ -1,10 +1,17 @@
-"""Model zoo dispatch (port of ``repro.models``): the dense, moe and rwkv
-families (``models.lm.FAMILIES``); the others (hybrid, encdec, vlm) raise
-NotImplementedError.
+"""Model zoo dispatch (port of ``repro.models``).
 
-Batch convention: a dict with 'tokens' (B, S). Every entry point takes an
-explicit ``device`` where it allocates: ``cuda`` unless the caller asks for
-the CPU (``repro_torch.device.resolve_device``); ``meta`` traces shapes.
+Families:
+  dense, moe, rwkv, hybrid   -> models.lm      (decoder-only)
+  encdec                     -> models.encdec  (whisper backbone)
+  vlm                        -> not ported yet (NotImplementedError)
+
+Batch convention: a dict with 'tokens' (B, S) plus the family's extras
+('frames' (B, encoder_len, d) for encdec). The engine's entry points
+(``prefill_chunk``, ``verify_step``, per-slot and paged states, the
+quantized KV pool, ``last_pos``, ``active``) are LM-family only, as in the
+reference. Every entry point takes an explicit ``device`` where it
+allocates: ``cuda`` unless the caller asks for the CPU
+(``repro_torch.device.resolve_device``); ``meta`` traces shapes.
 """
 from __future__ import annotations
 
@@ -13,15 +20,40 @@ from typing import Any
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_items
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
+from repro_torch.quant.kvcache import KVCacheDtype
+
+_LM_FAMILIES = lm.FAMILIES
+
+
+def _other(cfg: ModelConfig):
+    """The non-LM family's module (encdec), or raise."""
+    if cfg.family == "encdec":
+        return encdec
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1: "
+            "models/vision_lm.py)")
+    raise ValueError(cfg.family)
+
+
+def _lm_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in _LM_FAMILIES:
+        _other(cfg)  # vlm: NotImplementedError
+        raise ValueError(f"{what} is LM-family only, not {cfg.family!r}")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None):
-    return lm.init_lm(cfg, seed=seed, device=resolve_device(device))
+    if cfg.family in _LM_FAMILIES:
+        return lm.init_lm(cfg, seed=seed, device=resolve_device(device))
+    return _other(cfg).init_encdec(cfg, seed=seed,
+                                   device=resolve_device(device))
 
 
 def forward(params, batch: dict[str, Any], cfg: ModelConfig):
-    return lm.forward(params, batch["tokens"], cfg)
+    if cfg.family in _LM_FAMILIES:
+        return lm.forward(params, batch["tokens"], cfg)
+    return _other(cfg).forward(params, batch, cfg)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -29,29 +61,57 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       kv_block_size: int | None = None,
                       num_kv_blocks: int | None = None, kv_dtype=None,
                       device=None):
-    return lm.init_decode_state(cfg, batch, max_len, per_slot=per_slot,
-                                kv_block_size=kv_block_size,
-                                num_kv_blocks=num_kv_blocks,
-                                kv_dtype=kv_dtype,
-                                device=resolve_device(device))
+    if cfg.family in _LM_FAMILIES:
+        return lm.init_decode_state(cfg, batch, max_len, per_slot=per_slot,
+                                    kv_block_size=kv_block_size,
+                                    num_kv_blocks=num_kv_blocks,
+                                    kv_dtype=kv_dtype,
+                                    device=resolve_device(device))
+    mod = _other(cfg)
+    if KVCacheDtype.parse(kv_dtype).quantized:
+        raise ValueError(f"quantized KV is LM-family paged-layout only, not "
+                         f"{cfg.family!r}")
+    if kv_block_size:
+        raise ValueError(
+            f"paged decode state is LM-family only, not {cfg.family!r}")
+    if per_slot:
+        raise ValueError(
+            f"per-slot decode state is LM-family only, not {cfg.family!r}")
+    return mod.init_decode_state(cfg, batch, max_len,
+                                 device=resolve_device(device))
 
 
 def prefill(params, batch: dict[str, Any], cfg: ModelConfig, state,
             last_pos=None):
-    return lm.prefill(params, batch["tokens"], cfg, state, last_pos=last_pos)
+    if cfg.family in _LM_FAMILIES:
+        return lm.prefill(params, batch["tokens"], cfg, state,
+                          last_pos=last_pos)
+    mod = _other(cfg)
+    if last_pos is not None:
+        raise ValueError(
+            f"prefill last_pos is LM-family only, not {cfg.family!r}")
+    return mod.prefill(params, batch, cfg, state)
 
 
 def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
                   true_len, blocks):
+    _lm_only(cfg, "chunked prefill")
     return lm.prefill_chunk(params, tokens, cfg, state, slot=slot,
                             start=start, true_len=true_len, blocks=blocks)
 
 
 def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
-    return lm.decode_step(params, tokens, cfg, state, active=active)
+    if cfg.family in _LM_FAMILIES:
+        return lm.decode_step(params, tokens, cfg, state, active=active)
+    mod = _other(cfg)
+    if active is not None:
+        raise ValueError(
+            f"per-slot active masks are LM-family only, not {cfg.family!r}")
+    return mod.decode_step(params, tokens, cfg, state)
 
 
 def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
+    _lm_only(cfg, "speculative verify")
     return lm.verify_step(params, tokens, cfg, state, active=active)
 
 

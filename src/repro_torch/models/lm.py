@@ -1,14 +1,17 @@
-"""Decoder-only LM, dense, MoE and RWKV-6 families (port of
-``repro.models.lm``).
+"""Decoder-only LM, dense, MoE, RWKV-6 and Mamba2-hybrid families (port
+of ``repro.models.lm``).
 
 Parameters are the reference's tree: plain dicts and NamedTuples, layers
 stacked on a leading L axis. ``lax.scan`` over layers becomes a Python loop
-over views of the stacked leaves; the decode state (the KV cache of the
-dense and MoE families (L, B, S_max, Hkv, Dh) or paged pool (L, blocks,
-block, Hkv, Dh) with its int32 lengths and block table, or the rwkv WKV
-state (L, B, H, N, N) and token shifts (L, B, d)) is written in place,
-lengths included, the counterpart of the reference's ``donate_argnums``:
-a step captured as a CUDA graph keeps writing the same buffers.
+over views of the stacked leaves (the hybrid family's ``lax.cond`` on the
+layer index a Python ``if``); the decode state (the KV cache of the dense
+and MoE families (L, B, S_max, Hkv, Dh) or paged pool (L, blocks, block,
+Hkv, Dh) with its int32 lengths and block table, the rwkv WKV state (L, B,
+H, N, N) and token shifts (L, B, d), or the hybrid's SSM state (L, B, H,
+P, N), conv inputs (L, B, 3, d_conv) and the shared block's KV cache) is
+written in place, lengths included, the counterpart of the reference's
+``donate_argnums``: a step captured as a CUDA graph keeps writing the same
+buffers.
 
 Entry points: init_lm, forward, init_decode_state, prefill, prefill_chunk,
 decode_step, verify_step.
@@ -23,20 +26,24 @@ from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
+from repro_torch.layers import mamba as mb
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import rwkv as rwkv_lib
 from repro_torch.quant.kvcache import KVCacheDtype
 
-FAMILIES = ("dense", "moe", "rwkv")
-KV_FAMILIES = ("dense", "moe")  # the families with a KV cache
+FAMILIES = ("dense", "moe", "rwkv", "hybrid")
+# the families the engine serves (per-slot and paged states, chunked
+# prefill, verify); the hybrid family's shared block has a KV cache too,
+# but it serves through the static server only, as in the reference
+KV_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            "item 9: other model families)")
+            f"family {cfg.family!r} is not an LM family of the port "
+            f"({FAMILIES})")
 
 
 # ---------------------------------------------------------------- norms
@@ -76,6 +83,26 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device) -> dict[str, Any]:
         "ln1": init_norm(cfg, d, lead=(L,), device=device),
         "ln2": init_norm(cfg, d, lead=(L,), device=device),
     }
+    if cfg.family == "hybrid":
+        # the stacked Mamba layers, and one shared attention + MLP block
+        # (zamba2) that every shared_attn_every-th layer calls
+        params["layers"] = {
+            "ln1": layers["ln1"],
+            "mamba": mb.init_mamba(
+                gen, d, cfg.ssm_state, expand=cfg.ssm_expand,
+                head_dim=cfg.ssm_head_dim, dtype=dt, lead=(L,),
+                device=device),
+        }
+        params["shared"] = {
+            "ln1": init_norm(cfg, d, device=device),
+            "ln2": init_norm(cfg, d, device=device),
+            "attn": attn.init_attn(
+                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                qkv_bias=cfg.qkv_bias, dtype=dt, device=device),
+            "mlp": mlp_lib.init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp,
+                                    dtype=dt, device=device),
+        }
+        return params
     if cfg.family == "rwkv":
         layers["tmix"] = rwkv_lib.init_time_mix(gen, d, dtype=dt, lead=(L,),
                                                 device=device)
@@ -145,6 +172,60 @@ def _rwkv_block(cfg: ModelConfig, lp, x, tmix_state=None,
     return x + y2, (new_state, last_att, last_ffn)
 
 
+def _shared_block(cfg: ModelConfig, sp, x, cache=None, mode: str = "full"):
+    """The hybrid family's shared attention + MLP block. ``mode``: "full"
+    (no cache), "prefill" or "decode" (``cache``, one layer's KVCache view,
+    written in place)."""
+    h = apply_norm(cfg, sp["ln1"], x)
+    if mode == "full":
+        y = attn.self_attention(sp["attn"], h, **_attn_kw(cfg))
+    elif mode == "prefill":
+        y, _ = attn.prefill_attention(sp["attn"], h, cache,
+                                      rope_theta=cfg.rope_theta,
+                                      chunk=cfg.attn_chunk)
+    else:
+        y, _ = attn.decode_attention(sp["attn"], h, cache,
+                                     rope_theta=cfg.rope_theta)
+    x = x + y
+    return x + mlp_lib.mlp(sp["mlp"], apply_norm(cfg, sp["ln2"], x),
+                           activation=cfg.activation)
+
+
+def _hybrid_layer(params, cfg: ModelConfig, i: int, x, state=None,
+                  mode: str = "full"):
+    """Layer ``i`` of the hybrid stack: its Mamba block, then the shared
+    block where ``i % shared_attn_every == 0``. With ``state`` (prefill:
+    the Mamba block starts from zeros; decode: from the state) the layer's
+    SSM state and conv inputs are written back in place, and the shared
+    block's K/V go to layer i's slot of the cache; the other slots are
+    left as they are."""
+    lp = _layer(params["layers"], i)
+    prev = (mb.MambaState(ssm=state["ssm"][i], conv=state["conv"][i])
+            if mode == "decode" else None)
+    y, new = mb.mamba_block(
+        lp["mamba"], apply_norm(cfg, lp["ln1"], x), d_state=cfg.ssm_state,
+        expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, state=prev)
+    x = x + y
+    if state is not None:
+        state["ssm"][i].copy_(new.ssm)
+        state["conv"][i].copy_(new.conv)
+    if i % (cfg.shared_attn_every or cfg.n_layers + 1) == 0:
+        cache = None
+        if state is not None:
+            kv = state["kv"]
+            cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
+        x = _shared_block(cfg, params["shared"], x, cache, mode)
+    return x
+
+
+def _hybrid_layers(params, cfg: ModelConfig, x, state=None,
+                   mode: str = "full"):
+    """The hybrid stack, :func:`_hybrid_layer` by layer."""
+    for i in range(cfg.n_layers):
+        x = _hybrid_layer(params, cfg, i, x, state, mode)
+    return x
+
+
 def _write_rwkv_state(state, i: int, new) -> None:
     """Layer ``i``'s new (wkv, att_shift, ffn_shift) into the stacked
     decode state, in place."""
@@ -158,6 +239,9 @@ def forward(params, tokens, cfg: ModelConfig):
     _check_family(cfg)
     x = _embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        x = _hybrid_layers(params, cfg, x)
+        return apply_norm(cfg, params["final_norm"], x), aux
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         if cfg.family == "rwkv":
@@ -198,7 +282,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     its name) ``"int8"`` stores the pool in int8 with (L, num_kv_blocks,
     Hkv) f32 scales of 1.0: the paged layout only. rwkv: the WKV state (L,
     B, H, N, N) f32 and the token shifts (L, B, d) in the activation dtype;
-    ``max_len`` does not bound it."""
+    ``max_len`` does not bound it. hybrid: the SSM state (L, B, H, P, N)
+    f32, the conv inputs (L, B, 3, d_conv) in the activation dtype, and the
+    contiguous KV cache over all L layers with a 0-d length (only the
+    shared block's layers write theirs)."""
     _check_family(cfg)
     L, d = cfg.n_layers, cfg.d_model
     kvd = KVCacheDtype.parse(kv_dtype)
@@ -219,10 +306,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
             batch, num_kv_blocks, kv_block_size, -(-max_len // kv_block_size),
             cfg.n_kv_heads, cfg.head_dim, cfg.dtype, kv_dtype=kvd, lead=(L,),
             device=device)}
+    if per_slot and cfg.family not in KV_FAMILIES:
+        raise ValueError("per-slot decode state needs a KV-cache family, "
+                         f"not {cfg.family!r}")
     if cfg.family == "rwkv":
-        if per_slot:
-            raise ValueError("per-slot decode state needs a KV-cache family, "
-                             f"not {cfg.family!r}")
         H = cfg.n_heads
         N = d // H
         return {
@@ -234,11 +321,21 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                                      device=device),
         }
     shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": attn.KVCache(
+    state = {"kv": attn.KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
         length=torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                            device=device))}
+    if cfg.family == "hybrid":
+        d_inner, n_heads = mb.dims(d, cfg.ssm_state, expand=cfg.ssm_expand,
+                                   head_dim=cfg.ssm_head_dim)
+        state["ssm"] = torch.zeros(
+            (L, batch, n_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=torch.float32, device=device)
+        state["conv"] = torch.zeros(
+            (L, batch, mb.CONV_K - 1, d_inner + 2 * cfg.ssm_state),
+            dtype=cfg.dtype, device=device)
+    return state
 
 
 def _at(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -256,13 +353,16 @@ def prefill(params, tokens, cfg: ModelConfig, state, last_pos=None):
     instead of the last: the contiguous engine right-pads every prompt to
     one length and reads each request's true last token. The rwkv family
     starts from zero state whatever ``state`` holds, as the reference's
-    does, and overwrites it."""
+    does, and overwrites it; so do the hybrid family's Mamba blocks."""
     _check_family(cfg)
     x = _embed(params, tokens, cfg)
     if cfg.family == "rwkv":
         for i in range(cfg.n_layers):
             x, new = _rwkv_block(cfg, _layer(params["layers"], i), x)
             _write_rwkv_state(state, i, new)
+    elif cfg.family == "hybrid":
+        x = _hybrid_layers(params, cfg, x, state, mode="prefill")
+        state["kv"].length.fill_(tokens.shape[1])
     else:
         S = tokens.shape[1]
         kv = state["kv"]
@@ -352,19 +452,23 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
     paged = isinstance(kv, attn.PagedKVCache)
     live = ((active > 0)[:, None]
             if active is not None and cfg.family == "moe" else None)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h = apply_norm(cfg, lp["ln1"], x)
-        if paged:
-            y, _ = attn.paged_decode_attention(
-                lp["attn"], h, _paged_layer(kv, i),
-                rope_theta=cfg.rope_theta, active=active)
-        else:
-            cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
-            y, _ = attn.decode_attention(lp["attn"], h, cache,
-                                         rope_theta=cfg.rope_theta)
-        x = x + y
-        x = x + _ffn(cfg, lp, x, live)
+    if cfg.family == "hybrid":
+        x = _hybrid_layers(params, cfg, x, state, mode="decode")
+    else:
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(cfg, lp["ln1"], x)
+            if paged:
+                y, _ = attn.paged_decode_attention(
+                    lp["attn"], h, _paged_layer(kv, i),
+                    rope_theta=cfg.rope_theta, active=active)
+            else:
+                cache = attn.KVCache(k=kv.k[i], v=kv.v[i],
+                                     length=kv.length)
+                y, _ = attn.decode_attention(lp["attn"], h, cache,
+                                             rope_theta=cfg.rope_theta)
+            x = x + y
+            x = x + _ffn(cfg, lp, x, live)
     kv.length.add_(1 if active is None else active.to(kv.length.dtype))
     h = apply_norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, h)[:, 0], state

@@ -16,15 +16,17 @@ per-output-channel scales, as the reference's vmap over the layer axis
 gives. MoE expert tables (L, E, d, f) / (L, E, f, d) quantize per layer
 and expert the same way, and ``moe_ffn`` dequantizes them at every call;
 the router stays float (under ``quant_mode="int8"`` it takes the dynamic
-path). The reference's Mamba entry comes with the hybrid family (ROADMAP
-queue 1, item 9); ``quantize_axes`` (the logical-axes transform for
-sharding) has no counterpart in a port without sharding (item 10).
+path). Mamba quantizes its in and out projections; the conv and SSM
+coefficients are elementwise state math and stay float.
+``quantize_axes`` (the logical-axes transform for sharding) has no
+counterpart in a port without sharding (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
 from typing import Any
 
 from repro_torch.layers.attention import AttnParams
+from repro_torch.layers.mamba import MambaParams
 from repro_torch.layers.mlp import MlpParams
 from repro_torch.layers.moe import MoeParams
 from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
@@ -39,6 +41,7 @@ _PROJECTION_FIELDS: dict[type, tuple[str, ...]] = {
     MoeParams: ("w_in", "w_gate", "w_out"),
     RwkvTimeMixParams: ("wr", "wk", "wv", "wg", "wo"),
     RwkvChannelMixParams: ("wk", "wv", "wr"),
+    MambaParams: ("w_in", "w_out"),
 }
 
 

@@ -28,8 +28,9 @@ from repro_torch.train.graphs import CapturedStep
 @dataclasses.dataclass
 class ServeArtifacts:
     """``decode_fn(params, state, tokens)``: one (batch, 1) decode step,
-    captured; ``prefill_fn(params, state, tokens)``: the whole-prompt
-    prefill, eager (it runs once a batch)."""
+    captured; ``prefill_fn(params, state, batch)``: the whole-prompt
+    prefill of ``batch`` ({'tokens': (B, P)} plus the family's extras,
+    ``prefill_input_shapes``), eager (it runs once a batch)."""
 
     decode_fn: Callable
     prefill_fn: Callable
@@ -42,11 +43,22 @@ def make_serve_step(cfg: ModelConfig, *, device) -> ServeArtifacts:
     def decode(params, state, tokens):
         return models.decode_step(params, tokens, cfg, state)[0]
 
-    def prefill(params, state, tokens):
-        return models.prefill(params, {"tokens": tokens}, cfg, state)[0]
+    def prefill(params, state, batch):
+        return models.prefill(params, batch, cfg, state)[0]
 
     return ServeArtifacts(decode_fn=CapturedStep(decode, device),
                           prefill_fn=prefill, decode_raw=decode)
+
+
+def prefill_input_shapes(cfg: ModelConfig, batch: int, seq: int
+                         ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The static server's prefill batch: each input's (shape, dtype).
+    encdec adds the frontend stub's frame embeddings, as in the
+    reference."""
+    out = {"tokens": ((batch, seq), torch.int64)}
+    if cfg.family == "encdec":
+        out["frames"] = ((batch, cfg.encoder_len, cfg.d_model), cfg.dtype)
+    return out
 
 
 def _check_engine_family(cfg: ModelConfig, what: str) -> None:
@@ -243,4 +255,5 @@ def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
 
 __all__ = ["ServeArtifacts", "EngineArtifacts", "PagedEngineArtifacts",
            "SpecArtifacts", "make_serve_step", "make_engine_step",
-           "make_paged_engine_step", "make_spec_step"]
+           "make_paged_engine_step", "make_spec_step",
+           "prefill_input_shapes"]

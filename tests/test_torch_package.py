@@ -17,6 +17,9 @@ QUANT_MODULES = ["repro_torch.quant", "repro_torch.quant.int8",
                  "repro_torch.layers.quantized"]
 # the MoE slice's module
 MOE_MODULES = ["repro_torch.layers.moe"]
+# the hybrid and encoder-decoder slice's modules
+HYBRID_ENCDEC_MODULES = ["repro_torch.layers.mamba",
+                         "repro_torch.models.encdec"]
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -46,6 +49,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(names) >= 20
     assert set(QUANT_MODULES) <= set(names)
     assert set(MOE_MODULES) <= set(names)
+    assert set(HYBRID_ENCDEC_MODULES) <= set(names)
     assert bad == []
 
 

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7-11; one CUDA card
+  python3 chip_smoke.py            # phases 1-5 and 7-12; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
 Six paths (and the MoE family's, phase 9, the hybrid family's, phase 10,
-and the encoder-decoder family's, phase 11), each at a model's full width
-and depth with random weights:
+the encoder-decoder family's, phase 11, and the vision family's, phase
+12), each at a model's full width and depth with random weights:
 the static server on qwen1.5-4b (dense; the fat GEMM and GEMV kernels) and
 on rwkv6-3b (RWKV-6; the same two and the WKV kernel), the paged
 continuous-batching engine on qwen1.5-4b, the W8A8 int8 path
@@ -151,6 +151,23 @@ ends the run with a non-zero exit:
    51,968): 11a the static path (frames drawn after the prompts, as the
    launcher draws them), 11b the whole model on the card against the CPU,
    11c the int8 path: phase 4's gates and 10d's checks.
+12. the vision family, llama-3.2-vision-11b at its full width and depth
+   (40 layers in 8 groups of 4 self layers and 1 tanh-gated cross layer,
+   d 4096, 32 heads and 8 kv heads of 128, d_ff 14336, 1,600 image
+   tokens, vocab 128,256; 9.78 B f32 parameters, 39.1 GB): 12a the static
+   path (image embeddings drawn after the prompts, as the launcher draws
+   them) and 12b with ``--quantize int8``, phase 4's gates (launches: 7 fat
+   GEMMs a layer at prefill; a step 56 fat GEMMs, of them the 16 cross K/V
+   at M = 4 x 1600, and 225 GEMVs; int8 281 fat GEMMs each), the decode
+   step eager against replayed, the cross K/V's device ms a step and
+   share, the eager prefill, the peak memory; 12c, 12d phase 5's card
+   against CPU at 10 layers (two groups) with nonzero gates from the seed
+   (the reference's init zeroes them, and a cross layer then adds
+   nothing), the stack layer by layer from the CPU's input to each layer
+   (each layer's output and the head within the tolerance), beside the
+   CPU path's own spread; the end-to-end logits printed, not gated (the
+   CPU's own spread exceeds both tolerances); 12d also the plain fat
+   GEMM's path bit for bit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -243,6 +260,24 @@ PATHS = {
                           "args": ["--quantize", "int8"], "vocab": 51865,
                           "want": {"matmul": 6 * 6 + 6 * 10 + GEN * 10 * 6,
                                    "gemv": 1 + GEN, "wkv": 0}},
+    # llama-3.2-vision-11b (no qkv bias, SwiGLU, untied unembed), 40
+    # layers in 8 groups of 4 self layers and 1 gated cross layer, 1,600
+    # image tokens: prefill 7 fat GEMMs a layer (a self layer's q, k, v,
+    # wo and MLP at M = 512; a cross layer's q, wo and MLP at 512, its k
+    # and v of the image embeddings at M = 4 x 1600), the last-token
+    # unembed on the GEMV; a decode step a self layer's gate (silu) fat
+    # and its 6 other projections on the GEMV, a cross layer's gate and
+    # its k and v (M = 6400, recomputed at every step) fat and q, wo,
+    # w_in, w_out on the GEMV, then the unembed. int8: every GEMM fat, 7 a
+    # layer and the dynamic unembed, at prefill and each decode step
+    "llama-3.2-vision-11b": {
+        "arch": "llama-3.2-vision-11b", "args": [], "vocab": 128256,
+        "want": {"matmul": 7 * 40 + GEN * (32 + 3 * 8),
+                 "gemv": 1 + GEN * (6 * 32 + 4 * 8 + 1), "wkv": 0}},
+    "llama-3.2-vision-11b int8": {
+        "arch": "llama-3.2-vision-11b", "args": ["--quantize", "int8"],
+        "vocab": 128256,
+        "want": {"matmul": (GEN + 1) * (7 * 40 + 1), "gemv": 0, "wkv": 0}},
 }
 FAT_KERNELS = ("mm_wgmma", "mm_split_k", "mm_core")  # matmul.cu's routes
 PATH_TOL = 5e-2  # kernel vs plain logits, bf16 activations (see phase 5)
@@ -590,6 +625,36 @@ CASES = [
          activation="gelu", scale=True),
     Case("whisper unembed B=4 col f32 out", "gemv", 4, 512, 51968,
          layout="col", out_dtype="float32"),
+    # llama-3.2-vision-11b (phase 12): the prefill's projections (q and
+    # wo 4096 wide, k and v 1024, the MLP 14336) at 512 rows, the cross
+    # K/V of 4 x 1600 image tokens at every decode step, the decode
+    # gate (silu) on split_k, the decode GEMVs and the unembed; float and
+    # W8A8
+    Case("vision prefill q/wo", "matmul", 512, 4096, 4096),
+    Case("vision prefill k/v", "matmul", 512, 4096, 1024),
+    Case("vision prefill gate + silu", "matmul", 512, 4096, 14336,
+         activation="silu"),
+    Case("vision prefill w_out", "matmul", 512, 14336, 4096),
+    Case("vision cross k/v", "matmul", 6400, 4096, 1024),
+    Case("vision gate + silu M=4", "matmul", 4, 4096, 14336,
+         activation="silu"),
+    Case("vision q/wo B=4", "gemv", 4, 4096, 4096),
+    Case("vision k/v B=4", "gemv", 4, 4096, 1024),
+    Case("vision w_in B=4", "gemv", 4, 4096, 14336),
+    Case("vision w_out B=4", "gemv", 4, 14336, 4096),
+    Case("vision unembed B=4 f32 out", "gemv", 4, 4096, 128256,
+         out_dtype="float32"),
+] + [
+    Case(f"W8A8 vision {name}", "matmul", M, K, N, a_dtype="int8",
+         b_dtype="int8", out_dtype=out, layout="col", activation=act,
+         scale=True)
+    for name, M, K, N, out, act in [
+        ("gate + silu M=4", 4, 4096, 14336, "bfloat16", "silu"),
+        ("w_out M=4", 4, 14336, 4096, "bfloat16", None),
+        ("cross k/v M=6400", 6400, 4096, 1024, "bfloat16", None),
+        ("prefill gate + silu M=512", 512, 4096, 14336, "bfloat16", "silu"),
+        ("unembed M=4 f32 out", 4, 4096, 128256, "float32", None),
+    ]
 ]
 # GEMV cases held to their plain version but not timed: every dtype pair,
 # both layouts, 1..128 rows, ragged K and N, both routes
@@ -1029,8 +1094,8 @@ def _params(torch, cfg, quant: bool, seed: int = 0):
 
 def _prefill_batch(torch, cfg, rng, device="cuda") -> dict:
     """The static server's prefill batch at BATCH x PROMPT, drawn as the
-    launcher draws it: the prompts, then (encdec) the frame embeddings
-    from the same generator."""
+    launcher draws it: the prompts, then (encdec) the frame embeddings or
+    (vlm) the image embeddings from the same generator."""
     import numpy as np
 
     from repro_torch.train.servestep import prefill_input_shapes
@@ -1046,10 +1111,12 @@ def _prefill_batch(torch, cfg, rng, device="cuda") -> dict:
 
 def serve_split(torch, cfg, params, art, state, batch,
                 ssm_share: bool) -> None:
-    """Phases 10a, 10b, 11a, 11c: where the decode step's and the
-    prefill's time goes. The decode step: GEN replays after a fresh
+    """Phases 10a, 10b, 11a, 11c, 12a, 12b: where the decode step's and
+    the prefill's time goes. The decode step: GEN replays after a fresh
     prefill, traced: device busy a step split into the fat GEMM by route,
-    the GEMV and the rest, and the top kernels. The eager prefill, warm:
+    the GEMV and the rest, and the top kernels; vlm also the cross K/V's
+    device ms a step and share (the step's tensor-core GEMMs: M = 6400,
+    every other fat GEMM of a step is at M = 4). The eager prefill, warm:
     its wall ms (host clock around it, synchronised), its CUDA-event ms,
     and, traced once, its kernels and device busy ms. ``ssm_share`` (10a):
     the same prefill again with each SSM step stubbed: the steps' share of
@@ -1078,6 +1145,13 @@ def serve_split(torch, cfg, params, art, state, batch,
     for t, n, key in sorted(rows, reverse=True)[:8]:
         print(f"  {t / 1e3 / GEN:8.3f} ms x{n / GEN:<6g} "
               f"{key.replace('void ', '')[:90]}")
+    if cfg.family == "vlm":
+        n = sum(c for _, c, k in rows if "mm_wgmma" in k) / GEN
+        cross = parts["mm_wgmma"]
+        print(f"the cross K/V ({n:g} tensor-core launches a step at M = "
+              f"{BATCH} x {cfg.n_image_tokens}, K {cfg.d_model}, N "
+              f"{cfg.n_kv_heads * cfg.head_dim}): {cross:.3f} ms a step, "
+              f"{cross / busy:.3f} of the step's device busy", flush=True)
 
     def timed(fn, reps=3):
         walls, evs = [], []
@@ -1125,7 +1199,7 @@ def static_steps(torch, arch: str, label: str, quant: bool = False) -> None:
     """The static server's decode step, eager and as a CUDA-graph replay,
     in one run from one state: step ms (CUDA events between steps, so the
     host's dispatch shows), tok/s, and the replay against the eager step
-    bit for bit; the hybrid and encdec families also the prefill
+    bit for bit; the hybrid, encdec and vlm families also the prefill
     (``serve_split``)."""
     import numpy as np
 
@@ -1181,7 +1255,7 @@ def static_steps(torch, arch: str, label: str, quant: bool = False) -> None:
                         params, state, logits[:, :V].argmax(-1)[:, None])
         if cfg.family == "moe":
             moe_split(torch, cfg, params, art, state, batch["tokens"], quant)
-        if cfg.family in ("hybrid", "encdec"):
+        if cfg.family in ("hybrid", "encdec", "vlm"):
             serve_split(torch, cfg, params, art, state, batch,
                         ssm_share=cfg.family == "hybrid" and not quant)
     del params, state, art
@@ -1473,49 +1547,85 @@ def _router_by_layer(torch, cfg, params, prompts, fed) -> dict:
             "layer_err": layer_err, "cpu": torch.stack(logits).float()}
 
 
-def _hybrid_by_layer(torch, cfg, params, prompts, fed) -> dict:
-    """The hybrid stack run layer by layer on the card and on the CPU, each
-    layer (its Mamba block, and the shared block where it runs) fed the
-    CPU's input to it: prefill, then a decode step for each of ``fed``.
-    Each device keeps its own decode state, written by its own layers from
-    those inputs. Returns, by layer, the largest |card - cpu| / (1 + |cpu|)
-    of its output over the steps; the same of the logits the final norm
-    and the unembed give from the CPU's last hidden state; and the CPU's
-    logits of each step (the path's ops on the CPU, so equal to its CPU
-    run's bit for bit)."""
+class _LayerLog:
+    """Within it, every call of a hybrid or vision stack's layer function
+    (``lm._hybrid_layer``: a Mamba block and the shared block where it
+    runs; ``vision_lm._stack_layer``: a self layer or a group's gated cross
+    layer) records its input and its output, in call order: the prefill's
+    layers, then each decode step's. The path's arguments stay as they
+    are."""
+
+    def __init__(self, cfg):
+        from repro_torch.models import lm, vision_lm
+
+        self.mod, self.name = ((vision_lm, "_stack_layer")
+                               if cfg.family == "vlm"
+                               else (lm, "_hybrid_layer"))
+
+    def __enter__(self):
+        self.calls, self.saved = [], getattr(self.mod, self.name)
+
+        def recorded(params, cfg, i, x, *args):
+            out = self.saved(params, cfg, i, x, *args)
+            self.calls.append((x.clone(), out.clone()))
+            return out
+
+        setattr(self.mod, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.saved)
+
+
+def _stack_by_layer(torch, cfg, params, batch, calls) -> dict:
+    """Each layer of a hybrid or vision stack run on the card from the CPU
+    path's own input to it, against the CPU path's output of it (``calls``,
+    recorded by ``_LayerLog`` in the CPU run: the prefill, then each decode
+    step). The card keeps its own decode state, written by its own layers
+    from those inputs (vlm: ``img`` the batch's image embeddings, as
+    prefill writes it). Returns, by layer, the largest |card - cpu| / (1 +
+    |cpu|) of its output over the steps, and the same of the logits the
+    final norm and the unembed give from the CPU's last hidden state of
+    each step."""
     from repro_torch import models
     from repro_torch.models import lm
+    from repro_torch.models import vision_lm as vl
 
-    states = {d: models.init_decode_state(cfg, BATCH, PROMPT + 5, device=d)
-              for d in ("cuda", "cpu")}
+    L = cfg.n_layers
+    if len(calls) % L:
+        raise SystemExit(f"{len(calls)} layer calls recorded, not a "
+                         f"multiple of {L} layers")
+    state = models.init_decode_state(cfg, BATCH, PROMPT + 5, device="cuda")
+    if cfg.family == "vlm":
+        state["img"].copy_(batch["image_embeds"].to("cuda").to(cfg.dtype))
+
+        def layer(i, x, mode):
+            return vl._stack_layer(params["cuda"], cfg, i, x, state["img"],
+                                   mode, state["kv"])
+    else:
+        def layer(i, x, mode):
+            return lm._hybrid_layer(params["cuda"], cfg, i, x, state, mode)
     err = lambda got, want: ((got.cpu().float() - want.float()).abs()
                              / (1 + want.float().abs())).max().item()
-    by_layer, head, logits = [0.0] * cfg.n_layers, 0.0, []
-    for step in range(len(fed) + 1):
-        toks = prompts if step == 0 else fed[step - 1][:, None]
-        mode = "prefill" if step == 0 else "decode"
-        x = lm._embed(params["cpu"], toks, cfg)
-        for i in range(cfg.n_layers):
-            want = lm._hybrid_layer(params["cpu"], cfg, i, x, states["cpu"],
-                                    mode)
-            got = lm._hybrid_layer(params["cuda"], cfg, i, x.to("cuda"),
-                                   states["cuda"], mode)
-            by_layer[i] = max(by_layer[i], err(got, want))
-            x = want
+    by_layer, head = [0.0] * L, 0.0
+    for c, (x, want) in enumerate(calls):
+        step, i = divmod(c, L)
+        got = layer(i, x.to("cuda"), "prefill" if step == 0 else "decode")
+        by_layer[i] = max(by_layer[i], err(got, want))
+        if i < L - 1:
+            continue
         out = {}
         for d in ("cuda", "cpu"):
-            h = lm.apply_norm(cfg, params[d]["final_norm"], x[:, -1:].to(d))
+            h = lm.apply_norm(cfg, params[d]["final_norm"],
+                              want[:, -1:].to(d))
             out[d] = lm._logits(params[d], cfg, h)[:, 0, :cfg.vocab_size]
-            st = states[d]["kv"].length
-            if step == 0:
-                st.fill_(PROMPT)
-            else:
-                st.add_(1)
         head = max(head, err(out["cuda"], out["cpu"]))
-        logits.append(out["cpu"])
-    del states
-    return {"by_layer": by_layer, "head": head,
-            "cpu": torch.stack(logits).float()}
+        if step == 0:
+            state["kv"].length.fill_(PROMPT)
+        else:
+            state["kv"].length.add_(1)
+    del state
+    return {"by_layer": by_layer, "head": head}
 
 
 def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
@@ -1539,6 +1649,19 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
           + (", --quantize int8" if quant else ""))
     cfg = dataclasses.replace(C.get_config(arch), **cut)
     params = {"cuda": _params(torch, cfg, quant, seed=1)}
+    if cfg.family == "vlm":
+        # the reference's init zeroes both gates of every cross layer, and
+        # a cross layer then adds exactly nothing: nonzero gates from the
+        # seed (|tanh(gate)| >= 0.46), the same in both trees
+        gen = torch.Generator().manual_seed(1)
+        for g in ("gate_attn", "gate_mlp"):
+            gate = params["cuda"]["groups"]["cross"][g]
+            sign = torch.randint(0, 2, gate.shape, generator=gen) * 2 - 1
+            gate.copy_((torch.rand(gate.shape, generator=gen) + 0.5) * sign)
+        print("gates: " + ", ".join(
+            f"{g} " + " ".join(f"{v:.4f}" for v in
+                               params["cuda"]["groups"]["cross"][g].tolist())
+            for g in ("gate_attn", "gate_mlp")))
     params["cpu"] = interop.tree_map(lambda t: t.cpu(), params["cuda"])
     batch = _prefill_batch(torch, cfg, np.random.default_rng(1), "cpu")
     prompts = batch["tokens"]
@@ -1549,7 +1672,8 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
     runs = [("cuda", "cuda"), ("cpu", "cpu")] + (
         [("plain", "cuda")] if quant else [])
     moe, hybrid = cfg.family == "moe", cfg.family == "hybrid"
-    if hybrid:
+    stacked = cfg.family in ("hybrid", "vlm")  # gated layer by layer too
+    if stacked:
         # the model's own spread: the CPU path again with the embedding
         # table scaled by 1 + 2**-20 (a few bf16 activations round the
         # other way)
@@ -1559,9 +1683,12 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
     routers = {}
     for run, dev in runs:
         router = _RouterLog() if moe else contextlib.nullcontext()
+        # the CPU path's layer inputs and outputs, for the card's layers
+        layers = (_LayerLog(cfg) if stacked and run == "cpu"
+                  else contextlib.nullcontext())
         with use_context(quant_mode="int8" if quant else None), (
                 _plain_matmul() if run == "plain"
-                else contextlib.nullcontext()), router:
+                else contextlib.nullcontext()), router, layers:
             state = models.init_decode_state(cfg, BATCH, PROMPT + 5,
                                              device=dev)
             p = params[run if run in params else dev]
@@ -1577,6 +1704,8 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
         logits[run], states[run] = torch.stack(steps), state
         if moe:
             routers[run] = router.calls
+        if stacked and run == "cpu":
+            cpu_layers = layers.calls
     # bf16 activations: the two paths sum each product in another order, so
     # an activation may round to the neighbouring bf16 value and the flip
     # propagates through 2 layers. Held like the repo's bf16 kernel tests:
@@ -1591,12 +1720,10 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
     # tol; end to end, the logits that no swap of the two runs reaches
     # within tol.
     held = torch.ones(logits["cpu"].shape[:2], dtype=torch.bool)
-    if hybrid:
+    if stacked:
         with use_context(quant_mode="int8" if quant else None):
-            hb = _hybrid_by_layer(torch, cfg, params, prompts, fed)
-        if not torch.equal(hb["cpu"], logits["cpu"]):
-            raise SystemExit(f"{label}: the layer-by-layer run's CPU logits "
-                             "differ from the path's")
+            hb = _stack_by_layer(torch, cfg, params, batch, cpu_layers)
+        del cpu_layers
         run = "cpu, embedding x (1 + 2**-20)"
         spread = ((logits[run] - logits["cpu"]).abs()
                   / (1 + logits["cpu"].abs())).max().item()
@@ -1665,10 +1792,15 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
     # cannot tell a kernel's error from the model's own spread. Its gates
     # are each layer's output from the CPU's input and the head (above),
     # and the card's path bit for bit against the same path with the plain
-    # fat GEMM (below); the end-to-end figures are printed
-    e2e = not (hybrid and quant)
+    # fat GEMM (below); the end-to-end figures are printed. The vision
+    # path at 10 layers with nonzero gates, likewise at f32 and int8: the
+    # CPU path moved by 0.0637 / 0.4423 against itself (an H100's host),
+    # above 0.05 / 0.3, while each layer from the CPU's input stayed within
+    # 0.0282 / 0.0925 and the head within 2.4e-6 / 1.2e-3
+    e2e = not (hybrid and quant or cfg.family == "vlm")
+    failed = []
     if e2e and not scaled <= tol or not bool(same[sure].all()):
-        raise SystemExit("kernel path disagrees with the plain path")
+        failed.append("kernel path disagrees with the plain path")
     if quant:
         # Every GEMM of an int8 path is W8A8, which matmul.cu computes bit
         # for bit like its plain version (phase 3a), and every other op is
@@ -1684,8 +1816,10 @@ def kernel_vs_plain(torch, arch: str, label: str, quant: bool = False,
               "), state " + ("equal in every leaf" if not bad
                              else f"differs in {bad}"))
         if not exact or bad:
-            raise SystemExit("the int8 kernel path differs from its plain "
-                             "version on the card")
+            failed.append("the int8 kernel path differs from its plain "
+                          "version on the card")
+    if failed:
+        raise SystemExit(f"{label}: " + "; ".join(failed))
     del params, states
     _free(torch)
 
@@ -2961,6 +3095,17 @@ def main() -> int:
     counts[whisper + " int8"] = run_path(torch, whisper + " int8", "11c")
     static_steps(torch, whisper, "11c", quant=True)
     kernel_vs_plain(torch, whisper, "11c", quant=True, cut={})
+    # 12: the vision family, llama-3.2-vision-11b at its full width and
+    # depth; card against CPU at 10 layers: two groups of 4 self layers
+    # and 1 cross layer (cross_attn_every kept at 5), so the carry from one
+    # group to the next runs
+    vision = "llama-3.2-vision-11b"
+    counts[vision] = run_path(torch, vision, "12a")
+    static_steps(torch, vision, "12a")
+    counts[vision + " int8"] = run_path(torch, vision + " int8", "12b")
+    static_steps(torch, vision, "12b", quant=True)
+    kernel_vs_plain(torch, vision, "12c", cut={"n_layers": 10})
+    kernel_vs_plain(torch, vision, "12d", quant=True, cut={"n_layers": 10})
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

@@ -68,6 +68,13 @@ def resolve_hw(hw: str | HardwareSpec | None) -> HardwareSpec:
     return hwregistry.get_hw(hw)
 
 
+def expect_steady_state(what: str = "steady-state region"):
+    """Assert zero lazy plan solves and zero misses on the active
+    context's plan cache for the extent of the block
+    (:meth:`PlanCache.expect_steady_state`)."""
+    return current_context().plan_cache.expect_steady_state(what)
+
+
 @contextlib.contextmanager
 def use_context(
     ctx: GemmContext | None = None,

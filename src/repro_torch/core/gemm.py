@@ -82,6 +82,11 @@ def plan_for(
     return plan
 
 
+def clear_plan_cache() -> None:
+    """Clear the active context's plan cache (entries and counters)."""
+    current_context().plan_cache.clear()
+
+
 def _is_skinny(M: int, K: int, N: int) -> bool:
     """Decode-shaped: few rows, and (K, N) large enough for the GEMV
     kernel's weight-streaming design to make sense."""
@@ -136,8 +141,8 @@ def plan_model(
     Runs prefill (``prompt_len`` tokens) and one decode step on the meta
     device under the active context. ``params`` may be the real parameter
     tree (its shapes and dtypes are used) or None for the config's own;
-    ``extras`` the prefill batch's other inputs (encdec's ``frames``), of
-    which only the shapes and dtypes are used.
+    ``extras`` the prefill batch's other inputs (encdec's ``frames``, vlm's
+    ``image_embeds``), of which only the shapes and dtypes are used.
     Returns 'signatures' (distinct GEMM signatures the model issues),
     'solved' (solver invocations this warm-up) and 'from_cache'.
     """

@@ -174,6 +174,12 @@ class PlanCache:
             self.balance.pop(key, None)
         return plan
 
+    def clear(self) -> None:
+        """Drop every entry and reset the counters."""
+        self.entries.clear()
+        self.balance.clear()
+        self.stats = PlanCacheStats()
+
     @contextlib.contextmanager
     def warmup(self):
         """Solver work inside this block counts as warm-up, not lazy;

@@ -89,9 +89,11 @@ def _quantized(tree: Any) -> bool:
 
 def params_from_jax(tree: Any, cfg, device) -> Any:
     """The reference's parameter tree (numpy leaves) as the port's tree on
-    ``device``. Raises if it does not match what ``init_lm(cfg)`` makes, or,
-    for a pre-quantized tree, what ``quantize_params(init_lm(cfg))`` makes
-    (both traced on the meta device)."""
+    ``device``. Raises if it does not match what ``models.init(cfg)``
+    makes (every family: the vision family's two-level stacks and (G,)
+    gates too), or, for a pre-quantized tree, what
+    ``quantize_params(models.init(cfg))`` makes (both traced on the meta
+    device)."""
     from repro_torch import models
     from repro_torch.quant.prequant import quantize_params
 

@@ -1,7 +1,8 @@
 """Serving driver (port of ``repro.launch.serve``): the static-batch
 server (prefill once, then greedy decode step by step; the dense, moe,
-rwkv, hybrid and encdec families; encdec's frame embeddings are drawn from
-the prompts' generator, as the reference's launcher draws them) and, with
+rwkv, hybrid, encdec and vlm families; encdec's frame embeddings and vlm's
+image embeddings are drawn from the prompts' generator, as the
+reference's launcher draws them) and, with
 ``--engine``, the continuous-batching engine over a synthetic trace (the
 KV-cache families, dense and moe).
 
@@ -25,6 +26,8 @@ CUDA graph (``train.servestep``).
       [--quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
       [--quantize int8]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-11b [--quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --metrics-json serve.json
@@ -76,7 +79,8 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
                 max_len: int, extras: dict | None = None,
                 eos_id: int | None = None, pad_id: int = 0) -> torch.Tensor:
     """prompts: (B, P) int64 on the model's device; ``extras`` the
-    family's other prefill inputs (encdec: ``frames``). Returns (B,
+    family's other prefill inputs (encdec: ``frames``, vlm:
+    ``image_embeds``). Returns (B,
     gen_len).
 
     With ``eos_id``, generation stops per sequence at the first stop token:
@@ -437,8 +441,9 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
         rng = np.random.default_rng(0)
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, size=(args.batch, args.prompt_len))).to(device)
-        # the family's other inputs (encdec's frame embeddings, the
-        # frontend stub): standard normals from the same generator
+        # the family's other inputs (encdec's frame embeddings, vlm's
+        # image embeddings: the stubs of the audio frontend and the vision
+        # tower): standard normals from the same generator
         extras = {
             k: torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(device)

@@ -3,10 +3,11 @@
 Families:
   dense, moe, rwkv, hybrid   -> models.lm      (decoder-only)
   encdec                     -> models.encdec  (whisper backbone)
-  vlm                        -> not ported yet (NotImplementedError)
+  vlm                        -> models.vision_lm (llama-3.2-vision)
 
 Batch convention: a dict with 'tokens' (B, S) plus the family's extras
-('frames' (B, encoder_len, d) for encdec). The engine's entry points
+('frames' (B, encoder_len, d) for encdec, 'image_embeds' (B,
+n_image_tokens, d) for vlm). The engine's entry points
 (``prefill_chunk``, ``verify_step``, per-slot and paged states, the
 quantized KV pool, ``last_pos``, ``active``) are LM-family only, as in the
 reference. Every entry point takes an explicit ``device`` where it
@@ -20,34 +21,35 @@ from typing import Any
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_items
-from repro_torch.models import encdec, lm
+from repro_torch.models import encdec, lm, vision_lm
 from repro_torch.quant.kvcache import KVCacheDtype
 
 _LM_FAMILIES = lm.FAMILIES
 
 
+# the non-LM families: their module and its init
+_OTHER = {"encdec": (encdec, encdec.init_encdec),
+          "vlm": (vision_lm, vision_lm.init_vlm)}
+
+
 def _other(cfg: ModelConfig):
-    """The non-LM family's module (encdec), or raise."""
-    if cfg.family == "encdec":
-        return encdec
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1: "
-            "models/vision_lm.py)")
-    raise ValueError(cfg.family)
+    """The non-LM family's module (encdec or vision_lm), or raise."""
+    if cfg.family not in _OTHER:
+        raise ValueError(cfg.family)
+    return _OTHER[cfg.family][0]
 
 
 def _lm_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family not in _LM_FAMILIES:
-        _other(cfg)  # vlm: NotImplementedError
         raise ValueError(f"{what} is LM-family only, not {cfg.family!r}")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None):
     if cfg.family in _LM_FAMILIES:
         return lm.init_lm(cfg, seed=seed, device=resolve_device(device))
-    return _other(cfg).init_encdec(cfg, seed=seed,
-                                   device=resolve_device(device))
+    _other(cfg)  # an unknown family raises
+    return _OTHER[cfg.family][1](cfg, seed=seed,
+                                 device=resolve_device(device))
 
 
 def forward(params, batch: dict[str, Any], cfg: ModelConfig):

@@ -167,9 +167,25 @@ def quantize_linear(w: torch.Tensor, bias: torch.Tensor | None = None
     """PTQ of a (..., K, N) float weight to per-channel int8 in (..., N, K)
     layout; leading dims (stacked layers) each get their own scales, as
     the reference's vmap over them does. ``w_q`` is made contiguous: the
-    kernel reads B in place."""
+    kernel reads B in place. A stacked weight is quantized one (K, N)
+    slice at a time, into preallocated outputs: its f32 temporaries are
+    one slice's, never the whole leaf's (llama-3.2-vision's stacked MLP
+    input is 7.5 GB of f32)."""
+    bias = None if bias is None else bias.to(torch.float32)
+    if w.dim() > 2:
+        *lead, K, N = w.shape
+        flat = w.reshape(-1, K, N)
+        w_q = torch.empty((flat.shape[0], N, K), dtype=torch.int8,
+                          device=w.device)
+        w_scale = torch.empty((flat.shape[0], N), dtype=torch.float32,
+                              device=w.device)
+        for i in range(flat.shape[0]):
+            part = quantize_linear(flat[i])
+            w_q[i].copy_(part.w_q)
+            w_scale[i].copy_(part.w_scale)
+        return QuantizedLinear(w_q=w_q.reshape(*lead, N, K),
+                               w_scale=w_scale.reshape(*lead, N), bias=bias)
     scale = _safe_scale(w.to(torch.float32).abs().amax(dim=-2))
     q = quantize(w, scale[..., None, :])
-    return QuantizedLinear(
-        w_q=q.transpose(-1, -2).contiguous(), w_scale=scale,
-        bias=None if bias is None else bias.to(torch.float32))
+    return QuantizedLinear(w_q=q.transpose(-1, -2).contiguous(),
+                           w_scale=scale, bias=bias)

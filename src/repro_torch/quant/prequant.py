@@ -13,7 +13,9 @@ takes the dynamic path (re-quantized at every call), as in the reference.
 
 Stacked layer leaves (L, K, N) quantize per layer: each layer gets its own
 per-output-channel scales, as the reference's vmap over the layer axis
-gives. MoE expert tables (L, E, d, f) / (L, E, f, d) quantize per layer
+gives; the vision family's two-level leaves (G, n_self, K, N) per group
+and layer, as its vmap over both stack axes gives (the (G,) cross gates
+stay float). MoE expert tables (L, E, d, f) / (L, E, f, d) quantize per layer
 and expert the same way, and ``moe_ffn`` dequantizes them at every call;
 the router stays float (under ``quant_mode="int8"`` it takes the dynamic
 path). Mamba quantizes its in and out projections; the conv and SSM

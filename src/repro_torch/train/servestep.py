@@ -53,11 +53,14 @@ def make_serve_step(cfg: ModelConfig, *, device) -> ServeArtifacts:
 def prefill_input_shapes(cfg: ModelConfig, batch: int, seq: int
                          ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """The static server's prefill batch: each input's (shape, dtype).
-    encdec adds the frontend stub's frame embeddings, as in the
-    reference."""
+    encdec adds the frontend stub's frame embeddings and vlm the vision
+    stub's patch embeddings, as in the reference."""
     out = {"tokens": ((batch, seq), torch.int64)}
     if cfg.family == "encdec":
         out["frames"] = ((batch, cfg.encoder_len, cfg.d_model), cfg.dtype)
+    if cfg.family == "vlm":
+        out["image_embeds"] = ((batch, cfg.n_image_tokens, cfg.d_model),
+                               cfg.dtype)
     return out
 
 

@@ -14,8 +14,8 @@ weights (``interop.params_from_jax``).
 * The published width on the meta device: ``plan_model(extras=)`` traces
   the encoder and leaves no lazy solve; the kernels the chip smoke's
   launch rule counts.
-* The LM-only entry points refuse the family, as the reference's do; the
-  vision family is not ported and raises NotImplementedError.
+* The LM-only entry points refuse the family, as the reference's do, and
+  the vision family too.
 """
 import dataclasses
 import re
@@ -390,12 +390,21 @@ def test_lm_entry_points_refuse_the_encdec_family(whisper):
             make()
 
 
-def test_vision_family_still_raises():
+def test_lm_only_entry_points_refuse_the_vision_family():
+    """The vision family is ported (tests/test_torch_vision.py); the
+    engine's LM-only entry points refuse it with ValueError, as they
+    refuse encdec."""
     cfg = TC.smoke(TC.get_config("llama-3.2-vision-11b"))
-    for call in (lambda: TM.init(cfg, device="meta"),
-                 lambda: TM.init_decode_state(cfg, 1, 8, device="meta"),
-                 lambda: TM.prefill_chunk(None, None, cfg, None, slot=None,
-                                          start=None, true_len=None,
-                                          blocks=None)):
-        with pytest.raises(NotImplementedError, match="vlm"):
+    params = TM.init(cfg, device="meta")
+    state = TM.init_decode_state(cfg, 1, 8, device="meta")
+    z = lambda *s: torch.zeros(s, dtype=torch.int64, device="meta")
+    for call in (lambda: TM.prefill_chunk(params, z(1, 4), cfg, state,
+                                          slot=z(), start=z(), true_len=z(),
+                                          blocks=z(2)),
+                 lambda: TM.verify_step(params, z(1, 2), cfg, state),
+                 lambda: TM.decode_step(params, z(1, 1), cfg, state,
+                                        active=z(1)),
+                 lambda: TM.init_decode_state(cfg, 1, 8, per_slot=True,
+                                              device="meta")):
+        with pytest.raises(ValueError, match="vlm"):
             call()

@@ -219,6 +219,54 @@ def test_plan_cache_file_loads_in_reference(tmp_path):
     assert again.load() == len(SWEEP) and again.entries == cache.entries
 
 
+def test_clear_plan_cache_matches_reference():
+    """``clear_plan_cache`` empties the active context's cache, entries,
+    balance snapshots and counters, as the reference's does; another
+    cache is untouched."""
+    from repro.core.context import use_context as r_use_context
+
+    caches = {}
+    for name, pkg, ctx, dt in (("ref", RG, r_use_context, jnp.bfloat16),
+                               ("port", TG, use_context, torch.bfloat16)):
+        cache, other = (RPC.PlanCache(), RPC.PlanCache()) if name == "ref" \
+            else (TPC.PlanCache(), TPC.PlanCache())
+        pkg.plan_for(256, 1024, 512, in_dtype=dt, cache=other)
+        with ctx(plan_cache=cache):
+            for M, K, N in SWEEP:
+                pkg.plan_for(M, K, N, in_dtype=dt, hw="tpu_v5e")
+            full = (len(cache.entries), len(cache.balance),
+                    cache.stats.lazy_solves)
+            pkg.clear_plan_cache()
+        caches[name] = (full, len(cache.entries), len(cache.balance),
+                        str(cache.stats), len(other.entries))
+    assert caches["port"] == caches["ref"]
+    assert caches["port"] == ((len(SWEEP),) * 3, 0, 0, str(
+        TPC.PlanCacheStats()), 1)
+
+
+def test_context_expect_steady_state_matches_reference():
+    """``core.context.expect_steady_state`` holds the active context's
+    cache: a region with only warm plans passes, a lazy solve raises
+    ``PlanCacheColdError``, as the reference's does."""
+    from repro.core import context as RC
+    from repro_torch.core import context as TC
+
+    for ctx_mod, pc_mod, pkg, dt in ((RC, RPC, RG, jnp.bfloat16),
+                                     (TC, TPC, TG, torch.bfloat16)):
+        cache = pc_mod.PlanCache()
+        with ctx_mod.use_context(plan_cache=cache):
+            with cache.warmup():
+                pkg.plan_for(64, 512, 256, in_dtype=dt)
+            with ctx_mod.expect_steady_state("warm region"):
+                pkg.plan_for(64, 512, 256, in_dtype=dt)
+            with pytest.raises(pc_mod.PlanCacheColdError,
+                               match="cold region"):
+                with ctx_mod.expect_steady_state("cold region"):
+                    pkg.plan_for(64, 512, 512, in_dtype=dt)
+        assert (cache.stats.warm_solves, cache.stats.lazy_solves,
+                cache.stats.misses) == (1, 1, 2)
+
+
 # ------------------------------------------------------------ h100
 def _slice_signatures():
     """Every GEMM signature of the slice's path, full width: qwen1.5-4b

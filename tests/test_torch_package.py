@@ -20,6 +20,8 @@ MOE_MODULES = ["repro_torch.layers.moe"]
 # the hybrid and encoder-decoder slice's modules
 HYBRID_ENCDEC_MODULES = ["repro_torch.layers.mamba",
                          "repro_torch.models.encdec"]
+# the vision slice's module
+VISION_MODULES = ["repro_torch.models.vision_lm"]
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -50,6 +52,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert set(QUANT_MODULES) <= set(names)
     assert set(MOE_MODULES) <= set(names)
     assert set(HYBRID_ENCDEC_MODULES) <= set(names)
+    assert set(VISION_MODULES) <= set(names)
     assert bad == []
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7-12; one CUDA card
+  python3 chip_smoke.py            # phases 1-5 and 7-13; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
@@ -168,6 +168,28 @@ ends the run with a non-zero exit:
    CPU path's own spread; the end-to-end logits printed, not gated (the
    CPU's own spread exceeds both tolerances); 12d also the plain fat
    GEMM's path bit for bit.
+13. training, qwen1.5-4b at its full width and depth (3,950,369,280 f32
+   parameters, AdamW, remat on): 13a the backward's GEMMs at 13b's shapes
+   (dA = dC . W^T with W read in the other layout, dB = A^T . dC, the silu
+   gate's recomputed pre-activation; the f32 cotangents' dA on the CUDA
+   cores) against their plain versions with their times, bounds and
+   ``torch.mm``'s, and every kernel wrapper (WKV's two, the fat GEMM's,
+   the GEMV's) raising, not launching, on a CUDA tensor that requires
+   grad; 13b ``train.trainstep.make_train_step`` at batch 8 x 128 from
+   ``data.synthetic`` (seed 0), 5 steps: finite losses, every parameter
+   leaf's gradient finite and nonzero after step 1, zero lazy solves
+   after step 1, fat-GEMM and GEMV launches a step equal to the dispatch
+   rule for the forward, the recompute and the backward (1,164 fat, no
+   GEMV), peak device memory under 75 GiB; printed: step 1's and the
+   median step's CUDA-event ms split into forward + backward and the
+   optimizer, beside the bound, and a traced step's busy share; 13c the
+   step on the card against the CPU at 2 layers, 3 steps at 2 x 128 and 1
+   x 64 (the GEMV forward and its dA): each loss, each leaf's step-1
+   gradient and the 3 steps' updates within tolerances stated
+   beforehand; 13d ``python -m repro_torch.launch.train --arch
+   qwen1.5-4b --smoke`` for 30 steps with a checkpoint every 10, then to
+   40: it resumes at step 30 and the mean loss of its last 5 steps is
+   below that of the first 5.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -460,6 +482,7 @@ class Case:
     bias: bool = False
     activation: str | None = None
     scale: bool = False
+    fat_only: bool = False  # (phase 13's rule) the fat kernel at any shape
 
 
 CASES = [
@@ -758,6 +781,16 @@ def _tolerance(kernel: str, out_dtype: str, peak: float,
 
 
 def check_kernels(torch) -> dict[str, dict]:
+    phase("3a GEMM kernels against their plain versions (on the card)")
+    results = check_cases(torch, CASES, GEMV_SWEEP)
+    return {r["kernel"]: r for r in results
+            if r["case"] == RECORD_CASE[r["kernel"]]}
+
+
+def check_cases(torch, cases, sweep=()) -> list[dict]:
+    """Each GEMM case against its plain version at 3a's tolerance: the
+    timed ``cases`` with their time, bound, plain and library times (the
+    records returned), then the untimed ``sweep``."""
     from repro_torch.core.context import use_context
     from repro_torch.core.gemm import plan_for
     from repro_torch.core.plancache import PlanCache
@@ -765,13 +798,12 @@ def check_kernels(torch) -> dict[str, dict]:
     from repro_torch.kernels import matmul as tmm
     from repro_torch.kernels import ops, ref
 
-    phase("3a GEMM kernels against their plain versions (on the card)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []
     props = torch.cuda.get_device_properties(0)
     with use_context(hw="h100", plan_cache=PlanCache()):
-        for timed, c in [(True, c) for c in CASES] + [
-                (False, c) for c in GEMV_SWEEP]:
+        for timed, c in [(True, c) for c in cases] + [
+                (False, c) for c in sweep]:
             a, b, bias, scale = _inputs(torch, c, gen)
             out_dtype = getattr(torch, c.out_dtype)
             plan = plan_for(c.M, c.K, c.N, in_dtype=a.dtype,
@@ -858,8 +890,7 @@ def check_kernels(torch) -> dict[str, dict]:
                 raise SystemExit(f"{c.kernel} case {c.name!r} disagrees with "
                                  f"its plain version: {err} > {tol}")
             del a, b, bias, scale, got, want
-    return {r["kernel"]: r for r in results
-            if r["case"] == RECORD_CASE[r["kernel"]]}
+    return results
 
 
 # ------------------------------------------------------------ phase 3b
@@ -3012,6 +3043,425 @@ def run_measured_engine(torch, traced: dict) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ phase 13
+# the training path: qwen1.5-4b at its full width and depth (40 layers, d
+# 2560, d_ff 6912, vocab 151,936; f32 weights, bf16 activations, AdamW,
+# remat on), the reference launcher's batch of 8 x 128 tokens from
+# data.synthetic with seed 0
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 5
+TRAIN_PEAK_GIB = 75.0
+# 13c: the card against the CPU at 2 layers, 3 steps at batch 2 x 128 (the
+# fat GEMM) and 1 x 64 (64 rows: the GEMV forward and its dA). Stated
+# before the first card run from the CPU path against itself (embedding x
+# (1 + 2**-20), or every product summed in f64) at 2 layers, d 640 and
+# 1280, bf16 activations: losses within 1.4e-4 relative, each leaf's
+# step-1 gradient within 1.2e-2 relative L2 (the key bias; the rest 1e-2).
+# The 3-step update (params after - before) is Adam's: about lr times the
+# sign of the gradient, so an element whose gradient lies within the
+# rounding of zero flips the sign of its whole step. Per leaf that reached
+# 0.34 relative L2 (0.42 at d 256; the key bias, whose gradient is small;
+# the embedding 0.1, the rest 0.04), over all leaves together 0.023. So the
+# updates are gated together, and each leaf only against a step that did
+# not move (1.0) or moved the other way (2.0). On the card's host (PR 23's
+# chip run 1, full width; the CPU against itself at 2 x 128 / 1 x 64):
+# losses 8.4e-5 / 2.6e-5, gradients 0.0114 / 0.0115, updates 0.0136 /
+# 0.0172 (the key bias 0.177 / 0.305), within every tolerance; the card
+# against the CPU 6.6e-5 / 7.6e-5, 0.0114 / 0.0109, 0.0127 / 0.0164 (0.184
+# / 0.297). That CPU pass (90 s) is not repeated
+TRAIN_LOSS_TOL = 1e-3      # each step's loss, relative
+TRAIN_GRAD_TOL = 5e-2      # each leaf's gradient after step 1, relative L2
+TRAIN_UPDATE_TOL = 0.25    # all leaves' updates over 3 steps, relative L2
+TRAIN_LEAF_UPDATE_TOL = 1.0  # each leaf's update, relative L2 (below)
+TRAIN_CUT = ((2, 128), (1, 64))
+# 13d: the launcher on the smoke config, then resumed
+TRAIN_LAUNCH_STEPS = (30, 40)
+
+
+def _train_gemms(cfg, batch: int, seq: int) -> list[tuple[Case, int]]:
+    """The GEMMs of one training step of a qwen-style model (q, k, v with
+    cfg.qkv_bias, wo, the SwiGLU gate with silu, w_in, w_out; an untied
+    unembed) at ``batch`` x ``seq`` tokens, each with its count: the
+    forward (once more with cfg.remat: the recompute; a loss chunk's
+    unembed always twice), the gate's pre-activation recomputed with f32
+    out (on the fat kernel whatever its shape: ``fat_only``), and of each
+    product dA = dC . W^T (the (K, N) weight read as an (N', K') col one)
+    and dB = A^T . dC. A bf16 output's cotangent is bf16; the silu gate's
+    d_pre and the unembed's dlogits are f32 (on the card: the CUDA
+    cores)."""
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.n_layers
+    c = min(cfg.loss_chunk, seq)
+    if seq % c:
+        c = seq
+    R, Rc, chunks, fw = batch * seq, batch * c, seq // c, 1 + cfg.remat
+    act, f32 = cfg.activation_dtype, "float32"
+    g = lambda name, M, K, N, n, **kw: (Case(name, "matmul", M, K, N, **kw),
+                                       n)
+    fwd = dict(a_dtype=act, out_dtype=act)
+    bwd_a = dict(a_dtype=act, out_dtype=act, layout="col")
+    bwd_b = dict(a_dtype=act, b_dtype=act, out_dtype=f32)
+    return [
+        g("fwd q/k/v", R, d, d, fw * 3 * L, bias=cfg.qkv_bias, **fwd),
+        g("fwd wo", R, d, d, fw * L, **fwd),
+        g("fwd gate + silu", R, d, f, fw * L, activation="silu", **fwd),
+        g("fwd w_in", R, d, f, fw * L, **fwd),
+        g("fwd w_out", R, f, d, fw * L, **fwd),
+        g("fwd unembed", Rc, d, V, 2 * chunks, a_dtype=act, out_dtype=f32),
+        g("bwd gate pre recompute", R, d, f, L, a_dtype=act, out_dtype=f32,
+          fat_only=True),
+        g("bwd q/k/v/wo dA", R, d, d, 4 * L, **bwd_a),
+        g("bwd w_in dA", R, f, d, L, **bwd_a),
+        g("bwd gate dA (f32 d_pre)", R, f, d, L, a_dtype=f32,
+          out_dtype=act, layout="col"),
+        g("bwd w_out dA", R, d, f, L, **bwd_a),
+        g("bwd q/k/v/wo dB", d, R, d, 4 * L, **bwd_b),
+        g("bwd w_in dB", d, R, f, L, **bwd_b),
+        g("bwd gate dB (f32 d_pre)", d, R, f, L, a_dtype=act,
+          out_dtype=f32),
+        g("bwd w_out dB", f, R, d, L, **bwd_b),
+        g("bwd unembed dB", d, Rc, V, chunks, a_dtype=act, out_dtype=f32),
+        g("bwd unembed dA (f32 dlogits)", Rc, V, d, chunks, a_dtype=f32,
+          out_dtype=act, layout="col"),
+    ]
+
+
+def _train_rule(cfg, batch: int, seq: int) -> dict[str, int]:
+    """Kernel launches of one training step (_train_gemms) by the dispatch
+    rule (core/gemm.py): the GEMV for a product with no epilogue whose (M,
+    K, N) is decode-shaped (M <= 128, K >= 256, N >= 128; at 1 x 64 rows
+    the forward's wo, w_in, w_out, unembed and every dA, in the smoke
+    config some dB), the fat kernel for the rest."""
+    from repro_torch.core.gemm import _is_skinny
+
+    out = {"matmul": 0, "gemv": 0, "wkv": 0}
+    for c, n in _train_gemms(cfg, batch, seq):
+        gemv = (_is_skinny(c.M, c.K, c.N) and not c.bias
+                and c.activation is None and not c.fat_only)
+        out["gemv" if gemv else "matmul"] += n
+    return out
+
+
+def check_train_kernels(torch) -> list[dict]:
+    """13a: the backward's GEMMs at 13b's shapes against their plain
+    versions, timed; and every kernel wrapper raising, not launching, on a
+    CUDA tensor that requires grad (WKV has no backward kernel)."""
+    from repro_torch import configs as C
+    from repro_torch.kernels import decode_matvec as tmv
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.kernels import wkv
+
+    phase("13a the training step's backward GEMMs against their plain "
+          "versions (on the card), at 13b's shapes")
+    cfg = C.get_config(TRAIN_ARCH)
+    cases = [c for c, _ in _train_gemms(cfg, TRAIN_BATCH, TRAIN_SEQ)
+             if c.name.startswith("bwd")]
+    results = check_cases(torch, cases)
+    d = lambda *shape, **kw: torch.randn(*shape, device="cuda", **kw)
+    B, T, H, N = 1, 32, 2, 64
+    calls = {
+        "wkv_heads": lambda: wkv.wkv_heads(
+            d(B, T, H, N, requires_grad=True), d(B, T, H, N), d(B, T, H, N),
+            -d(B, T, H, N).abs(), d(H, N), d(B, H, N, N)),
+        "wkv": lambda: wkv.wkv(
+            d(H, T, N, requires_grad=True), d(H, T, N), d(H, T, N),
+            -d(H, T, N).abs(), d(H, N), d(H, N, N)),
+        "matmul": lambda: tmm.matmul(
+            d(64, 256, requires_grad=True).bfloat16(), d(256, 128),
+            bm=64, bk=64, bn=128),
+        "decode_matvec": lambda: tmv.decode_matvec(
+            d(4, 256), d(256, 128, requires_grad=True), bk=256, bn=128),
+    }
+    before = (tmm.launches, tmv.launches, wkv.launches)
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            print(f"{name} under autograd on the card raises: {e}")
+            continue
+        raise SystemExit(f"{name} launched on a CUDA tensor that requires "
+                         "grad: its gradient would be dropped")
+    if (tmm.launches, tmv.launches, wkv.launches) != before:
+        raise SystemExit("a kernel launched before refusing autograd")
+    return results
+
+
+def train_path(torch) -> dict[str, int]:
+    """13b: make_train_step at qwen1.5-4b's full width and depth, 5 steps
+    on the card, then one more under the profiler."""
+    import math
+
+    from repro_torch import configs as C
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.interop import tree_items
+    from repro_torch.models import param_count
+    from repro_torch.train import graphs
+    from repro_torch.train.trainstep import make_train_step
+
+    cfg = C.get_config(TRAIN_ARCH)
+    want = _train_rule(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    gemms = _train_gemms(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    phase(f"13b training path: train.trainstep.make_train_step, "
+          f"{TRAIN_ARCH} (full width and depth, remat on, AdamW), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} from data.synthetic (seed 0), "
+          f"{TRAIN_STEPS} steps")
+    marks, norms = [], {}
+
+    def probe(grads):
+        # between the backward and the optimizer: a CUDA event, and in
+        # step 1 every leaf's gradient norm (finite and nonzero)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1].append(ev)
+        if not norms:
+            items = list(tree_items(grads))
+            vals = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                                for _, g in items]).tolist()
+            norms.update(zip((p for p, _ in items), vals))
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    cache = PlanCache()
+    torch.cuda.reset_peak_memory_stats()
+    with use_context(hw="h100", plan_cache=cache):
+        art = make_train_step(cfg, global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, device="cuda",
+                              grads_hook=probe)
+        t0 = time.perf_counter()
+        state = art.init_fn(0)
+        torch.cuda.synchronize()
+        n_params = param_count(state["params"])
+        print(f"init: {n_params:,} parameters ({4 * n_params / 1e9:.2f} GB "
+              f"f32; with AdamW's m and v {12 * n_params / 1e9:.2f} GB) in "
+              f"{time.perf_counter() - t0:.1f}s")
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+        losses, lazy, per_step = [], [], []
+        graphs.reset_launches()
+        prev = graphs.launches()
+        for step in range(TRAIN_STEPS):
+            batch = data.batch(step)
+            solves = cache.stats.lazy_solves
+            marks.append([event()])
+            t0 = time.perf_counter()
+            state, m = art.step_fn(state, batch)
+            marks[-1].append(event())
+            losses.append(float(m["loss"]))
+            wall = time.perf_counter() - t0
+            now = graphs.launches()
+            per_step.append({k: now[k] - prev[k] for k in now})
+            prev = now
+            lazy.append(cache.stats.lazy_solves - solves)
+            ms = [marks[-1][0].elapsed_time(marks[-1][i]) for i in (1, 2)]
+            print(f"  step {step}: loss {losses[-1]:.4f} grad_norm "
+                  f"{float(m['grad_norm']):.4f} {ms[1]:.1f} ms on the card "
+                  f"(forward + backward {ms[0]:.1f}, optimizer "
+                  f"{ms[1] - ms[0]:.1f}), host wall {wall * 1e3:.1f} ms, "
+                  f"lazy solves {lazy[-1]}, launches {per_step[-1]}",
+                  flush=True)
+        counts = graphs.launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # one more step under the profiler: the device's busy share
+        marks.append([event()])
+        rows, _, traced_wall = _traced(torch, lambda: float(art.step_fn(
+            state, data.batch(TRAIN_STEPS))[1]["loss"]))
+    busy_ms, idle = _busy(rows, traced_wall)
+    total = [a.elapsed_time(c) for a, _, c in marks[:TRAIN_STEPS]]
+    fb = [a.elapsed_time(b) for a, b, _ in marks[:TRAIN_STEPS]]
+    med = lambda x: statistics.median(x[1:])
+    gemm_ms = sum(n * _bound(c, torch, "tensor_core" if c.a_dtype ==
+                             "bfloat16" else "cuda_core")[0]
+                  for c, n in gemms)
+    opt_ms = 1e3 * 7 * 4 * n_params / HBM_BYTES_PER_S
+    print(f"step 1 {total[0]:.1f} ms (forward + backward {fb[0]:.1f}, "
+          f"optimizer {total[0] - fb[0]:.1f}); steps 2-{TRAIN_STEPS} median "
+          f"{med(total):.1f} ms (forward + backward {med(fb):.1f}, optimizer "
+          f"{statistics.median(t - f for t, f in zip(total[1:], fb[1:])):.1f}"
+          f"); bound {gemm_ms + opt_ms:.1f} ms (the step's {sum(n for _, n in gemms)} "
+          f"GEMMs {gemm_ms:.1f}, AdamW's 7 f32 passes over the parameters "
+          f"{opt_ms:.1f})")
+    print(f"traced step: kernels busy {busy_ms:.1f} ms of {traced_wall * 1e3:.1f} "
+          f"ms wall (idle share {idle:.3f}); busy against the untraced median "
+          f"step {busy_ms / med(total):.3f}; peak device memory {peak:.2f} GiB"
+          f" (limit {TRAIN_PEAK_GIB}); launches of the {TRAIN_STEPS} steps "
+          f"{counts} (rule a step: {want})")
+    fat = {k: sum(r[0] for r in rows if k in r[2]) / 1e3
+           for k in FAT_KERNELS}
+    rest = sorted((r for r in rows if not any(k in r[2] for k in
+                                              FAT_KERNELS)), reverse=True)
+    print("traced step, device ms by kernel: fat GEMM "
+          + ", ".join(f"{k} {v:.1f}" for k, v in fat.items())
+          + "; the largest others " + ", ".join(
+              f"{name[:48]} {us / 1e3:.1f} ({n} launches)"
+              for us, n, name in rest[:6]))
+    bad = [p for p, n in norms.items() if not (math.isfinite(n) and n > 0)]
+    print(f"after step 1: {len(norms)} parameter leaves, gradient norms "
+          f"{min(norms.values()):.4g} .. {max(norms.values()):.4g}")
+    failed = []
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"a loss is not finite: {losses}")
+    if bad or len(norms) != len(list(tree_items(state["params"]))):
+        failed.append(f"leaves without a finite nonzero gradient: {bad}")
+    if any(lazy[1:]):
+        failed.append(f"lazy solves after step 1: {lazy}")
+    if any(c != want for c in per_step):
+        failed.append(f"launches a step {per_step} differ from the rule "
+                      f"{want}")
+    if not peak < TRAIN_PEAK_GIB:
+        failed.append(f"peak device memory {peak:.2f} GiB")
+    del state, art, m
+    _free(torch)
+    if failed:
+        raise SystemExit("13b: " + "; ".join(failed))
+    return counts
+
+
+def _train_run(torch, cfg, params0, batch: int, seq: int, device) -> dict:
+    """3 steps of make_train_step on ``device`` from ``params0`` (CPU
+    tensors) and fresh AdamW state, on data.synthetic (seed 0): each
+    step's loss and launches, the step-1 gradients and the 3 steps'
+    update of each leaf (on the CPU)."""
+    from repro_torch import interop
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.train import graphs
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainstep import (default_opt_config,
+                                             make_train_step)
+
+    grads = {}
+
+    def probe(tree):
+        if not grads:
+            grads.update((p, g.detach().to("cpu", copy=True))
+                         for p, g in interop.tree_items(tree))
+
+    art = make_train_step(cfg, global_batch=batch, seq_len=seq,
+                          device=device, grads_hook=probe)
+    params = interop.tree_map(lambda t: t.to(device, copy=True), params0)
+    state = {"params": params,
+             "opt": opt_lib.make_optimizer(default_opt_config(cfg)).init(
+                 params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0))
+    losses, launches = [], []
+    for step in range(3):
+        graphs.reset_launches()
+        state, m = art.step_fn(state, data.batch(step))
+        losses.append(float(m["loss"]))
+        launches.append(graphs.launches())
+    before = dict(interop.tree_items(params0))
+    update = {p: t.detach().cpu() - before[p]
+              for p, t in interop.tree_items(state["params"])}
+    return {"losses": losses, "launches": launches, "grads": grads,
+            "update": update}
+
+
+def train_vs_cpu(torch) -> None:
+    """13c: the training step on the card against the CPU at 2 layers and
+    full width, from one seed's weights and the same batches."""
+    from repro_torch import configs as C
+    from repro_torch import interop, models
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+
+    cfg = dataclasses.replace(C.get_config(TRAIN_ARCH), n_layers=2)
+    phase(f"13c training step, card against CPU: {TRAIN_ARCH}, n_layers 2, "
+          f"full width, 3 steps at batch x seq {TRAIN_CUT}; tolerances "
+          f"loss {TRAIN_LOSS_TOL}, gradients {TRAIN_GRAD_TOL} (relative L2 "
+          f"per leaf), updates {TRAIN_UPDATE_TOL} (all leaves; each below "
+          f"{TRAIN_LEAF_UPDATE_TOL})")
+    params0 = interop.tree_map(lambda t: t.cpu(), models.init(
+        cfg, seed=1, device="cuda"))
+    rel = lambda x, y: ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+    failed = []
+    for batch, seq in TRAIN_CUT:
+        res = {}
+        with use_context(hw="h100", plan_cache=PlanCache()):
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                res[dev] = _train_run(torch, cfg, params0, batch, seq, dev)
+                print(f"  {batch} x {seq} {dev}: losses "
+                      + " ".join(f"{x:.6f}" for x in res[dev]["losses"])
+                      + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
+                _free(torch)
+        want = _train_rule(cfg, batch, seq)
+        print(f"  {batch} x {seq} card launches a step "
+              f"{res['cuda']['launches']} (rule {want})")
+        if any(n != want for n in res["cuda"]["launches"]):
+            failed.append(f"{batch} x {seq}: launches differ from the rule")
+        card, ref = res["cuda"], res["cpu"]
+        loss = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], ref["losses"]))
+        grad = max((rel(card["grads"][k], ref["grads"][k]), k)
+                   for k in ref["grads"])
+        upd = max((rel(card["update"][k], ref["update"][k]), k)
+                  for k in ref["update"])
+        both = (sum((card["update"][k] - ref["update"][k]).norm() ** 2
+                    for k in ref["update"])
+                / sum(u.norm() ** 2 for u in ref["update"].values())
+                ).sqrt().item()
+        print(f"  {batch} x {seq} card against the CPU: loss {loss:.3g}, "
+              f"worst gradient {grad[0]:.4g} ({grad[1]}), updates "
+              f"{both:.4g} (worst leaf {upd[0]:.4g}, {upd[1]})", flush=True)
+        if not (loss <= TRAIN_LOSS_TOL and grad[0] <= TRAIN_GRAD_TOL
+                and both <= TRAIN_UPDATE_TOL
+                and upd[0] < TRAIN_LEAF_UPDATE_TOL):
+            failed.append(f"{batch} x {seq}: the card's step is beyond a "
+                          "tolerance of the CPU's")
+        del res, card, ref
+    del params0
+    _free(torch)
+    if failed:
+        raise SystemExit("13c: " + "; ".join(failed))
+
+
+def train_launcher(torch) -> dict[str, int]:
+    """13d: ``repro_torch.launch.train`` on the smoke config for 30 steps
+    with a checkpoint every 10, then again to 40: it resumes from step 30
+    and its loss keeps falling."""
+    import math
+    import tempfile
+
+    from repro_torch import configs as C
+    from repro_torch.launch import train
+    from repro_torch.train import graphs
+
+    first, last = TRAIN_LAUNCH_STEPS
+    phase(f"13d launcher: python -m repro_torch.launch.train --arch "
+          f"{TRAIN_ARCH} --smoke --steps {first} --ckpt-every 10, then "
+          f"--steps {last} from its checkpoints")
+    cfg = C.smoke(C.get_config(TRAIN_ARCH))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        args = ["--arch", TRAIN_ARCH, "--smoke", "--ckpt-every", "10",
+                "--ckpt-dir", d, "--plan-cache", ""]
+        graphs.reset_launches()
+        a = train.main(args + ["--steps", str(first)])
+        b = train.main(args + ["--steps", str(last)])
+        counts = graphs.launches()
+    want = {k: n * last for k, n in _train_rule(cfg, 8, 128).items()}
+    early, late = (statistics.mean(a["losses"][:5]),
+                   statistics.mean(b["losses"][-5:]))
+    print(f"start steps {a['start_step']} and {b['start_step']}; mean loss "
+          f"of the first 5 steps {early:.4f}, of the last 5 {late:.4f}; "
+          f"launches {counts} (rule: {want})")
+    losses = a["losses"] + b["losses"]
+    if (a["start_step"] != 0 or b["start_step"] != first
+            or len(losses) != last
+            or not all(math.isfinite(x) for x in losses)
+            or not late < early or counts != want):
+        raise SystemExit("13d: the launcher did not resume, or its loss "
+                         "did not fall, or its launches differ from the "
+                         "rule")
+    _free(torch)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3106,6 +3556,11 @@ def main() -> int:
     static_steps(torch, vision, "12b", quant=True)
     kernel_vs_plain(torch, vision, "12c", cut={"n_layers": 10})
     kernel_vs_plain(torch, vision, "12d", quant=True, cut={"n_layers": 10})
+    # 13: training, qwen1.5-4b at its full width and depth
+    train_bwd = check_train_kernels(torch)
+    counts["qwen1.5-4b train"] = train_path(torch)
+    train_vs_cpu(torch)
+    counts["qwen1.5-4b-smoke train launcher"] = train_launcher(torch)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),
@@ -3125,6 +3580,10 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "case": r["case"], "shape": r["shape"],
             "launches_by_path": by_path})
+    kernels[0]["train_backward"] = [
+        {k: r[k] for k in ("case", "route", "shape", "layout", "dtypes",
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")} for r in train_bwd]
     print(f"card: {smi}; all phases in {time.perf_counter() - _T0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,14 @@ decode-shaped GEMM (M <= ``SKINNY_M``, K >= 256, N >= 128) with no epilogue
 goes to the GEMV kernel with the planner's (bk, bn); every other GEMM goes
 to the fat kernel with the fused epilogue.
 
+Under autograd (grad mode on and ``a``, ``b`` or ``bias`` requiring grad,
+on every device) the call goes through :class:`_BalancedGemm`, whose
+backward runs its products through ``balanced_gemm`` too: ``dA = dC · Bᵀ``
+(B read in the other layout) and ``dB = Aᵀ · dC``, so on the card the
+backward launches the same hand-written kernels as the forward. The
+kernels' wrappers raise rather than launch on a CUDA tensor that requires
+grad: nothing is detached silently.
+
 ``plan_model(cfg)`` pre-solves every GEMM signature a model issues when
 serving by running prefill and one decode step on the ``meta`` device (the
 counterpart of ``jax.eval_shape``): every ``balanced_gemm`` resolves its
@@ -20,10 +28,10 @@ from typing import Any
 import torch
 
 from repro_torch.core import balance, perfmodel as pm
-from repro_torch.core.context import current_context, resolve_hw
+from repro_torch.core.context import current_context, resolve_hw, use_context
 from repro_torch.core.plancache import BalanceSnapshot, PlanCache, plan_key
 from repro_torch.configs.base import dtype_name
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import GemmPlan
 
 # Decode-shaped threshold: at or below this many rows the output tile cannot
@@ -93,6 +101,95 @@ def _is_skinny(M: int, K: int, N: int) -> bool:
     return M <= SKINNY_M and K >= 256 and N >= 128
 
 
+def _dispatch(a2, b, bias, *, out_dtype, b_layout, activation, out_scale,
+              plan, hw) -> torch.Tensor:
+    """One (M, K) x B product: the GEMV when decode-shaped with no epilogue,
+    else the fat kernel with the fused epilogue."""
+    M, K = a2.shape
+    N = b.shape[0] if b_layout == "col" else b.shape[1]
+    if plan is None:
+        plan = plan_for(M, K, N, in_dtype=a2.dtype, out_dtype=out_dtype,
+                        b_layout=b_layout, hw=hw)
+    if (bias is None and activation in (None, "none") and out_scale is None
+            and _is_skinny(M, K, N)):
+        return ops.decode_matvec(a2, b, bk=plan.bk, bn=plan.bn,
+                                 out_dtype=out_dtype, w_layout=b_layout,
+                                 hw=hw)
+    return ops.balanced_matmul(
+        a2, b, bias, plan=plan, out_dtype=out_dtype, b_layout=b_layout,
+        activation=activation, out_scale=out_scale, hw=hw)
+
+
+def _activation_grad(pre: torch.Tensor, activation: str,
+                     dc: torch.Tensor) -> torch.Tensor:
+    """``dC · act'(pre)`` in f32: the f32 cotangent of the output cast,
+    then the activation's derivative (``ref.apply_activation``'s)."""
+    with torch.enable_grad():
+        p = pre.detach().requires_grad_(True)
+        y = ref.apply_activation(p, activation)
+        (d,) = torch.autograd.grad(y, p, dc.to(torch.float32))
+    return d
+
+
+class _BalancedGemm(torch.autograd.Function):
+    """``act(A @ B + bias)`` whose backward is balanced GEMMs as well.
+
+    Forward: exactly :func:`_dispatch`. Backward, in the reference's AD
+    order: with an activation, the pre-activation is recomputed by the fat
+    kernel with no epilogue and f32 out, and ``d_pre = dC · act'(pre)`` in
+    f32; without one ``d_pre`` is ``dC`` as it comes (bf16 for a bf16
+    output, f32 for an f32 one). Then ``d_bias = Σ d_pre`` in f32,
+    ``dA = d_pre · Bᵀ`` (B in the other layout: a (K, N) row B read as an
+    (N', K') = (K, N) col one, a col B as a row one) and ``dB = Aᵀ ·
+    d_pre`` (a col B's (N, K) gradient as ``d_preᵀ · A``), each through
+    :func:`balanced_gemm`, its plan from the cache like any other. The
+    backward runs under the forward's GEMM context: autograd runs the
+    backward of CUDA tensors on a device thread of its own, which the
+    context variable does not reach."""
+
+    @staticmethod
+    def forward(ctx, a2, b, bias, out_dtype, b_layout, activation, plan, hw):
+        ctx.save_for_backward(a2, b, bias)
+        ctx.args = (b_layout, activation, plan, hw)
+        ctx.gemm_context = current_context()
+        return _dispatch(a2, b, bias, out_dtype=out_dtype, b_layout=b_layout,
+                         activation=activation, out_scale=None, plan=plan,
+                         hw=hw)
+
+    @staticmethod
+    def backward(ctx, dc):
+        with use_context(ctx.gemm_context):
+            return _BalancedGemm._backward(ctx, dc)
+
+    @staticmethod
+    def _backward(ctx, dc):
+        a, b, bias = ctx.saved_tensors
+        b_layout, activation, plan, hw = ctx.args
+        if activation in (None, "none"):
+            d_pre = dc.contiguous()
+        else:
+            pre = ops.balanced_matmul(a, b, bias, plan=plan,
+                                      out_dtype=torch.float32,
+                                      b_layout=b_layout, hw=hw)
+            d_pre = _activation_grad(pre, activation, dc)
+            del pre
+        need_a, need_b, need_bias = ctx.needs_input_grad[:3]
+        da = db = d_bias = None
+        if need_bias and bias is not None:
+            d_bias = d_pre.sum(0, dtype=torch.float32).to(bias.dtype)
+        if need_a:
+            da = balanced_gemm(d_pre, b, out_dtype=a.dtype, hw=hw,
+                               b_layout="row" if b_layout == "col" else "col")
+        if need_b:
+            if b_layout == "col":
+                db = balanced_gemm(d_pre.t().contiguous(), a,
+                                   out_dtype=b.dtype, hw=hw)
+            else:
+                db = balanced_gemm(a.t().contiguous(), d_pre,
+                                   out_dtype=b.dtype, hw=hw)
+        return da, db, d_bias, None, None, None, None, None
+
+
 def balanced_gemm(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -105,7 +202,9 @@ def balanced_gemm(
     plan: GemmPlan | None = None,
     hw: pm.HardwareSpec | str | None = None,
 ) -> torch.Tensor:
-    """Balanced tiled GEMM. Leading dims of ``a`` are flattened (batch)."""
+    """Balanced tiled GEMM. Leading dims of ``a`` are flattened (batch).
+    Differentiable in ``a``, ``b`` and ``bias`` (:class:`_BalancedGemm`),
+    except with ``out_scale``: the int8 path does not train."""
     hw = resolve_hw(hw)
     *lead, K = a.shape
     M = 1
@@ -113,17 +212,20 @@ def balanced_gemm(
         M *= d
     N = b.shape[0] if b_layout == "col" else b.shape[1]
     a2 = a.reshape(M, K)
-    if plan is None:
-        plan = plan_for(M, K, N, in_dtype=a.dtype, out_dtype=out_dtype,
-                        b_layout=b_layout, hw=hw)
-    if (bias is None and activation in (None, "none") and out_scale is None
-            and _is_skinny(M, K, N)):
-        out = ops.decode_matvec(a2, b, bk=plan.bk, bn=plan.bn,
-                                out_dtype=out_dtype, w_layout=b_layout, hw=hw)
+    if out_dtype is None:
+        out_dtype = a.dtype
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, bias)):
+        if out_scale is not None:
+            raise ValueError("balanced_gemm has no gradient through "
+                             "out_scale (the int8 path): call it without "
+                             "grad")
+        out = _BalancedGemm.apply(a2, b, bias, out_dtype, b_layout,
+                                  activation, plan, hw)
     else:
-        out = ops.balanced_matmul(
-            a2, b, bias, plan=plan, out_dtype=out_dtype, b_layout=b_layout,
-            activation=activation, out_scale=out_scale, hw=hw)
+        out = _dispatch(a2, b, bias, out_dtype=out_dtype, b_layout=b_layout,
+                        activation=activation, out_scale=out_scale,
+                        plan=plan, hw=hw)
     return out.reshape(*lead, N)
 
 

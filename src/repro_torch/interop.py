@@ -7,7 +7,9 @@ same weights. It imports neither ``jax`` nor ``repro``: dicts are walked by
 key and NamedTuples by ``_fields``, matched to the port's classes by name.
 A pre-quantized tree (the reference's ``quant.prequant.quantize_params``,
 whose ``QuantizedLinear`` leaves carry ``bias=None``) converts leaf for leaf
-into the port's ``QuantizedLinear``.
+into the port's ``QuantizedLinear``. ``state_from_jax`` does the same for
+a training state (params, optimizer state and step), so that both packages
+can train on from one state.
 """
 from __future__ import annotations
 
@@ -54,6 +56,23 @@ def tree_items(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
         return
     for k, v in items:
         yield from tree_items(v, f"{prefix}/{k}" if prefix else str(k))
+
+
+def tree_zip(tree: Any, *others: Any) -> Iterator[tuple]:
+    """For each leaf of ``tree`` (in :func:`tree_items` order): the leaf and
+    the node of each of ``others`` at the same place, a leaf or a subtree
+    (an optimizer's per-leaf dict of moments)."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_zip(v, *(o[k] for o in others))
+    elif hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from tree_zip(getattr(tree, f),
+                                *(getattr(o, f) for o in others))
+    else:
+        yield (tree, *others)
 
 
 def to_tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -112,3 +131,15 @@ def params_from_jax(tree: Any, cfg, device) -> Any:
             raise ValueError(f"{path}: got {tuple(t.shape)} {t.dtype}, "
                              f"{cfg.name} wants {tuple(w.shape)} {w.dtype}")
     return params
+
+
+def state_from_jax(tree: Any, cfg, device) -> dict[str, Any]:
+    """The reference's training state ``{"params", "opt", "step"}`` (numpy
+    leaves) as the port's on ``device``: the params checked as in
+    :func:`params_from_jax`, the optimizer state's trees (AdamW's ``m`` and
+    ``v``, Adafactor's per-leaf dicts) converted leaf for leaf, the step a
+    0-d int32 tensor."""
+    return {"params": params_from_jax(tree["params"], cfg, device),
+            "opt": _convert(tree["opt"], device),
+            "step": to_tensor(np.asarray(tree["step"], dtype=np.int32),
+                              device)}

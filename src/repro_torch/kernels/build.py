@@ -97,6 +97,18 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_lib_path(name)))
 
 
+def refuse_autograd(what: str, tensors, why: str) -> None:
+    """Raise where a launch would hand autograd an output with no
+    ``grad_fn``: grad mode on and an input that requires grad. A kernel's
+    output is written through a raw pointer, so its gradient would
+    otherwise be dropped without an error."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} on CUDA tensors that require grad: {why}")
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:

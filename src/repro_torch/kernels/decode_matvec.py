@@ -6,7 +6,9 @@
 epilogue. On a CUDA tensor it launches the kernel, which masks ragged
 edges (W is never padded or copied); on a CPU tensor it runs the plain
 version (``ref.gemv_ref``); on a meta tensor it returns the output's shape
-only. ``launches`` counts kernel launches and nothing else: one a call.
+only; on a CUDA tensor that requires grad (grad mode on) it raises:
+gradients go through ``core.gemm.balanced_gemm``. ``launches`` counts
+kernel launches and nothing else: one a call.
 
 Routes (``route``, a rule on W's alignment, taken before the launch):
 
@@ -321,6 +323,9 @@ def decode_matvec(
         return ref.gemv_ref(x, w, out_dtype=out_dtype, w_layout=w_layout)
     if x.device.type != "cuda":
         raise ValueError(f"gemv kernel runs on cuda, not {x.device}")
+    build.refuse_autograd(
+        "gemv kernel", (x, w),
+        "call core.gemm.balanced_gemm, whose backward launches the kernels")
     r = route(w, w_layout)
     _check(x, w, B=B, K=K, N=N, bk=bk, bn=bn, out_dtype=out_dtype, r=r)
     dev = x.device

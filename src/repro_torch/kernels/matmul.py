@@ -6,8 +6,10 @@
 hand-written kernel on one of four routes, which mask ragged M, N and K
 edges themselves, so nothing is padded or copied; on a CPU tensor it runs
 the plain version (``ref.matmul_ref``); on a meta tensor it only returns the
-output's shape (the plan warm-up traces the model there). ``launches``
-counts kernel launches and nothing else.
+output's shape (the plan warm-up traces the model there). On a CUDA tensor
+that requires grad (grad mode on) it raises: gradients go through
+``core.gemm.balanced_gemm``. ``launches`` counts kernel launches and
+nothing else.
 
 Routes (``route``, a rule on M, the dtypes, B's layout and alignment, taken
 before the launch; the source's header says what bounds each):
@@ -271,6 +273,9 @@ def matmul(
                               out_scale=out_scale)
     if a.device.type != "cuda":
         raise ValueError(f"matmul kernel runs on cuda, not {a.device}")
+    build.refuse_autograd(
+        "matmul kernel", (a, b, bias, out_scale),
+        "call core.gemm.balanced_gemm, whose backward launches the kernels")
     dev = a.device
     r = route(M, a.dtype, b.dtype, b_layout, tma_aligned(a, b))
     _check(a, b, bias, out_scale, M=M, K=K, N=N, bm=bm, bk=bk, bn=bn,

@@ -15,8 +15,10 @@ through their (b, h, t) strides:
 T must be a multiple of ``CHUNK``. On a CUDA tensor a wrapper launches the
 kernel or raises; on a CPU tensor it runs the plain version, :func:`wkv_ref`
 (``wkv_heads`` through ``wkv`` on the (BH, T, N) f32 copies, the
-arithmetic of the plain path); on a meta tensor it returns the outputs'
-shapes only. ``launches`` counts kernel launches and nothing else.
+arithmetic of the plain path, which autograd differentiates); on a meta
+tensor it returns the outputs' shapes only. The kernel has no backward: on
+a CUDA tensor that requires grad (grad mode on) a wrapper raises.
+``launches`` counts kernel launches and nothing else.
 
 A block owns (b, h, a slice of ``ms`` value columns): :func:`partition`
 picks ``ms`` and the grid, :func:`route` the load route, both before the
@@ -44,6 +46,10 @@ MAX_BLOCKS_PER_SM = 2_048 // THREADS
 VECTOR, SCALAR = "vector", "scalar"
 
 launches = 0
+
+_NO_BWD = ("the WKV kernel has no backward kernel (the reference trains "
+           "rwkv through its jnp recurrence), so rwkv does not train on the "
+           "card yet")
 
 
 def smem_bytes(N: int, ms: int, itemsize: int) -> int:
@@ -283,6 +289,7 @@ def wkv(r, k, v, wlog, u, state, *, ms: int | None = None):
         return wkv_ref(r, k, v, wlog, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv kernel runs on cuda, not {r.device}")
+    build.refuse_autograd("wkv kernel", (r, k, v, wlog, u, state), _NO_BWD)
     for name, t, shape in (("k", k, (BH, T, N)), ("v", v, (BH, T, N)),
                            ("wlog", wlog, (BH, T, N)), ("u", u, (BH, N)),
                            ("state", state, (BH, N, N))):
@@ -322,6 +329,7 @@ def wkv_heads(r, k, v, log_w, u, state, *, ms: int | None = None):
                       state.reshape(B * H, N, N))
         return (y_bh.reshape(B, H, T, N).transpose(1, 2),
                 s.reshape(B, H, N, N))
+    build.refuse_autograd("wkv kernel", (r, k, v, log_w, u, state), _NO_BWD)
     y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
     s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
     bth = lambda t: (t.stride(0), t.stride(2), t.stride(1))

@@ -19,17 +19,21 @@ from repro_torch.core.hwregistry import default_hw, list_hw
 from repro_torch.core.plancache import PlanCache, default_cache_path
 
 
-def add_context_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+def add_context_args(ap: argparse.ArgumentParser, *,
+                     include_quant: bool = True) -> argparse.ArgumentParser:
+    """``include_quant=False``: no ``--quantize`` (the trainer: the int8
+    path does not train)."""
     g = ap.add_argument_group("execution context")
     g.add_argument(
         "--hw", default=None, metavar="GEN",
         help=f"hardware generation for the GEMM planner/perf model "
              f"({', '.join(list_hw())}; default: $REPRO_TORCH_HW or h100)")
-    g.add_argument(
-        "--quantize", default="none", choices=["none", "int8"],
-        help="int8: quantize every projection weight once at load and route "
-             "each GEMM through the W8A8 path (int8 x int8, the per-channel "
-             "requantize in the kernel's epilogue)")
+    if include_quant:
+        g.add_argument(
+            "--quantize", default="none", choices=["none", "int8"],
+            help="int8: quantize every projection weight once at load and "
+                 "route each GEMM through the W8A8 path (int8 x int8, the "
+                 "per-channel requantize in the kernel's epilogue)")
     g.add_argument(
         "--plan-cache", default=None, metavar="PATH",
         help="persistent GEMM plan cache JSON (default: "
@@ -186,6 +190,6 @@ def context_from_args(args: argparse.Namespace) -> GemmContext:
     cache.load()
     return GemmContext(
         hw=args.hw if args.hw is not None else default_hw(),
-        quant_mode=args.quantize,
+        quant_mode=getattr(args, "quantize", "none"),
         plan_cache=cache,
     )

@@ -5,6 +5,9 @@ Families:
   encdec                     -> models.encdec  (whisper backbone)
   vlm                        -> models.vision_lm (llama-3.2-vision)
 
+``forward`` returns (hidden, aux_loss); ``lm_loss`` (the LM head's
+chunked cross-entropy, as the reference's) consumes hidden.
+
 Batch convention: a dict with 'tokens' (B, S) plus the family's extras
 ('frames' (B, encoder_len, d) for encdec, 'image_embeds' (B,
 n_image_tokens, d) for vlm). The engine's entry points
@@ -22,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_items
 from repro_torch.models import encdec, lm, vision_lm
+from repro_torch.models.lm import lm_loss
 from repro_torch.quant.kvcache import KVCacheDtype
 
 _LM_FAMILIES = lm.FAMILIES
@@ -121,5 +125,5 @@ def param_count(params) -> int:
     return sum(t.numel() for _, t in tree_items(params))
 
 
-__all__ = ["init", "forward", "init_decode_state", "prefill",
+__all__ = ["init", "forward", "lm_loss", "init_decode_state", "prefill",
            "prefill_chunk", "decode_step", "verify_step", "param_count"]

@@ -13,17 +13,22 @@ written in place, lengths included, the counterpart of the reference's
 ``donate_argnums``: a step captured as a CUDA graph keeps writing the same
 buffers.
 
-Entry points: init_lm, forward, init_decode_state, prefill, prefill_chunk,
-decode_step, verify_step.
+Entry points: init_lm, forward, lm_loss, init_decode_state, prefill,
+prefill_chunk, decode_step, verify_step. ``forward`` and ``lm_loss`` are the
+training path: under grad each layer (with ``cfg.remat``) and each loss
+chunk is recomputed in the backward, as the reference's ``jax.checkpoint``
+does.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.context import current_context, use_context
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mamba as mb
@@ -130,6 +135,43 @@ def _layer(layers, i: int):
     return interop.tree_map(lambda t: t[i], layers)
 
 
+def _unstack(layers, n: int) -> list:
+    """The stacked layer tree as ``n`` per-layer trees of views, by one
+    ``unbind(0)`` per leaf. Under autograd the gradient of a leaf is then
+    stacked once (``UnbindBackward0``), where ``t[i]`` per layer writes a
+    zero tensor the size of the whole stack for every layer."""
+    split = interop.tree_map(lambda t: t.unbind(0), layers)
+    return [interop.tree_map(lambda parts: parts[i], split)
+            for i in range(n)]
+
+
+def _checkpointed(fn):
+    """``fn`` whose activations are recomputed in the backward instead of
+    kept (``torch.utils.checkpoint``, non-reentrant, as ``jax.checkpoint``).
+    The recompute runs under the forward's GEMM context: autograd runs the
+    backward of CUDA tensors on a device thread of its own, which the
+    context variable does not reach."""
+    gemm_context = current_context()
+
+    def run(*args):
+        with use_context(gemm_context):
+            return fn(*args)
+
+    return lambda *args: checkpoint(run, *args, use_reentrant=False)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """The reference's ``_maybe_remat``: with ``cfg.remat`` and grad on,
+    ``fn`` is :func:`_checkpointed`."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
+            "layers only ('full')")
+    return _checkpointed(fn)
+
+
 def _attn_kw(cfg: ModelConfig):
     return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
@@ -192,14 +234,15 @@ def _shared_block(cfg: ModelConfig, sp, x, cache=None, mode: str = "full"):
 
 
 def _hybrid_layer(params, cfg: ModelConfig, i: int, x, state=None,
-                  mode: str = "full"):
+                  mode: str = "full", lp=None):
     """Layer ``i`` of the hybrid stack: its Mamba block, then the shared
     block where ``i % shared_attn_every == 0``. With ``state`` (prefill:
     the Mamba block starts from zeros; decode: from the state) the layer's
     SSM state and conv inputs are written back in place, and the shared
     block's K/V go to layer i's slot of the cache; the other slots are
-    left as they are."""
-    lp = _layer(params["layers"], i)
+    left as they are. ``lp``: layer ``i``'s tree, if already taken."""
+    if lp is None:
+        lp = _layer(params["layers"], i)
     prev = (mb.MambaState(ssm=state["ssm"][i], conv=state["conv"][i])
             if mode == "decode" else None)
     y, new = mb.mamba_block(
@@ -234,25 +277,30 @@ def _write_rwkv_state(state, i: int, new) -> None:
 
 
 # ---------------------------------------------------------------- forward
+def _block(cfg: ModelConfig, lp, x):
+    """One dense or MoE layer: (x, the MoE layer's aux loss or None)."""
+    x = x + attn.self_attention(lp["attn"], apply_norm(cfg, lp["ln1"], x),
+                                **_attn_kw(cfg))
+    y, a = _ffn_aux(cfg, lp, x)
+    return x + y, a
+
+
 def forward(params, tokens, cfg: ModelConfig):
     """tokens (B, S) -> (hidden (B, S, d), aux_loss scalar)."""
     _check_family(cfg)
     x = _embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "hybrid":
-        x = _hybrid_layers(params, cfg, x)
-        return apply_norm(cfg, params["final_norm"], x), aux
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        if cfg.family == "rwkv":
-            x, _ = _rwkv_block(cfg, lp, x)
-            continue
-        x = x + attn.self_attention(lp["attn"], apply_norm(cfg, lp["ln1"], x),
-                                    **_attn_kw(cfg))
-        y, a = _ffn_aux(cfg, lp, x)
-        x = x + y
-        if a is not None:
-            aux = aux + a
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for i, lp in enumerate(layers):
+        if cfg.family == "hybrid":
+            x = _remat(cfg, lambda x, lp, i=i: _hybrid_layer(
+                params, cfg, i, x, None, "full", lp))(x, lp)
+        elif cfg.family == "rwkv":
+            x = _remat(cfg, lambda x, lp: _rwkv_block(cfg, lp, x)[0])(x, lp)
+        else:
+            x, a = _remat(cfg, lambda x, lp: _block(cfg, lp, x))(x, lp)
+            if a is not None:
+                aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)
     if cfg.family == "moe":
         aux = aux / cfg.n_layers
@@ -265,6 +313,36 @@ def _logits(params, cfg: ModelConfig, h):
         return cm.balanced_gemm(h, params["embed"], b_layout="col",
                                 out_dtype=torch.float32)
     return cm.dense(h, params["unembed"], out_dtype=torch.float32)
+
+
+def _chunk_nll(params, cfg: ModelConfig, h, lab):
+    """One loss chunk: (the sum of its tokens' NLL, its live-label count)."""
+    logits = _logits(params, cfg, h)
+    mask = (lab >= 0) & (lab < cfg.vocab_size)
+    lab_c = lab.clamp(0, cfg.padded_vocab - 1).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab_c[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum(), mask.sum(dtype=torch.int32)
+
+
+def lm_loss(params, hidden, labels, cfg: ModelConfig):
+    """Sequence-chunked CE: logits exist (B, chunk, Vp) at a time, each
+    chunk recomputed in the backward (the reference's ``jax.checkpoint``
+    of its scan body). Labels outside [0, vocab) are masked out."""
+    B, S, d = hidden.shape
+    c = min(cfg.loss_chunk, S)
+    if S % c:
+        c = S  # fallback: uneven chunks
+    body = lambda h, lab: _chunk_nll(params, cfg, h, lab)
+    if torch.is_grad_enabled():
+        body = _checkpointed(body)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for j in range(0, S, c):
+        nll, n = body(hidden[:, j:j + c], labels[:, j:j + c])
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp_min(cnt, 1)
 
 
 # ---------------------------------------------------------------- decode

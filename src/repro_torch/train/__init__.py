@@ -1,2 +1,3 @@
-"""Serving steps (port of ``repro.train.servestep``) and their capture as
-CUDA graphs (``graphs``). Training is ROADMAP queue 1, item 10."""
+"""Training and serving steps (port of ``repro.train``): the optimizers
+(``optimizer``), the training step (``trainstep``), the serving steps
+(``servestep``) and their capture as CUDA graphs (``graphs``)."""

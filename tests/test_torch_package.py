@@ -22,6 +22,11 @@ HYBRID_ENCDEC_MODULES = ["repro_torch.layers.mamba",
                          "repro_torch.models.encdec"]
 # the vision slice's module
 VISION_MODULES = ["repro_torch.models.vision_lm"]
+# the training slice's modules
+TRAIN_MODULES = ["repro_torch.train.optimizer", "repro_torch.train.trainstep",
+                 "repro_torch.data.synthetic", "repro_torch.ft.checkpoint",
+                 "repro_torch.ft.straggler", "repro_torch.ft.elastic",
+                 "repro_torch.launch.train"]
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -53,6 +58,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert set(MOE_MODULES) <= set(names)
     assert set(HYBRID_ENCDEC_MODULES) <= set(names)
     assert set(VISION_MODULES) <= set(names)
+    assert set(TRAIN_MODULES) <= set(names)
     assert bad == []
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7-13; one CUDA card
+  python3 chip_smoke.py            # phases 1-5 and 7-14; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
@@ -161,7 +161,10 @@ ends the run with a non-zero exit:
    at M = 4 x 1600, and 225 GEMVs; int8 281 fat GEMMs each), the decode
    step eager against replayed, the cross K/V's device ms a step and
    share, the eager prefill, the peak memory; 12c, 12d phase 5's card
-   against CPU at 10 layers (two groups) with nonzero gates from the seed
+   against CPU with nonzero gates from the seed, 12c at 10 layers (two
+   groups), 12d at 5 (one group: its CPU side runs the int8 products in
+   f64, 162 s at 10 layers on an H100's host, cut to keep the script's
+   time)
    (the reference's init zeroes them, and a cross layer then adds
    nothing), the stack layer by layer from the CPU's input to each layer
    (each layer's output and the head within the tolerance), beside the
@@ -190,6 +193,27 @@ ends the run with a non-zero exit:
    qwen1.5-4b --smoke`` for 30 steps with a checkpoint every 10, then to
    40: it resumes at step 30 and the mean loss of its last 5 steps is
    below that of the first 5.
+14. distribution at world size 1 (a 1 x 1 (data, model) mesh over nccl
+   in the script's own process: NCCL takes one rank a GPU; the 4 x 2
+   semantics are held on the CPU by tests/test_torch_distributed.py): 14a
+   ``core.distributed.output_stationary_gemm`` (with 3a's bias and silu
+   epilogues) and ``k_sharded_gemm`` at qwen's prefill shapes (q/k/v +
+   bias 512x2560x2560, gate + silu 512x2560x6912, bf16 x f32) against the
+   fat kernel's plain version at 3a's tolerance, one fat-GEMM launch a
+   call, 0 collective bytes, their ms beside the kernel called directly;
+   14b ``parallel.pipeline.pipeline_apply`` with one stage and 4
+   microbatches of tanh(x @ w) through balanced_gemm, bit for bit against
+   the sequential products, one launch a microbatch; 14c ``python -m
+   repro_torch.launch.train --mesh 1x1`` at qwen1.5-4b's full width and
+   depth, 13b's batch 8 x 128 (seed 0), 3 steps, no checkpoint: the step
+   ms (median of steps 2-3), the peak memory, the fat-GEMM launches a step
+   (13b's rule, 1,164) and the collective bytes (0); the same launcher
+   under ``torchrun --nproc-per-node 1`` on the smoke config (nccl over
+   env://); then 4 layers at full
+   width, 2 steps, through make_train_step(mesh=1x1) and
+   make_train_step(mesh=None): losses and parameters bit for bit; 14d
+   ``launch.dryrun`` on one cell (qwen1.5-4b x train_4k x 16x16) on the
+   meta device and its ``roofline.report`` row (h100), without JAX.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -226,6 +250,11 @@ BATCH, PROMPT, GEN = 4, 128, 16
 #   every one takes the fat GEMM (split_k at M = 4, tensor_core_int8 at
 #   M = 512): 7 a layer and the unembed (its f32 weight re-quantized at
 #   every call, the dynamic path), at prefill and at each decode step
+# * phase 14 on a 1 x 1 mesh: a distributed GEMM launches its one local
+#   product (M = 512: the fat GEMM, with or without an epilogue); the
+#   pipeline one a microbatch; the sharded train step 13b's rule
+#   (_train_rule: 1,164 fat GEMMs a step at 8 x 128, no GEMV), as the
+#   gathers and reductions of a 1 x 1 mesh are no-ops
 PATHS = {
     "qwen1.5-4b": {"arch": "qwen1.5-4b", "args": [], "vocab": 151936,
                    "want": {"matmul": 7 * 40 + GEN * 4 * 40,
@@ -3462,6 +3491,278 @@ def train_launcher(torch) -> dict[str, int]:
     return counts
 
 
+# ------------------------------------------------------------ phase 14
+# distribution on the one card: a 1 x 1 (data, model) mesh over nccl in the
+# script's own process (NCCL refuses two ranks on one GPU; the multi-rank
+# semantics are held on the CPU by tests/test_torch_distributed.py). 14a:
+# the distributed GEMMs at 3a's qwen prefill shapes, one fat-GEMM launch a
+# call and no collective bytes on this mesh; 14b the pipeline, one stage, 4
+# microbatches; 14c the sharded step through the launcher at 13b's full
+# width and depth and batch, then DIST_CUT layers bit for bit against the
+# one-device step; 14d the dry run of one cell on the meta device
+DIST_CASES = ("prefill q/k/v + bias", "prefill gate + silu")
+DIST_PIPE = (4, 512, 2560)      # 14b: microbatches x rows x width
+DIST_STEPS = 3                  # 14c at full depth: median of steps 2-3
+DIST_CUT = 4                    # 14c's bit-equality check: layers
+DIST_CELL = ("qwen1.5-4b", "train_4k")  # 14d
+
+
+def dist_gemms(torch) -> list[dict]:
+    """14a: output_stationary_gemm and k_sharded_gemm on a 1 x 1 mesh
+    against the fat kernel's plain version, their launches and collective
+    bytes, timed beside the kernel called directly."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.core.context import use_context
+    from repro_torch.core.gemm import balanced_gemm
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_local_mesh
+
+    phase("14a distributed GEMMs on a 1 x 1 mesh (nccl, world size 1) "
+          "against the fat kernel's plain version")
+    import torch.distributed as dist
+
+    mesh = make_local_mesh(1, 1)
+    print(f"mesh {mesh.describe()} backend {dist.get_backend()} rank "
+          f"{mesh.rank} device {mesh.device}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, failed = [], []
+    with use_context(hw="h100", plan_cache=PlanCache()):
+        for c in [c for c in CASES if c.name in DIST_CASES]:
+            a, b, bias, _ = _inputs(torch, c, gen)
+            calls = {
+                "output_stationary": (
+                    lambda: cd.output_stationary_gemm(
+                        a, b, mesh, bias=bias, activation=c.activation,
+                        out_dtype=bf16),
+                    lambda: ref.matmul_ref(a, b, out_dtype=bf16, bias=bias,
+                                           activation=c.activation)),
+                "k_sharded": (
+                    lambda: cd.k_sharded_gemm(a, b, mesh, out_dtype=bf16),
+                    lambda: ref.matmul_ref(a, b, out_dtype=f32).to(bf16)),
+            }
+            direct = lambda: balanced_gemm(a, b, bias,
+                                           activation=c.activation,
+                                           out_dtype=bf16)
+            direct()
+            direct_ms = time_ms(torch, direct)
+            for name, (call, plain) in calls.items():
+                call()  # the plan solved outside the count
+                before = tmm.launches
+                with cd.CollectiveCounter() as counter:
+                    got = call()
+                torch.cuda.synchronize()
+                launched = tmm.launches - before
+                want = plain()
+                err = (got.double() - want.double()).abs().max().item()
+                tol = _tolerance("matmul", "bfloat16",
+                                 want.double().abs().max().item())
+                ms = time_ms(torch, call)
+                row = {"case": f"{name} {c.name}", "shape": [c.M, c.K, c.N],
+                       "max_abs_err": err, "tol": tol, "launches": launched,
+                       "collective_bytes": counter.total, "ms": ms,
+                       "direct_ms": direct_ms}
+                rows.append(row)
+                print(f"{name:17s} {c.name:22s} MKN={c.M}x{c.K}x{c.N} "
+                      f"err={err:.3g} tol={tol:.3g} launches={launched} "
+                      f"collective_bytes={counter.total} ms={ms:.4f} "
+                      f"(the kernel called directly {direct_ms:.4f})",
+                      flush=True)
+                if not (err <= tol and launched == 1
+                        and counter.total == 0):
+                    failed.append(row["case"])
+            del a, b, bias
+    if failed:
+        raise SystemExit(f"14a: {failed} disagree with the plain version, "
+                         "or launched other than one fat GEMM, or counted "
+                         "collective bytes")
+    return rows
+
+
+def dist_pipeline(torch) -> None:
+    """14b: pipeline_apply over the 1 x 1 mesh's 'data' axis (one stage),
+    4 microbatches of tanh(x @ w) through balanced_gemm, against the same
+    products run one after another."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.core.context import use_context
+    from repro_torch.core.gemm import balanced_gemm
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.kernels import matmul as tmm
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    M, B, D = DIST_PIPE
+    phase(f"14b pipeline_apply: 1 stage over 'data', {M} microbatches of "
+          f"{B} x {D} bf16, tanh(x @ w) with w {D} x {D} f32")
+    mesh = make_local_mesh(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((M, B, D), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((1, D, D), generator=gen, device="cuda") * D ** -0.5
+    fn = lambda w, x, s: torch.tanh(balanced_gemm(x, w))
+    with use_context(hw="h100", plan_cache=PlanCache()):
+        seq = torch.stack([fn(w[0], x[i], 0) for i in range(M)])
+        before = tmm.launches
+        with cd.CollectiveCounter() as counter:
+            got = pipeline_apply(fn, w, x, mesh, axis="data")
+        torch.cuda.synchronize()
+    launched = tmm.launches - before
+    equal = torch.equal(got, seq)
+    print(f"equal to the sequential products bit for bit: {equal}; max "
+          f"abs diff {(got.float() - seq.float()).abs().max().item():.3g}; "
+          f"fat-GEMM launches {launched} (one a microbatch: {M}); "
+          f"collective bytes {counter.total}")
+    if not (equal and launched == M and counter.total == 0):
+        raise SystemExit("14b: the pipeline differs from the sequential "
+                         "products, or its launches or bytes are off")
+
+
+def _cut_step(torch, cfg, mesh) -> tuple[list[float], dict]:
+    """DIST_CUT layers, 2 steps of make_train_step(mesh=...) from seed 0:
+    the losses and the parameters after (on the card)."""
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.interop import tree_items
+    from repro_torch.train.trainstep import make_train_step
+
+    art = make_train_step(cfg, mesh=mesh, global_batch=TRAIN_BATCH,
+                          seq_len=TRAIN_SEQ,
+                          device="cuda" if mesh is None else None)
+    state, losses = art.init_fn(0), []
+    for step in range(2):
+        state, m = art.step_fn(state, batch_for(cfg, TRAIN_SEQ, TRAIN_BATCH,
+                                                step))
+        losses.append(float(m["loss"]))
+    params = {p: t.detach() for p, t in tree_items(state["params"])}
+    del state, art
+    return losses, params
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_train(torch) -> dict[str, int]:
+    """14c: the sharded step through ``launch/train.py --mesh 1x1`` at
+    qwen1.5-4b's full width and depth, then DIST_CUT layers bit for bit
+    against the one-device step."""
+    from repro_torch import configs as C
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import graphs
+
+    _free(torch)  # phase 13's state is gone: no room for a second copy
+    phase(f"14c sharded training: repro_torch.launch.train --arch "
+          f"{TRAIN_ARCH} --mesh 1x1 (full width and depth, remat on, "
+          f"AdamW), batch {TRAIN_BATCH} x {TRAIN_SEQ} from data.synthetic "
+          f"(seed 0), {DIST_STEPS} steps, no checkpoint")
+    cfg = C.get_config(TRAIN_ARCH)
+    want = _train_rule(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    graphs.reset_launches()
+    res = train.main(["--arch", TRAIN_ARCH, "--mesh", "1x1", "--batch",
+                      str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+                      str(DIST_STEPS), "--ckpt-every", "0", "--log-every",
+                      "1", "--plan-cache", ""])
+    counts = graphs.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    coll = [sum(c.values()) for c in res["collective_bytes"]]
+    print(f"step ms (host wall, median of steps 2-{DIST_STEPS}) "
+          f"{step_ms:.1f} (steps {[round(s * 1e3, 1) for s in res['step_s']]}"
+          f"); peak device memory {peak:.2f} GiB (limit {TRAIN_PEAK_GIB}); "
+          f"launches of the {DIST_STEPS} steps {counts} (rule a step "
+          f"{want}); collective bytes a step {coll}; losses "
+          f"{[round(x, 4) for x in res['losses']]}", flush=True)
+    failed = []
+    if counts != {k: n * DIST_STEPS for k, n in want.items()}:
+        failed.append(f"launches {counts} differ from the rule")
+    if any(coll) or not peak < TRAIN_PEAK_GIB:
+        failed.append(f"collective bytes {coll} or peak {peak:.2f} GiB")
+    del res
+    _free(torch)
+    # the same launcher under torchrun (env:// rendezvous over loopback,
+    # nccl), on the smoke config: a process of its own
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "1", "--master-addr", "localhost", "--master-port",
+         str(_free_port()), "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--smoke", "--mesh", "1x1", "--steps", "3",
+         "--ckpt-every", "0", "--log-every", "1", "--plan-cache", ""],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    print(f"torchrun --nproc-per-node 1 -m repro_torch.launch.train --smoke "
+          f"--mesh 1x1: exit {run.returncode}; "
+          + " | ".join(ln.strip() for ln in run.stdout.splitlines()
+                       if ln.lstrip().startswith(("[train]", "step"))),
+          flush=True)
+    if run.returncode != 0 or "mesh=1x1" not in run.stdout:
+        failed.append("the launcher under torchrun failed: "
+                      + run.stderr[-2000:])
+
+    cut = dataclasses.replace(cfg, n_layers=DIST_CUT)
+    print(f"{DIST_CUT} layers at full width, 2 steps: make_train_step("
+          "mesh=1x1) against make_train_step(mesh=None), bit for bit "
+          "(deterministic algorithms on, warnings only)", flush=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with use_context(hw="h100", plan_cache=PlanCache()):
+            runs = {"mesh 1x1": _cut_step(torch, cut, make_local_mesh(1, 1))}
+            _free(torch)
+            runs["one device"] = _cut_step(torch, cut, None)
+            _free(torch)
+            (la, pa), (lb, pb) = runs["mesh 1x1"], runs["one device"]
+            differ = [p for p in pa if not torch.equal(pa[p], pb[p])]
+            print(f"losses {la} / {lb}; parameter leaves that differ: "
+                  f"{len(differ)} of {len(pa)}", flush=True)
+            if la != lb or differ:
+                again = _cut_step(torch, cut, None)
+                same = again[0] == lb and all(
+                    torch.equal(again[1][p], pb[p]) for p in pb)
+                print(f"the one-device step run again equal to itself: "
+                      f"{same}", flush=True)
+                failed.append(f"the 1 x 1 mesh step differs from the "
+                              f"one-device step: {differ[:5]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del runs
+    _free(torch)
+    if failed:
+        raise SystemExit("14c: " + "; ".join(failed))
+    return counts
+
+
+def dist_dryrun(torch) -> None:
+    """14d: the dry run of one cell on the meta device and its roofline
+    row, on the card's host (which has no JAX)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+
+    arch, shape = DIST_CELL
+    phase(f"14d dry run on the meta device: {arch} x {shape} x 16x16, and "
+          "its roofline row (h100)")
+    rec = dryrun.run_cell(arch, shape, False,
+                          os.path.join(ROOT, "build", "phase14"))
+    if rec["status"] != "ok":
+        raise SystemExit(f"14d: the dry run failed: {rec.get('trace')}")
+    rec = report.enrich(rec, hw="h100")
+    jax_loaded = any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    print(f"state {rec['memory']['state_gib_per_device']:.3f} GiB a device, "
+          f"{rec['cost']['flops_per_device']:.4g} FLOPs, GEMM bytes "
+          f"{rec['cost']['bytes_per_device']:.4g}, collective bytes "
+          f"{rec['cost']['by_collective']}, {rec['wall_s']:.1f}s; jax "
+          f"imported: {jax_loaded}")
+    print(report.roofline_row(rec))
+    if jax_loaded:
+        raise SystemExit("14d: the dry run imported jax")
+
+
 def main() -> int:
     try:
         import torch
@@ -3548,19 +3849,24 @@ def main() -> int:
     # 12: the vision family, llama-3.2-vision-11b at its full width and
     # depth; card against CPU at 10 layers: two groups of 4 self layers
     # and 1 cross layer (cross_attn_every kept at 5), so the carry from one
-    # group to the next runs
+    # group to the next runs; at int8 one group (the f64 CPU side's time)
     vision = "llama-3.2-vision-11b"
     counts[vision] = run_path(torch, vision, "12a")
     static_steps(torch, vision, "12a")
     counts[vision + " int8"] = run_path(torch, vision + " int8", "12b")
     static_steps(torch, vision, "12b", quant=True)
     kernel_vs_plain(torch, vision, "12c", cut={"n_layers": 10})
-    kernel_vs_plain(torch, vision, "12d", quant=True, cut={"n_layers": 10})
+    kernel_vs_plain(torch, vision, "12d", quant=True, cut={"n_layers": 5})
     # 13: training, qwen1.5-4b at its full width and depth
     train_bwd = check_train_kernels(torch)
     counts["qwen1.5-4b train"] = train_path(torch)
     train_vs_cpu(torch)
     counts["qwen1.5-4b-smoke train launcher"] = train_launcher(torch)
+    # 14: distribution at world size 1 (nccl, the script's own process)
+    dist_rows = dist_gemms(torch)
+    dist_pipeline(torch)
+    counts["qwen1.5-4b mesh train launcher"] = dist_train(torch)
+    dist_dryrun(torch)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),
@@ -3584,6 +3890,11 @@ def main() -> int:
         {k: r[k] for k in ("case", "route", "shape", "layout", "dtypes",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")} for r in train_bwd]
+    kernels[0]["distributed"] = dist_rows
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(f"card: {smi}; all phases in {time.perf_counter() - _T0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,20 @@
 * ``quant_mode`` — None (full precision) or ``"int8"``: every ``dense()``
                    with a float weight takes the dynamic W8A8 path
                    (``layers.quantized.dynamic_qdense``);
-* ``plan_cache`` — the :class:`PlanCache` serving solved GEMM plans.
+* ``plan_cache`` — the :class:`PlanCache` serving solved GEMM plans;
+* ``mesh``       — the :class:`repro_torch.launch.mesh.Mesh` a sharded step
+                   runs over (None: one device), as the reference's
+                   ``set_activation_mesh`` records it;
+* ``shard``      — the sharded step's :class:`repro_torch.parallel.fsdp.
+                   ShardPlan`: the models gather each stacked layer slice
+                   through it just before use (None: nothing to gather);
+* ``collectives``— a :class:`repro_torch.core.distributed.CollectiveCounter`
+                   that the port's collective helpers add their bytes to.
+
+The last three ride the context so that autograd's device thread, which
+the context variable does not reach, gets them back wherever the GEMM
+context is re-installed (``core.gemm._BalancedGemm``,
+``models.lm._checkpointed``, ``parallel.fsdp.Gather``).
 
 There is no kernel-backend field: the device of the tensors decides (CUDA
 launches the hand-written kernels, CPU runs their plain versions).
@@ -19,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+from typing import Any
 
 from repro_torch.core import hwregistry
 from repro_torch.core.perfmodel import HardwareSpec
@@ -36,6 +50,9 @@ class GemmContext:
     hw: HardwareSpec
     quant_mode: str | None = None
     plan_cache: PlanCache = dataclasses.field(default_factory=PlanCache)
+    mesh: Any = None
+    shard: Any = None
+    collectives: Any = None
 
     def __post_init__(self):
         self.hw = hwregistry.get_hw(self.hw)
@@ -82,6 +99,9 @@ def use_context(
     hw: str | HardwareSpec | None = None,
     quant_mode: str | None = _UNSET,
     plan_cache: PlanCache | None = None,
+    mesh: Any = _UNSET,
+    shard: Any = _UNSET,
+    collectives: Any = _UNSET,
 ):
     """Install a context for the dynamic extent of the block.
 
@@ -96,6 +116,10 @@ def use_context(
                         else quant_mode),
             plan_cache=plan_cache if plan_cache is not None
             else base.plan_cache,
+            mesh=base.mesh if mesh is _UNSET else mesh,
+            shard=base.shard if shard is _UNSET else shard,
+            collectives=(base.collectives if collectives is _UNSET
+                         else collectives),
         )
     token = _CTX.set(ctx)
     try:

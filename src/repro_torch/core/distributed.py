@@ -1,0 +1,247 @@
+"""Distributed GEMM: the paper's array mapping (§4.2) at mesh scale (port of
+``repro.core.distributed``), and the collectives the port runs.
+
+``output_stationary_gemm``
+    The paper's mapping verbatim, one mesh axis per array dimension: each
+    rank takes its (M/m, K) block of A (A sharded M-over-``m_axis``,
+    replicated over ``n_axis``: the broadcast of A tiles across a row of
+    cores) and its (K, N/n) block of B (the column broadcast), keeps K
+    whole and reduces it locally in time, and returns its (M/m, N/n) block
+    of C. **No collective runs**: the mesh rendition of "all cores
+    compute independently". The fused epilogue (bias, activation) stays
+    local too: a rank adds its N block of the bias.
+
+``k_sharded_gemm``
+    The foil: K partitioned over ``k_axis`` (the Versal adder-tree analog),
+    each rank's partial product in f32, one ``all_reduce`` (sum) over the
+    axis, then the cast. It exists so that the roofline can price the
+    collective the paper's mapping avoids.
+
+Both take the global operands on every rank and run their local product
+through ``core.gemm.balanced_gemm``: the hand-written ``matmul.cu`` on the
+card. Neither uses a DTensor op (that would put the product on
+``aten::mm``, a library call).
+
+The collective helpers (``all_gather``, ``reduce_scatter``,
+``all_reduce``, ``broadcast``, ``send_recv``) are what every sharded path
+of the port calls; they are not differentiable (``parallel.fsdp.Gather``
+is the gather autograd sees). Each adds the bytes of its operand on this rank (an
+all-gather's local block, a reduce-scatter's or all-reduce's whole input,
+a broadcast's tensor, a send's tensor) to the active context's
+:class:`CollectiveCounter`, the counterpart of the reference's
+``roofline.hlo.analyze(...).collective_bytes``. A collective over an axis
+of extent 1 is skipped and counts 0, as XLA drops it. On an abstract mesh
+(``launch.mesh.make_production_mesh``) the helpers take meta tensors,
+return the shapes the collective would, and count the same bytes: the dry
+run reckons a step's collectives by running it.
+"""
+from __future__ import annotations
+
+import math
+import threading
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.context import current_context, use_context
+from repro_torch.core.gemm import balanced_gemm
+from repro_torch.kernels.ops import GemmPlan
+
+KINDS = ("all_gather", "reduce_scatter", "all_reduce", "send_recv",
+         "broadcast")
+
+
+class CollectiveCounter:
+    """Bytes of the collectives run through the port's helpers, by
+    kind. ``with CollectiveCounter() as c:`` installs it in a derived GEMM
+    context for the block."""
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(KINDS, 0)
+        self._lock = threading.Lock()  # autograd's device thread adds too
+        self._cm = None
+
+    def add(self, kind: str, nbytes: int) -> None:
+        with self._lock:
+            self.bytes[kind] += int(nbytes)
+
+    @property
+    def total(self) -> int:
+        return sum(self.bytes.values())
+
+    def by_kind(self) -> dict[str, int]:
+        return {k: v for k, v in self.bytes.items() if v}
+
+    def __enter__(self) -> "CollectiveCounter":
+        self._cm = use_context(collectives=self)
+        self._cm.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._cm.__exit__(*exc)
+        self._cm = None
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    counter = current_context().collectives
+    if counter is not None:
+        counter.add(kind, t.numel() * t.element_size())
+
+
+def _check_abstract(mesh, t: torch.Tensor) -> None:
+    if mesh.abstract and t.device.type != "meta":
+        raise ValueError("an abstract mesh moves nothing: its collectives "
+                         f"take meta tensors, not {t.device}")
+
+
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+    """The blocks of ``axis``'s ranks concatenated along ``dim``, in axis
+    order."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return t
+    _check_abstract(mesh, t)
+    _count("all_gather", t)
+    x = t.detach().movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    if not mesh.abstract:
+        # all_gather_single is all_gather_into_tensor's newer name
+        gather = getattr(dist, "all_gather_single", None) or \
+            dist.all_gather_into_tensor
+        gather(out, x, group=mesh.group(axis))
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0
+                   ) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``axis``."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return t
+    _check_abstract(mesh, t)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {axis} ({n})")
+    _count("reduce_scatter", t)
+    x = t.detach().movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    if not mesh.abstract:
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                   group=mesh.group(axis))
+    return out.movedim(0, dim).contiguous()
+
+
+def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``t`` over ``axes`` (one name or several, reduced one
+    after another), in place where a collective runs."""
+    for axis in (axes,) if isinstance(axes, str) else axes:
+        if mesh.axis_size(axis) == 1:
+            continue
+        _check_abstract(mesh, t)
+        _count("all_reduce", t)
+        if not mesh.abstract:
+            t = t.contiguous()
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    return t
+
+
+def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+    """``t`` of the rank at ``src`` along ``axis``, on every rank of it (in
+    place)."""
+    if mesh.axis_size(axis) == 1:
+        return t
+    _check_abstract(mesh, t)
+    _count("broadcast", t)
+    if not mesh.abstract:
+        dist.broadcast(t, src=mesh.axis_ranks(axis)[src],
+                       group=mesh.group(axis))
+    return t
+
+
+def send_recv(send: torch.Tensor | None, dst: int | None,
+              recv: torch.Tensor | None, src: int | None, mesh,
+              axis: str) -> None:
+    """Send ``send`` to the rank at index ``dst`` along ``axis`` and
+    receive into ``recv`` from the one at ``src``, as one batch of
+    point-to-point operations (``dist.batch_isend_irecv``). Either side may
+    be None. Only sends are counted."""
+    if mesh.axis_size(axis) == 1:
+        return
+    if send is not None:
+        _check_abstract(mesh, send)
+        _count("send_recv", send)
+    if mesh.abstract:
+        return
+    ranks, group, ops = mesh.axis_ranks(axis), mesh.group(axis), []
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, send.contiguous(), ranks[dst],
+                              group=group))
+    if recv is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, ranks[src], group=group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def local_block(t: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    """This rank's contiguous block of ``t`` along ``dim`` over ``axis``."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {axis} ({n})")
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.axis_index(axis) * size, size).contiguous()
+
+
+def output_stationary_gemm(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    mesh,
+    *,
+    m_axis: str = "data",
+    n_axis: str = "model",
+    bias: torch.Tensor | None = None,
+    activation: str | None = None,
+    out_dtype: torch.dtype | None = None,
+    plan: GemmPlan | None = None,
+) -> torch.Tensor:
+    """This rank's (M/m, N/n) block of ``act(A @ B + bias)``: A[M, K]
+    sharded on M, B[K, N] on N, K local (in time); zero collectives."""
+    return balanced_gemm(
+        local_block(a, 0, mesh, m_axis), local_block(b, 1, mesh, n_axis),
+        None if bias is None else local_block(bias, 0, mesh, n_axis),
+        activation=activation, out_dtype=out_dtype, plan=plan)
+
+
+def k_sharded_gemm(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    mesh,
+    *,
+    k_axis: str = "model",
+    out_dtype: torch.dtype | None = None,
+    plan: GemmPlan | None = None,
+) -> torch.Tensor:
+    """The Versal-style foil: K partitioned in space, the f32 partials
+    summed by one all-reduce, then cast; C[M, N] whole on every rank."""
+    part = balanced_gemm(local_block(a, 1, mesh, k_axis),
+                         local_block(b, 0, mesh, k_axis),
+                         out_dtype=torch.float32, plan=plan)
+    part = all_reduce(part, mesh, k_axis)
+    return part.to(out_dtype or a.dtype)
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of a spec entry: an axis name, a tuple of them (major
+    first), or None."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def axes_extent(mesh, entry) -> int:
+    """The extent of a spec entry (1 for None)."""
+    return math.prod(mesh.axis_size(n) for n in entry_axes(entry))

@@ -168,6 +168,14 @@ class _BalancedGemm(torch.autograd.Function):
         if activation in (None, "none"):
             d_pre = dc.contiguous()
         else:
+            if _dispatch_listeners:
+                # the recompute takes the forward's plan, not the cache's:
+                # its listeners still see the product (the dry run counts it)
+                N = b.shape[0] if b_layout == "col" else b.shape[1]
+                key = plan_key(hw.name, a.shape[0], a.shape[1], N,
+                               dtype_name(a.dtype), "float32", b_layout)
+                for fn in _dispatch_listeners:
+                    fn(key, plan)
             pre = ops.balanced_matmul(a, b, bias, plan=plan,
                                       out_dtype=torch.float32,
                                       b_layout=b_layout, hw=hw)

@@ -83,6 +83,12 @@ class HardwareSpec:
             if is_int_dtype(dtype):
                 return self.peak_flops_f32 / 2
             return self.peak_flops_f32
+        return self.dense_peak(dtype)
+
+    def dense_peak(self, dtype) -> float:
+        """The data sheet's dense rate for ``dtype`` (on a GPU its tensor
+        cores' bf16 or int8 rate, whatever route a kernel takes): the
+        roofline's compute peak."""
         if is_int_dtype(dtype):
             return self.peak_flops_int8
         if torch_dtype(dtype) == torch.float32:
@@ -198,11 +204,14 @@ def kernel_efficiency(hw: HardwareSpec, bm: int, bk: int, bn: int, *,
 
 
 def dram_traffic(M: int, K: int, N: int, bm: int, bn: int, *, ty_in: int,
-                 ty_out: int, ty_b: int) -> tuple[float, float, float]:
-    """Eqs. 6–8 at one chip: HBM bytes for A reads, B reads, C writes (the
-    reference's mesh-level m_rows / n_cols wait for core/distributed.py)."""
-    a_mem = M * K * N * ty_in / bn
-    b_mem = M * K * N * ty_b / bm
+                 ty_out: int, ty_b: int, m_rows: int = 1, n_cols: int = 1
+                 ) -> tuple[float, float, float]:
+    """Eqs. 6–8: total HBM bytes for A reads, B reads, C writes. (m_rows,
+    n_cols) generalize them to the mesh (``core.distributed``'s
+    output-stationary mapping) exactly as in the paper; at one chip they
+    are 1."""
+    a_mem = M * K * N * ty_in / (bn * n_cols)
+    b_mem = M * K * N * ty_b / (bm * m_rows)
     c_mem = M * N * ty_out
     return a_mem, b_mem, c_mem
 
@@ -241,25 +250,75 @@ def grid_utilization(hw: HardwareSpec, M: int, N: int, bm: int,
 
 def estimate_gemm(hw: HardwareSpec, M: int, K: int, N: int, bm: int, bk: int,
                   bn: int, *, in_dtype=torch.bfloat16, out_dtype=None,
-                  b_layout: str = "row") -> GemmEstimate:
-    """End-to-end modeled GEMM time on one chip — Eqs. 9–10."""
+                  b_layout: str = "row", m_rows: int = 1,
+                  n_cols: int = 1) -> GemmEstimate:
+    """End-to-end modeled GEMM time — Eqs. 9–10. ``m_rows`` / ``n_cols``
+    extend the model to the mesh (paper §4.2): A is broadcast across
+    ``m_rows`` and B across ``n_cols`` chips, each running its (M/m_rows,
+    N/n_cols) block, so traffic and work divide as Eqs. 6–7 prescribe."""
     if out_dtype is None:
         out_dtype = in_dtype
     ty_in = itemsize(in_dtype)
     ty_out = itemsize(out_dtype)
     ty_b = hw.b_itemsize(ty_in)
     route = hw.gemm_route(M, in_dtype, b_layout)
-    util = grid_utilization(hw, M, N, bm, bn, route=route, K=K, bk=bk)
+    util = grid_utilization(hw, -(-M // m_rows), -(-N // n_cols), bm, bn,
+                            route=route, K=K, bk=bk)
     r = lambda x, b: -(-x // b) * b
-    M, K, N = r(M, bm), r(K, bk), r(N, bn)
+    M, K, N = r(M, bm * m_rows), r(K, bk), r(N, bn * n_cols)
+    chips = m_rows * n_cols
     eff = kernel_efficiency(hw, bm, bk, bn, in_dtype=in_dtype,
                             b_layout=b_layout, route=route)
-    t_comp = 2.0 * M * K * N / (eff * hw.peak_flops(in_dtype, route) * util)
+    t_comp = 2.0 * M * K * N / (eff * hw.peak_flops(in_dtype, route) * util
+                                * chips)
     a_mem, b_mem, c_mem = dram_traffic(M, K, N, bm, bn, ty_in=ty_in,
-                                       ty_out=ty_out, ty_b=ty_b)
+                                       ty_out=ty_out, ty_b=ty_b,
+                                       m_rows=m_rows, n_cols=n_cols)
     bw_a = effective_bw(hw, bk * ty_in)
     bw_b = effective_bw(hw, (bk if b_layout == "col" else bn) * ty_b)
     bw_c = effective_bw(hw, bn * ty_out)
-    t_mem = a_mem / bw_a + b_mem / bw_b + c_mem / bw_c
+    t_mem = (a_mem / bw_a + b_mem / bw_b + c_mem / bw_c) / chips
     return GemmEstimate(t_comp=t_comp, t_mem=t_mem, eff=eff,
                         a_mem=a_mem, b_mem=b_mem, c_mem=c_mem)
+
+
+def gemm_tops(hw: HardwareSpec, M: int, K: int, N: int, bm: int, bk: int,
+              bn: int, **kw) -> float:
+    """Modeled achieved TOP/s of the whole GEMM (the paper's headline
+    metric); ``kw`` as :func:`estimate_gemm`'s."""
+    est = estimate_gemm(hw, M, K, N, bm, bk, bn, **kw)
+    return 2.0 * M * K * N / est.t_total / 1e12
+
+
+# ----------------------------------------------------------------- roofline
+@dataclasses.dataclass(frozen=True)
+class RooflineTerms:
+    """The three dry-run roofline terms (seconds) for one step."""
+
+    compute: float
+    memory: float
+    collective: float
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute, "memory": self.memory,
+                 "collective": self.collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound(self) -> float:
+        """Step-time lower bound if all three streams fully overlap."""
+        return max(self.compute, self.memory, self.collective)
+
+
+def roofline_terms(hw: HardwareSpec, *, flops: float, hbm_bytes: float,
+                   collective_bytes: float, chips: int,
+                   dtype=torch.bfloat16) -> RooflineTerms:
+    """FLOPs / (chips x dense peak), bytes / (chips x HBM rate),
+    collective bytes / (chips x link rate). Per-device counts (the dry
+    run's) take chips=1."""
+    return RooflineTerms(
+        compute=flops / (chips * hw.dense_peak(dtype)),
+        memory=hbm_bytes / (chips * hw.hbm_bw),
+        collective=collective_bytes / (chips * hw.ici_bw),
+    )

@@ -1,2 +1,2 @@
-"""repro_torch.ft: checkpoints, straggler detection and resume (port of
-``repro.ft``; the re-mesh waits for the port of ``repro.parallel``)."""
+"""repro_torch.ft: checkpoints, straggler detection and resume, on a device
+or onto another mesh (port of ``repro.ft``)."""

@@ -13,6 +13,14 @@ with ``bfloat16`` in the manifest; restore reads those bits back, or an
 f32 file (the reference's way of storing bf16), and casts to the target
 leaf's dtype. Restore takes the target tree (the state, or its shapes on
 the meta device) and a device, and raises on a shape mismatch.
+
+Sharded (``shardings``: a tree of ``parallel.sharding.NamedSharding`` like
+the state's, a sharded step's ``state_shardings``): ``save`` gathers every
+leaf on every rank and rank 0 writes the host layout, which is the
+unsharded one, as the reference stores it; ``restore`` reads each whole
+leaf and keeps this rank's block of the target spec, so a checkpoint
+written on one mesh restores onto any other whose extents divide the
+dims.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.interop import tree_items, tree_map
@@ -46,15 +55,49 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def host_state(state: Any) -> list[tuple[str, str, np.ndarray]]:
-    """(key, dtype name, host array) of every leaf, in tree order."""
-    return [(_safe_key(path), str(t.dtype).removeprefix("torch."), _host(t))
+def _whole(state: Any, shardings: Any | None) -> list[tuple[str, Any]]:
+    """(path, whole leaf) of every leaf: gathered from the ranks' blocks
+    when ``shardings`` is given (a collective: every rank calls it)."""
+    if shardings is None:
+        return list(tree_items(state))
+    from repro_torch.parallel.sharding import gather_leaf
+
+    sh = dict(tree_items(shardings))
+    return [(path, gather_leaf(t, sh[path].spec, sh[path].mesh))
             for path, t in tree_items(state)]
 
 
-def save(ckpt_dir: str, state: Any, step: int) -> str:
-    """Synchronous atomic save. Returns the final checkpoint path."""
-    return _write_host_state(ckpt_dir, host_state(state), step)
+def _writer(shardings: Any | None) -> bool:
+    """Whether this rank writes: rank 0 of a sharded state's world."""
+    return shardings is None or not dist.is_initialized() \
+        or dist.get_rank() == 0
+
+
+def host_state(state: Any, shardings: Any | None = None
+               ) -> list[tuple[str, str, np.ndarray]]:
+    """(key, dtype name, host array) of every leaf, in tree order; whole
+    leaves (gathered) when ``shardings`` is given."""
+    return [(_safe_key(path), str(t.dtype).removeprefix("torch."), _host(t))
+            for path, t in _whole(state, shardings)]
+
+
+def _barrier(shardings: Any | None) -> None:
+    if shardings is not None and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def save(ckpt_dir: str, state: Any, step: int, *,
+         shardings: Any | None = None) -> str:
+    """Synchronous atomic save. Returns the final checkpoint path. With
+    ``shardings`` every rank must call it; rank 0 writes, and every rank
+    returns once the checkpoint is complete."""
+    leaves = host_state(state, shardings)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer(shardings):
+        final = _write_host_state(ckpt_dir, leaves, step)
+    _barrier(shardings)
+    return final
 
 
 def _write_host_state(ckpt_dir: str, leaves, step: int) -> str:
@@ -109,13 +152,16 @@ def _load(src: str, key: str, dtype: str, like: torch.Tensor,
     return t.to(device=device, dtype=like.dtype)
 
 
-def restore(ckpt_dir: str, step: int, like: Any, *, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
+            shardings: Any | None = None) -> Any:
     """Restore into the structure, shapes and dtypes of ``like`` (a state
     tree, or its shapes on the meta device), on ``device`` (default: where
-    ``like``'s leaves are, else ``cuda``)."""
+    ``like``'s leaves are, else ``cuda``). With ``shardings`` (``like`` the
+    whole shapes), each leaf as this rank's block of its target spec."""
     src = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(src, "manifest.json")) as f:
         dtypes = {e["key"]: e["dtype"] for e in json.load(f)["leaves"]}
+    sh = dict(tree_items(shardings)) if shardings is not None else {}
     out = []
     for path, leaf in tree_items(like):
         key = _safe_key(path)
@@ -123,23 +169,33 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None) -> Any:
             raise ValueError(f"checkpoint step {step} has no leaf {key}")
         dev = device if device is not None else (
             leaf.device if leaf.device.type != "meta" else resolve_device())
-        out.append(_load(src, key, dtypes[key], leaf, dev))
+        t = _load(src, key, dtypes[key], leaf, dev)
+        if path in sh:
+            from repro_torch.parallel.sharding import shard_leaf
+
+            t = shard_leaf(t, sh[path].spec, sh[path].mesh)
+        out.append(t)
     it = iter(out)
     return tree_map(lambda _: next(it), like)
 
 
 class AsyncCheckpointer:
-    """Snapshot-to-host synchronously, persist on a background thread."""
+    """Snapshot-to-host synchronously, persist on a background thread.
+    With ``shardings`` every rank snapshots (the gathers are collectives)
+    and rank 0 writes."""
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, shardings: Any | None = None):
         self.ckpt_dir = ckpt_dir
+        self.shardings = shardings
         os.makedirs(ckpt_dir, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
     def save(self, state: Any, step: int) -> None:
         self.wait()  # one in-flight write at a time
-        leaves = host_state(state)
+        leaves = host_state(state, self.shardings)
+        if not _writer(self.shardings):
+            return
 
         def _run():
             try:

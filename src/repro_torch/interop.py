@@ -9,7 +9,8 @@ A pre-quantized tree (the reference's ``quant.prequant.quantize_params``,
 whose ``QuantizedLinear`` leaves carry ``bias=None``) converts leaf for leaf
 into the port's ``QuantizedLinear``. ``state_from_jax`` does the same for
 a training state (params, optimizer state and step), so that both packages
-can train on from one state.
+can train on from one state; ``shard_state`` then lays such a tree out per
+rank for a sharded step.
 """
 from __future__ import annotations
 
@@ -40,6 +41,20 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, v) for v in tree))
     return fn(tree)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """:func:`tree_map` with ``fn(path, leaf)``, paths as
+    :func:`tree_items` gives them."""
+    if tree is None:
+        return None
+    join = lambda k: f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, join(k)) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, join(f))
+                            for f, v in zip(tree._fields, tree)))
+    return fn(prefix, tree)
 
 
 def tree_items(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
@@ -143,3 +158,13 @@ def state_from_jax(tree: Any, cfg, device) -> dict[str, Any]:
             "opt": _convert(tree["opt"], device),
             "step": to_tensor(np.asarray(tree["step"], dtype=np.int32),
                               device)}
+
+
+def shard_state(state: Any, specs: Any, mesh) -> Any:
+    """A whole tree (a state carried across from JAX, or a checkpoint's) laid
+    out for this rank: each leaf's block of its spec on ``mesh``
+    (``parallel.sharding.shard_leaf``; a leaf the spec does not split is
+    kept as it is)."""
+    from repro_torch.parallel.sharding import shard_tree
+
+    return shard_tree(state, specs, mesh)

@@ -58,6 +58,34 @@ def init_attn(gen, d_model, n_heads, n_kv_heads, head_dim, *, qkv_bias=False,
     )
 
 
+def attn_axes(qkv_bias=False) -> AttnParams:
+    """Logical sharding axes mirroring AttnParams (the reference's)."""
+    return AttnParams(
+        wq=("embed", "heads"), wk=("embed", "kv"), wv=("embed", "kv"),
+        wo=("heads", "embed"),
+        bq=("heads",) if qkv_bias else None,
+        bk=("kv",) if qkv_bias else None,
+        bv=("kv",) if qkv_bias else None,
+    )
+
+
+def _attn_mode(n_heads: int, seq: int) -> str:
+    """How the reference parallelizes attention activations over the
+    'model' axis of the active context's mesh: 'heads' (heads divide it),
+    'seq' (context parallelism: the query sequence divides it) or 'none'
+    (no such axis, or tiny shapes). The port's sharded step does not split
+    attention yet (ranks along 'model' compute the same rows); this is the
+    rule tensor parallelism will follow."""
+    tp = cm.axis_size("model")
+    if tp <= 1:
+        return "none"
+    if n_heads % tp == 0:
+        return "heads"
+    if seq % tp == 0:
+        return "seq"
+    return "none"
+
+
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(B, S, Hkv, D) -> (B, S, Hkv*n_rep, D)."""
     if n_rep == 1:

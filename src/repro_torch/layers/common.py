@@ -114,3 +114,25 @@ def apply_rotary(x: torch.Tensor, sin: torch.Tensor,
     s = sin[..., None, :]  # broadcast over heads
     c = cos[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(dt)
+
+
+# ------------------------------------------------------------------ mesh
+# The mesh a sharded step runs over is recorded in the active GemmContext
+# (``use_context(mesh=...)``, the reference's ``set_activation_mesh``), so
+# layers can read its extents without threading it through every
+# signature.
+def axis_size(name: str) -> int:
+    """The extent of mesh axis ``name`` in the active context (1 with no
+    mesh, or an axis it lacks)."""
+    mesh = current_context().mesh
+    return 1 if mesh is None else mesh.axis_size(name)
+
+
+def gathered(lp, path: str = "layers", lead: int = 1):
+    """One layer's slice ``lp`` of the stacked parameter subtree at
+    ``path``, whole: under a sharded step's plan (the context's ``shard``,
+    :class:`repro_torch.parallel.fsdp.ShardPlan`) each leaf is gathered
+    from this rank's block; with no plan, ``lp`` as it is. The models call
+    it where a layer takes its slice, inside the remat boundary."""
+    plan = current_context().shard
+    return lp if plan is None else plan.layer(lp, path, lead)

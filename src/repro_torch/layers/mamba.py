@@ -65,6 +65,14 @@ def init_mamba(gen, d_model, d_state, *, expand=2, head_dim=64,
     )
 
 
+def mamba_axes() -> MambaParams:
+    return MambaParams(
+        w_in=("embed", "ffn"), conv_w=(None, "conv"), conv_b=("conv",),
+        a_log=(None,), d_skip=(None,), dt_bias=(None,),
+        norm_g=("ffn",), w_out=("ffn", "embed"),
+    )
+
+
 class MambaState(NamedTuple):
     ssm: torch.Tensor    # (B, n_heads, head_dim, d_state) f32
     conv: torch.Tensor   # (B, CONV_K-1, d_conv) rolling conv inputs

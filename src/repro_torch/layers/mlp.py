@@ -32,6 +32,16 @@ def init_mlp(gen, d_model, d_ff, *, gated=True, bias=False,
     )
 
 
+def mlp_axes(gated=True, bias=False) -> MlpParams:
+    return MlpParams(
+        w_in=("embed", "ffn"),
+        w_gate=("embed", "ffn") if gated else None,
+        w_out=("ffn", "embed"),
+        b_in=("ffn",) if bias else None,
+        b_out=("embed",) if bias else None,
+    )
+
+
 def mlp(p: MlpParams, x: torch.Tensor, *, activation: str = "silu"
         ) -> torch.Tensor:
     """activation: 'silu' (gated => SwiGLU), 'gelu', 'relu2', 'relu'."""

@@ -62,6 +62,15 @@ def init_moe(gen, d_model, d_ff, n_experts, *, gated=True,
     )
 
 
+def moe_axes(gated=True) -> MoeParams:
+    return MoeParams(
+        w_router=("embed", None),
+        w_in=("expert", "embed", "ffn"),
+        w_gate=("expert", "embed", "ffn") if gated else None,
+        w_out=("expert", "ffn", "embed"),
+    )
+
+
 def _round8(x: int) -> int:
     return max(8, -(-x // 8) * 8)
 

@@ -83,6 +83,17 @@ def init_time_mix(gen, d, *, dtype=torch.float32, lead=(),
     )
 
 
+def time_mix_axes() -> RwkvTimeMixParams:
+    return RwkvTimeMixParams(
+        mu=(None, "embed"), lora_a=("embed", "lora"),
+        lora_b=(None, "lora", "embed"), w0=("embed",),
+        w_lora_a=("embed", "lora"), w_lora_b=("lora", "embed"),
+        u=("embed",), wr=("embed", "heads"), wk=("embed", "heads"),
+        wv=("embed", "heads"), wg=("embed", "heads"), wo=("heads", "embed"),
+        ln_g=("embed",), ln_b=("embed",),
+    )
+
+
 def init_channel_mix(gen, d, f, *, dtype=torch.float32, lead=(),
                      device) -> RwkvChannelMixParams:
     w = lambda shape: cm.normal_init(gen, shape, dtype, lead=lead,
@@ -93,6 +104,13 @@ def init_channel_mix(gen, d, f, *, dtype=torch.float32, lead=(),
         wk=w((d, f)),
         wv=w((f, d)),
         wr=w((d, d)),
+    )
+
+
+def channel_mix_axes() -> RwkvChannelMixParams:
+    return RwkvChannelMixParams(
+        mu_k=("embed",), mu_r=("embed",), wk=("embed", "ffn"),
+        wv=("ffn", "embed"), wr=("embed", "embed"),
     )
 
 

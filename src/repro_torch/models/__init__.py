@@ -56,6 +56,17 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None):
                                  device=resolve_device(device))
 
 
+def axes(cfg: ModelConfig):
+    """The logical sharding axes of ``init(cfg)``'s tree, leaf for leaf."""
+    if cfg.family in _LM_FAMILIES:
+        return lm.lm_axes(cfg)
+    if cfg.family == "encdec":
+        return encdec.encdec_axes(cfg)
+    if cfg.family == "vlm":
+        return vision_lm.vlm_axes(cfg)
+    raise ValueError(cfg.family)
+
+
 def forward(params, batch: dict[str, Any], cfg: ModelConfig):
     if cfg.family in _LM_FAMILIES:
         return lm.forward(params, batch["tokens"], cfg)

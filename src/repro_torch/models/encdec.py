@@ -23,8 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
-from repro_torch.models.lm import (_embed, _layer, _logits, apply_norm,
-                                   init_norm)
+from repro_torch.models.lm import (_embed, _layer, _logits, _prefix_axes,
+                                   apply_norm, init_norm, norm_axes)
 
 
 def init_encdec(cfg: ModelConfig, *, seed: int = 0, device
@@ -66,12 +66,36 @@ def _kw(cfg: ModelConfig):
                 head_dim=cfg.head_dim, chunk=cfg.attn_chunk)
 
 
+def encdec_axes(cfg: ModelConfig):
+    """The logical sharding axes of :func:`init_encdec`'s tree."""
+    blk = lambda: {
+        "ln1": _prefix_axes(norm_axes(cfg)),
+        "ln2": _prefix_axes(norm_axes(cfg)),
+        "attn": _prefix_axes(attn.attn_axes(cfg.qkv_bias)),
+        "mlp": _prefix_axes(mlp_lib.mlp_axes(cfg.gated_mlp, cfg.qkv_bias)),
+    }
+    ax: dict[str, Any] = {
+        "embed": ("vocab", None),
+        "enc_norm": norm_axes(cfg),
+        "final_norm": norm_axes(cfg),
+        "encoder": blk(),
+        "decoder": {
+            **blk(),
+            "ln3": _prefix_axes(norm_axes(cfg)),
+            "cross": _prefix_axes(attn.attn_axes(cfg.qkv_bias)),
+        },
+    }
+    if not cfg.tie_embeddings:
+        ax["unembed"] = (None, "vocab")
+    return ax
+
+
 def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     """frames: precomputed (B, encoder_len, d) frame embeddings (the
     frontend stub) -> the encoder's normed output."""
     x = frames.to(cfg.dtype)
     for i in range(cfg.n_encoder_layers):
-        lp = _layer(params["encoder"], i)
+        lp = cm.gathered(_layer(params["encoder"], i), "encoder")
         x = x + attn.self_attention(
             lp["attn"], apply_norm(cfg, lp["ln1"], x), causal=False,
             use_rope=False, rope_theta=cfg.rope_theta, **_kw(cfg))
@@ -94,7 +118,7 @@ def forward(params, batch, cfg: ModelConfig):
     enc = encode(params, batch["frames"], cfg)
     x = _embed(params, batch["tokens"], cfg)
     for i in range(cfg.n_layers):
-        lp = _layer(params["decoder"], i)
+        lp = cm.gathered(_layer(params["decoder"], i), "decoder")
         x = x + attn.self_attention(
             lp["attn"], apply_norm(cfg, lp["ln1"], x), causal=True,
             rope_theta=cfg.rope_theta, **_kw(cfg))

@@ -59,6 +59,32 @@ def init_norm(cfg: ModelConfig, d: int, *, lead=(), device):
     return {"g": ones}
 
 
+def norm_axes(cfg: ModelConfig):
+    if cfg.norm_type == "layernorm":
+        return {"g": ("embed",), "b": ("embed",)}
+    return {"g": ("embed",)}
+
+
+def is_axes_leaf(a) -> bool:
+    """An axes leaf is a plain tuple of axis names (str/None). None is NOT a
+    leaf: like an absent (None) param it is an empty subtree, so axes trees
+    walk in lockstep with param trees. NamedTuple containers are tuple
+    subclasses, excluded by the ``type() is tuple`` check."""
+    return type(a) is tuple and all(x is None or isinstance(x, str) for x in a)
+
+
+def _prefix_axes(tree, prefix: str = "layers"):
+    """Every axes leaf of ``tree`` with ``prefix`` in front (a stacked
+    leaf's leading L dim)."""
+    if tree is None:
+        return None
+    if is_axes_leaf(tree):
+        return (prefix, *tree)
+    if isinstance(tree, dict):
+        return {k: _prefix_axes(v, prefix) for k, v in tree.items()}
+    return type(tree)(*(_prefix_axes(v, prefix) for v in tree))
+
+
 def apply_norm(cfg: ModelConfig, p, x):
     if cfg.norm_type == "layernorm":
         return cm.layer_norm(x, p["g"], p["b"], cfg.norm_eps)
@@ -128,6 +154,49 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device) -> dict[str, Any]:
                 lead=(L,), device=device)
     params["layers"] = layers
     return params
+
+
+def lm_axes(cfg: ModelConfig):
+    """The logical sharding axes of :func:`init_lm`'s tree, leaf for leaf
+    (the reference's ``lm_axes``)."""
+    _check_family(cfg)
+    ax: dict[str, Any] = {
+        "embed": ("vocab", None),
+        "final_norm": norm_axes(cfg),
+    }
+    if not cfg.tie_embeddings:
+        ax["unembed"] = (None, "vocab")
+    if cfg.family in ("dense", "moe"):
+        layers = {
+            "ln1": _prefix_axes(norm_axes(cfg)),
+            "ln2": _prefix_axes(norm_axes(cfg)),
+            "attn": _prefix_axes(attn.attn_axes(cfg.qkv_bias)),
+        }
+        if cfg.family == "dense":
+            layers["mlp"] = _prefix_axes(mlp_lib.mlp_axes(cfg.gated_mlp))
+        else:
+            layers["moe"] = _prefix_axes(moe_lib.moe_axes(cfg.gated_mlp))
+            if cfg.dense_residual:
+                layers["mlp"] = _prefix_axes(mlp_lib.mlp_axes(cfg.gated_mlp))
+        ax["layers"] = layers
+    elif cfg.family == "rwkv":
+        ax["layers"] = {
+            "ln1": _prefix_axes(norm_axes(cfg)),
+            "ln2": _prefix_axes(norm_axes(cfg)),
+            "tmix": _prefix_axes(rwkv_lib.time_mix_axes()),
+            "cmix": _prefix_axes(rwkv_lib.channel_mix_axes()),
+        }
+    else:  # hybrid
+        ax["layers"] = {
+            "ln1": _prefix_axes(norm_axes(cfg)),
+            "mamba": _prefix_axes(mb.mamba_axes()),
+        }
+        ax["shared"] = {
+            "ln1": norm_axes(cfg), "ln2": norm_axes(cfg),
+            "attn": attn.attn_axes(cfg.qkv_bias),
+            "mlp": mlp_lib.mlp_axes(cfg.gated_mlp),
+        }
+    return ax
 
 
 def _layer(layers, i: int):
@@ -290,15 +359,19 @@ def forward(params, tokens, cfg: ModelConfig):
     _check_family(cfg)
     x = _embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # a sharded step's plan gathers each layer's slice inside the remat
+    # boundary (cm.gathered), so the recompute gathers it again
     layers = _unstack(params["layers"], cfg.n_layers)
     for i, lp in enumerate(layers):
         if cfg.family == "hybrid":
             x = _remat(cfg, lambda x, lp, i=i: _hybrid_layer(
-                params, cfg, i, x, None, "full", lp))(x, lp)
+                params, cfg, i, x, None, "full", cm.gathered(lp)))(x, lp)
         elif cfg.family == "rwkv":
-            x = _remat(cfg, lambda x, lp: _rwkv_block(cfg, lp, x)[0])(x, lp)
+            x = _remat(cfg, lambda x, lp: _rwkv_block(
+                cfg, cm.gathered(lp), x)[0])(x, lp)
         else:
-            x, a = _remat(cfg, lambda x, lp: _block(cfg, lp, x))(x, lp)
+            x, a = _remat(cfg, lambda x, lp: _block(
+                cfg, cm.gathered(lp), x))(x, lp)
             if a is not None:
                 aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)

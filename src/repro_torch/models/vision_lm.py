@@ -30,8 +30,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
-from repro_torch.models.lm import (_embed, _layer, _logits, apply_norm,
-                                   init_norm)
+from repro_torch.models.lm import (_embed, _layer, _logits, _prefix_axes,
+                                   apply_norm, init_norm, norm_axes)
 
 
 def group_dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -83,6 +83,33 @@ def _kw(cfg: ModelConfig):
                 head_dim=cfg.head_dim, chunk=cfg.attn_chunk)
 
 
+def vlm_axes(cfg: ModelConfig):
+    """The logical sharding axes of :func:`init_vlm`'s tree: the self
+    layers' leaves carry two stacked levels (groups, per-group)."""
+    def pp(tree):
+        return _prefix_axes(_prefix_axes(tree))
+
+    return {
+        "embed": ("vocab", None),
+        "unembed": (None, "vocab"),
+        "final_norm": norm_axes(cfg),
+        "groups": {
+            "self": {
+                "ln1": pp(norm_axes(cfg)), "ln2": pp(norm_axes(cfg)),
+                "attn": pp(attn.attn_axes(cfg.qkv_bias)),
+                "mlp": pp(mlp_lib.mlp_axes(cfg.gated_mlp)),
+            },
+            "cross": {
+                "ln1": _prefix_axes(norm_axes(cfg)),
+                "ln2": _prefix_axes(norm_axes(cfg)),
+                "attn": _prefix_axes(attn.attn_axes(cfg.qkv_bias)),
+                "mlp": _prefix_axes(mlp_lib.mlp_axes(cfg.gated_mlp)),
+                "gate_attn": ("layers",), "gate_mlp": ("layers",),
+            },
+        },
+    }
+
+
 def _self_block(cfg: ModelConfig, lp, x, mode: str = "full", cache=None):
     """A self-attention layer: "full" (no cache), "prefill" (writes the
     cache's prefix in place) or "decode" (one token, written at the
@@ -129,12 +156,13 @@ def _stack_layer(params, cfg: ModelConfig, i: int, x, img, mode="full",
     cache ``kv`` in place."""
     g, j = divmod(i, cfg.cross_attn_every)
     if j == cfg.cross_attn_every - 1:
-        return _cross_block(cfg, _layer(params["groups"]["cross"], g), x,
-                            img)
+        return _cross_block(cfg, cm.gathered(
+            _layer(params["groups"]["cross"], g), "groups/cross"), x, img)
     cache = None if kv is None else attn.KVCache(
         k=kv.k[g, j], v=kv.v[g, j], length=kv.length)
-    return _self_block(cfg, _layer(params["groups"]["self"], (g, j)), x,
-                       mode, cache)
+    return _self_block(cfg, cm.gathered(
+        _layer(params["groups"]["self"], (g, j)), "groups/self", 2), x,
+        mode, cache)
 
 
 def forward(params, batch, cfg: ModelConfig):

@@ -20,8 +20,11 @@ and expert the same way, and ``moe_ffn`` dequantizes them at every call;
 the router stays float (under ``quant_mode="int8"`` it takes the dynamic
 path). Mamba quantizes its in and out projections; the conv and SSM
 coefficients are elementwise state math and stay float.
-``quantize_axes`` (the logical-axes transform for sharding) has no
-counterpart in a port without sharding (ROADMAP queue 1, item 5).
+
+``quantize_axes`` transforms a logical-axes tree in lockstep, so that
+``parallel.sharding.param_specs`` lays out a quantized tree too: the (K, N)
+-> (N, K) transpose swaps a projection's two logical axes, and its scales
+take the output axis.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from repro_torch.layers.mamba import MambaParams
 from repro_torch.layers.mlp import MlpParams
 from repro_torch.layers.moe import MoeParams
 from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
-from repro_torch.quant.int8 import quantize_linear
+from repro_torch.quant.int8 import QuantizedLinear, quantize_linear
 
 # Which fields of which containers are GEMM projection weights: RWKV
 # time-mix quantizes its five (d, d) stream projections and channel-mix its
@@ -47,18 +50,37 @@ _PROJECTION_FIELDS: dict[type, tuple[str, ...]] = {
 }
 
 
-def quantize_params(params: Any) -> Any:
-    """The tree with every projection weight a ``QuantizedLinear`` (bias
-    None; biases stay where they are). The float projections are no longer
-    referenced by the result, so dropping the input frees them."""
+def _map_projections(tree: Any, leaf_fn) -> Any:
+    """Apply ``leaf_fn`` to every projection-weight field, leaving biases
+    and every other leaf untouched."""
     def rec(node):
         fields = _PROJECTION_FIELDS.get(type(node))
         if fields is not None:
             return node._replace(**{
-                f: quantize_linear(getattr(node, f))
+                f: leaf_fn(getattr(node, f))
                 for f in fields if getattr(node, f) is not None})
         if isinstance(node, dict):
             return {k: rec(v) for k, v in node.items()}
         return node
 
-    return rec(params)
+    return rec(tree)
+
+
+def quantize_params(params: Any) -> Any:
+    """The tree with every projection weight a ``QuantizedLinear`` (bias
+    None; biases stay where they are). The float projections are no longer
+    referenced by the result, so dropping the input frees them."""
+    return _map_projections(params, quantize_linear)
+
+
+def _axes_for_weight(axes: tuple) -> QuantizedLinear:
+    """Logical axes (*stack, K-axis, N-axis) -> the quantized leaf's."""
+    *stack, ak, an = axes
+    return QuantizedLinear(w_q=(*stack, an, ak), w_scale=(*stack, an),
+                           bias=None)
+
+
+def quantize_axes(axes: Any) -> Any:
+    """A logical-axes tree transformed in lockstep with
+    :func:`quantize_params`."""
+    return _map_projections(axes, _axes_for_weight)

@@ -10,23 +10,47 @@ and the recomputed pre-activation of an activation epilogue). With
 ``cfg.remat`` each layer is recomputed in the backward.
 
 Where the reference jit-compiles one sharded function that donates its
-state, the port runs eagerly on one device and writes the state in place:
-parameters and optimizer moments are updated leaf by leaf
-(``train.optimizer``), the gradients live in ``.grad`` during a step and
-are set to ``None`` after it. Distribution (the reference's shardings) is
-not ported yet.
+state, the port runs eagerly and writes the state in place: parameters and
+optimizer moments are updated leaf by leaf (``train.optimizer``), the
+gradients live in ``.grad`` during a step and are set to ``None`` after it.
+
+With a ``mesh`` (``launch.mesh``) the step is sharded, the reference's
+layout over explicit collectives:
+
+* the state lies per rank: params by ``param_specs(models.axes(cfg))``,
+  optimizer state by :func:`opt_spec_like` (Adafactor's factored row and
+  column leaves included); each rank stores only its blocks;
+* the batch is split over the DP axes (``batch_specs``), the microbatch
+  count follows the reference's DP-aware rule (:func:`microbatch_count`);
+* the forward gathers each stacked leaf's layer slice just before use and
+  every other leaf once a step; the backward reduces the gradients over the
+  DP axes (mean) and keeps this rank's slice over 'model'
+  (``parallel.fsdp``). Ranks along 'model' compute the same rows: the axis
+  shards storage, not compute (tensor parallelism is the next slice). The
+  MoE family's capacity and aux loss are reckoned per DP shard;
+* the optimizer updates the local blocks (``train.optimizer.Layout``);
+  the loss and the metrics are averaged over the DP group.
+
+On a mesh whose every extent is 1 the sharded step is the one-device step
+bit for bit. On an abstract mesh (``make_production_mesh``) it runs on the
+meta device: the dry run's way of reckoning a step.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed as cd
+from repro_torch.core.context import use_context
 from repro_torch.device import resolve_device
-from repro_torch.interop import tree_items, tree_map
+from repro_torch.interop import tree_items, tree_map, tree_map_with_path
+from repro_torch.parallel import fsdp
+from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt_lib
 
 
@@ -35,8 +59,10 @@ class StepArtifacts:
     """What a launcher needs for one arch on one device."""
 
     step_fn: Callable            # (state, batch) -> (state, metrics)
-    init_fn: Callable            # (seed=0) -> state
-    state_shapes: Any            # the state's tree on the meta device
+    init_fn: Callable            # (seed=0) -> state (this rank's blocks)
+    state_shapes: Any            # the whole state's tree on the meta device
+    state_shardings: Any = None  # tree of sharding.NamedSharding (a mesh)
+    microbatches: int = 1
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -59,13 +85,51 @@ def default_opt_config(cfg: ModelConfig) -> opt_lib.OptConfig:
     )
 
 
-def microbatch_count(cfg: ModelConfig, global_batch: int) -> int:
-    """The reference's rule on one data-parallel shard: ``cfg.microbatches``
-    capped by the batch, lowered until it divides the batch."""
-    M = max(1, min(cfg.microbatches, global_batch))
-    while global_batch % M and M > 1:
+def microbatch_count(cfg: ModelConfig, global_batch: int, dp: int = 1
+                     ) -> int:
+    """The reference's rule: ``cfg.microbatches`` capped so that each
+    microbatch still covers every one of the ``dp`` data-parallel shards,
+    lowered until microbatches x shards divide the batch."""
+    M = max(1, min(cfg.microbatches, global_batch // dp))
+    while global_batch % (M * dp) and M > 1:
         M -= 1
     return M
+
+
+def opt_spec_like(shapes_tree, params_specs, mesh):
+    """Optimizer state shards like its param: each leaf of a param's
+    subtree (AdamW's moment, Adafactor's row / column vectors) takes the
+    param's spec entries positionally, where the axis extent is above 1
+    and divides the dim (the reference's rule, untrimmed)."""
+    def per_param(spec, sub):
+        def leaf_spec(x):
+            ent = list(spec) + [None] * x.ndim
+            out = []
+            for dim, e in zip(x.shape, ent):
+                n = cd.axes_extent(mesh, e)
+                out.append(e if n > 1 and dim % n == 0 else None)
+            return shd.P(*out)
+
+        return tree_map(leaf_spec, sub)
+
+    def walk(specs, sub):
+        if specs is None:
+            return None
+        if isinstance(specs, shd.PartitionSpec):
+            return per_param(specs, sub)
+        if isinstance(specs, dict):
+            return {k: walk(v, sub[k]) for k, v in specs.items()}
+        return type(specs)(*(walk(getattr(specs, f), getattr(sub, f))
+                             for f in specs._fields))
+
+    return walk(params_specs, shapes_tree)
+
+
+def _stacked(axes) -> set[str]:
+    """The top-level subtrees whose every leaf is stacked on a leading
+    'layers' dim: the models gather those a layer slice at a time."""
+    return {k for k, a in axes.items()
+            if all(ax[:1] == ("layers",) for _, ax in tree_items(a))}
 
 
 def _to_device(batch: dict[str, Any], device) -> dict[str, torch.Tensor]:
@@ -79,30 +143,68 @@ def make_train_step(
     cfg: ModelConfig,
     opt_cfg: opt_lib.OptConfig | None = None,
     *,
+    mesh=None,
     global_batch: int = 8,
     seq_len: int = 128,
     device=None,
     grads_hook: Callable | None = None,
 ) -> StepArtifacts:
     """``seq_len`` is the reference's argument (its input shardings); the
-    port's step takes any sequence length. ``grads_hook(grads)``, if given,
-    is called with the gradient tree between the backward and the
+    port's step takes any sequence length. ``mesh``: shard the step over
+    it (the module docstring); its device is the step's (an abstract
+    mesh's: meta). ``grads_hook(grads)``, if given, is called with the
+    gradient tree (this rank's blocks) between the backward and the
     optimizer, which then clips and consumes it (a probe: it copies what
     it keeps)."""
+    if mesh is not None and device is None:
+        device = "meta" if mesh.abstract else mesh.device
     device = resolve_device(device)
     if opt_cfg is None:
         opt_cfg = default_opt_config(cfg)
-    optimizer = opt_lib.make_optimizer(opt_cfg)
     loss_fn = make_loss_fn(cfg)
-    M = microbatch_count(cfg, global_batch)
+    base_opt = opt_lib.make_optimizer(opt_cfg)
 
-    def init_state(seed: int = 0, device=device):
+    def init_full(seed: int = 0, device=device):
         params = models.init(cfg, seed=seed, device=device)
         return {
             "params": params,
-            "opt": optimizer.init(params),
+            "opt": base_opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device),
         }
+
+    shapes = init_full(device="meta")
+    if mesh is None:
+        M = microbatch_count(cfg, global_batch)
+        return StepArtifacts(
+            step_fn=_step(loss_fn, base_opt, device, grads_hook, M),
+            init_fn=init_full, state_shapes=shapes, microbatches=M)
+
+    axes = models.axes(cfg)
+    pspecs = shd.param_specs(axes, shapes["params"], mesh)
+    ospecs = {k: opt_spec_like(v, pspecs, mesh)
+              for k, v in shapes["opt"].items()}
+    state_specs = {"params": pspecs, "opt": ospecs, "step": shd.P()}
+    optimizer = opt_lib.make_optimizer(
+        opt_cfg, opt_lib.Layout(mesh, pspecs, ospecs))
+    dp = math.prod(mesh.axis_size(a) for a in mesh.dp_axes())
+    M = microbatch_count(cfg, global_batch, dp)
+
+    def init_fn(seed: int = 0):
+        full = init_full(seed)
+        return shd.shard_tree(full, state_specs, mesh)
+
+    step = _step(loss_fn, optimizer, device, grads_hook, M,
+                 sharded=(fsdp.ShardPlan(mesh, pspecs), _stacked(axes)))
+    return StepArtifacts(step_fn=step, init_fn=init_fn, state_shapes=shapes,
+                         state_shardings=shd.named_shardings(state_specs,
+                                                             mesh),
+                         microbatches=M)
+
+
+def _step(loss_fn, optimizer, device, grads_hook, M, sharded=None):
+    """The step function; ``sharded`` = (the plan, the stacked top-level
+    keys) for a mesh."""
+    plan, stacked = sharded if sharded is not None else (None, ())
 
     def train_step(state, batch):
         params = state["params"]
@@ -111,29 +213,47 @@ def make_train_step(
             p.requires_grad_(True)
             p.grad = None
         batch = _to_device(batch, device)
+        view, tops = params, []
+        if plan is not None:
+            mesh = plan.mesh
+            bspecs = shd.batch_specs(batch, mesh)
+            batch = {k: shd.shard_leaf(v, bspecs[k], mesh)
+                     for k, v in batch.items()}
+            # every leaf outside the layer stacks: whole once a step, a leaf
+            # of its own whose gradient the microbatches accumulate, reduced
+            # once at the end
+            view = {}
+            for k, sub in params.items():
+                if k in stacked:
+                    view[k] = sub
+                    continue
+                spec_of = dict(tree_items(plan.specs[k]))
+
+                def whole(path, p):
+                    spec = spec_of[path]
+                    if plan.trivial(spec):
+                        return p
+                    full = shd.gather_leaf(p.detach(), spec, mesh)
+                    full.requires_grad_(True)
+                    tops.append((p, full, spec))
+                    return full
+
+                view[k] = tree_map_with_path(whole, sub)
+        with use_context(**({} if plan is None else
+                            {"mesh": plan.mesh, "shard": plan})):
+            loss, ce, aux = _accumulate(loss_fn, view, batch, M, device)
+        for p, full, spec in tops:
+            g = full.grad if full.grad is not None else torch.zeros_like(full)
+            p.grad = fsdp.reduce_grad(g, spec, plan.mesh)
         if M > 1:
-            # gradient accumulation: .grad sums in the parameter's dtype,
-            # as the reference's accumulator follows the params
-            rows = batch["tokens"].shape[0] // M
-            lsum = torch.zeros((), dtype=torch.float32, device=device)
-            ces, auxs = [], []
-            for j in range(M):
-                micro = {k: v[j * rows:(j + 1) * rows]
-                         for k, v in batch.items()}
-                loss, (ce, aux) = loss_fn(params, micro)
-                loss.backward()
-                lsum = lsum + loss.detach()
-                ces.append(ce.detach())
-                auxs.append(aux.detach())
-            loss, ce, aux = (lsum / M, torch.stack(ces).mean(),
-                             torch.stack(auxs).mean())
             for p in leaves:
                 if p.grad is not None:
                     p.grad.div_(M)
-        else:
-            loss, (ce, aux) = loss_fn(params, batch)
-            loss.backward()
-            loss, ce, aux = loss.detach(), ce.detach(), aux.detach()
+        if plan is not None and plan.dp_size > 1:
+            # the loss and the metrics: the mean over the DP group
+            m = cd.all_reduce(torch.stack([loss, ce, aux]), plan.mesh,
+                              plan.mesh.dp_axes()) / plan.dp_size
+            loss, ce, aux = m[0], m[1], m[2]
         grads = tree_map(lambda p: p.grad if p.grad is not None
                          else torch.zeros_like(p), params)
         if grads_hook is not None:
@@ -148,8 +268,29 @@ def make_train_step(
         return ({"params": params, "opt": opt_state,
                  "step": state["step"] + 1}, metrics)
 
-    return StepArtifacts(step_fn=train_step, init_fn=init_state,
-                         state_shapes=init_state(device="meta"))
+    return train_step
+
+
+def _accumulate(loss_fn, params, batch, M: int, device):
+    """Forward and backward over ``M`` microbatches; the gradients sum in
+    ``.grad`` in the parameter's dtype, as the reference's accumulator
+    follows the params. Returns (loss, ce, aux), each the microbatches'
+    mean, detached."""
+    if M == 1:
+        loss, (ce, aux) = loss_fn(params, batch)
+        loss.backward()
+        return loss.detach(), ce.detach(), aux.detach()
+    rows = batch["tokens"].shape[0] // M
+    lsum = torch.zeros((), dtype=torch.float32, device=device)
+    ces, auxs = [], []
+    for j in range(M):
+        micro = {k: v[j * rows:(j + 1) * rows] for k, v in batch.items()}
+        loss, (ce, aux) = loss_fn(params, micro)
+        loss.backward()
+        lsum = lsum + loss.detach()
+        ces.append(ce.detach())
+        auxs.append(aux.detach())
+    return (lsum / M, torch.stack(ces).mean(), torch.stack(auxs).mean())
 
 
 def input_shapes(cfg: ModelConfig, batch: int, seq: int

@@ -27,6 +27,12 @@ TRAIN_MODULES = ["repro_torch.train.optimizer", "repro_torch.train.trainstep",
                  "repro_torch.data.synthetic", "repro_torch.ft.checkpoint",
                  "repro_torch.ft.straggler", "repro_torch.ft.elastic",
                  "repro_torch.launch.train"]
+# the distribution slice's modules
+DIST_MODULES = ["repro_torch.launch.mesh", "repro_torch.parallel",
+                "repro_torch.parallel.sharding", "repro_torch.parallel.fsdp",
+                "repro_torch.parallel.pipeline",
+                "repro_torch.core.distributed", "repro_torch.launch.dryrun",
+                "repro_torch.roofline", "repro_torch.roofline.report"]
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -59,6 +65,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert set(HYBRID_ENCDEC_MODULES) <= set(names)
     assert set(VISION_MODULES) <= set(names)
     assert set(TRAIN_MODULES) <= set(names)
+    assert set(DIST_MODULES) <= set(names)
     assert bad == []
 
 

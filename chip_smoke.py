@@ -137,9 +137,10 @@ ends the run with a non-zero exit:
    shared attention + MLP block at every 6th layer, vocab 32,000): 10a
    the static path and 10b with ``--quantize int8``, phase 4's gates
    (launches: 38 x 2 Mamba projections, 7 shared-block calls of 7 GEMMs,
-   the unembed), the decode step eager against replayed, the eager
-   prefill's ms and the share of it the SSM steps take (the prefill
-   again with them stubbed); 10c, 10d phase 5's card against CPU at 4
+   the unembed), then at 12 layers (for the script's time)
+   the decode step eager against replayed, the eager prefill's ms and
+   the share of it the SSM steps take (the prefill again with them
+   stubbed); 10c, 10d phase 5's card against CPU at 4
    layers with the shared block every 2, and the stack layer by layer
    from the CPU's input to each layer (each layer's output and the head
    within the tolerance), beside the CPU path's own spread (its embedding
@@ -186,7 +187,7 @@ ends the run with a non-zero exit:
    GEMV), peak device memory under 75 GiB; printed: step 1's and the
    median step's CUDA-event ms split into forward + backward and the
    optimizer, beside the bound, and a traced step's busy share; 13c the
-   step on the card against the CPU at 2 layers, 3 steps at 2 x 128 and 1
+   step on the card against the CPU at 2 layers, 3 steps at 1 x 136 and 1
    x 64 (the GEMV forward and its dA): each loss, each leaf's step-1
    gradient and the 3 steps' updates within tolerances stated
    beforehand; 13d ``python -m repro_torch.launch.train --arch
@@ -214,6 +215,21 @@ ends the run with a non-zero exit:
    make_train_step(mesh=None): losses and parameters bit for bit; 14d
    ``launch.dryrun`` on one cell (qwen1.5-4b x train_4k x 16x16) on the
    meta device and its ``roofline.report`` row (h100), without JAX.
+15. tensor parallelism over 'model' with two ranks on the one card: a (1,
+   2) (data, model) mesh over gloo (``--backend gloo``: each collective
+   staged through host memory, the products on the kernels), one process
+   a rank under ``torchrun --nproc-per-node 2``: 15a ``launch.serve
+   --mesh 1x2`` at qwen1.5-4b's full width and depth (4 x 128, 16
+   tokens) against the same path at 1 x 1: the prefill's logits, the
+   greedy tokens (12c's rule), both ranks' tokens equal, each rank's
+   launches (phase 4a's rule at the local shapes), zero lazy solves, the
+   collective bytes of the prefill and of a decode step against the dry
+   run's, each rank's peak memory beside the one-device peak, the step
+   ms; 15b ``launch.train --mesh 1x2 --n-layers 4`` at 13b's batch, 2
+   AdamW steps, against make_train_step(mesh=None) on the card (losses,
+   gradient norms, updates, collective bytes against the dry run's); 15c
+   the dry run's qwen1.5-4b x train_4k x 16x16 model-FLOPs ratio (at
+   least 0.4) and decode_32k's collective bytes (nonzero).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -588,6 +604,24 @@ CASES = [
     Case("verify unembed B=40 f32 out", "gemv", 40, 2560, 151936,
          out_dtype="float32"),
     Case("draft admit unembed B=1 f32 out", "gemv", 1, 2560, 151936,
+         out_dtype="float32"),
+    # tensor parallelism at 'model' = 2 (phase 15): qwen1.5-4b's local
+    # shapes on a rank: column-parallel q/k/v (+ bias) and gate (silu),
+    # row-parallel wo and w_out with f32 partial sums, at prefill (512
+    # rows) and decode (4); the unembed's vocabulary block
+    Case("tp q/k/v + bias", "matmul", 512, 2560, 1280, bias=True),
+    Case("tp gate + silu", "matmul", 512, 2560, 3456, activation="silu"),
+    Case("tp wo f32 out", "matmul", 512, 1280, 2560, out_dtype="float32"),
+    Case("tp w_out f32 out", "matmul", 512, 3456, 2560,
+         out_dtype="float32"),
+    Case("tp decode q/k/v + bias", "matmul", 4, 2560, 1280, bias=True),
+    Case("tp decode gate + silu", "matmul", 4, 2560, 3456,
+         activation="silu"),
+    Case("tp decode wo f32 out", "gemv", 4, 1280, 2560, out_dtype="float32"),
+    Case("tp decode w_in", "gemv", 4, 2560, 3456),
+    Case("tp decode w_out f32 out", "gemv", 4, 3456, 2560,
+         out_dtype="float32"),
+    Case("tp unembed block f32 out", "gemv", 4, 2560, 75968,
          out_dtype="float32"),
 ] + [
     # the W8A8 path (--quantize int8): int8 x int8, B (N, K), out_scale
@@ -1255,12 +1289,14 @@ def serve_split(torch, cfg, params, art, state, batch,
           f"{1 - bare / wall:.3f}", flush=True)
 
 
-def static_steps(torch, arch: str, label: str, quant: bool = False) -> None:
+def static_steps(torch, arch: str, label: str, quant: bool = False,
+                 cut: dict | None = None) -> None:
     """The static server's decode step, eager and as a CUDA-graph replay,
     in one run from one state: step ms (CUDA events between steps, so the
     host's dispatch shows), tok/s, and the replay against the eager step
     bit for bit; the hybrid, encdec and vlm families also the prefill
-    (``serve_split``)."""
+    (``serve_split``). ``cut``: the config's fields to replace (a
+    depth)."""
     import numpy as np
 
     from repro_torch import configs as C
@@ -1272,8 +1308,8 @@ def static_steps(torch, arch: str, label: str, quant: bool = False) -> None:
 
     phase(f"{label} static decode step of {arch}"
           + (" (int8)" if quant else "") + ": eager, then CUDA-graph "
-          "replays, from one state")
-    cfg = C.get_config(arch)
+          "replays, from one state" + (f", cut to {cut}" if cut else ""))
+    cfg = dataclasses.replace(C.get_config(arch), **(cut or {}))
     V = cfg.vocab_size
     params = _params(torch, cfg, quant)
     batch = _prefill_batch(torch, cfg, np.random.default_rng(0))
@@ -3102,7 +3138,10 @@ TRAIN_LOSS_TOL = 1e-3      # each step's loss, relative
 TRAIN_GRAD_TOL = 5e-2      # each leaf's gradient after step 1, relative L2
 TRAIN_UPDATE_TOL = 0.25    # all leaves' updates over 3 steps, relative L2
 TRAIN_LEAF_UPDATE_TOL = 1.0  # each leaf's update, relative L2 (below)
-TRAIN_CUT = ((2, 128), (1, 64))
+# the first case is 1 x 136 (136 rows: still the fat GEMM, above the
+# GEMV's 128), cut from 2 x 128 to shorten its CPU pass for phase 15's
+# time (ROADMAP queue 1, item 1)
+TRAIN_CUT = ((1, 136), (1, 64))
 # 13d: the launcher on the smoke config, then resumed
 TRAIN_LAUNCH_STEPS = (30, 40)
 
@@ -3738,7 +3777,7 @@ def dist_train(torch) -> dict[str, int]:
     return counts
 
 
-def dist_dryrun(torch) -> None:
+def dist_dryrun(torch) -> dict:
     """14d: the dry run of one cell on the meta device and its roofline
     row, on the card's host (which has no JAX)."""
     from repro_torch.launch import dryrun
@@ -3761,6 +3800,300 @@ def dist_dryrun(torch) -> None:
     print(report.roofline_row(rec))
     if jax_loaded:
         raise SystemExit("14d: the dry run imported jax")
+    return rec
+
+
+# ------------------------------------------------------------ phase 15
+# tensor parallelism over 'model': two ranks on the one card, a (1, 2)
+# (data, model) mesh over gloo (NCCL refuses two ranks on one GPU; each
+# collective is staged through host memory, the products stay on the
+# kernels), each rank a process of torchrun. 15a: the static server at
+# qwen1.5-4b's full width and depth (4 x 128, 16 tokens, seed 0) against
+# the same path at 1 x 1 in this process: the prefill's logits within
+# PATH_TOL of 1 + |logit|, the greedy tokens equal wherever the 1 x 1
+# run's top-2 margin exceeds that tolerance (12c's rule; a row is compared
+# up to its first position that does not), both ranks' tokens equal, each
+# rank's launches the 1 x 1 path's rule (phase 4a: the same kernels at
+# the local shapes), zero lazy solves, the collective bytes of the prefill
+# and of each decode step the dry run's for a (1, 2) abstract mesh. 15b:
+# training, TP_LAYERS layers at full width, 13b's batch, 2 AdamW steps
+# through the launcher against make_train_step(mesh=None) on the card. Its
+# tolerances, stated before the first card run from 13c's bounds (the
+# card against the CPU, bf16 activations): each step's loss within
+# TRAIN_LOSS_TOL relative; each step's gradient norm within TP_GNORM_TOL
+# relative (the f32 partial sums of the row-parallel products and the
+# vocab-parallel loss change the summation order only); the two steps'
+# updates within TRAIN_UPDATE_TOL relative L2 over all leaves and each
+# leaf's below TRAIN_LEAF_UPDATE_TOL (Adam's sign of a gradient within
+# rounding of zero flips a whole step); the collective bytes of each step
+# the dry run's. 15c: the dry run's qwen1.5-4b x train_4k x 16x16 (14d's
+# record): 6ND over the counted FLOPs at least TP_RATIO (0.03 while the
+# ranks of 'model' repeated each other's products); decode_32k x 16x16:
+# nonzero collective bytes
+TP_MESH, TP_LAYERS, TP_RATIO, TP_CUT = "1x2", 4, 0.4, 4
+TP_GNORM_TOL = 5e-3
+
+
+def _torchrun2(module: str, args: list[str], timeout: int):
+    """``module`` under torchrun, 2 processes on this host (loopback)."""
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "localhost", "--master-port",
+         str(_free_port()), "-m", module, *args],
+        capture_output=True, text=True, timeout=timeout, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+
+
+def _lines(out: str, heads: tuple[str, ...]) -> str:
+    return " | ".join(ln.strip() for ln in out.splitlines()
+                      if ln.lstrip().startswith(heads))
+
+
+def _tp_serve_run(torch, args: list[str], tag: str) -> tuple[dict, list]:
+    """The static server at 1 x 1 in this process, then over the (1, 2)
+    mesh under torchrun: (the 1 x 1 record, the ranks' records)."""
+    from repro_torch.launch import serve
+
+    out = os.path.join(ROOT, "build", "phase15")
+    os.makedirs(out, exist_ok=True)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    one = serve.main(args + ["--record-out", os.path.join(out, tag + "1")])
+    ref = one["record"]
+    del one
+    _free(torch)
+    t0 = time.perf_counter()
+    run = _torchrun2("repro_torch.launch.serve",
+                     args + ["--mesh", TP_MESH, "--backend", "gloo",
+                             "--record-out", os.path.join(out, tag)], 600)
+    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
+          + _lines(run.stdout, ("[mesh]", "[serve]", "[plan-cache]")),
+          flush=True)
+    if run.returncode != 0:
+        raise SystemExit("15a: the launcher failed: " + run.stderr[-3000:])
+    return ref, [torch.load(os.path.join(out, f"{tag}.rank{r}.pt"))
+                 for r in range(2)]
+
+
+def _logit_err(a, b) -> float:
+    return ((a - b).abs() / (1 + b.abs())).max().item()
+
+
+def tp_serve(torch) -> dict[str, int]:
+    """15a: the static server over a (1, 2) mesh on the card, at full
+    depth and cut to TP_CUT layers."""
+    import numpy as np
+
+    from repro_torch import configs as C
+    from repro_torch import models
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import serve_batch
+
+    arch = "qwen1.5-4b"
+    args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--plan-cache", ""]
+    phase(f"15a tensor-parallel static server: torchrun --nproc-per-node 2 "
+          f"-m repro_torch.launch.serve --mesh {TP_MESH} --backend gloo "
+          + " ".join(args) + " (full width and depth; the logits gate at "
+          f"--n-layers {TP_CUT}), against the same path at 1 x 1 in this "
+          "process")
+    ref, recs = _tp_serve_run(torch, args, "tp")
+    cfg = C.get_config(arch)
+    with use_context(hw="h100", plan_cache=PlanCache()):
+        abstract = Mesh(("data", "model"), (1, 2))
+        want_pre = dryrun.serve_cell(cfg, abstract, "prefill", BATCH,
+                                     PROMPT)["cost"]
+        want_dec = dryrun.serve_cell(cfg, abstract, "decode", BATCH,
+                                     PROMPT + GEN + 1)["cost"]
+        # the 1 x 1 path's own spread: its embedding table x (1 + 2**-20)
+        params = models.init(cfg, seed=0, device="cuda")
+        params["embed"].mul_(1 + 2 ** -20)
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, size=(BATCH, PROMPT))).cuda()
+        moved = {}
+        serve_batch(cfg, params, prompts, gen_len=1, max_len=PROMPT + 2,
+                    record=moved)
+        del params
+        _free(torch)
+    rule = PATHS[arch]["want"]
+    pre_err = _logit_err(recs[0]["logits"][0], ref["logits"][0])
+    spread = _logit_err(moved["logits"][0], ref["logits"][0])
+    # greedy tokens: each row up to its first position whose 1 x 1 top-2
+    # margin is within the tolerance
+    held = same = 0
+    for row in range(BATCH):
+        for t in range(GEN):
+            top2 = ref["logits"][t][row, :cfg.vocab_size].topk(2).values
+            if not top2[0] - top2[1] > PATH_TOL * (1 + top2[0].abs()):
+                break
+            held += 1
+            same += int(recs[0]["tokens"][row, t] == ref["tokens"][row, t])
+    failed = []
+    if not torch.equal(recs[0]["tokens"], recs[1]["tokens"]):
+        failed.append("the ranks' tokens differ")
+    if same != held:
+        failed.append(f"greedy tokens {same}/{held}")
+    for rec in recs:
+        r = rec["rank"]
+        ms = statistics.median(rec["decode_s"]) * 1e3
+        print(f"rank {r}: launches {rec['launches']} (rule {rule}); lazy "
+              f"solves {rec['lazy_solves']}, misses {rec['misses']}; "
+              f"collective bytes prefill {rec['prefill_bytes']} (dry run "
+              f"{want_pre['collective_bytes_per_device']}), decode steps "
+              f"{sorted(set(rec['decode_bytes']))} (dry run "
+              f"{want_dec['collective_bytes_per_device']}); peak "
+              f"serving {rec['peak_gib']:.2f} GiB (one device "
+              f"{ref['peak_gib']:.2f}), loading the whole init and its "
+              f"blocks {rec['init_peak_gib']:.2f} (one device "
+              f"{ref['init_peak_gib']:.2f}); prefill "
+              f"{rec['prefill_s'] * 1e3:.1f} ms, decode step {ms:.2f} ms "
+              f"(median; one device, replayed "
+              f"{statistics.median(ref['decode_s']) * 1e3:.2f} ms)",
+              flush=True)
+        if rec["launches"] != rule:
+            failed.append(f"rank {r} launches {rec['launches']}")
+        if rec["lazy_solves"] or rec["misses"]:
+            failed.append(f"rank {r} was not plan-warm")
+        if rec["prefill_bytes"] != want_pre["collective_bytes_per_device"] \
+                or set(rec["decode_bytes"]) != {
+                    want_dec["collective_bytes_per_device"]}:
+            failed.append(f"rank {r} collective bytes differ from the dry "
+                          "run's")
+    print(f"full depth: prefill logits max |tp - one| / (1 + |one|) = "
+          f"{pre_err:.4g}, printed, not gated: the 1 x 1 path moves "
+          f"{spread:.4g} against itself with its embedding x (1 + 2**-20); "
+          f"greedy tokens equal at {same}/{held} positions whose top-2 "
+          f"margin exceeds {PATH_TOL}; the ranks' tokens equal: "
+          f"{torch.equal(recs[0]['tokens'], recs[1]['tokens'])}", flush=True)
+    counts = recs[0]["launches"]
+    del recs, ref
+    cut_ref, cut = _tp_serve_run(
+        torch, args + ["--n-layers", str(TP_CUT)], "tp_cut")
+    cut_err = _logit_err(cut[0]["logits"][0], cut_ref["logits"][0])
+    print(f"{TP_CUT} layers: prefill logits max |tp - one| / (1 + |one|) = "
+          f"{cut_err:.4g} (tol {PATH_TOL})", flush=True)
+    if not cut_err <= PATH_TOL:
+        failed.append(f"prefill logits at {TP_CUT} layers {cut_err} > "
+                      f"{PATH_TOL}")
+    del cut, cut_ref
+    _free(torch)
+    if failed:
+        raise SystemExit("15a: " + "; ".join(failed))
+    return counts
+
+
+def tp_train(torch) -> dict[str, int]:
+    """15b: the tensor-parallel train step through the launcher on a
+    (1, 2) mesh against the one-device step on the card."""
+    from repro_torch import configs as C
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.interop import tree_items
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.trainstep import make_train_step
+
+    cut = dataclasses.replace(C.get_config(TRAIN_ARCH), n_layers=TP_LAYERS)
+    phase(f"15b tensor-parallel training: torchrun --nproc-per-node 2 -m "
+          f"repro_torch.launch.train --arch {TRAIN_ARCH} --n-layers "
+          f"{TP_LAYERS} --mesh {TP_MESH} --backend gloo, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, 2 AdamW steps, against "
+          f"make_train_step(mesh=None) on the card; tolerances loss "
+          f"{TRAIN_LOSS_TOL}, gradient norm {TP_GNORM_TOL}, updates "
+          f"{TRAIN_UPDATE_TOL} (each leaf below {TRAIN_LEAF_UPDATE_TOL})")
+    with use_context(hw="h100", plan_cache=PlanCache()):
+        art = make_train_step(cut, global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, device="cuda")
+        state = art.init_fn(0)
+        before = {p: t.detach().cpu() for p, t in tree_items(
+            state["params"])}
+        losses, gnorms = [], []
+        for step in range(2):
+            state, m = art.step_fn(state, batch_for(cut, TRAIN_SEQ,
+                                                    TRAIN_BATCH, step))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        one = {p: t.detach().cpu() - before[p]
+               for p, t in tree_items(state["params"])}
+        del state, art
+        _free(torch)
+        want = dryrun.train_cell(cut, Mesh(("data", "model"), (1, 2)),
+                                 TRAIN_BATCH, TRAIN_SEQ)["cost"]
+    path = os.path.join(ROOT, "build", "phase15", "train.pt")
+    t0 = time.perf_counter()
+    run = _torchrun2("repro_torch.launch.train", [
+        "--arch", TRAIN_ARCH, "--n-layers", str(TP_LAYERS), "--mesh",
+        TP_MESH, "--backend", "gloo", "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", "2", "--ckpt-every", "0", "--log-every",
+        "1", "--plan-cache", "", "--record-out", path], 600)
+    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
+          + _lines(run.stdout, ("[train]", "step")), flush=True)
+    if run.returncode != 0:
+        raise SystemExit("15b: the launcher failed: " + run.stderr[-3000:])
+    rec = torch.load(path)
+    tp = {p: t - before[p] for p, t in rec["params"].items()}
+    rel = lambda x, y: ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+    loss = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], losses))
+    gnorm = max(abs(a - b) / abs(b)
+                for a, b in zip(rec["grad_norms"], gnorms))
+    upd = max((rel(tp[k], one[k]), k) for k in one)
+    both = (sum((tp[k] - one[k]).norm() ** 2 for k in one)
+            / sum(u.norm() ** 2 for u in one.values())).sqrt().item()
+    print(f"losses {rec['losses']} / one device {losses} (worst relative "
+          f"{loss:.3g}); gradient norms {rec['grad_norms']} / {gnorms} "
+          f"({gnorm:.3g}); updates {both:.4g} (worst leaf {upd[0]:.4g}, "
+          f"{upd[1]}); collective bytes a step {rec['collective_bytes']} "
+          f"(dry run {want['by_collective']}); step s "
+          f"{[round(x, 3) for x in rec['step_s']]}; launches of rank 0 "
+          f"{rec['launches']}", flush=True)
+    failed = []
+    if not (loss <= TRAIN_LOSS_TOL and gnorm <= TP_GNORM_TOL
+            and both <= TRAIN_UPDATE_TOL
+            and upd[0] < TRAIN_LEAF_UPDATE_TOL):
+        failed.append("the mesh step is beyond a tolerance of the "
+                      "one-device step")
+    if any(b != want["by_collective"] for b in rec["collective_bytes"]):
+        failed.append("collective bytes differ from the dry run's")
+    counts = rec["launches"]
+    del rec, tp, one, before
+    _free(torch)
+    if failed:
+        raise SystemExit("15b: " + "; ".join(failed))
+    return counts
+
+
+def tp_dryrun(torch, train_rec: dict) -> None:
+    """15c: the dry run's cells on the production mesh with tensor
+    parallelism: train_4k's model-FLOPs ratio (14d's record) and
+    decode_32k's collective bytes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+
+    phase("15c dry run on the meta device with tensor parallelism: "
+          f"{DIST_CELL[0]} x train_4k and decode_32k x 16x16")
+    ratio = train_rec["roofline"]["useful_flops_ratio"]
+    rec = dryrun.run_cell(DIST_CELL[0], "decode_32k", False,
+                          os.path.join(ROOT, "build", "phase15"))
+    if rec["status"] != "ok":
+        raise SystemExit(f"15c: the dry run failed: {rec.get('trace')}")
+    print(f"train_4k: 6ND / counted FLOPs {ratio:.4f} (gate {TP_RATIO}); "
+          f"collective bytes {train_rec['cost']['by_collective']}")
+    print(f"decode_32k: {rec['cost']['flops_per_device']:.4g} FLOPs, "
+          f"collective bytes {rec['cost']['by_collective']}, "
+          f"{rec['wall_s']:.1f}s; "
+          + report.roofline_row(report.enrich(rec, hw="h100")))
+    if not ratio >= TP_RATIO or not rec["cost"][
+            "collective_bytes_per_device"] > 0:
+        raise SystemExit("15c: the model-FLOPs ratio or the decode cell's "
+                         "collective bytes are off")
+
+
+ZAMBA_STEP_CUT = {"n_layers": 12}  # 10a / 10b's static steps (main)
 
 
 def main() -> int:
@@ -3830,9 +4163,13 @@ def main() -> int:
     # 10: the hybrid family, zamba2-1.2b at its full width and depth
     zamba = "zamba2-1.2b"
     counts[zamba] = run_path(torch, zamba, "10a")
-    static_steps(torch, zamba, "10a")
+    # the static steps at 12 layers (the shared block at layers 0 and 6):
+    # the eager prefill's SSM loop over the tokens dominates them (169 s at
+    # 38 layers), and phase 15's time displaced it (ROADMAP queue 1, item
+    # 1); 10a / 10b's paths above keep the full depth
+    static_steps(torch, zamba, "10a", cut=ZAMBA_STEP_CUT)
     counts[zamba + " int8"] = run_path(torch, zamba + " int8", "10b")
-    static_steps(torch, zamba, "10b", quant=True)
+    static_steps(torch, zamba, "10b", quant=True, cut=ZAMBA_STEP_CUT)
     # 4 layers with the shared block every 2: layers 0 and 2 run it (at 2
     # layers only layer 0 would)
     cut = {"n_layers": 4, "shared_attn_every": 2}
@@ -3866,7 +4203,11 @@ def main() -> int:
     dist_rows = dist_gemms(torch)
     dist_pipeline(torch)
     counts["qwen1.5-4b mesh train launcher"] = dist_train(torch)
-    dist_dryrun(torch)
+    train_rec = dist_dryrun(torch)
+    # 15: tensor parallelism over 'model', two ranks on the one card
+    counts["qwen1.5-4b tp serve (1x2, a rank)"] = tp_serve(torch)
+    counts["qwen1.5-4b tp train (1x2, a rank)"] = tp_train(torch)
+    tp_dryrun(torch, train_rec)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

@@ -34,6 +34,33 @@ of extent 1 is skipped and counts 0, as XLA drops it. On an abstract mesh
 (``launch.mesh.make_production_mesh``) the helpers take meta tensors,
 return the shapes the collective would, and count the same bytes: the dry
 run reckons a step's collectives by running it.
+
+Under ``gloo`` (``launch.mesh.init_mesh(backend="gloo")``) a collective on
+a CUDA tensor is staged through host memory: the operand is copied to the
+host, the collective runs there and the result is copied back. It counts
+the same bytes. This is the transport of several ranks on one card (NCCL
+refuses two ranks on one GPU); the products stay on the card's kernels.
+
+Tensor parallelism over 'model' (Megatron's design, in explicit
+collectives) rests on three conjugate pairs, each an autograd Function
+whose backward re-installs the forward's GEMM context:
+
+``copy_to_model``
+    forward the identity, backward an ``all_reduce`` over 'model': where a
+    tensor whole on every rank feeds rank-local products;
+``reduce_from_model``
+    forward an ``all_reduce`` over 'model', backward the identity: where
+    rank-local partial sums become the whole result again;
+``gather_from_model`` / ``scatter_to_model``
+    an ``all_gather`` along a dim and this rank's block of it, each the
+    other's backward (``sum_grad``: the gather's backward reduce-scatters,
+    for a result that each rank consumes in its own way).
+
+``column_parallel`` (a product whose B is this rank's block of columns)
+and ``row_parallel`` (of rows: f32 partials, one ``all_reduce``, then the
+bias once and the cast, as in ``k_sharded_gemm``) are built on them. A
+weight that a layer consumes as its 'model' block is marked so
+(:func:`mark_model_block`, by ``parallel.fsdp.ShardPlan``).
 """
 from __future__ import annotations
 
@@ -82,6 +109,11 @@ class CollectiveCounter:
         self._cm = None
 
 
+def _staged(mesh, t: torch.Tensor) -> bool:
+    """A CUDA operand of a ``gloo`` collective: copied through the host."""
+    return mesh.backend == "gloo" and t.device.type == "cuda"
+
+
 def _count(kind: str, t: torch.Tensor) -> None:
     counter = current_context().collectives
     if counter is not None:
@@ -109,7 +141,12 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0
         # all_gather_single is all_gather_into_tensor's newer name
         gather = getattr(dist, "all_gather_single", None) or \
             dist.all_gather_into_tensor
-        gather(out, x, group=mesh.group(axis))
+        if _staged(mesh, x):
+            host = out.cpu()
+            gather(host, x.cpu(), group=mesh.group(axis))
+            out.copy_(host)
+        else:
+            gather(out, x, group=mesh.group(axis))
     return out.movedim(0, dim)
 
 
@@ -127,8 +164,14 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0
     x = t.detach().movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
     if not mesh.abstract:
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
-                                   group=mesh.group(axis))
+        if _staged(mesh, x):
+            host = out.cpu()
+            dist.reduce_scatter_tensor(host, x.cpu(), op=dist.ReduceOp.SUM,
+                                       group=mesh.group(axis))
+            out.copy_(host)
+        else:
+            dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                       group=mesh.group(axis))
     return out.movedim(0, dim).contiguous()
 
 
@@ -142,7 +185,14 @@ def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         _count("all_reduce", t)
         if not mesh.abstract:
             t = t.contiguous()
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+            if _staged(mesh, t):
+                host = t.cpu()
+                dist.all_reduce(host, op=dist.ReduceOp.SUM,
+                                group=mesh.group(axis))
+                t.copy_(host)
+            else:
+                dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                                group=mesh.group(axis))
     return t
 
 
@@ -154,8 +204,14 @@ def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     _check_abstract(mesh, t)
     _count("broadcast", t)
     if not mesh.abstract:
-        dist.broadcast(t, src=mesh.axis_ranks(axis)[src],
-                       group=mesh.group(axis))
+        if _staged(mesh, t):
+            host = t.cpu()
+            dist.broadcast(host, src=mesh.axis_ranks(axis)[src],
+                           group=mesh.group(axis))
+            t.copy_(host)
+        else:
+            dist.broadcast(t, src=mesh.axis_ranks(axis)[src],
+                           group=mesh.group(axis))
     return t
 
 
@@ -174,14 +230,19 @@ def send_recv(send: torch.Tensor | None, dst: int | None,
     if mesh.abstract:
         return
     ranks, group, ops = mesh.axis_ranks(axis), mesh.group(axis), []
+    into = recv
     if send is not None:
-        ops.append(dist.P2POp(dist.isend, send.contiguous(), ranks[dst],
-                              group=group))
+        send = send.cpu() if _staged(mesh, send) else send.contiguous()
+        ops.append(dist.P2POp(dist.isend, send, ranks[dst], group=group))
     if recv is not None:
-        ops.append(dist.P2POp(dist.irecv, recv, ranks[src], group=group))
+        if _staged(mesh, recv):
+            into = recv.cpu()
+        ops.append(dist.P2POp(dist.irecv, into, ranks[src], group=group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    if into is not recv:
+        recv.copy_(into)
 
 
 def local_block(t: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
@@ -245,3 +306,161 @@ def entry_axes(entry) -> tuple[str, ...]:
 def axes_extent(mesh, entry) -> int:
     """The extent of a spec entry (1 for None)."""
     return math.prod(mesh.axis_size(n) for n in entry_axes(entry))
+
+
+# ---------------------------------------------------- tensor parallelism
+_BLOCK_DIM = "_repro_model_block_dim"
+
+
+def mark_model_block(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Mark ``t`` as this rank's block of a leaf split along ``dim`` over
+    'model', which the layer consuming it computes with as it is."""
+    setattr(t, _BLOCK_DIM, dim)
+    return t
+
+
+def model_block_dim(t: torch.Tensor | None) -> int | None:
+    """The dim a marked 'model' block is split along (None: whole)."""
+    return None if t is None else getattr(t, _BLOCK_DIM, None)
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.gemm_context = mesh, current_context()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with use_context(ctx.gemm_context):
+            return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                              ctx.mesh, "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, sum_grad):
+        ctx.args, ctx.gemm_context = (mesh, dim, sum_grad), current_context()
+        return all_gather(x, mesh, "model", dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, sum_grad = ctx.args
+        with use_context(ctx.gemm_context):
+            if sum_grad:
+                return reduce_scatter(g, mesh, "model", dim), None, None, None
+            return local_block(g, dim, mesh, "model"), None, None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.args, ctx.gemm_context = (mesh, dim), current_context()
+        return local_block(x, dim, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.args
+        with use_context(ctx.gemm_context):
+            return all_gather(g, mesh, "model", dim).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x``, whole on every rank of 'model', as the input of rank-local
+    work: the identity forward; backward the sum over 'model' of the
+    ranks' gradients."""
+    if mesh.axis_size("model") == 1 or not _recorded(x):
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over 'model' of the ranks' ``x`` (an ``all_reduce``; without
+    a recorded gradient, in place); backward the identity."""
+    if mesh.axis_size("model") == 1:
+        return x
+    if not _recorded(x):
+        return all_reduce(x, mesh, "model")
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, mesh, dim: int,
+                      sum_grad: bool = False) -> torch.Tensor:
+    """The ranks' blocks of 'model' concatenated along ``dim``; backward
+    this rank's block of the gradient (every rank consumes the whole alike)
+    or, with ``sum_grad``, of the gradients summed over 'model' (a
+    reduce-scatter: each rank consumes the whole in its own way)."""
+    if mesh.axis_size("model") == 1:
+        return x
+    dim %= x.dim()
+    if not _recorded(x):
+        return all_gather(x, mesh, "model", dim).contiguous()
+    return _GatherFromModel.apply(x, mesh, dim, sum_grad)
+
+
+def scatter_to_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` (whole on every rank of
+    'model'); backward the ranks' gradients gathered along ``dim``."""
+    if mesh.axis_size("model") == 1:
+        return x
+    dim %= x.dim()
+    if not _recorded(x):
+        return local_block(x, dim, mesh, "model")
+    return _ScatterToModel.apply(x, mesh, dim)
+
+
+def local_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, *,
+               activation: str | None = None,
+               out_dtype: torch.dtype | None = None,
+               b_layout: str = "row") -> torch.Tensor:
+    """One rank's product of a tensor-parallel pair, on the planned
+    kernels. The W8A8 path does not run over 'model': its per-tensor
+    activation scale would need a max over the axis."""
+    if not isinstance(w, torch.Tensor) or \
+            current_context().quant_mode == "int8":
+        raise NotImplementedError(
+            "int8 over 'model' (a W8A8 activation scale spans every row): "
+            "ROADMAP queue 1, item 5")
+    return balanced_gemm(x, w, bias, activation=activation,
+                         out_dtype=out_dtype or x.dtype, b_layout=b_layout)
+
+
+def column_parallel(x: torch.Tensor, w_block: torch.Tensor, bias=None, *,
+                    mesh, activation: str | None = None,
+                    out_dtype: torch.dtype | None = None,
+                    b_layout: str = "row") -> torch.Tensor:
+    """This rank's block of columns of ``act(x @ W + bias)``: ``x`` whole
+    (:func:`copy_to_model`), ``w_block`` and ``bias`` this rank's blocks
+    along N, the epilogue fused."""
+    return local_gemm(copy_to_model(x, mesh), w_block, bias,
+                      activation=activation, out_dtype=out_dtype,
+                      b_layout=b_layout)
+
+
+def row_parallel(h_block: torch.Tensor, w_block: torch.Tensor, bias=None,
+                 *, mesh, out_dtype: torch.dtype | None = None
+                 ) -> torch.Tensor:
+    """``h @ W + bias`` whole on every rank from this rank's blocks along K
+    (``h_block``'s columns, ``w_block``'s rows): the local product in f32,
+    summed over 'model' (:func:`reduce_from_model`), then the bias once,
+    then the cast."""
+    part = local_gemm(h_block, w_block, out_dtype=torch.float32)
+    part = reduce_from_model(part, mesh)
+    if bias is not None:
+        part = part + bias.float()
+    return part.to(out_dtype or h_block.dtype)

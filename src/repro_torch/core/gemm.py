@@ -245,6 +245,7 @@ def plan_model(
     max_len: int,
     params: Any = None,
     extras: dict[str, Any] | None = None,
+    mesh: Any = None,
 ) -> dict[str, int]:
     """Pre-solve every GEMM plan a model config will issue when serving.
 
@@ -252,7 +253,11 @@ def plan_model(
     device under the active context. ``params`` may be the real parameter
     tree (its shapes and dtypes are used) or None for the config's own;
     ``extras`` the prefill batch's other inputs (encdec's ``frames``, vlm's
-    ``image_embeds``), of which only the shapes and dtypes are used.
+    ``image_embeds``), of which only the shapes and dtypes are used. Over
+    a ``mesh`` the steps are the sharded serve steps
+    (``train.servestep.make_serve_step``) on an abstract copy of it, at
+    this rank's local shapes: ``params`` (or the config's own, sharded)
+    are its blocks.
     Returns 'signatures' (distinct GEMM signatures the model issues),
     'solved' (solver invocations this warm-up) and 'from_cache'.
     """
@@ -260,20 +265,33 @@ def plan_model(
 
     cache = current_context().plan_cache
     before = cache.stats.snapshot()
+    art = None
+    if mesh is not None:
+        from repro_torch.train.servestep import make_serve_step
+
+        art = make_serve_step(cfg, device="meta", mesh=mesh.as_abstract())
     if params is None:
         params = models.init(cfg, device="meta")
+        if art is not None:
+            params = art.shard_params(params)
     else:
         params = interop.tree_map(
             lambda t: torch.empty_like(t, device="meta"), params)
-    state = models.init_decode_state(cfg, batch, max_len, device="meta")
     inputs = {"tokens": torch.empty((batch, prompt_len), dtype=torch.int64,
                                     device="meta")}
     for k, v in (extras or {}).items():
         inputs[k] = torch.empty_like(v, device="meta")
     tok = torch.empty((batch, 1), dtype=torch.int64, device="meta")
     with cache.warmup():
-        _, state = models.prefill(params, inputs, cfg, state)
-        models.decode_step(params, tok, cfg, state)
+        if art is None:
+            state = models.init_decode_state(cfg, batch, max_len,
+                                             device="meta")
+            _, state = models.prefill(params, inputs, cfg, state)
+            models.decode_step(params, tok, cfg, state)
+        else:
+            state = art.init_state(batch, max_len)
+            art.prefill_fn(params, state, art.rows(inputs))
+            art.decode_raw(params, state, art.rows({"t": tok})["t"])
     solved = cache.stats.warm_solves - before.warm_solves
     signatures = len(cache.warm_keys)
     return {

@@ -113,12 +113,14 @@ def _convert(node: Any, device) -> Any:
     return to_tensor(np.asarray(node), device)
 
 
-def _quantized(tree: Any) -> bool:
+def is_quantized(tree: Any) -> bool:
+    """Whether a parameter tree holds a pre-quantized leaf
+    (``QuantizedLinear``)."""
     if isinstance(tree, QuantizedLinear):
         return True
     if isinstance(tree, dict):
-        return any(_quantized(v) for v in tree.values())
-    return hasattr(tree, "_fields") and any(_quantized(v) for v in tree)
+        return any(is_quantized(v) for v in tree.values())
+    return hasattr(tree, "_fields") and any(is_quantized(v) for v in tree)
 
 
 def params_from_jax(tree: Any, cfg, device) -> Any:
@@ -133,7 +135,7 @@ def params_from_jax(tree: Any, cfg, device) -> Any:
 
     params = _convert(tree, device)
     shapes = models.init(cfg, device="meta")
-    if _quantized(params):
+    if is_quantized(params):
         shapes = quantize_params(shapes)
     want = dict(tree_items(shapes))
     got = dict(tree_items(params))
@@ -160,11 +162,14 @@ def state_from_jax(tree: Any, cfg, device) -> dict[str, Any]:
                               device)}
 
 
-def shard_state(state: Any, specs: Any, mesh) -> Any:
+def shard_state(state: Any, specs: Any, mesh, *, cfg=None) -> Any:
     """A whole tree (a state carried across from JAX, or a checkpoint's) laid
     out for this rank: each leaf's block of its spec on ``mesh``
     (``parallel.sharding.shard_leaf``; a leaf the spec does not split is
-    kept as it is)."""
-    from repro_torch.parallel.sharding import shard_tree
+    kept as it is). ``specs`` None: ``state`` is a decode state of
+    ``cfg``, laid out by ``decode_state_specs``."""
+    from repro_torch.parallel.sharding import decode_state_specs, shard_tree
 
+    if specs is None:
+        specs = decode_state_specs(state, cfg, mesh)
     return shard_tree(state, specs, mesh)

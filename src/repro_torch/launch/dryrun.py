@@ -22,15 +22,19 @@ collective helpers counting bytes and moving nothing). Per cell:
   aten ops (attention's products, the MoE experts' batched matmuls) are
   counted by ``torch.utils.flop_counter.FlopCounterMode``; their bytes
   are not reckoned (``bytes_scope: "gemm"``);
-* **collective bytes per device**, by kind: what the sharded train step's
-  gather and reduce plan runs (``parallel.fsdp``; the counter of
-  ``core.distributed``). The serve steps do not run over a mesh in this
-  slice, so their collective plan is "none" and counts 0;
+* **collective bytes per device**, by kind: what the sharded steps run
+  (the counter of ``core.distributed``): the train step's gathers and
+  reductions (``parallel.fsdp``) and its tensor-parallel collectives over
+  'model'; the serve steps' (``train.servestep.make_serve_step`` over the
+  mesh: the layers' leaves gathered over the DP axes, tensor-parallel over
+  'model', the decode state in ``decode_state_specs``' blocks);
 * the wall seconds of the cell.
 
-The hybrid family's train and prefill cells are recorded as skipped
-(``UNCOUNTED``): its SSM scan is a Python loop over the tokens, which the
-meta device runs token by token.
+The rwkv and hybrid families' serve cells are recorded as skipped: their
+decode states are split over 'model', which their layers do not consume
+(``train.servestep``). The hybrid family's train and prefill cells are
+recorded as skipped (``UNCOUNTED``): its SSM scan is a Python loop over
+the tokens, which the meta device runs token by token.
 
 One JSON per cell under ``--out`` (default ``build/dryrun``, which git
 ignores); the exit code is 1 if any cell errs. Usage:
@@ -179,23 +183,30 @@ def train_cell(cfg, mesh, global_batch: int, seq_len: int,
 
 
 def serve_cell(cfg, mesh, kind: str, batch: int, seq_len: int) -> dict:
-    """The serve step (prefill of ``seq_len`` tokens, or one decode step
-    against a ``seq_len`` cache) at the local batch, on the meta device;
-    the state bytes from the params' and decode state's specs."""
+    """The sharded serve step (prefill of ``seq_len`` tokens, or one decode
+    step against a ``seq_len`` cache) over ``mesh`` on the meta device:
+    this rank's blocks of the params and of the decode state, its rows of
+    the batch; the state bytes from the params' and decode state's
+    specs."""
     params, memory = serve_state(cfg, mesh, batch, seq_len)
-    b = _local_batch(mesh, batch)
-    state = models.init_decode_state(cfg, b, seq_len, device="meta")
+    art = servestep.make_serve_step(cfg, device="meta", mesh=mesh)
+    params = art.shard_params(params)
+    state = art.init_state(batch, seq_len)
     if kind == "prefill":
-        inputs = {k: _meta(s, dt) for k, (s, dt) in
-                  servestep.prefill_input_shapes(cfg, b, seq_len).items()}
-        fn = lambda: models.prefill(params, inputs, cfg, state)
+        inputs = art.rows({k: _meta(s, dt) for k, (s, dt) in
+                           servestep.prefill_input_shapes(
+                               cfg, batch, seq_len).items()})
+        fn = lambda: art.prefill_fn(params, state, inputs)
     else:
-        tok = _meta((b, 1), torch.int64)
-        fn = lambda: models.decode_step(params, tok, cfg, state)
-    with torch.no_grad():
-        cost = count_step(fn)
-    cost["collective_plan"] = "none: the serve steps run on one device"
-    return {"local_batch": b, "memory": memory, "cost": cost}
+        tok = art.rows({"t": _meta((batch, 1), torch.int64)})["t"]
+        fn = lambda: art.decode_raw(params, state, tok)
+    cost = count_step(fn)
+    cost["collective_plan"] = ("tensor parallel over 'model' (column / row "
+                               "pairs, vocab-parallel embed and unembed); "
+                               "the layers' leaves gathered over the DP "
+                               "axes a layer at a time")
+    return {"local_batch": _local_batch(mesh, batch), "memory": memory,
+            "cost": cost}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str
@@ -225,6 +236,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str
                 rec.update(serve_cell(cfg, mesh, shape.kind,
                                       shape.global_batch, shape.seq_len))
             rec["status"] = "ok"
+        except NotImplementedError as e:  # a path the port lacks, named
+            rec.update(status="skipped", reason=str(e))
         except Exception as e:  # a failure here is a bug in the port
             rec.update(status="error", error=f"{type(e).__name__}: {e}",
                        trace=traceback.format_exc()[-4000:])

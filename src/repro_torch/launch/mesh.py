@@ -17,6 +17,9 @@ reference's ``np.array(devices).reshape(shape)`` lays devices out: on a
   world of one over an in-process store (no rendezvous at all). The
   backend is ``nccl`` for a CUDA device and ``gloo`` only for an explicit
   ``device="cpu"``: there is no silent switch to ``gloo`` on the card.
+  ``backend="gloo"`` on a CUDA device is taken only when asked for: it
+  runs several ranks on one card (NCCL refuses two ranks on one GPU), each
+  collective staged through host memory (``core.distributed``).
 
 The reference's activation hints (``layers.common.hint``, its
 ``with_sharding_constraint``) have no counterpart: under explicit
@@ -50,6 +53,7 @@ class Mesh:
     groups: dict[str, Any] | None = dataclasses.field(default=None,
                                                       compare=False)
     device: torch.device | None = None
+    backend: str | None = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.shape):
@@ -115,7 +119,13 @@ class Mesh:
 
     def describe(self) -> str:
         return "x".join(str(n) for n in self.shape) + " " + str(
-            dict(zip(self.axis_names, self.shape)))
+            dict(zip(self.axis_names, self.shape))) + (
+            f" backend={self.backend}" if self.backend else "")
+
+    def as_abstract(self) -> "Mesh":
+        """This mesh without process groups, this rank at its coordinates:
+        the collectives count bytes and move nothing (meta tensors)."""
+        return Mesh(self.axis_names, self.shape, self.coords)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -138,7 +148,12 @@ def _init_default_group(backend: str, device: torch.device) -> None:
     if "RANK" in env and "WORLD_SIZE" in env:
         rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
         if device.type == "cuda":
-            torch.cuda.set_device(int(env.get("LOCAL_RANK", rank)))
+            local = int(env.get("LOCAL_RANK", rank))
+            if backend == "gloo":
+                # several ranks may share a card (staged collectives); with
+                # nccl each rank needs a card of its own
+                local %= torch.cuda.device_count()
+            torch.cuda.set_device(local)
         dist.init_process_group(backend, init_method="env://", rank=rank,
                                 world_size=world)
         return
@@ -148,18 +163,27 @@ def _init_default_group(backend: str, device: torch.device) -> None:
                             world_size=1)
 
 
-def init_mesh(shape, axis_names, *, device=None) -> Mesh:
+BACKENDS = ("nccl", "gloo")
+
+
+def init_mesh(shape, axis_names, *, device=None, backend=None) -> Mesh:
     """This rank's place on a mesh over the whole world (whose size must
     be the product of ``shape``), and one process group per axis of extent
     above 1. Every rank creates every group, in the same order, as
-    ``new_group`` requires."""
+    ``new_group`` requires. ``backend``: ``nccl`` (the default on cuda) or
+    ``gloo`` (the only one on the CPU; on cuda only when asked for)."""
     shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
     device = resolve_device(device)
+    if backend is not None and backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a mesh on cuda needs a CUDA device")
-        backend = "nccl"
+        backend = backend or "nccl"
     elif device.type == "cpu":
+        if backend == "nccl":
+            raise ValueError("nccl needs a CUDA device; a CPU mesh runs gloo")
         backend = "gloo"
     else:
         raise ValueError(f"a mesh runs on cuda or cpu, not {device}")
@@ -174,7 +198,7 @@ def init_mesh(shape, axis_names, *, device=None) -> Mesh:
         r //= n
     mesh = Mesh(axis_names, shape, tuple(reversed(coords)), {},
                 torch.device("cuda", torch.cuda.current_device())
-                if device.type == "cuda" else device)
+                if device.type == "cuda" else device, backend)
     for i, name in enumerate(axis_names):
         mesh.groups[name] = None
         if shape[i] == 1:
@@ -193,11 +217,12 @@ def init_mesh(shape, axis_names, *, device=None) -> Mesh:
 
 
 def make_local_mesh(data: int | None = None, model: int = 1, *,
-                    device=None) -> Mesh:
+                    device=None, backend=None) -> Mesh:
     """A (data, model) mesh over the world (torchrun's, or a world of one);
     ``data`` defaults to the world size over ``model``."""
     if data is None:
         world = (int(os.environ["WORLD_SIZE"]) if "WORLD_SIZE" in os.environ
                  else dist.get_world_size() if dist.is_initialized() else 1)
         data = world // model
-    return init_mesh((data, model), ("data", "model"), device=device)
+    return init_mesh((data, model), ("data", "model"), device=device,
+                     backend=backend)

@@ -29,6 +29,10 @@ CUDA graph (``train.servestep``).
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama-3.2-vision-11b [--quantize int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  torchrun --nproc-per-node 8 -m repro_torch.launch.serve --mesh 4x2 \\
+      --smoke --device cpu
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2 \\
+      --backend gloo --batch 4 --prompt-len 128 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --metrics-json serve.json
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
@@ -50,6 +54,19 @@ the CUDA graphs are captured with the refined plans);
 ``--rebalance-drifted`` re-solves the plans the balance auditor flags as
 drifted after a traced run.
 
+With ``--mesh DATAxMODEL`` the static server (the dense family) runs
+over a (data, model) mesh of the world's ranks, one process a rank under
+torchrun: each rank makes the whole model from seed 0, keeps its blocks
+(``parallel.sharding.param_specs``) and serves its rows over 'data',
+tensor-parallel over 'model'; every rank ends with every row's tokens and
+rank 0 prints. ``--backend gloo`` puts several ranks on one card (each
+collective staged through host memory); nccl is the default on the card.
+``--n-layers`` cuts the config's depth (its width stays).
+``--record-out PREFIX`` writes what the static run measured (tokens, the
+prefill's and each step's logits and top-2 margins, collective bytes,
+seconds, launches, plan-cache counters, the load's and serving's peak
+memory) to ``PREFIX.rank<r>.pt``.
+
 With ``--spec-draft-config`` the engine decodes speculatively: the draft
 (built from seed 0 like the target, shrunk with it under ``--smoke``, and
 quantized to int8 at load unless ``--spec-draft-quantize none``) proposes
@@ -58,6 +75,7 @@ quantized to int8 at load unless ``--spec-draft-quantize none``) proposes
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -68,49 +86,115 @@ from repro_torch import models
 from repro_torch.core.context import use_context
 from repro_torch.core.gemm import plan_model
 from repro_torch.device import resolve_device
+from repro_torch.interop import is_quantized
 from repro_torch.launch.args import (add_context_args, add_serve_engine_args,
                                      context_from_args)
+from repro_torch.launch.mesh import BACKENDS, make_local_mesh
+from repro_torch.launch.train import parse_mesh
+from repro_torch.models import param_count
 from repro_torch.quant.prequant import quantize_params
-from repro_torch.train.servestep import (make_serve_step,
+from repro_torch.train import graphs
+from repro_torch.train.servestep import (check_mesh_family, make_serve_step,
                                          prefill_input_shapes)
 
 
 def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
                 max_len: int, extras: dict | None = None,
-                eos_id: int | None = None, pad_id: int = 0) -> torch.Tensor:
+                eos_id: int | None = None, pad_id: int = 0, mesh=None,
+                record: dict | None = None) -> torch.Tensor:
     """prompts: (B, P) int64 on the model's device; ``extras`` the
     family's other prefill inputs (encdec: ``frames``, vlm:
-    ``image_embeds``). Returns (B,
-    gen_len).
+    ``image_embeds``). Returns (B, gen_len).
 
     With ``eos_id``, generation stops per sequence at the first stop token:
     the stop token is kept, the tail is ``pad_id``, and a finished row
     keeps feeding ``pad_id``. The batch decodes until every row finishes or
     ``gen_len``.
+
+    Over a ``mesh`` (the dense family; ``train.servestep``) ``params`` are
+    this rank's blocks (``make_serve_step(...).shard_params``) and every
+    rank passes the whole batch: each runs its rows over the DP axes,
+    tensor-parallel over 'model', and returns the whole (B, gen_len) (the
+    tokens gathered over the DP axes).
+
+    ``record`` (a dict), if given, receives what the run measured: the
+    logits of the prefill and of each decode step (this rank's rows, f32
+    on the host), each step's top-2 margin of the logits that chose its
+    token, the collective bytes of the prefill and of each decode step,
+    and the host seconds of each (synchronized).
     """
+    from repro_torch.core.distributed import CollectiveCounter
+
     B = prompts.shape[0]
-    art = make_serve_step(cfg, device=prompts.device)
-    state = models.init_decode_state(cfg, B, max_len, device=prompts.device)
-    logits = art.prefill_fn(params, state, {"tokens": prompts,
-                                            **(extras or {})})
+    device = prompts.device
+    quantized = is_quantized(params)
+    check_mesh_family(cfg, mesh, quantized)
+    art = make_serve_step(cfg, device=device, mesh=mesh, quantized=quantized)
+    state = art.init_state(B, max_len)
+    inputs = art.rows({"tokens": prompts, **(extras or {})})
+    rec = record if record is not None else {}
+    rec.update(prefill_bytes=0, decode_bytes=[], decode_s=[], margin=[],
+               logits=[])
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        with CollectiveCounter() as counter:
+            out = fn(*args)
+        if record is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out, counter.total, time.perf_counter() - t0
+
+    def pick(logits):
+        top = logits[:, : cfg.vocab_size]
+        if record is not None:
+            two = top.topk(2, dim=-1).values
+            rec["margin"].append((two[:, 0] - two[:, 1]).cpu())
+            rec["logits"].append(logits.float().cpu())
+        return top.argmax(-1)
+
+    logits, rec["prefill_bytes"], rec["prefill_s"] = timed(
+        art.prefill_fn, params, state, inputs)
+    rows = logits.shape[0]
     out = []
-    finished = torch.zeros((B,), dtype=torch.bool, device=prompts.device)
-    tok = logits[:, : cfg.vocab_size].argmax(-1)
+    finished = torch.zeros((rows,), dtype=torch.bool, device=device)
+    tok = pick(logits)
     for _ in range(gen_len):
         if eos_id is not None:
             tok = torch.where(finished, pad_id, tok)
         out.append(tok)
         if eos_id is not None:
             finished = finished | (tok == eos_id)
-            if bool(finished.all()):
+            if _all_finished(finished, mesh):
                 break
-        logits = art.decode_fn(params, state, tok[:, None])
-        tok = logits[:, : cfg.vocab_size].argmax(-1)
+        logits, nbytes, secs = timed(art.decode_fn, params, state,
+                                     tok[:, None])
+        rec["decode_bytes"].append(nbytes)
+        rec["decode_s"].append(secs)
+        tok = pick(logits)
     gen = torch.stack(out, dim=1)
     if gen.shape[1] < gen_len:  # every row hit EOS early: pad the tail
         gen = torch.nn.functional.pad(gen, (0, gen_len - gen.shape[1]),
                                       value=pad_id)
+    if mesh is not None and rows != B:
+        from repro_torch.parallel import sharding as shd
+
+        gen = shd.gather_leaf(gen.contiguous(), shd.batch_specs(
+            {"t": prompts}, mesh)["t"], mesh)
     return gen
+
+
+def _all_finished(finished: torch.Tensor, mesh) -> bool:
+    """Whether every row finished, on every DP rank of the mesh (a control
+    message, outside the collective count): the ranks stop together."""
+    done = torch.tensor([int(bool(finished.all()))], dtype=torch.int64,
+                        device=finished.device)
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        if mesh.backend == "gloo" and done.device.type == "cuda":
+            done = done.cpu()
+        dist.all_reduce(done, op=dist.ReduceOp.MIN)
+    return bool(done.item())
 
 
 def _report_warmup(ctx, warm: dict, seconds: float, label: str) -> None:
@@ -410,16 +494,44 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the plan pre-solve (plans solve lazily)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="the static server over a (data, model) mesh of "
+                         "the world's ranks (default: one device)")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="the mesh's collectives (default: nccl on the "
+                         "card, gloo on the CPU; gloo on the card stages "
+                         "them through host memory)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config's depth to N layers (full width)")
+    ap.add_argument("--record-out", default=None, metavar="PREFIX",
+                    help="static server: write what the run measured to "
+                         "PREFIX.rank<r>.pt")
     add_context_args(ap)
     add_serve_engine_args(ap)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     ctx = context_from_args(args)
+    mesh = None
+    if args.mesh is not None:
+        if args.engine:
+            raise NotImplementedError("the engine over a mesh: ROADMAP "
+                                      "queue 1, item 5")
+        mesh = make_local_mesh(*parse_mesh(args.mesh), device=device,
+                               backend=args.backend)
+    elif args.backend is not None:
+        raise SystemExit("--backend goes with --mesh")
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     with use_context(ctx):
         cfg = C.get_config(args.arch)
         if args.smoke:
             cfg = C.smoke(cfg)
+        if args.n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.n_layers).validate()
+        check_mesh_family(cfg, mesh, ctx.quant_mode == "int8")
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         params = models.init(cfg, seed=0, device=device)
         quantize_s = None
         if ctx.quant_mode == "int8":
@@ -431,13 +543,29 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             quantize_s = time.perf_counter() - t0
-            print(f"[quant] int8 weights quantized at load in "
-                  f"{quantize_s:.2f}s")
+            say(f"[quant] int8 weights quantized at load in "
+                f"{quantize_s:.2f}s")
         if args.engine:
             res = _run_engine(args, ctx, cfg, params, device,
                               measure_factory)
             res["quantize_s"] = quantize_s
             return res
+        if mesh is not None:
+            # every rank makes the whole model, then keeps its blocks
+            params = make_serve_step(
+                cfg, device=device, mesh=mesh,
+                quantized=ctx.quant_mode == "int8").shard_params(params)
+        # the load's peak (over a mesh: the whole init and the blocks at
+        # once), then serving's own
+        init_peak = _peak_gib(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        if mesh is not None:
+            eager = any(n > 1 for n in mesh.shape)
+            say(f"[mesh] {mesh.describe()}: {mesh.size} ranks; this rank "
+                f"keeps {param_count(params) / 1e6:.1f}M parameters "
+                f"(the load's transient peak {init_peak:.2f} GiB); the "
+                f"decode step runs {'eager' if eager else 'captured'}")
         rng = np.random.default_rng(0)
         prompts = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, size=(args.batch, args.prompt_len))).to(device)
@@ -455,35 +583,68 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
             t0 = time.perf_counter()
             warm = plan_model(cfg, batch=args.batch,
                               prompt_len=args.prompt_len, max_len=max_len,
-                              params=params, extras=extras)
-            _report_warmup(ctx, warm, time.perf_counter() - t0, "warm-up")
+                              params=params, extras=extras, mesh=mesh)
+            if lead:
+                _report_warmup(ctx, warm, time.perf_counter() - t0,
+                               "warm-up")
         warm_stats = ctx.plan_cache.stats.snapshot()
 
+        record = {} if args.record_out or mesh is not None else None
+        before = graphs.launches()
         t0 = time.perf_counter()
         out = serve_batch(cfg, params, prompts, gen_len=args.gen,
                           max_len=max_len, extras=extras,
-                          eos_id=args.eos_id)
+                          eos_id=args.eos_id, mesh=mesh, record=record)
         out = out.cpu()  # waits for the device
         dt = time.perf_counter() - t0
+        launched = {k: n - before[k] for k, n in graphs.launches().items()}
         toks = args.batch * args.gen
         qtag = f" quant={ctx.quant_mode}" if ctx.quant_mode else ""
-        print(f"[serve] arch={cfg.name}{qtag} hw={ctx.hw.name} device={device} "
-              f"generated {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s "
-              f"incl. any first-call kernel build)")
-        print("first row:", out[0].numpy()[:12], "...")
+        say(f"[serve] arch={cfg.name}{qtag} hw={ctx.hw.name} device={device} "
+            f"generated {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s "
+            f"incl. any first-call kernel build)")
+        say("first row:", out[0].numpy()[:12], "...")
 
         st = ctx.plan_cache.stats
         lazy = st.lazy_solves - warm_stats.lazy_solves
         missed = st.misses - warm_stats.misses
-        print(f"[plan-cache] serving: hits={st.hits - warm_stats.hits} "
-              f"misses={missed} lazy_solves={lazy} ({st})")
+        say(f"[plan-cache] serving: hits={st.hits - warm_stats.hits} "
+            f"misses={missed} lazy_solves={lazy} ({st})")
+        if mesh is not None:
+            say(f"[mesh] collective bytes a rank: prefill "
+                f"{record['prefill_bytes']}, a decode step "
+                f"{sorted(set(record['decode_bytes']))}; peak "
+                f"{_peak_gib(device):.2f} GiB")
+        if args.record_out:
+            record.update(
+                tokens=out, launches=launched, lazy_solves=lazy,
+                misses=missed, init_peak_gib=init_peak,
+                peak_gib=_peak_gib(device), seconds=dt,
+                margin=torch.stack(record["margin"], 1),
+                mesh=None if mesh is None else mesh.describe(),
+                rank=0 if mesh is None else mesh.rank)
+            torch.save(record, f"{args.record_out}.rank{record['rank']}.pt")
         if not args.no_warmup and (lazy or missed):
             raise SystemExit(
                 f"plan warm-up incomplete: {missed} unseen signatures, "
                 f"{lazy} lazy solves during serving")
     return {"tokens": toks, "seconds": dt, "lazy_solves": lazy,
-            "misses": missed, "generated": out, "quantize_s": quantize_s}
+            "misses": missed, "generated": out, "quantize_s": quantize_s,
+            "launches": launched, "record": record}
+
+
+def _peak_gib(device) -> float:
+    """The device's peak allocated memory so far, GiB (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(device) / 2**30
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()

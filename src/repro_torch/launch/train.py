@@ -20,14 +20,23 @@ rank, under torchrun:
   torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh 1x1 ...
   torchrun --nproc-per-node 8 -m repro_torch.launch.train --mesh 4x2 \\
       --smoke --device cpu ...
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh 1x2 \\
+      --backend gloo --n-layers 4 --ckpt-every 0 ...
 
 With a mesh, rank 0 prints and writes the checkpoints (whole leaves), and
-each step's collective bytes are counted. ``--ckpt-every 0`` writes no
+each step's collective bytes are counted. The step is tensor-parallel over
+'model' (``train.trainstep``). ``--backend gloo`` puts several ranks on
+one card (each collective staged through host memory); nccl is the
+default there. ``--n-layers`` cuts the config's depth (its width stays);
+``--record-out PATH`` has rank 0 write each step's loss, gradient norm,
+collective bytes and host seconds, its kernel launches and the final
+parameters, whole, to PATH (``torch.save``). ``--ckpt-every 0`` writes no
 checkpoint at all (a run at full width, whose state is tens of GB).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -40,8 +49,9 @@ from repro_torch.ft import checkpoint as ckpt_lib
 from repro_torch.ft.elastic import resume_on_device, resume_on_mesh
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.launch.args import add_context_args, context_from_args
-from repro_torch.launch.mesh import init_mesh
+from repro_torch.launch.mesh import BACKENDS, init_mesh
 from repro_torch.models import param_count
+from repro_torch.train import graphs
 
 
 def parse_mesh(text: str) -> tuple[int, int]:
@@ -72,6 +82,16 @@ def main(argv: list[str] | None = None) -> dict:
                     help="the reference's 16 x 16 mesh (256 ranks)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --production-mesh: 2 x 16 x 16 (512 ranks)")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="the mesh's collectives (default: nccl on the "
+                         "card, gloo on the CPU; gloo on the card stages "
+                         "them through host memory)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config's depth to N layers (full width)")
+    ap.add_argument("--record-out", default=None, metavar="PATH",
+                    help="rank 0 writes the run's losses, gradient norms, "
+                         "collective bytes, step seconds and final "
+                         "parameters (whole) to PATH")
     add_context_args(ap, include_quant=False)
     args = ap.parse_args(argv)
 
@@ -80,16 +100,18 @@ def main(argv: list[str] | None = None) -> dict:
 
 
 def _mesh(args, device):
+    kw = dict(device=device, backend=args.backend)
     if args.production_mesh:
         if args.multi_pod:
-            return init_mesh((2, 16, 16), ("pod", "data", "model"),
-                             device=device)
-        return init_mesh((16, 16), ("data", "model"), device=device)
+            return init_mesh((2, 16, 16), ("pod", "data", "model"), **kw)
+        return init_mesh((16, 16), ("data", "model"), **kw)
     if args.multi_pod:
         raise ValueError("--multi-pod goes with --production-mesh")
     if args.mesh is None:
+        if args.backend is not None:
+            raise ValueError("--backend goes with --mesh")
         return None
-    return init_mesh(parse_mesh(args.mesh), ("data", "model"), device=device)
+    return init_mesh(parse_mesh(args.mesh), ("data", "model"), **kw)
 
 
 def _slowest(dt: float, mesh) -> float:
@@ -113,6 +135,8 @@ def _run(args) -> dict:
     cfg = C.get_config(args.arch)
     if args.smoke:
         cfg = C.smoke(cfg)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers).validate()
     mesh = _mesh(args, device)
     ckpt_dir = args.ckpt_dir or os.path.join(
         "checkpoints", cfg.name.replace("/", "_"))
@@ -133,7 +157,8 @@ def _run(args) -> dict:
     ckpt = ckpt_lib.AsyncCheckpointer(ckpt_dir, art.state_shardings) \
         if args.ckpt_every > 0 else None
     monitor = StragglerMonitor()
-    losses, seconds, coll = [], [], []
+    losses, seconds, coll, gnorms = [], [], [], []
+    before = graphs.launches()
     for step in range(start, args.steps):
         b = batch_for(cfg, args.seq, args.batch, step)
         t0 = time.perf_counter()
@@ -145,6 +170,7 @@ def _run(args) -> dict:
         losses.append(loss)
         seconds.append(dt)
         coll.append(counter.by_kind())
+        gnorms.append(float(metrics["grad_norm"]))
         if step % args.log_every == 0 or step == args.steps - 1:
             say(f"  step {step:5d} loss {loss:8.4f} "
                 f"gnorm {float(metrics['grad_norm']):7.3f} "
@@ -170,8 +196,37 @@ def _run(args) -> dict:
         say(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
             + (f"(ckpt at {ckpt_dir})" if ckpt is not None else
                "(no checkpoint)"))
+    if args.record_out:
+        _record(args.record_out, art, state, mesh, lead,
+                {"losses": losses, "grad_norms": gnorms, "step_s": seconds,
+                 "collective_bytes": coll, "start_step": start,
+                 "launches": {k: n - before[k]
+                              for k, n in graphs.launches().items()}})
     return {"start_step": start, "losses": losses, "step_s": seconds,
-            "collective_bytes": coll, "microbatches": art.microbatches}
+            "collective_bytes": coll, "microbatches": art.microbatches,
+            "grad_norms": gnorms}
+
+
+def _record(path: str, art, state, mesh, lead: bool, rec: dict) -> None:
+    """--record-out: the parameters gathered whole (every rank takes part,
+    outside the steps' count) and written with ``rec`` by rank 0."""
+    import torch
+
+    from repro_torch.interop import tree_items
+    from repro_torch.parallel import sharding as shd
+
+    spec_of = {} if mesh is None else {
+        p: s.spec for p, s in tree_items(art.state_shardings["params"])}
+    params = {}
+    for p, t in tree_items(state["params"]):
+        t = t.detach()
+        if mesh is not None:
+            t = shd.gather_leaf(t, spec_of[p], mesh)
+        if lead:
+            params[p] = t.cpu()
+        del t
+    if lead:
+        torch.save({**rec, "params": params}, path)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,11 @@ graph replays at any position, and nothing in it reads a value back to
 the host. JAX drops an out-of-range scatter index (``mode="drop"``);
 PyTorch raises on the CPU and faults on the card, so each write here
 keeps its indices in range by construction and says how.
+
+Under a sharded plan with 'model' above 1 (``parallel.fsdp.ShardPlan``)
+full-sequence attention, prefill and the contiguous decode are
+tensor-parallel (:func:`_attend_full`, :func:`decode_attention`); the
+paged paths are not (the engine does not run over a mesh).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import distributed as cd
 from repro_torch.layers import common as cm
 from repro_torch.quant import int8 as q8
 from repro_torch.quant.kvcache import KVCacheDtype
@@ -73,9 +79,7 @@ def _attn_mode(n_heads: int, seq: int) -> str:
     """How the reference parallelizes attention activations over the
     'model' axis of the active context's mesh: 'heads' (heads divide it),
     'seq' (context parallelism: the query sequence divides it) or 'none'
-    (no such axis, or tiny shapes). The port's sharded step does not split
-    attention yet (ranks along 'model' compute the same rows); this is the
-    rule tensor parallelism will follow."""
+    (no such axis, or tiny shapes)."""
     tp = cm.axis_size("model")
     if tp <= 1:
         return "none"
@@ -84,6 +88,161 @@ def _attn_mode(n_heads: int, seq: int) -> str:
     if seq % tp == 0:
         return "seq"
     return "none"
+
+
+def _tp_mode(p: AttnParams, n_heads: int, seq: int) -> str:
+    """:func:`_attn_mode` under a tensor-parallel plan ('none' without
+    one). 'heads' needs ``wq`` and ``wo`` as this rank's head blocks."""
+    tp = cm.tp_size()
+    if tp == 1:
+        return "none"
+    mode = _attn_mode(n_heads, seq)
+    if mode == "heads" and (cm.block_dim(p.wq) != 1
+                            or cm.block_dim(p.wo) != 0):
+        mode = "seq" if seq % tp == 0 else "none"
+    return mode
+
+
+def _whole(p: AttnParams, partial: bool) -> AttnParams:
+    """Every leaf of ``p`` whole over 'model' (``cm.model_whole``)."""
+    return AttnParams(*(cm.model_whole(t, partial=partial) for t in p))
+
+
+def _rope(q, k, positions, hd: int, theta: float):
+    sin, cos = cm.rotary_embedding(positions, hd, theta)
+    return cm.apply_rotary(q, sin, cos), cm.apply_rotary(k, sin, cos)
+
+
+def _proj_whole(xin, w, b, mesh):
+    """``xin @ w + b`` of every column from ``xin`` (already through
+    ``copy_to_model``): a column block's output gathered over 'model' (its
+    gradient summed: each rank reads its own columns of it), or a whole
+    weight's product (its gradient summed over 'model')."""
+    if cm.block_dim(w) is not None:
+        return cd.gather_from_model(cd.local_gemm(xin, w, b), mesh, -1,
+                                    sum_grad=True)
+    return cd.local_gemm(xin, cm.model_whole(w, partial=True),
+                         cm.model_whole(b, partial=True))
+
+
+def _expand(q, k, v, idx):
+    """k and v per query head: repeated (GQA), or the kv head ``idx[j]``
+    for local query head j."""
+    if idx is None:
+        rep = q.shape[2] // k.shape[2]
+        return _repeat_kv(k, rep), _repeat_kv(v, rep)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attend_full(p: AttnParams, x, src, *, n_heads: int, n_kv: int,
+                 hd: int, causal: bool, chunk, positions, rope_theta: float):
+    """Attention of ``x`` (B, S, d) over ``src`` (None: self-attention;
+    rotary at ``positions`` unless None), the output projection included
+    (``n_heads`` may be None without a tensor-parallel plan):
+    (y (B, S, d), k, v). k and v are (B, Sk, Hkv', Dh) as computed: this
+    rank's kv heads ('heads' mode with kv heads dividing 'model') or every
+    kv head (the other cases), rotated.
+
+    Tensor-parallel over 'model' under a sharded plan (:func:`_tp_mode`):
+
+    * 'heads': q of this rank's heads (column-parallel), k and v of its kv
+      heads; where the kv heads do not divide 'model' (GQA), k and v of
+      every kv head (their column blocks' outputs gathered) and each local
+      query head reads its own kv head; ``wo`` row-parallel;
+    * 'seq': the leaves gathered whole (their gradients summed over
+      'model'), q, k and v of this rank's S/tp rows, k and v gathered along
+      S, attention at this rank's causal offset, ``wo`` on its rows, the
+      rows gathered along S;
+    * 'none': the leaves gathered whole, every rank computes alike.
+    """
+    B, S, _ = x.shape
+    if positions is None and p.bk is not None and p.bk.requires_grad:
+        # unrotated keys: the softmax cancels q . b_k, whose gradient is
+        # exactly 0 (computed, it is the rounding of a sum that cancels,
+        # which Adam's 1 / eps would turn into a step)
+        dim = cd.model_block_dim(p.bk)
+        bk = p.bk.detach()
+        p = p._replace(bk=bk if dim is None else
+                       cd.mark_model_block(bk, dim))
+    mode = _tp_mode(p, n_heads, S)
+    if mode == "heads":
+        return _heads_attention(p, x, src, n_heads=n_heads, n_kv=n_kv, hd=hd,
+                                causal=causal, chunk=chunk,
+                                positions=positions, rope_theta=rope_theta)
+    if mode == "seq":
+        return _seq_attention(p, x, src, n_kv=n_kv, hd=hd, causal=causal,
+                              chunk=chunk, positions=positions,
+                              rope_theta=rope_theta)
+    p = _whole(p, partial=False)
+    kv_in = x if src is None else src
+    Sk = kv_in.shape[1]
+    q = cm.dense(x, p.wq, p.bq).reshape(B, S, -1, hd)
+    k = cm.dense(kv_in, p.wk, p.bk).reshape(B, Sk, n_kv, hd)
+    v = cm.dense(kv_in, p.wv, p.bv).reshape(B, Sk, n_kv, hd)
+    if positions is not None:
+        q, k = _rope(q, k, positions, hd, rope_theta)
+    kr, vr = _expand(q, k, v, None)
+    o = attention_core(q, kr, vr, causal=causal, chunk=chunk)
+    return cm.dense(o.reshape(B, S, -1), p.wo), k, v
+
+
+def _heads_attention(p, x, src, *, n_heads, n_kv, hd, causal, chunk,
+                     positions, rope_theta):
+    mesh = cm.tp_mesh()
+    tp, r = mesh.axis_size("model"), mesh.axis_index("model")
+    B, S, _ = x.shape
+    xin = cd.copy_to_model(x, mesh)
+    kv_in = xin if src is None else cd.copy_to_model(src, mesh)
+    Sk = kv_in.shape[1]
+    q = cd.local_gemm(xin, p.wq, p.bq).reshape(B, S, -1, hd)
+    if n_kv % tp == 0 and cm.block_dim(p.wk) == 1:
+        k = cd.local_gemm(kv_in, p.wk, p.bk).reshape(B, Sk, -1, hd)
+        v = cd.local_gemm(kv_in, p.wv, p.bv).reshape(B, Sk, -1, hd)
+        idx = None
+    else:  # GQA: a column block of wk may split a kv head
+        k = _proj_whole(kv_in, p.wk, p.bk, mesh).reshape(B, Sk, n_kv, hd)
+        v = _proj_whole(kv_in, p.wv, p.bv, mesh).reshape(B, Sk, n_kv, hd)
+        hq = n_heads // tp
+        idx = torch.arange(r * hq, (r + 1) * hq,
+                           device=x.device) // (n_heads // n_kv)
+    if positions is not None:
+        q, k = _rope(q, k, positions, hd, rope_theta)
+    kr, vr = _expand(q, k, v, idx)
+    o = attention_core(q, kr, vr, causal=causal, chunk=chunk)
+    y = cd.row_parallel(o.reshape(B, S, -1), p.wo, mesh=mesh,
+                        out_dtype=x.dtype)
+    return y, k, v
+
+
+def _seq_attention(p, x, src, *, n_kv, hd, causal, chunk, positions,
+                   rope_theta):
+    mesh = cm.tp_mesh()
+    tp, r = mesh.axis_size("model"), mesh.axis_index("model")
+    B, S, _ = x.shape
+    n = S // tp
+    off = r * n
+    pw = _whole(p, partial=True)
+    xr = cd.scatter_to_model(x, mesh, 1)
+    q = cd.local_gemm(xr, pw.wq, pw.bq).reshape(B, n, -1, hd)
+    if src is None or src.shape[1] % tp == 0:
+        # k and v of this rank's rows, gathered along the sequence
+        rows = xr if src is None else cd.scatter_to_model(src, mesh, 1)
+        m = rows.shape[1]
+        k = cd.local_gemm(rows, pw.wk, pw.bk).reshape(B, m, n_kv, hd)
+        v = cd.local_gemm(rows, pw.wv, pw.bv).reshape(B, m, n_kv, hd)
+        if positions is not None:
+            q, k = _rope(q, k, positions[:, off:off + n], hd, rope_theta)
+        k = cd.gather_from_model(k, mesh, 1, sum_grad=True)
+        v = cd.gather_from_model(v, mesh, 1, sum_grad=True)
+    else:  # a source whose length 'model' does not divide: whole
+        whole = cd.copy_to_model(src, mesh)
+        Sk = whole.shape[1]
+        k = cd.local_gemm(whole, pw.wk, pw.bk).reshape(B, Sk, n_kv, hd)
+        v = cd.local_gemm(whole, pw.wv, pw.bv).reshape(B, Sk, n_kv, hd)
+    kr, vr = _expand(q, k, v, None)
+    o = attention_core(q, kr, vr, causal=causal, chunk=chunk, q_offset=off)
+    y = cd.local_gemm(o.reshape(B, n, -1), pw.wo)
+    return cd.gather_from_model(y, mesh, 1), k, v
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -169,21 +328,14 @@ def self_attention(
 ) -> torch.Tensor:
     """Full-sequence GQA self-attention (forward without cache).
     ``positions`` (B or 1, S) default to 0..S-1; ``use_rope=False`` (the
-    encoder-decoder's encoder) leaves q and k unrotated."""
-    B, S, _ = x.shape
-    q = cm.dense(x, p.wq, p.bq).reshape(B, S, n_heads, head_dim)
-    k = cm.dense(x, p.wk, p.bk).reshape(B, S, n_kv_heads, head_dim)
-    v = cm.dense(x, p.wv, p.bv).reshape(B, S, n_kv_heads, head_dim)
-    if use_rope:
-        if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :]
-        sin, cos = cm.rotary_embedding(positions, head_dim, rope_theta)
-        q = cm.apply_rotary(q, sin, cos)
-        k = cm.apply_rotary(k, sin, cos)
-    k = _repeat_kv(k, n_heads // n_kv_heads)
-    v = _repeat_kv(v, n_heads // n_kv_heads)
-    o = attention_core(q, k, v, causal=causal, chunk=chunk)
-    return cm.dense(o.reshape(B, S, n_heads * head_dim), p.wo)
+    encoder-decoder's encoder) leaves q and k unrotated. Tensor-parallel
+    under a sharded plan (:func:`_attend_full`)."""
+    if use_rope and positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return _attend_full(p, x, None, n_heads=n_heads, n_kv=n_kv_heads,
+                        hd=head_dim, causal=causal, chunk=chunk,
+                        positions=positions if use_rope else None,
+                        rope_theta=rope_theta)[0]
 
 
 def cross_attention(
@@ -197,16 +349,11 @@ def cross_attention(
     chunk: int | None = None,
 ) -> torch.Tensor:
     """Cross-attention: queries from x (B, S, d), keys and values from
-    ``kv_src`` (B, Sk, d); no rope, no causal mask."""
-    B, S, _ = x.shape
-    Sk = kv_src.shape[1]
-    q = cm.dense(x, p.wq, p.bq).reshape(B, S, n_heads, head_dim)
-    k = cm.dense(kv_src, p.wk, p.bk).reshape(B, Sk, n_kv_heads, head_dim)
-    v = cm.dense(kv_src, p.wv, p.bv).reshape(B, Sk, n_kv_heads, head_dim)
-    k = _repeat_kv(k, n_heads // n_kv_heads)
-    v = _repeat_kv(v, n_heads // n_kv_heads)
-    o = attention_core(q, k, v, causal=False, chunk=chunk)
-    return cm.dense(o.reshape(B, S, n_heads * head_dim), p.wo)
+    ``kv_src`` (B, Sk, d); no rope, no causal mask. Tensor-parallel under a
+    sharded plan (:func:`_attend_full`)."""
+    return _attend_full(p, x, kv_src, n_heads=n_heads, n_kv=n_kv_heads,
+                        hd=head_dim, causal=False, chunk=chunk,
+                        positions=None, rope_theta=0.0)[0]
 
 
 class KVCache(NamedTuple):
@@ -226,42 +373,90 @@ def init_kv_cache(batch, max_len, n_kv_heads, head_dim,
                    length=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _cache_layout(n_kv: int, hd: int) -> str:
+    """How a contiguous cache lies over 'model' (``decode_state_specs``):
+    'whole' (no tensor-parallel plan), 'heads' (the kv heads divide it) or
+    'head_dim'. The sequence fallback (neither divides) is not ported."""
+    tp = cm.tp_size()
+    if tp == 1:
+        return "whole"
+    if n_kv % tp == 0:
+        return "heads"
+    if hd % tp == 0:
+        return "head_dim"
+    raise NotImplementedError(
+        f"a KV cache of {n_kv} kv heads x {hd} over a 'model' axis of {tp} "
+        "(the decode cache's sequence fallback): ROADMAP queue 1, item 5")
+
+
+def _cache_block(t, cache, layout: str):
+    """This rank's block of k or v (B, S, Hkv', Dh) as ``cache`` stores it:
+    ``t`` itself where it already is (this rank's kv heads, or a whole
+    cache), else its kv heads' or head_dim's block."""
+    if t.shape[2:] == cache.k.shape[2:]:
+        return t
+    r = cm.tp_mesh().axis_index("model")
+    if layout == "heads":
+        n = cache.k.shape[2]
+        return t[:, :, r * n:(r + 1) * n]
+    n = cache.k.shape[3]
+    return t[..., r * n:(r + 1) * n]
+
+
 def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
-                      rope_theta: float = 10000.0, chunk: int | None = 1024
+                      rope_theta: float = 10000.0, chunk: int | None = 1024,
+                      n_heads: int | None = None,
+                      n_kv_heads: int | None = None,
+                      head_dim: int | None = None
                       ) -> tuple[torch.Tensor, KVCache]:
     """Prefill: full self-attention + write the KV cache prefix in place
     (the counterpart of the reference's donated ``dynamic_update_slice``).
-    The caller sets the length (``lm.prefill``)."""
+    The caller sets the length (``lm.prefill``). The head counts default
+    to the cache's; under a tensor-parallel plan they are the model's
+    (the cache is this rank's block, ``decode_state_specs``) and the
+    attention runs as :func:`_attend_full` does."""
     B, S, _ = x.shape
-    n_kv, hd = cache.k.shape[2], cache.k.shape[3]
-    q, k, v = _qkv_rotary(p, x, n_kv, hd,
-                          torch.arange(S, device=x.device)[None, :],
-                          rope_theta)
-    cache.k[:, :S] = k
-    cache.v[:, :S] = v
-    n_heads = q.shape[2]
-    kr = _repeat_kv(k, n_heads // n_kv)
-    vr = _repeat_kv(v, n_heads // n_kv)
-    o = attention_core(q, kr, vr, causal=True, chunk=chunk)
-    return cm.dense(o.reshape(B, S, -1), p.wo), cache
+    n_kv = n_kv_heads or cache.k.shape[2]
+    hd = head_dim or cache.k.shape[3]
+    layout = _cache_layout(n_kv, hd)
+    if n_heads is None and layout != "whole":
+        raise ValueError("a tensor-parallel prefill needs the model's head "
+                         "counts")
+    y, k, v = _attend_full(
+        p, x, None, n_heads=n_heads, n_kv=n_kv, hd=hd, causal=True,
+        chunk=chunk, positions=torch.arange(S, device=x.device)[None, :],
+        rope_theta=rope_theta)
+    cache.k[:, :S] = _cache_block(k, cache, layout)
+    cache.v[:, :S] = _cache_block(v, cache, layout)
+    return y, cache
 
 
-def _decode_contract(p: AttnParams, q, x, gk, gv, valid) -> torch.Tensor:
-    """The masked contraction of every decode path and of the verify pass:
-    q (B, S, H, Dh) against the (B, K, Hkv, Dh) keys and values in the
-    cache's storage dtype, accumulated in f32; ``valid`` (B, K) for one
-    query a row (decode), (B, S, K) for S (verify)."""
-    B, S = x.shape[:2]
-    n_heads, n_kv = q.shape[2], gk.shape[2]
+def _attend(qs, gk, gv, valid, scores=None) -> torch.Tensor:
+    """The masked contraction: ``qs`` (B, S, H, D), scaled and in the
+    cache's storage dtype, against the (B, K, Hkv, D) keys and values,
+    accumulated in f32; ``valid`` (B, K) for one query a row (decode), (B,
+    S, K) for S (verify). ``scores`` (if given) maps the raw scores before
+    the mask (the sum over 'model' of head_dim blocks). Returns o (B, S,
+    H, D) f32."""
+    n_heads, n_kv = qs.shape[2], gk.shape[2]
     kr = _repeat_kv(gk, n_heads // n_kv)
     vr = _repeat_kv(gv, n_heads // n_kv)
-    s = torch.einsum("bqhd,bkhd->bhqk",
-                     _scaled(q).to(kr.dtype).float(), kr.float())
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kr.float())
+    if scores is not None:
+        s = scores(s)
     if valid.dim() == 2:
         valid = valid[:, None, :]
     s = torch.where(valid[:, None], s, NEG_INF)
     prob = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", prob.to(vr.dtype).float(), vr.float())
+    return torch.einsum("bhqk,bkhd->bqhd", prob.to(vr.dtype).float(),
+                        vr.float())
+
+
+def _decode_contract(p: AttnParams, q, x, gk, gv, valid) -> torch.Tensor:
+    """The masked contraction of every decode path and of the verify pass
+    (:func:`_attend`), then ``wo``."""
+    B, S = x.shape[:2]
+    o = _attend(_scaled(q).to(gk.dtype), gk, gv, valid)
     return cm.dense(o.reshape(B, S, -1).to(x.dtype), p.wo)
 
 
@@ -277,7 +472,10 @@ def _qkv_rotary(p: AttnParams, x, n_kv: int, hd: int, positions,
 
 
 def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
-                     rope_theta: float = 10000.0
+                     rope_theta: float = 10000.0,
+                     n_heads: int | None = None,
+                     n_kv_heads: int | None = None,
+                     head_dim: int | None = None
                      ) -> tuple[torch.Tensor, KVCache]:
     """One decode step: x (B, 1, d) against the cache; the new K/V are
     written in place at ``cache.length``.
@@ -290,6 +488,15 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     value written back, so the write is a no-op there too. A 0-d length
     past the cache writes at S_max - 1 instead, where the reference's
     ``dynamic_update_slice`` clamps its start, and every slot stays valid.
+
+    Under a tensor-parallel plan the cache is this rank's block
+    (:func:`_cache_layout`, the head counts are the model's): with kv heads
+    over 'model', q, k and v of this rank's heads (column-parallel) and
+    ``wo`` row-parallel; with head_dim over 'model', q, k and v of every
+    head (the column blocks' outputs gathered), this rank's head_dim block
+    written and contracted, the scores summed over 'model' before the
+    softmax, the output gathered over head_dim before ``wo``
+    (row-parallel).
     """
     B, S1, _ = x.shape
     if S1 != 1:
@@ -297,9 +504,24 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     S_max, n_kv, hd = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
     pos = cache.length
     per_slot = pos.dim() == 1
-    q, k, v = _qkv_rotary(p, x, n_kv, hd,
-                          pos[:, None] if per_slot else pos.reshape(1, 1),
-                          rope_theta)
+    positions = pos[:, None] if per_slot else pos.reshape(1, 1)
+    layout = "whole"
+    if cm.tp_size() > 1:
+        if n_kv_heads is None or head_dim is None:
+            raise ValueError("a tensor-parallel decode needs the model's "
+                             "head counts")
+        layout = _cache_layout(n_kv_heads, head_dim)
+    if layout == "whole":
+        q, k, v = _qkv_rotary(p, x, n_kv, hd, positions, rope_theta)
+    else:
+        mesh = cm.tp_mesh()
+        xin = cd.copy_to_model(x, mesh)
+        proj = cd.local_gemm if layout == "heads" else \
+            (lambda a, w, b: _proj_whole(a, w, b, mesh))
+        q, k, v = (proj(xin, w, b).reshape(B, 1, -1, head_dim)
+                   for w, b in ((p.wq, p.bq), (p.wk, p.bk), (p.wv, p.bv)))
+        q, k = _rope(q, k, positions, head_dim, rope_theta)
+        k, v = _cache_block(k, cache, layout), _cache_block(v, cache, layout)
     kpos = torch.arange(S_max, device=x.device)
     if per_slot:
         rows = torch.arange(B, device=x.device)
@@ -313,7 +535,24 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
         cache.k.index_copy_(1, at, k)
         cache.v.index_copy_(1, at, v)
         valid = (kpos <= pos).expand(B, S_max)
-    return _decode_contract(p, q, x, cache.k, cache.v, valid), cache
+    if layout == "whole":
+        return _decode_contract(p, q, x, cache.k, cache.v, valid), cache
+    qs = _scaled(q).to(cache.k.dtype)
+    if layout == "heads":
+        o = _attend(qs, cache.k, cache.v, valid)
+    else:
+        r = mesh.axis_index("model")
+        o = _attend(qs[..., r * hd:(r + 1) * hd], cache.k, cache.v, valid,
+                    scores=lambda s: cd.reduce_from_model(s, mesh))
+        o = cd.gather_from_model(o, mesh, -1)
+    o = o.reshape(B, 1, -1).to(x.dtype)
+    if cm.block_dim(p.wo) != 0:
+        return cd.local_gemm(o, p.wo), cache
+    n = p.wo.shape[0]
+    if o.shape[-1] != n:  # every head's output: this rank's rows of wo
+        r = mesh.axis_index("model")
+        o = o[..., r * n:(r + 1) * n]
+    return cd.row_parallel(o, p.wo, mesh=mesh, out_dtype=x.dtype), cache
 
 
 class PagedKVCache(NamedTuple):

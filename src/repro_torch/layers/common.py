@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from repro_torch.core import distributed as cd
 from repro_torch.core.context import current_context
 from repro_torch.core.gemm import balanced_gemm
 from repro_torch.quant.int8 import QuantizedLinear
@@ -53,8 +54,21 @@ def dense(
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Single-device embedding lookup: rows of ``table`` at ``ids``."""
-    return table[ids]
+    """Rows of ``table`` at ``ids``. Vocab-parallel (Megatron-style, the
+    reference's ``embed_lookup(mesh=)``) when ``table`` is this rank's
+    block of rows over 'model' (:func:`block_dim`): each rank looks up its
+    own rows, zeroes the ids outside them and the ranks' rows are summed
+    (an ``all_reduce`` of the (B, S, d) activations, not of the table)."""
+    if block_dim(table) != 0:
+        return table[ids]
+    mesh = tp_mesh()
+    n = table.shape[0]
+    local = ids - mesh.axis_index("model") * n
+    ok = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+    return cd.reduce_from_model(rows, mesh)
 
 
 # ------------------------------------------------------------------ init
@@ -126,6 +140,38 @@ def axis_size(name: str) -> int:
     mesh, or an axis it lacks)."""
     mesh = current_context().mesh
     return 1 if mesh is None else mesh.axis_size(name)
+
+
+def tp_size() -> int:
+    """The extent of 'model' a sharded plan computes tensor-parallel over
+    (the context's ``shard``; 1 without one)."""
+    plan = current_context().shard
+    return 1 if plan is None else plan.tp
+
+
+def tp_mesh():
+    """The mesh of the active sharded plan."""
+    return current_context().shard.mesh
+
+
+def block_dim(t: torch.Tensor | None) -> int | None:
+    """The dim along which ``t`` is this rank's 'model' block under the
+    active plan (None: ``t`` is whole)."""
+    return cd.model_block_dim(t) if tp_size() > 1 else None
+
+
+def model_whole(t: torch.Tensor | None, *, partial: bool):
+    """``t`` whole over 'model'. A block is gathered; its gradient is then
+    this rank's block of the ranks' gradients, summed (``partial``: each
+    rank computes with the whole leaf its own share of the rows) or not
+    (every rank computes alike). A whole leaf stays as it is, with its
+    gradient summed over 'model' when ``partial``."""
+    if t is None or tp_size() == 1:
+        return t
+    dim = block_dim(t)
+    if dim is None:
+        return cd.copy_to_model(t, tp_mesh()) if partial else t
+    return cd.gather_from_model(t, tp_mesh(), dim, sum_grad=partial)
 
 
 def gathered(lp, path: str = "layers", lead: int = 1):

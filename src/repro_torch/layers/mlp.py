@@ -1,11 +1,17 @@
 """MLP variants (port of ``repro.layers.mlp``): SwiGLU, GELU, squared-ReLU,
-with optional biases. The activation rides the fat GEMM kernel's epilogue."""
+with optional biases. The activation rides the fat GEMM kernel's epilogue.
+
+Under a sharded plan whose 'model' blocks split 'ffn' (``w_gate``,
+``w_in`` and ``b_in`` by columns, ``w_out`` by rows), the MLP is
+tensor-parallel: column-parallel up projections, a row-parallel down
+projection, one ``all_reduce`` a call, ``b_out`` added once after it."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import distributed as cd
 from repro_torch.layers import common as cm
 
 
@@ -45,6 +51,8 @@ def mlp_axes(gated=True, bias=False) -> MlpParams:
 def mlp(p: MlpParams, x: torch.Tensor, *, activation: str = "silu"
         ) -> torch.Tensor:
     """activation: 'silu' (gated => SwiGLU), 'gelu', 'relu2', 'relu'."""
+    if cm.block_dim(p.w_in) is not None:
+        return _tp_mlp(p, x, activation)
     if p.w_gate is not None:
         g = cm.dense(x, p.w_gate, activation=activation)
         h = cm.dense(x, p.w_in, p.b_in)
@@ -52,3 +60,15 @@ def mlp(p: MlpParams, x: torch.Tensor, *, activation: str = "silu"
     else:
         h = cm.dense(x, p.w_in, p.b_in, activation=activation)
     return cm.dense(h, p.w_out, p.b_out)
+
+
+def _tp_mlp(p: MlpParams, x: torch.Tensor, activation: str) -> torch.Tensor:
+    mesh = cm.tp_mesh()
+    xin = cd.copy_to_model(x, mesh)
+    if p.w_gate is not None:
+        h = cd.local_gemm(xin, p.w_gate, activation=activation) * \
+            cd.local_gemm(xin, p.w_in, p.b_in)
+    else:
+        h = cd.local_gemm(xin, p.w_in, p.b_in, activation=activation)
+    return cd.row_parallel(h, p.w_out, p.b_out, mesh=mesh,
+                           out_dtype=x.dtype)

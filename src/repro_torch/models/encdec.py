@@ -23,8 +23,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
-from repro_torch.models.lm import (_embed, _layer, _logits, _prefix_axes,
-                                   apply_norm, init_norm, norm_axes)
+from repro_torch.models.lm import (_embed, _heads_kw, _layer, _logits,
+                                   _prefix_axes, apply_norm, init_norm,
+                                   norm_axes)
 
 
 def init_encdec(cfg: ModelConfig, *, seed: int = 0, device
@@ -148,11 +149,12 @@ def prefill(params, batch, cfg: ModelConfig, state):
     x = _embed(params, batch["tokens"], cfg)
     kv = state["kv"]
     for i in range(cfg.n_layers):
-        lp = _layer(params["decoder"], i)
+        lp = cm.gathered(_layer(params["decoder"], i), "decoder")
         cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
         y, _ = attn.prefill_attention(
             lp["attn"], apply_norm(cfg, lp["ln1"], x), cache,
-            rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk)
+            rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
+            **_heads_kw(cfg))
         x = _cross_mlp(cfg, lp, x + y, enc)
     kv.length.fill_(batch["tokens"].shape[1])
     h = apply_norm(cfg, params["final_norm"], x[:, -1:])
@@ -165,11 +167,11 @@ def decode_step(params, tokens, cfg: ModelConfig, state):
     x = _embed(params, tokens, cfg)
     kv, enc = state["kv"], state["enc"]
     for i in range(cfg.n_layers):
-        lp = _layer(params["decoder"], i)
+        lp = cm.gathered(_layer(params["decoder"], i), "decoder")
         cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
         y, _ = attn.decode_attention(
             lp["attn"], apply_norm(cfg, lp["ln1"], x), cache,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, **_heads_kw(cfg))
         x = _cross_mlp(cfg, lp, x + y, enc)
     kv.length.add_(1)
     h = apply_norm(cfg, params["final_norm"], x)

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed as cd
 from repro_torch.core.context import current_context, use_context
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
@@ -247,6 +248,13 @@ def _attn_kw(cfg: ModelConfig):
                 chunk=cfg.attn_chunk)
 
 
+def _heads_kw(cfg: ModelConfig):
+    """The model's head counts, which a cache block under tensor
+    parallelism does not show."""
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim)
+
+
 def _embed(params, tokens, cfg: ModelConfig) -> torch.Tensor:
     return cm.embed_lookup(params["embed"], tokens).to(cfg.dtype)
 
@@ -293,10 +301,11 @@ def _shared_block(cfg: ModelConfig, sp, x, cache=None, mode: str = "full"):
     elif mode == "prefill":
         y, _ = attn.prefill_attention(sp["attn"], h, cache,
                                       rope_theta=cfg.rope_theta,
-                                      chunk=cfg.attn_chunk)
+                                      chunk=cfg.attn_chunk, **_heads_kw(cfg))
     else:
         y, _ = attn.decode_attention(sp["attn"], h, cache,
-                                     rope_theta=cfg.rope_theta)
+                                     rope_theta=cfg.rope_theta,
+                                     **_heads_kw(cfg))
     x = x + y
     return x + mlp_lib.mlp(sp["mlp"], apply_norm(cfg, sp["ln2"], x),
                            activation=cfg.activation)
@@ -311,7 +320,7 @@ def _hybrid_layer(params, cfg: ModelConfig, i: int, x, state=None,
     block's K/V go to layer i's slot of the cache; the other slots are
     left as they are. ``lp``: layer ``i``'s tree, if already taken."""
     if lp is None:
-        lp = _layer(params["layers"], i)
+        lp = cm.gathered(_layer(params["layers"], i))
     prev = (mb.MambaState(ssm=state["ssm"][i], conv=state["conv"][i])
             if mode == "decode" else None)
     y, new = mb.mamba_block(
@@ -380,21 +389,55 @@ def forward(params, tokens, cfg: ModelConfig):
     return x, aux
 
 
-def _logits(params, cfg: ModelConfig, h):
-    """Unembed. Tied embeddings use the (V, d) table as a column-major B."""
+def _unembed(params, cfg: ModelConfig):
+    """(the unembedding table, its layout): tied embeddings use the (V, d)
+    table as a column-major B."""
     if cfg.tie_embeddings:
-        return cm.balanced_gemm(h, params["embed"], b_layout="col",
-                                out_dtype=torch.float32)
-    return cm.dense(h, params["unembed"], out_dtype=torch.float32)
+        return params["embed"], "col"
+    return params["unembed"], "row"
+
+
+def _logits(params, cfg: ModelConfig, h, *, vocab_block: bool = False):
+    """Unembed, (..., Vp) f32. Under a tensor-parallel plan whose 'model'
+    blocks split the vocabulary the product is column-parallel: this
+    rank's (..., Vp / tp) block with ``vocab_block``, else the blocks
+    gathered (every rank then takes the same argmax)."""
+    table, layout = _unembed(params, cfg)
+    if cm.block_dim(table) is None:
+        if layout == "col":
+            return cm.balanced_gemm(h, table, b_layout="col",
+                                    out_dtype=torch.float32)
+        return cm.dense(h, table, out_dtype=torch.float32)
+    mesh = cm.tp_mesh()
+    logits = cd.column_parallel(h, table, mesh=mesh, out_dtype=torch.float32,
+                                b_layout=layout)
+    return logits if vocab_block else cd.gather_from_model(logits, mesh, -1)
 
 
 def _chunk_nll(params, cfg: ModelConfig, h, lab):
-    """One loss chunk: (the sum of its tokens' NLL, its live-label count)."""
-    logits = _logits(params, cfg, h)
+    """One loss chunk: (the sum of its tokens' NLL, its live-label count).
+    Vocab-parallel under a tensor-parallel plan: each rank's logsumexp over
+    its block, all-gathered and combined; the gold logit from the rank that
+    owns the label, summed over 'model'. The loss is then the same number
+    on every rank of 'model'."""
+    logits = _logits(params, cfg, h, vocab_block=True)
     mask = (lab >= 0) & (lab < cfg.vocab_size)
     lab_c = lab.clamp(0, cfg.padded_vocab - 1).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab_c[..., None])[..., 0]
+    if logits.shape[-1] == cfg.padded_vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab_c[..., None])[..., 0]
+    else:
+        mesh = cm.tp_mesh()
+        n = logits.shape[-1]
+        local = lab_c - mesh.axis_index("model") * n
+        own = (local >= 0) & (local < n)
+        parts = cd.gather_from_model(
+            torch.logsumexp(logits, dim=-1)[..., None], mesh, -1)
+        lse = torch.logsumexp(parts, dim=-1)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        gold = cd.reduce_from_model(
+            torch.where(own, gold[..., 0], torch.zeros_like(gold[..., 0])),
+            mesh)
     nll = (lse - gold) * mask
     return nll.sum(), mask.sum(dtype=torch.int32)
 
@@ -509,7 +552,8 @@ def prefill(params, tokens, cfg: ModelConfig, state, last_pos=None):
     x = _embed(params, tokens, cfg)
     if cfg.family == "rwkv":
         for i in range(cfg.n_layers):
-            x, new = _rwkv_block(cfg, _layer(params["layers"], i), x)
+            x, new = _rwkv_block(cfg, cm.gathered(_layer(params["layers"], i)),
+                                 x)
             _write_rwkv_state(state, i, new)
     elif cfg.family == "hybrid":
         x = _hybrid_layers(params, cfg, x, state, mode="prefill")
@@ -518,12 +562,13 @@ def prefill(params, tokens, cfg: ModelConfig, state, last_pos=None):
         S = tokens.shape[1]
         kv = state["kv"]
         for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+            lp = cm.gathered(_layer(params["layers"], i))
             h = apply_norm(cfg, lp["ln1"], x)
             cache = attn.KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
             y, _ = attn.prefill_attention(lp["attn"], h, cache,
                                           rope_theta=cfg.rope_theta,
-                                          chunk=cfg.attn_chunk)
+                                          chunk=cfg.attn_chunk,
+                                          **_heads_kw(cfg))
             x = x + y
             x = x + _ffn(cfg, lp, x)
         kv.length.fill_(S)
@@ -593,7 +638,7 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
     if cfg.family == "rwkv":
         for i in range(cfg.n_layers):
             x, new = _rwkv_block(
-                cfg, _layer(params["layers"], i), x,
+                cfg, cm.gathered(_layer(params["layers"], i)), x,
                 tmix_state=state["wkv"][i],
                 shifts=(state["att_shift"][i], state["ffn_shift"][i]))
             _write_rwkv_state(state, i, new)
@@ -607,7 +652,7 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
         x = _hybrid_layers(params, cfg, x, state, mode="decode")
     else:
         for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+            lp = cm.gathered(_layer(params["layers"], i))
             h = apply_norm(cfg, lp["ln1"], x)
             if paged:
                 y, _ = attn.paged_decode_attention(
@@ -617,7 +662,8 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
                 cache = attn.KVCache(k=kv.k[i], v=kv.v[i],
                                      length=kv.length)
                 y, _ = attn.decode_attention(lp["attn"], h, cache,
-                                             rope_theta=cfg.rope_theta)
+                                             rope_theta=cfg.rope_theta,
+                                             **_heads_kw(cfg))
             x = x + y
             x = x + _ffn(cfg, lp, x, live)
     kv.length.add_(1 if active is None else active.to(kv.length.dtype))

@@ -30,8 +30,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
-from repro_torch.models.lm import (_embed, _layer, _logits, _prefix_axes,
-                                   apply_norm, init_norm, norm_axes)
+from repro_torch.models.lm import (_embed, _heads_kw, _layer, _logits,
+                                   _prefix_axes, apply_norm, init_norm,
+                                   norm_axes)
 
 
 def group_dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -121,10 +122,11 @@ def _self_block(cfg: ModelConfig, lp, x, mode: str = "full", cache=None):
     elif mode == "prefill":
         y, _ = attn.prefill_attention(lp["attn"], h, cache,
                                       rope_theta=cfg.rope_theta,
-                                      chunk=cfg.attn_chunk)
+                                      chunk=cfg.attn_chunk, **_heads_kw(cfg))
     else:
         y, _ = attn.decode_attention(lp["attn"], h, cache,
-                                     rope_theta=cfg.rope_theta)
+                                     rope_theta=cfg.rope_theta,
+                                     **_heads_kw(cfg))
     x = x + y
     return x + mlp_lib.mlp(lp["mlp"], apply_norm(cfg, lp["ln2"], x),
                            activation=cfg.activation)

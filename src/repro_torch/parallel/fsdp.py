@@ -10,8 +10,16 @@ once a step by the train step. A gather is :class:`Gather`, an autograd
 Function whose backward reduces the gradient (:func:`reduce_grad`): over a
 DP axis the leaf is split on, a reduce-scatter; over a DP axis it is not,
 an all-reduce; then the mean over the DP extent; over 'model', this rank's
-slice (ranks along 'model' compute the same rows in this slice: the axis
-shards storage, not compute; tensor-parallel compute is the next slice).
+slice (every rank along 'model' computed the same whole leaf).
+
+Tensor parallelism: a leaf of an attention or MLP block (``AttnParams``,
+``MlpParams``) and the vocab-split embedding and unembedding keep their
+'model' block. They are gathered over the DP axes only, marked
+(``core.distributed.mark_model_block``) and consumed as blocks by the
+layers (column- and row-parallel products, the vocab-parallel lookup,
+unembedding and loss): their gradient is already this rank's block, so
+``reduce_grad`` takes no slice over 'model' for them. Any other leaf
+(rwkv's, Mamba-2's, the MoE expert tables) is gathered whole as before.
 
 With a mesh whose every extent is 1 nothing is gathered or reduced and no
 Function is inserted: the step is the one-device step, bit for bit.
@@ -25,7 +33,53 @@ import torch
 from repro_torch.core import distributed as cd
 from repro_torch.core.context import current_context, use_context
 from repro_torch.interop import tree_items, tree_map_with_path
+from repro_torch.layers.attention import AttnParams
+from repro_torch.layers.mlp import MlpParams
 from repro_torch.parallel import sharding as shd
+
+# the top-level leaves split over 'vocab', consumed vocab-parallel
+VOCAB_LEAVES = ("embed", "unembed")
+
+
+def stacked_keys(axes) -> set[str]:
+    """The top-level subtrees whose every leaf is stacked on a leading
+    'layers' dim: the models gather those a layer slice at a time."""
+    return {k for k, a in axes.items()
+            if all(ax[:1] == ("layers",) for _, ax in tree_items(a))}
+
+
+def _tp_paths(specs, path: str = "", inside: bool = False):
+    """The paths of the leaves inside an attention or MLP block."""
+    if specs is None:
+        return
+    inside = inside or isinstance(specs, (AttnParams, MlpParams))
+    join = lambda k: f"{path}/{k}" if path else str(k)
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            yield from _tp_paths(v, join(k), inside)
+    elif hasattr(specs, "_fields") and not isinstance(specs,
+                                                      shd.PartitionSpec):
+        for f, v in zip(specs._fields, specs):
+            yield from _tp_paths(v, join(f), inside)
+    elif inside:
+        yield path
+
+
+def model_dim(spec, mesh) -> int | None:
+    """The dim ``spec`` splits over 'model' (extent above 1), or None."""
+    if mesh.axis_size("model") == 1:
+        return None
+    return next((d for d, e in enumerate(spec)
+                 if "model" in cd.entry_axes(e)), None)
+
+
+def without_model(spec) -> shd.PartitionSpec:
+    """``spec`` with 'model' taken out of every entry."""
+    def entry(e):
+        names = tuple(n for n in cd.entry_axes(e) if n != "model")
+        return None if not names else names[0] if len(names) == 1 else names
+
+    return shd.P(*(entry(e) for e in spec))
 
 
 def reduce_grad(g: torch.Tensor, spec, mesh) -> torch.Tensor:
@@ -73,20 +127,53 @@ class Gather(torch.autograd.Function):
 
 
 class ShardPlan:
-    """What a sharded step gathers: ``mesh`` and the parameter spec tree."""
+    """What a sharded step gathers: ``mesh`` and the parameter spec tree.
+    ``blocked``: the paths of the leaves that keep their 'model' block
+    (empty when 'model' has extent 1)."""
 
     def __init__(self, mesh, specs):
         self.mesh, self.specs = mesh, specs
         self.dp_size = math.prod(mesh.axis_size(a) for a in mesh.dp_axes())
+        self.tp = mesh.axis_size("model")
+        self.blocked = set()
+        if self.tp > 1:
+            self.blocked = set(_tp_paths(specs)) | {
+                k for k in VOCAB_LEAVES if k in specs}
 
     def trivial(self, spec) -> bool:
         """Nothing to gather and nothing to reduce."""
         return self.dp_size == 1 and not shd.is_sharded(spec, self.mesh)
 
-    def gather(self, local: torch.Tensor, spec) -> torch.Tensor:
-        if self.trivial(spec):
-            return local
-        return Gather.apply(local, spec, self.mesh)
+    def split(self, path: str, spec):
+        """(the spec to gather the leaf at ``path`` by, the dim it keeps
+        split over 'model' or None)."""
+        dim = model_dim(spec, self.mesh) if path in self.blocked else None
+        return (spec if dim is None else without_model(spec)), dim
+
+    def gather(self, local: torch.Tensor, spec, path: str = ""
+               ) -> torch.Tensor:
+        spec, dim = self.split(path, spec)
+        out = local if self.trivial(spec) else \
+            Gather.apply(local, spec, self.mesh)
+        if dim is None:
+            return out
+        return cd.mark_model_block(
+            local.view_as(local) if out is local else out, dim)
+
+    def tops(self, params, stacked) -> dict:
+        """``params`` with every leaf outside the ``stacked`` subtrees
+        gathered as :meth:`gather` does (the serve steps: once a call, no
+        gradient)."""
+        out = {}
+        for k, sub in params.items():
+            if k in stacked:
+                out[k] = sub
+                continue
+            spec_of = dict(tree_items(self.specs[k]))
+            out[k] = tree_map_with_path(
+                lambda p, t: self.gather(t, spec_of[p],
+                                         f"{k}/{p}" if p else k), sub)
+        return out
 
     def layer(self, lp, path: str, lead: int = 1):
         """One layer's slice of the stacked subtree at ``path`` ('layers',
@@ -103,6 +190,7 @@ class ShardPlan:
             if any(e is not None for e in spec[:lead]):
                 raise ValueError(f"a stacked leaf of {path} is split on its "
                                  f"stack dims: {spec}")
-            return self.gather(t, shd.P(*spec[lead:]))
+            return self.gather(t, shd.P(*spec[lead:]),
+                               f"{path}/{leaf_path}")
 
         return tree_map_with_path(one, lp)

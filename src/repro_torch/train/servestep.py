@@ -15,14 +15,25 @@ same graph.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.context import use_context
+from repro_torch.interop import tree_items, tree_map_with_path
 from repro_torch.models.lm import KV_FAMILIES
+from repro_torch.parallel import fsdp
+from repro_torch.parallel import sharding as shd
 from repro_torch.train.graphs import CapturedStep
+
+# the families the static server runs over a mesh (tensor-parallel over
+# 'model'); the others raise (ROADMAP queue 1, item 5)
+MESH_FAMILIES = ("dense",)
+# families whose recurrent decode state decode_state_specs splits over
+# 'model', which their layers do not consume as blocks
+STATE_FAMILIES = ("rwkv", "hybrid")
 
 
 @dataclasses.dataclass
@@ -30,15 +41,82 @@ class ServeArtifacts:
     """``decode_fn(params, state, tokens)``: one (batch, 1) decode step,
     captured; ``prefill_fn(params, state, batch)``: the whole-prompt
     prefill of ``batch`` ({'tokens': (B, P)} plus the family's extras,
-    ``prefill_input_shapes``), eager (it runs once a batch)."""
+    ``prefill_input_shapes``), eager (it runs once a batch). Both return
+    the logits whole over the vocabulary.
+
+    Over a ``mesh`` the params are this rank's blocks (``param_specs``,
+    :meth:`shard_params`), the decode state too (``decode_state_specs``,
+    :meth:`init_state`) and the batch this rank's rows over the DP axes
+    (:meth:`rows`)."""
 
     decode_fn: Callable
     prefill_fn: Callable
     decode_raw: Callable
+    mesh: Any = None
+    param_specs: Any = None
+    cfg: ModelConfig | None = None
+    device: Any = None
+
+    def shard_params(self, params):
+        """This rank's blocks of a whole parameter tree."""
+        if self.mesh is None:
+            return params
+        return shd.shard_tree(params, self.param_specs, self.mesh)
+
+    def init_state(self, batch: int, max_len: int):
+        """The decode state of ``batch`` rows: over a mesh this rank's
+        blocks of it, allocated as such."""
+        if self.mesh is None:
+            return models.init_decode_state(self.cfg, batch, max_len,
+                                            device=self.device)
+        full = models.init_decode_state(self.cfg, batch, max_len,
+                                        device="meta")
+        spec_of = dict(tree_items(shd.decode_state_specs(full, self.cfg,
+                                                         self.mesh)))
+        return tree_map_with_path(
+            lambda p, t: torch.zeros(
+                shd.local_shape(tuple(t.shape), spec_of[p], self.mesh),
+                dtype=t.dtype, device=self.device), full)
+
+    def rows(self, batch: dict) -> dict:
+        """This rank's rows of a prefill batch (``batch_specs``)."""
+        if self.mesh is None:
+            return batch
+        specs = shd.batch_specs(batch, self.mesh)
+        return {k: shd.shard_leaf(v, specs[k], self.mesh)
+                for k, v in batch.items()}
 
 
-def make_serve_step(cfg: ModelConfig, *, device) -> ServeArtifacts:
-    """The static-batch server's steps, for every ported family."""
+def check_mesh_family(cfg: ModelConfig, mesh, quantized: bool = False
+                      ) -> None:
+    """Raise for what the static server does not run over ``mesh``: a
+    family outside :data:`MESH_FAMILIES`, and int8 over a 'model' axis
+    above 1 (a W8A8 activation scale spans every row)."""
+    if mesh is None:
+        return
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"serving the {cfg.family} family over a mesh: ROADMAP queue 1, "
+            f"item 5 (the static server runs {MESH_FAMILIES} over a mesh)")
+    if quantized and mesh.axis_size("model") > 1:
+        raise NotImplementedError(
+            "int8 over 'model' (a W8A8 activation scale spans every row): "
+            "ROADMAP queue 1, item 5")
+
+
+def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
+                    quantized: bool = False) -> ServeArtifacts:
+    """The static-batch server's steps, for every ported family; over a
+    ``mesh`` (the dense family) sharded: each step runs under the mesh
+    and a ``parallel.fsdp.ShardPlan`` in ``no_grad``, the layers' leaves
+    gathered over the DP axes, tensor-parallel over 'model'. A mesh with
+    an axis above 1 runs the decode step eager (a CUDA graph cannot
+    capture a ``gloo`` collective); a 1 x 1 mesh keeps the captured
+    step. ``quantized``: the params are ``quant.prequant.quantize_params``'
+    tree (its specs follow ``quantize_axes``). The families it serves over
+    a mesh are :data:`MESH_FAMILIES` (:func:`check_mesh_family`, which the
+    callers apply); on an abstract mesh it runs any family, for the dry
+    run's count."""
 
     def decode(params, state, tokens):
         return models.decode_step(params, tokens, cfg, state)[0]
@@ -46,8 +124,37 @@ def make_serve_step(cfg: ModelConfig, *, device) -> ServeArtifacts:
     def prefill(params, state, batch):
         return models.prefill(params, batch, cfg, state)[0]
 
-    return ServeArtifacts(decode_fn=CapturedStep(decode, device),
-                          prefill_fn=prefill, decode_raw=decode)
+    if mesh is None:
+        return ServeArtifacts(decode_fn=CapturedStep(decode, device),
+                              prefill_fn=prefill, decode_raw=decode,
+                              cfg=cfg, device=device)
+    if cfg.family in STATE_FAMILIES and mesh.axis_size("model") > 1:
+        raise NotImplementedError(
+            f"the {cfg.family} family's decode state over 'model' (its "
+            "time-mix / SSM layers compute with whole leaves and states): "
+            "ROADMAP queue 1, item 5")
+    axes, shapes = models.axes(cfg), models.init(cfg, device="meta")
+    if quantized:
+        from repro_torch.quant.prequant import quantize_axes, quantize_params
+
+        axes, shapes = quantize_axes(axes), quantize_params(shapes)
+    specs = shd.param_specs(axes, shapes, mesh)
+    plan = fsdp.ShardPlan(mesh, specs)
+    stacked = fsdp.stacked_keys(axes)
+
+    def sharded(fn):
+        def step(params, state, inputs):
+            with torch.no_grad(), use_context(mesh=mesh, shard=plan):
+                return fn(plan.tops(params, stacked), state, inputs)
+
+        return step
+
+    decode_raw = sharded(decode)
+    eager = any(n > 1 for n in mesh.shape)
+    return ServeArtifacts(
+        decode_fn=decode_raw if eager else CapturedStep(decode_raw, device),
+        prefill_fn=sharded(prefill), decode_raw=decode_raw, mesh=mesh,
+        param_specs=specs, cfg=cfg, device=device)
 
 
 def prefill_input_shapes(cfg: ModelConfig, batch: int, seq: int

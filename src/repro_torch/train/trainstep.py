@@ -24,10 +24,13 @@ layout over explicit collectives:
   count follows the reference's DP-aware rule (:func:`microbatch_count`);
 * the forward gathers each stacked leaf's layer slice just before use and
   every other leaf once a step; the backward reduces the gradients over the
-  DP axes (mean) and keeps this rank's slice over 'model'
-  (``parallel.fsdp``). Ranks along 'model' compute the same rows: the axis
-  shards storage, not compute (tensor parallelism is the next slice). The
-  MoE family's capacity and aux loss are reckoned per DP shard;
+  DP axes (mean) (``parallel.fsdp``);
+* over 'model' the step is tensor-parallel (Megatron's design): the
+  attention and MLP blocks and the vocab-split embedding, unembedding and
+  cross-entropy compute with this rank's blocks, the residual stream whole
+  on every rank between layers; any other leaf is gathered whole and its
+  layer computed alike on every rank of 'model', its gradient's slice
+  kept. The MoE family's capacity and aux loss are reckoned per DP shard;
 * the optimizer updates the local blocks (``train.optimizer.Layout``);
   the loss and the metrics are averaged over the DP group.
 
@@ -125,13 +128,6 @@ def opt_spec_like(shapes_tree, params_specs, mesh):
     return walk(params_specs, shapes_tree)
 
 
-def _stacked(axes) -> set[str]:
-    """The top-level subtrees whose every leaf is stacked on a leading
-    'layers' dim: the models gather those a layer slice at a time."""
-    return {k for k, a in axes.items()
-            if all(ax[:1] == ("layers",) for _, ax in tree_items(a))}
-
-
 def _to_device(batch: dict[str, Any], device) -> dict[str, torch.Tensor]:
     """numpy or torch inputs on ``device``; token ids as int64 indices."""
     out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
@@ -194,7 +190,8 @@ def make_train_step(
         return shd.shard_tree(full, state_specs, mesh)
 
     step = _step(loss_fn, optimizer, device, grads_hook, M,
-                 sharded=(fsdp.ShardPlan(mesh, pspecs), _stacked(axes)))
+                 sharded=(fsdp.ShardPlan(mesh, pspecs),
+                          fsdp.stacked_keys(axes)))
     return StepArtifacts(step_fn=step, init_fn=init_fn, state_shapes=shapes,
                          state_shardings=shd.named_shardings(state_specs,
                                                              mesh),
@@ -229,14 +226,17 @@ def _step(loss_fn, optimizer, device, grads_hook, M, sharded=None):
                     continue
                 spec_of = dict(tree_items(plan.specs[k]))
 
-                def whole(path, p):
-                    spec = spec_of[path]
+                def whole(path, p, k=k, spec_of=spec_of):
+                    spec, dim = plan.split(f"{k}/{path}" if path else k,
+                                           spec_of[path])
                     if plan.trivial(spec):
-                        return p
+                        return p if dim is None else \
+                            cd.mark_model_block(p.view_as(p), dim)
                     full = shd.gather_leaf(p.detach(), spec, mesh)
                     full.requires_grad_(True)
                     tops.append((p, full, spec))
-                    return full
+                    return full if dim is None else \
+                        cd.mark_model_block(full, dim)
 
                 view[k] = tree_map_with_path(whole, sub)
         with use_context(**({} if plan is None else

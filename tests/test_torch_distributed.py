@@ -48,11 +48,15 @@ from repro import configs as RC
 from repro.compat import mesh_from_devices
 from repro.core.context import use_context as r_use_context
 from repro.core.plancache import PlanCache as RPlanCache
+from repro import models as RM
 from repro.data.synthetic import batch_for as r_batch_for
+from repro.launch.serve import serve_batch as r_serve_batch
+from repro.train.servestep import make_serve_step as r_make_serve_step
 from repro.train.trainstep import make_train_step as r_make_train_step
 from repro_torch import configs as C
 from repro_torch import interop
 from repro_torch.data.synthetic import batch_for
+from repro_torch.core import gemm
 from repro_torch.core.context import use_context
 from repro_torch.core.plancache import PlanCache
 from repro_torch.interop import tree_items
@@ -76,6 +80,9 @@ FAMILIES = (("rwkv6-3b", "rwkv6-3b", {}), ("zamba2-1.2b", "zamba2-1.2b", {}),
             ("qwen1.5-4b remat mb2", "qwen1.5-4b",
              {"remat": True, "microbatches": 2}))
 FIXTURE_TIMEOUT = 300  # seconds, for all three jobs
+# the static server's parity runs (tensor parallelism): archs, batch,
+# prompt, generated tokens
+SERVE = (("qwen1.5-4b", "internlm2-20b"), 4, 8, 4)
 
 PROG = r"""
 import dataclasses, json, os, sys
@@ -83,9 +90,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from repro_torch import configs as C
+from repro_torch import interop, models
+from repro_torch.core import gemm
+from repro_torch.core.context import use_context
 from repro_torch.core.distributed import (CollectiveCounter, k_sharded_gemm,
                                           output_stationary_gemm)
 from repro_torch.core.gemm import balanced_gemm
+from repro_torch.layers import common as cm
+from repro_torch.layers.attention import KVCache
+from repro_torch.launch.serve import serve_batch
+from repro_torch.parallel.fsdp import ShardPlan
+from repro_torch.train.servestep import make_serve_step
 from repro_torch.data.synthetic import batch_for
 from repro_torch.ft import checkpoint as ckpt_lib
 from repro_torch.interop import shard_state, tree_items, tree_map
@@ -99,6 +114,7 @@ mode, work = sys.argv[1], sys.argv[2]
 ARCH, SEQ, BATCH, STEPS, SEED = {consts}
 ADAFACTOR = {adafactor}
 FAMILIES = {families}
+SERVE_ARCHS, SB, SP, SGEN = {serve}
 data, model = {{"mesh8": (4, 2), "restore2": (2, 1), "mesh1": (1, 1)}}[mode]
 mesh = make_local_mesh(data, model, device="cpu")
 cfg = C.smoke(C.get_config(ARCH))
@@ -137,16 +153,85 @@ def train(opt_cfg, tag):
         full = {{"params": params, "step": torch.zeros((), dtype=torch.int32),
                 "opt": opt_lib.make_optimizer(opt_cfg).init(params)}}
     state = shard_state(full, specs_of(art), mesh)
-    losses, nbytes = [], []
+    losses, nbytes, flops = [], [], []
+    count = lambda key, plan: flops.append(2 * key[1] * key[2] * key[3])
     for step in range(STEPS):
+        if step == 0:
+            gemm.add_dispatch_listener(count)
         with CollectiveCounter() as c:
             state, m = art.step_fn(state, batch_for(cfg, SEQ, BATCH, step))
+        gemm.remove_dispatch_listener(count)
         losses.append(float(m["loss"]))
         nbytes.append(c.by_kind())
-    res[tag] = {{"losses": losses, "bytes": nbytes}}
+    res[tag] = {{"losses": losses, "bytes": nbytes, "gemm_flops": sum(flops)}}
     gathered(grads, specs_of(art)["params"], tag + "/grad/")
     gathered(state, specs_of(art), tag + "/state/")
     return art, state
+
+
+def rel_err(got, want):
+    want = torch.as_tensor(want)
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def serve(arch, tag):
+    # the static server over mesh against the reference's 1 x 1 run:
+    # tokens, the prefill's and each step's logits on this rank's rows, the
+    # collective bytes, the decode state's local shapes, and one decode
+    # step from the reference's prefilled state handed over by shard_state
+    scfg = C.smoke(C.get_config(arch))
+    z = np.load(os.path.join(work, f"serve_{{arch}}.npz"))
+    shapes = models.init(scfg, device="meta")
+    it = iter([torch.from_numpy(z["params/" + p].copy())
+               for p, _ in tree_items(shapes)])
+    whole = tree_map(lambda _: next(it), shapes)
+    art = make_serve_step(scfg, device="cpu", mesh=mesh)
+    params = art.shard_params(whole)
+    prompts = torch.from_numpy(z["prompts"]).long()
+    max_len = SP + SGEN + 1
+    rec = {{}}
+    gen = serve_batch(scfg, params, prompts, gen_len=SGEN, max_len=max_len,
+                      mesh=mesh, record=rec)
+    rows = shd.batch_specs({{"t": prompts}}, mesh)["t"]
+    want = [shd.shard_leaf(torch.from_numpy(z[f"logits{{i}}"]), rows, mesh)
+            for i in range(SGEN)]
+    out = {{"tokens": gen.tolist(), "prefill_bytes": rec["prefill_bytes"],
+           "decode_bytes": rec["decode_bytes"],
+           "logit_err": max(rel_err(g, w) for g, w in
+                            zip(rec["logits"], want)),
+           "state_shapes": {{p: list(t.shape) for p, t in tree_items(
+               art.init_state(SB, max_len))}}}}
+    full = {{"kv": KVCache(*(torch.from_numpy(z["state/" + f].copy())
+                            for f in ("k", "v", "length")))}}
+    state = interop.shard_state(full, None, mesh, cfg=scfg)
+    tok = art.rows({{"t": torch.from_numpy(z["tokens"][:, :1]).long()}})["t"]
+    logits = art.decode_fn(params, state, tok)
+    out["handed_err"] = rel_err(logits, want[1])
+    if mesh.size == 1:  # and the one-device server, bit for bit
+        plain = {{}}
+        serve_batch(scfg, whole, prompts, gen_len=SGEN, max_len=max_len,
+                    record=plain)
+        out["plain_diff"] = max(float((a - b).abs().max()) for a, b in
+                                zip(rec["logits"], plain["logits"]))
+    res[tag] = out
+
+
+def embed_check(tag):
+    # the vocab-parallel lookup of a (512, 16) table split over 'model'
+    # against the whole table's rows; ids outside [0, 512) give zeros
+    table = torch.randn((512, 16), generator=torch.Generator().manual_seed(0))
+    ids = torch.tensor([[0, 5, 255, 256, 502, 503, 511], [512, 700, -1, 7,
+                                                         63, 64, 448]])
+    plan = ShardPlan(mesh, {{"embed": shd.P("model", None)}})
+    with use_context(mesh=mesh, shard=plan):
+        block = plan.gather(shd.shard_leaf(table, shd.P("model"), mesh),
+                            shd.P("model", None), "embed")
+        with CollectiveCounter() as c:
+            got = cm.embed_lookup(block, ids)
+    ok = (ids >= 0) & (ids < 512)
+    want = torch.where(ok[..., None], table[ids.clamp(0, 511)], 0.0)
+    res[tag] = {{"err": float((got - want).abs().max()),
+                "block_rows": block.shape[0], "bytes": c.by_kind()}}
 
 
 if mode == "mesh8":
@@ -189,6 +274,20 @@ if mode == "mesh8":
                  "family/" + name + "/")
     ckpt_lib.save(os.path.join(work, "ckpt"), state, STEPS,
                   shardings=art.state_shardings)
+    # tensor parallelism over the same 8 ranks: the static server at 4 x 2
+    # and 2 x 4, the train step at 2 x 4 (GQA: 2 kv heads on 4) and 1 x 8
+    # (4 heads on 8: 'seq'), the vocab-parallel lookup split 2, 4, 8 ways
+    for arch in SERVE_ARCHS:
+        serve(arch, "serve4x2/" + arch)
+    embed_check("embed4x2")
+    for shape in ((2, 4), (1, 8)):
+        mesh = make_local_mesh(*shape, device="cpu")
+        name = "x".join(map(str, shape))
+        train(None, "tp" + name)
+        embed_check("embed" + name)
+        if shape == (2, 4):
+            for arch in SERVE_ARCHS:
+                serve(arch, "serve2x4/" + arch)
 else:
     art = make_train_step(cfg, mesh=mesh, global_batch=BATCH, seq_len=SEQ)
     step = ckpt_lib.latest_step(os.path.join(work, "ckpt"))
@@ -206,6 +305,9 @@ else:
             st, _ = plain.step_fn(st, batch_for(cfg, SEQ, BATCH, step))
         for p, t in tree_items(st):
             arrays["plain/state/" + p] = t.detach().numpy()
+        # the static server on the 1 x 1 mesh: the one-device tokens
+        for arch in SERVE_ARCHS:
+            serve(arch, "serve1x1/" + arch)
 res["jax_imported"] = any(m == "jax" or m.startswith("jax.")
                           for m in sys.modules)
 out = os.path.join(work, f"{{mode}}_rank{{mesh.rank}}")
@@ -265,8 +367,9 @@ def _reference(cfg):
 
 def _port_one_device(cfg, init, opt_cfg=None):
     """The port's one-device step from ``init``, STEPS steps: the losses,
-    the first step's gradients and the state after."""
-    grads = {}
+    the first step's gradients and GEMM operations (2 M K N over the
+    dispatches), and the state after."""
+    grads, flops = {}, []
 
     def hook(g):
         if not grads:
@@ -278,11 +381,56 @@ def _port_one_device(cfg, init, opt_cfg=None):
     if opt_cfg is not None:
         state["opt"] = opt_lib.make_optimizer(opt_cfg).init(state["params"])
     losses = []
+    count = lambda key, plan: flops.append(2 * key[1] * key[2] * key[3])
     for step in range(STEPS):
-        state, m = art.step_fn(state, batch_for(cfg, SEQ, BATCH, step))
+        if step == 0:
+            gemm.add_dispatch_listener(count)
+        try:
+            state, m = art.step_fn(state, batch_for(cfg, SEQ, BATCH, step))
+        finally:
+            gemm.remove_dispatch_listener(count)
         losses.append(float(m["loss"]))
-    return {"losses": losses, "grads": grads,
+    return {"losses": losses, "grads": grads, "gemm_flops": sum(flops),
             "state": {p: t.detach() for p, t in tree_items(state)}}
+
+
+def _reference_serve(arch: str, work: str) -> dict:
+    """The reference's static server at 1 x 1 on ``arch``'s smoke config
+    from PRNGKey(SEED): its tokens (``serve_batch``) and, through its
+    ``make_serve_step``, the prefill's and each decode step's logits and
+    the decode state after the prefill, written to an .npz with the
+    weights (the port's tree) and the prompts."""
+    _, B, P, gen = SERVE
+    rcfg, cfg = RC.smoke(RC.get_config(arch)), C.smoke(C.get_config(arch))
+    mesh1 = mesh_from_devices(np.array(jax.devices()[:1]).reshape(1, 1),
+                              ("data", "model"))
+    params = RM.init(jax.random.PRNGKey(SEED), rcfg)
+    prompts = np.random.default_rng(SEED).integers(
+        0, rcfg.vocab_size, size=(B, P)).astype(np.int32)
+    max_len = P + gen + 1
+    tokens = np.asarray(r_serve_batch(rcfg, mesh1, params,
+                                      jnp.asarray(prompts), gen_len=gen,
+                                      max_len=max_len))
+    out = {"prompts": prompts, "tokens": tokens}
+    art = r_make_serve_step(rcfg, mesh1, batch=B, max_len=max_len)
+    with mesh1:
+        state = jax.jit(lambda: RM.init_decode_state(rcfg, B, max_len),
+                        out_shardings=art.state_shardings)()
+        logits, state = art.prefill_fn(params, state,
+                                       {"tokens": jnp.asarray(prompts)})
+        kv = state["kv"]
+        out.update({"state/k": np.asarray(kv.k), "state/v": np.asarray(kv.v),
+                    "state/length": np.asarray(kv.length)})
+        for i in range(gen):
+            out[f"logits{i}"] = np.asarray(logits, np.float32)
+            tok = jnp.argmax(logits[:, :rcfg.vocab_size], -1).astype(
+                jnp.int32)
+            logits, state = art.decode_fn(params, state, tok[:, None])
+    port = interop.params_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                   "cpu")
+    out.update({"params/" + p: t.numpy() for p, t in tree_items(port)})
+    np.savez(os.path.join(work, f"serve_{arch}.npz"), **out)
+    return {"tokens": tokens}
 
 
 @pytest.fixture(scope="module")
@@ -304,13 +452,16 @@ def _runs(tmp_path_factory):
     prog = os.path.join(work, "rank.py")
     with open(prog, "w") as f:
         f.write(PROG.format(consts=(ARCH, SEQ, BATCH, STEPS, SEED),
-                            adafactor=ADAFACTOR, families=FAMILIES))
+                            adafactor=ADAFACTOR, families=FAMILIES,
+                            serve=SERVE))
+    serve_ref = {a: _reference_serve(a, work) for a in SERVE[0]}
     _wait(_spawn(prog, "mesh8", 8, work), FIXTURE_TIMEOUT)
     later = _spawn(prog, "restore2", 2, work) + _spawn(prog, "mesh1", 1, work)
     _wait(later, FIXTURE_TIMEOUT)
     load = lambda name: (json.load(open(os.path.join(work, name + ".json"))))
     return {
         "ref_loss": ref_loss, "cfg": cfg,
+        "serve_ref": serve_ref,
         "mesh8": [load(f"mesh8_rank{r}") for r in range(8)],
         "restore2": [load(f"restore2_rank{r}") for r in range(2)],
         "mesh1": load("mesh1_rank0"),
@@ -484,3 +635,122 @@ def test_production_mesh_needs_256_ranks():
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "needs 256 ranks" in res.stderr
+
+
+# ------------------------------------------------- tensor parallelism
+TP_MESHES = {"4x2": (4, 2), "2x4": (2, 4), "1x8": (1, 8)}
+
+
+def _tp_tag(mesh: str) -> str:
+    return "adamw" if mesh == "4x2" else "tp" + mesh
+
+
+@pytest.mark.parametrize("mesh", ["2x4", "1x8"])
+def test_tp_sharded_step_matches_reference_and_one_device(runs, mesh):
+    """2 x 4: internlm2-smoke's 2 kv heads on 4 ranks (GQA); 1 x 8: its 4
+    heads do not divide 8, the sequence does ('seq')."""
+    tag = _tp_tag(mesh)
+    got = runs["mesh8"][0][tag]["losses"]
+    assert abs(got[0] - runs["ref_loss"]) < 5e-3
+    for a, b in zip(got, runs["port"]["losses"]):
+        assert abs(a - b) <= 1e-4
+    for r in runs["mesh8"]:  # the same loss on every rank of 'model'
+        assert r[tag]["losses"] == got
+    _leafwise(runs["arrays"]["mesh8"], tag + "/grad/", runs["port"]["grads"],
+              lambda w: 1e-4 * max(np.abs(w).max(), 1e-30))
+    want = {p[len("params/"):]: t for p, t in runs["port"]["state"].items()
+            if p.startswith("params/")}
+    lrs = _lr_sum()
+    _leafwise(runs["arrays"]["mesh8"], tag + "/state/params/", want,
+              lambda w: 1e-5 * np.abs(w).max() + 1e-2 * lrs)
+
+
+@pytest.mark.parametrize("mesh", list(TP_MESHES))
+def test_tp_ranks_do_not_repeat_products(runs, mesh):
+    """Each rank's GEMMs of a step (forward and backward, through the
+    dispatch listeners) are 1 / (dp x tp) of the one-device step's: the
+    ranks along 'model' split the products instead of repeating them."""
+    data, model = TP_MESHES[mesh]
+    whole = runs["port"]["gemm_flops"]
+    for r in runs["mesh8"]:
+        assert r[_tp_tag(mesh)]["gemm_flops"] * data * model == whole
+
+
+@pytest.mark.parametrize("mesh", ["2x4", "1x8"])
+def test_tp_dryrun_collective_bytes_equal_measured(runs, mesh):
+    with use_context(plan_cache=PlanCache()):
+        rec = dryrun.train_cell(runs["cfg"],
+                                Mesh(("data", "model"), TP_MESHES[mesh]),
+                                BATCH, SEQ)
+    for r in runs["mesh8"]:
+        for measured in r[_tp_tag(mesh)]["bytes"]:
+            assert measured == rec["cost"]["by_collective"]
+    assert rec["cost"]["by_collective"]["all_reduce"] > 0
+
+
+@pytest.mark.parametrize("mesh", list(TP_MESHES))
+def test_vocab_parallel_embed_equals_whole_lookup(runs, mesh):
+    model = TP_MESHES[mesh][1]
+    for r in runs["mesh8"]:
+        got = r["embed" + mesh]
+        assert got["block_rows"] == 512 // model
+        assert got["err"] == 0.0
+        assert got["bytes"] == {"all_reduce": 2 * 7 * 16 * 4}
+
+
+@pytest.mark.parametrize("arch", SERVE[0])
+@pytest.mark.parametrize("mesh", ["4x2", "2x4"])
+def test_tp_static_server_matches_reference(runs, mesh, arch):
+    """Tokens equal to the reference's serve_batch at 1 x 1 on every rank;
+    the prefill's and each step's logits, and a decode step from the
+    reference's own prefilled state (interop.shard_state), within 1e-4 of
+    1 + |logit|."""
+    want = runs["serve_ref"][arch]["tokens"]
+    for r in runs["mesh8"]:
+        got = r[f"serve{mesh}/{arch}"]
+        np.testing.assert_array_equal(np.asarray(got["tokens"]), want)
+        assert got["logit_err"] <= 1e-4 and got["handed_err"] <= 1e-4
+
+
+# each rank's decode-state leaves (L, B / dp, max_len, kv heads, head_dim):
+# kv heads over 'model' where they divide it, else head_dim
+STATE_SHAPES = {
+    ("4x2", "qwen1.5-4b"): [2, 1, 13, 2, 16],
+    ("2x4", "qwen1.5-4b"): [2, 2, 13, 1, 16],
+    ("4x2", "internlm2-20b"): [2, 1, 13, 1, 16],
+    ("2x4", "internlm2-20b"): [2, 2, 13, 2, 4],
+}
+
+
+@pytest.mark.parametrize("mesh,arch", list(STATE_SHAPES))
+def test_tp_decode_state_is_its_specs_blocks(runs, mesh, arch):
+    for r in runs["mesh8"]:
+        shapes = r[f"serve{mesh}/{arch}"]["state_shapes"]
+        assert shapes == {"kv/k": STATE_SHAPES[mesh, arch],
+                          "kv/v": STATE_SHAPES[mesh, arch], "kv/length": []}
+
+
+@pytest.mark.parametrize("arch", SERVE[0])
+@pytest.mark.parametrize("mesh", ["4x2", "2x4"])
+def test_tp_serve_collective_bytes_equal_dryrun(runs, mesh, arch):
+    _, B, P, gen = SERVE
+    cfg = C.smoke(C.get_config(arch))
+    abstract = Mesh(("data", "model"), TP_MESHES[mesh])
+    with use_context(plan_cache=PlanCache()):
+        pre = dryrun.serve_cell(cfg, abstract, "prefill", B, P)
+        dec = dryrun.serve_cell(cfg, abstract, "decode", B, P + gen + 1)
+    for r in runs["mesh8"]:
+        got = r[f"serve{mesh}/{arch}"]
+        assert got["prefill_bytes"] == pre["cost"][
+            "collective_bytes_per_device"] > 0
+        assert got["decode_bytes"] == [dec["cost"][
+            "collective_bytes_per_device"]] * gen
+
+
+@pytest.mark.parametrize("arch", SERVE[0])
+def test_one_by_one_mesh_serve_is_the_one_device_server(runs, arch):
+    got = runs["mesh1"][f"serve1x1/{arch}"]
+    np.testing.assert_array_equal(np.asarray(got["tokens"]),
+                                  runs["serve_ref"][arch]["tokens"])
+    assert got["plain_diff"] == 0.0
+    assert got["prefill_bytes"] == 0 and not any(got["decode_bytes"])

@@ -229,16 +229,19 @@ def test_one_meta_cell_and_the_cli(tmp_path):
         cost["by_collective"].values()) > 0
     assert rec["local_batch"] == 256 // 16
     # the step's FLOPs: at least the forward and backward's 6 N D of a
-    # rank's tokens (the recompute and attention come on top)
+    # rank's tokens over the 16 ranks of 'model', which split each layer's
+    # products (tensor parallelism; the recompute and attention come on
+    # top)
     n = report._param_counts(C.get_config("qwen1.5-4b"))[1]
-    assert cost["flops_per_device"] > 6 * n * rec["local_batch"] * 4096
+    assert cost["flops_per_device"] > 6 * n * rec["local_batch"] * 4096 / 16
     assert dryrun.main(["--arch", "qwen1.5-4b", "--shape", "decode_32k",
                         "--out", str(tmp_path)]) == 0
     files = sorted(os.listdir(tmp_path))
     assert files == ["qwen1.5-4b__decode_32k__single.json",
                      "qwen1.5-4b__train_4k__single.json"]
     with open(tmp_path / files[0]) as f:
-        assert json.load(f)["cost"]["collective_bytes_per_device"] == 0
+        # the decode step over the mesh: tensor-parallel over 'model'
+        assert json.load(f)["cost"]["collective_bytes_per_device"] > 0
     out = tmp_path / "report.md"
     report.main(["--dryrun-dir", str(tmp_path), "--out", str(out),
                  "--hw", "h100"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7-14; one CUDA card
+  python3 chip_smoke.py            # phases 1-5 and 7-16; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
@@ -163,8 +163,9 @@ ends the run with a non-zero exit:
    step eager against replayed, the cross K/V's device ms a step and
    share, the eager prefill, the peak memory; 12c, 12d phase 5's card
    against CPU with nonzero gates from the seed, 12c at 10 layers (two
-   groups), 12d at 5 (one group: its CPU side runs the int8 products in
-   f64, 162 s at 10 layers on an H100's host, cut to keep the script's
+   groups), 12d at 2 (one group of a self layer and the cross layer,
+   cross_attn_every 2: its CPU side runs the int8 products in f64, 162 s
+   at 10 layers on an H100's host, ~80 s at 5; cut to keep the script's
    time)
    (the reference's init zeroes them, and a cross layer then adds
    nothing), the stack layer by layer from the CPU's input to each layer
@@ -230,6 +231,18 @@ ends the run with a non-zero exit:
    gradient norms, updates, collective bytes against the dry run's); 15c
    the dry run's qwen1.5-4b x train_4k x 16x16 model-FLOPs ratio (at
    least 0.4) and decode_32k's collective bytes (nonzero).
+16. the serving engines over the same (1, 2) mesh: 16a phase 7's engine
+   through ``launch.serve --engine --mesh 1x2`` at full width and depth
+   against the same engine on one device in this process: both ranks'
+   tokens and admissions equal, the tokens equal to the one device's
+   before each near-tie, each rank's launches phase 7's rule at the
+   local shapes, zero lazy solves, each tick's and chunk's collective
+   bytes the dry run's (``launch.dryrun.engine_cells``), a rank's pool
+   half the one device's; at 4 layers each request's first-token logits
+   within PATH_TOL; 16b phase 7c's speculative engine with a float draft
+   of the target's config, both at 4 layers: the same gates, the ranks'
+   speculation sections equal. Printed: a rank's peak, the eager steps'
+   host ms, the acceptance beside the one device's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -622,6 +635,29 @@ CASES = [
     Case("tp decode w_out f32 out", "gemv", 4, 3456, 2560,
          out_dtype="float32"),
     Case("tp unembed block f32 out", "gemv", 4, 2560, 75968,
+         out_dtype="float32"),
+    # the engine over 'model' = 2 (phase 16): a rank's chunks of 32-128
+    # rows, its tick at 8 lanes (q/k/v and gate on split_k; wo and w_out
+    # row-parallel with f32 partial sums, w_in and the vocabulary block on
+    # the GEMV) and the verify pass at 8 x 5 rows
+    *[Case(f"tp chunk {name} M={M}", "matmul", M, 2560, N, bias=bias,
+           activation=act)
+      for M in (32, 64, 128)
+      for name, N, bias, act in (("q/k/v + bias", 1280, True, None),
+                                 ("gate + silu", 3456, False, "silu"))],
+    Case("tp engine q/k/v + bias M=8", "matmul", 8, 2560, 1280, bias=True),
+    Case("tp engine gate + silu M=8", "matmul", 8, 2560, 3456,
+         activation="silu"),
+    Case("tp verify q/k/v + bias M=40", "matmul", 40, 2560, 1280,
+         bias=True),
+    Case("tp verify gate + silu M=40", "matmul", 40, 2560, 3456,
+         activation="silu"),
+    Case("tp engine wo B=8 f32 out", "gemv", 8, 1280, 2560,
+         out_dtype="float32"),
+    Case("tp engine w_in B=8", "gemv", 8, 2560, 3456),
+    Case("tp engine w_out B=8 f32 out", "gemv", 8, 3456, 2560,
+         out_dtype="float32"),
+    Case("tp engine unembed block B=8 f32 out", "gemv", 8, 2560, 75968,
          out_dtype="float32"),
 ] + [
     # the W8A8 path (--quantize int8): int8 x int8, B (N, K), out_scale
@@ -4093,6 +4129,243 @@ def tp_dryrun(torch, train_rec: dict) -> None:
                          "collective bytes are off")
 
 
+# ------------------------------------------------------------ phase 16
+# the serving engines over the (1, 2) mesh of phase 15 (gloo, two ranks on
+# the card): 16a phase 7's engine (qwen1.5-4b at full width and depth, 8
+# lanes, 74 blocks of 16, chunks <= 128, its trace) through ``launch.serve
+# --engine --mesh 1x2``, against the same engine on one device in this
+# process (captured): both ranks' tokens and admission sequences equal;
+# the tokens equal to the one device's up to each request's first
+# position whose one-device top-2 margin is within PATH_TOL of (1 + |top|)
+# (15a's rule); a rank's launches phase 7's rule at the local shapes
+# (_engine_rule), zero lazy solves; each tick's and chunk's collective
+# bytes the dry run's cell (launch.dryrun.engine_cells); a rank's pool
+# half the one device's. The logits are gated at TP_CUT layers (each
+# request's first-token logits within PATH_TOL, as 15a gates its
+# prefill's); at full depth printed. 16b: phase 7c's speculative engine
+# over the same mesh, the draft float and the target's config, both cut
+# to TP_CUT layers: the same gates (a float draft step runs a tick's
+# kernels: TP_SPEC_STEP, k + 1 of them a propose step), the ranks'
+# speculation sections equal and each one's committed tokens the tokens
+# generated less one a request. The acceptance against the one device's
+# is printed, not gated: bf16 activations at random weights put most
+# positions within PATH_TOL of a tie (on an H100, 8 of 156 were held),
+# and a flipped argmax forks the rest of a stream (there one device
+# accepted 0.886, the ranks 0.806). Printed: a rank's peak and the eager
+# steps' host ms (the card synchronized)
+TP_SPEC_STEP = {"matmul": 4 * TP_CUT, "gemv": 3 * TP_CUT + 1, "wkv": 0}
+
+
+def _tp_engine_run(torch, args: list[str], tag: str) -> tuple[dict, list]:
+    """The engine on one device in this process, then over the (1, 2)
+    mesh under torchrun: (the one device's record, the ranks')."""
+    from repro_torch.launch import serve
+
+    out = os.path.join(ROOT, "build", "phase16")
+    os.makedirs(out, exist_ok=True)
+    _free(torch)
+    one = serve.main(args + ["--record-out", os.path.join(out, tag + "1")])
+    del one
+    _free(torch)
+    ref = torch.load(os.path.join(out, tag + "1.rank0.pt"),
+                     weights_only=False)
+    t0 = time.perf_counter()
+    run = _torchrun2("repro_torch.launch.serve",
+                     args + ["--mesh", TP_MESH, "--backend", "gloo",
+                             "--record-out", os.path.join(out, tag)], 600)
+    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
+          + _lines(run.stdout, ("[mesh]", "[engine]", "[spec]",
+                                "[plan-cache] serving")), flush=True)
+    if run.returncode != 0:
+        raise SystemExit(f"16 ({tag}): the launcher failed: "
+                         + run.stderr[-3000:])
+    return ref, [torch.load(os.path.join(out, f"{tag}.rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+
+
+def _held_tokens(ref: dict, rec: dict) -> tuple[int, int]:
+    """(positions compared, positions equal): each request's tokens up to
+    its first one whose one-device top-2 margin is within PATH_TOL."""
+    first_tie = {}
+    for i, n, _, margin, top in ref["token_log"]:
+        if i not in first_tie and not margin > PATH_TOL * (1 + abs(top)):
+            first_tie[i] = n
+    held = same = 0
+    for i, toks in ref["tokens"].items():
+        n = first_tie.get(i, len(toks))
+        held += n
+        same += sum(a == b for a, b in zip(rec["tokens"][i][:n], toks[:n]))
+    return held, same
+
+
+def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
+                     cells: dict) -> list[str]:
+    """Phase 16's gates shared by 16a and 16b; prints each rank's
+    numbers. Returns the failures."""
+    failed = []
+    a, b = recs
+    if a["tokens"] != b["tokens"] or a["admissions"] != b["admissions"]:
+        failed.append("the ranks' tokens or admissions differ")
+    held, same = _held_tokens(ref, a)
+    if same != held:
+        failed.append(f"tokens {same}/{held} equal to the one device's")
+    want_bytes = {k: c["collective_bytes_per_device"]
+                  for k, c in cells.items()}
+    for rec in recs:
+        r = rec["rank"]
+        want = rule(rec["dispatches"])
+        seen = {k: sorted(set(v)) for k, v in rec["step_bytes"].items()}
+        ms = {k: statistics.median(v) for k, v in rec["step_ms"].items()}
+        print(f"rank {r}: steps {rec['dispatches']}; launches "
+              f"{rec['launches']} (rule {want}); lazy solves "
+              f"{rec['lazy_solves']}, misses {rec['misses']}; collective "
+              f"bytes by step {seen} (dry run {want_bytes}), clock "
+              f"{rec['clock_bytes']}; pool {rec['pool_bytes']} bytes (one "
+              f"device {ref['pool_bytes']}); peak {rec['peak_gib']:.2f} GiB "
+              f"(one device {ref['peak_gib']:.2f}; the load "
+              f"{rec['init_peak_gib']:.2f}); eager step ms (median, host "
+              f"clock, synchronized) "
+              f"{ {k: round(v, 2) for k, v in sorted(ms.items())} }",
+              flush=True)
+        if rec["launches"] != want:
+            failed.append(f"rank {r} launches {rec['launches']}")
+        if rec["lazy_solves"] or rec["misses"]:
+            failed.append(f"rank {r} was not plan-warm")
+        if any(v != [want_bytes.get(k)] for k, v in seen.items()):
+            failed.append(f"rank {r} collective bytes differ from the dry "
+                          "run's")
+        if 2 * rec["pool_bytes"] != ref["pool_bytes"]:
+            failed.append(f"rank {r} pool {rec['pool_bytes']} is not half "
+                          f"of {ref['pool_bytes']}")
+    total = sum(map(len, ref["tokens"].values()))
+    print(f"{label}: tokens equal to the one device's at {same}/{held} "
+          f"positions before a near-tie ({total} in all); the ranks' tokens "
+          f"equal: {a['tokens'] == b['tokens']}", flush=True)
+    return failed
+
+
+def _first_logits_err(ref: dict, rec: dict) -> float:
+    return max(_logit_err(rec["first_logits"][i], ref["first_logits"][i])
+               for i in ref["first_logits"])
+
+
+def _engine_cells(torch, cfg, engine: dict, draft: bool) -> dict:
+    """The dry run's cells of the engine a record describes (its
+    ``engine`` section), over a (1, 2) abstract mesh."""
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+
+    with use_context(hw="h100", plan_cache=PlanCache()):
+        return dryrun.engine_cells(
+            cfg, Mesh(("data", "model"), (1, 2)),
+            num_slots=engine["num_slots"], max_len=engine["max_len"],
+            prompt_pad=engine["prompt_pad"],
+            kv_block_size=engine["kv_block_size"],
+            num_kv_blocks=engine["num_kv_blocks"],
+            prefill_chunk=engine["prefill_chunk"],
+            draft_cfg=cfg if draft else None,
+            spec_k=engine.get("spec_k", SPEC_K))
+
+
+def tp_engine(torch) -> dict[str, int]:
+    """16a: phase 7's engine over the (1, 2) mesh, at full depth and cut
+    to TP_CUT layers."""
+    from repro_torch import configs as C
+
+    args = ["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:]
+    phase("16a the engine over a mesh: torchrun --nproc-per-node 2 -m "
+          "repro_torch.launch.serve " + " ".join(a if a else "''"
+                                                 for a in args)
+          + f" --mesh {TP_MESH} --backend gloo (full width and depth; the "
+          f"logits gate at --n-layers {TP_CUT}), against the same engine "
+          "on one device in this process")
+    t0 = time.perf_counter()
+    ref, recs = _tp_engine_run(torch, args, "engine")
+    cells = _engine_cells(torch, C.get_config("qwen1.5-4b"), ref["engine"],
+                          False)
+    failed = _tp_engine_gates(torch, "full depth", ref, recs, _engine_rule,
+                              cells)
+    full_err = _first_logits_err(ref, recs[0])
+    counts = recs[0]["launches"]
+    del ref, recs
+    cut_ref, cut = _tp_engine_run(torch, args + ["--n-layers", str(TP_CUT)],
+                                  "engine_cut")
+    cut_err = _first_logits_err(cut_ref, cut[0])
+    print(f"first-token logits max |mesh - one| / (1 + |one|): full depth "
+          f"{full_err:.4g} (printed), {TP_CUT} layers {cut_err:.4g} (tol "
+          f"{PATH_TOL}); phase 16a {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    if not cut_err <= PATH_TOL:
+        failed.append(f"first-token logits at {TP_CUT} layers {cut_err} > "
+                      f"{PATH_TOL}")
+    if cut[0]["tokens"] != cut[1]["tokens"]:
+        failed.append(f"the ranks' tokens differ at {TP_CUT} layers")
+    del cut, cut_ref
+    _free(torch)
+    if failed:
+        raise SystemExit("16a: " + "; ".join(failed))
+    return counts
+
+
+def tp_spec_engine(torch) -> dict[str, int]:
+    """16b: the speculative engine over the (1, 2) mesh, target and float
+    draft cut to TP_CUT layers."""
+    import dataclasses as dc
+
+    from repro_torch import configs as C
+
+    args = (["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:]
+            + ENGINE_SPEC_ARGS + ["--spec-draft-quantize", "none",
+                                  "--n-layers", str(TP_CUT)])
+    phase("16b the speculative engine over a mesh: torchrun "
+          "--nproc-per-node 2 -m repro_torch.launch.serve "
+          + " ".join(a if a else "''" for a in args)
+          + f" --mesh {TP_MESH} --backend gloo (the draft float, the "
+          "target's config), against the same engine on one device")
+    t0 = time.perf_counter()
+    ref, recs = _tp_engine_run(torch, args, "spec")
+    cut = dc.replace(C.get_config("qwen1.5-4b"), n_layers=TP_CUT)
+    cells = _engine_cells(torch, cut, ref["engine"], True)
+
+    def rule(dispatches):
+        return {k: sum(n * per * (SPEC_K + 1 if name == "spec-draft" else 1)
+                       for name, n in dispatches.items())
+                for k, per in TP_SPEC_STEP.items()}
+
+    failed = _tp_engine_gates(torch, "speculative", ref, recs, rule, cells)
+    err = _first_logits_err(ref, recs[0])
+    sp = [r["speculation"] for r in (ref, *recs)]
+    print(f"acceptance one device {sp[0]['acceptance_rate']} "
+          f"({sp[0]['accepted_tokens']}/{sp[0]['proposed_tokens']}), ranks "
+          + ", ".join(f"{x['acceptance_rate']} ({x['accepted_tokens']}/"
+                      f"{x['proposed_tokens']})" for x in sp[1:])
+          + "; against the one device printed, not gated: a near-tie "
+          "argmax that the TP sums flip forks a stream and its acceptance "
+          f"from there; first-token logits max |mesh - one| / (1 + |one|) "
+          f"{err:.4g} (tol {PATH_TOL}); phase 16b "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not err <= PATH_TOL:
+        failed.append(f"first-token logits {err} > {PATH_TOL}")
+    counted = lambda x: {k: v for k, v in x.items()
+                         if k not in ("draft_s", "verify_s")}
+    if counted(sp[1]) != counted(sp[2]):
+        failed.append("the ranks' speculation sections differ")
+    for x, rec in zip(sp[1:], recs):
+        generated = sum(map(len, rec["tokens"].values()))
+        if x["committed_tokens"] != generated - len(rec["tokens"]):
+            failed.append(f"rank {rec['rank']}: committed_tokens "
+                          f"{x['committed_tokens']} != generated "
+                          f"{generated} - requests {len(rec['tokens'])}")
+    counts = recs[0]["launches"]
+    del ref, recs
+    _free(torch)
+    if failed:
+        raise SystemExit("16b: " + "; ".join(failed))
+    return counts
+
+
 ZAMBA_STEP_CUT = {"n_layers": 12}  # 10a / 10b's static steps (main)
 
 
@@ -4186,14 +4459,17 @@ def main() -> int:
     # 12: the vision family, llama-3.2-vision-11b at its full width and
     # depth; card against CPU at 10 layers: two groups of 4 self layers
     # and 1 cross layer (cross_attn_every kept at 5), so the carry from one
-    # group to the next runs; at int8 one group (the f64 CPU side's time)
+    # group to the next runs; at int8 one group of a self layer and the
+    # cross layer (the f64 CPU side's time: on an H100 at 5 layers 12d
+    # took 101 s, and with phase 16 the script 1,085 s of its 1,200)
     vision = "llama-3.2-vision-11b"
     counts[vision] = run_path(torch, vision, "12a")
     static_steps(torch, vision, "12a")
     counts[vision + " int8"] = run_path(torch, vision + " int8", "12b")
     static_steps(torch, vision, "12b", quant=True)
     kernel_vs_plain(torch, vision, "12c", cut={"n_layers": 10})
-    kernel_vs_plain(torch, vision, "12d", quant=True, cut={"n_layers": 5})
+    kernel_vs_plain(torch, vision, "12d", quant=True,
+                    cut={"n_layers": 2, "cross_attn_every": 2})
     # 13: training, qwen1.5-4b at its full width and depth
     train_bwd = check_train_kernels(torch)
     counts["qwen1.5-4b train"] = train_path(torch)
@@ -4208,6 +4484,10 @@ def main() -> int:
     counts["qwen1.5-4b tp serve (1x2, a rank)"] = tp_serve(torch)
     counts["qwen1.5-4b tp train (1x2, a rank)"] = tp_train(torch)
     tp_dryrun(torch, train_rec)
+    # 16: the serving engines over the same mesh
+    counts["qwen1.5-4b tp engine (1x2, a rank)"] = tp_engine(torch)
+    counts["qwen1.5-4b tp spec engine (1x2, a rank, 4 layers)"] = \
+        tp_spec_engine(torch)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

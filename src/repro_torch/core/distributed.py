@@ -28,7 +28,9 @@ of the port calls; they are not differentiable (``parallel.fsdp.Gather``
 is the gather autograd sees). Each adds the bytes of its operand on this rank (an
 all-gather's local block, a reduce-scatter's or all-reduce's whole input,
 a broadcast's tensor, a send's tensor) to the active context's
-:class:`CollectiveCounter`, the counterpart of the reference's
+:class:`CollectiveCounter` (the serving engine's clock, broadcast from
+rank 0, under a kind of its own, ``clock``), the counterpart of the
+reference's
 ``roofline.hlo.analyze(...).collective_bytes``. A collective over an axis
 of extent 1 is skipped and counts 0, as XLA drops it. On an abstract mesh
 (``launch.mesh.make_production_mesh``) the helpers take meta tensors,
@@ -75,7 +77,7 @@ from repro_torch.core.gemm import balanced_gemm
 from repro_torch.kernels.ops import GemmPlan
 
 KINDS = ("all_gather", "reduce_scatter", "all_reduce", "send_recv",
-         "broadcast")
+         "broadcast", "clock")
 
 
 class CollectiveCounter:
@@ -196,13 +198,14 @@ def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     return t
 
 
-def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
+def broadcast(t: torch.Tensor, mesh, axis: str, src: int,
+              kind: str = "broadcast") -> torch.Tensor:
     """``t`` of the rank at ``src`` along ``axis``, on every rank of it (in
-    place)."""
+    place), counted under ``kind``."""
     if mesh.axis_size(axis) == 1:
         return t
     _check_abstract(mesh, t)
-    _count("broadcast", t)
+    _count(kind, t)
     if not mesh.abstract:
         if _staged(mesh, t):
             host = t.cpu()
@@ -212,6 +215,24 @@ def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
         else:
             dist.broadcast(t, src=mesh.axis_ranks(axis)[src],
                            group=mesh.group(axis))
+    return t
+
+
+def all_gather_over(t: torch.Tensor, mesh, entry, dim: int) -> torch.Tensor:
+    """The blocks of a spec entry's axes (one name or several, major first)
+    concatenated along ``dim``: an all-gather over each, minor axis first,
+    as ``parallel.sharding.gather_leaf`` does."""
+    for name in reversed(entry_axes(entry)):
+        t = all_gather(t, mesh, name, dim)
+    return t
+
+
+def reduce_scatter_over(t: torch.Tensor, mesh, entry, dim: int
+                        ) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over a spec entry's axes:
+    a reduce-scatter over each, major axis first."""
+    for name in entry_axes(entry):
+        t = reduce_scatter(t, mesh, name, dim)
     return t
 
 
@@ -306,6 +327,18 @@ def entry_axes(entry) -> tuple[str, ...]:
 def axes_extent(mesh, entry) -> int:
     """The extent of a spec entry (1 for None)."""
     return math.prod(mesh.axis_size(n) for n in entry_axes(entry))
+
+
+def data_parallel(mesh) -> tuple[object, int, int]:
+    """The DP axes' spec entry (``batch_specs``' entry: one name, a tuple
+    major first, or None), their extent and this rank's index over
+    them."""
+    dp = mesh.dp_axes()
+    entry = (dp if len(dp) > 1 else dp[0]) if dp else None
+    index = 0
+    for name in dp:
+        index = index * mesh.axis_size(name) + mesh.axis_index(name)
+    return entry, axes_extent(mesh, entry), index
 
 
 # ---------------------------------------------------- tensor parallelism
@@ -435,7 +468,7 @@ def local_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, *,
             current_context().quant_mode == "int8":
         raise NotImplementedError(
             "int8 over 'model' (a W8A8 activation scale spans every row): "
-            "ROADMAP queue 1, item 5")
+            "ROADMAP queue 1, item 3")
     return balanced_gemm(x, w, bias, activation=activation,
                          out_dtype=out_dtype or x.dtype, b_layout=b_layout)
 

@@ -167,9 +167,13 @@ def shard_state(state: Any, specs: Any, mesh, *, cfg=None) -> Any:
     out for this rank: each leaf's block of its spec on ``mesh``
     (``parallel.sharding.shard_leaf``; a leaf the spec does not split is
     kept as it is). ``specs`` None: ``state`` is a decode state of
-    ``cfg``, laid out by ``decode_state_specs``."""
+    ``cfg``, laid out by ``decode_state_specs`` (its paged rules for a
+    ``PagedKVCache`` pool)."""
+    from repro_torch.layers.attention import PagedKVCache
     from repro_torch.parallel.sharding import decode_state_specs, shard_tree
 
     if specs is None:
-        specs = decode_state_specs(state, cfg, mesh)
+        paged = isinstance(state, dict) and any(
+            isinstance(v, PagedKVCache) for v in state.values())
+        specs = decode_state_specs(state, cfg, mesh, paged=paged)
     return shard_tree(state, specs, mesh)

@@ -27,7 +27,9 @@ collective helpers counting bytes and moving nothing). Per cell:
   reductions (``parallel.fsdp``) and its tensor-parallel collectives over
   'model'; the serve steps' (``train.servestep.make_serve_step`` over the
   mesh: the layers' leaves gathered over the DP axes, tensor-parallel over
-  'model', the decode state in ``decode_state_specs``' blocks);
+  'model', the decode state in ``decode_state_specs``' blocks), and the
+  serving engine's steps (:func:`engine_cells`: the tick, each chunk
+  bucket or the admission, the verify pass and the draft's steps);
 * the wall seconds of the cell.
 
 The rwkv and hybrid families' serve cells are recorded as skipped: their
@@ -207,6 +209,67 @@ def serve_cell(cfg, mesh, kind: str, batch: int, seq_len: int) -> dict:
                                "axes a layer at a time")
     return {"local_batch": _local_batch(mesh, batch), "memory": memory,
             "cost": cost}
+
+
+def engine_cells(cfg, mesh, *, num_slots: int, max_len: int,
+                 prompt_pad: int, kv_block_size: int | None = None,
+                 num_kv_blocks: int | None = None,
+                 prefill_chunk: int | None = None, kv_dtype=None,
+                 draft_cfg=None, spec_k: int = 4) -> dict[str, dict]:
+    """The serving engine's steps over ``mesh`` (abstract) on the meta
+    device, each counted once (:func:`count_step`), by the engine's phase
+    tags: the tick at ``num_slots`` lanes ("decode"), the paged engine's
+    chunk at each bucket ("prefill-chunk@<bucket>") or the contiguous
+    engine's admission ("admit"), and with a ``draft_cfg`` the verify pass
+    ("spec-verify"), the draft's admission ("admit") and its propose step
+    ("spec-draft"). The defaults are ``serve.ServeEngine``'s (the pool at
+    full contiguous capacity, chunks of ``prompt_pad``); the params are
+    each model's from seed 0, this rank's blocks. Each cell's collective
+    bytes are what a rank's step moves over a real mesh of that shape."""
+    from repro_torch.serve.engine import chunk_buckets
+
+    meta = lambda shape: _meta(shape, torch.int64)
+    one = lambda: _meta((), torch.int64)
+    cells = {}
+    if kv_block_size:
+        blocks = num_kv_blocks or -(-num_slots * max_len // kv_block_size) + 1
+        art = servestep.make_paged_engine_step(
+            cfg, num_slots=num_slots, max_len=max_len,
+            kv_block_size=kv_block_size, num_kv_blocks=blocks,
+            chunk_buckets=chunk_buckets(prefill_chunk or prompt_pad),
+            device="meta", kv_dtype=kv_dtype, mesh=mesh)
+    else:
+        art = servestep.make_engine_step(
+            cfg, num_slots=num_slots, max_len=max_len,
+            prompt_pad=prompt_pad, device="meta", mesh=mesh)
+    params = art.layout.shard_params(models.init(cfg, device="meta"))
+    state = art.init_state("meta")
+    toks, active = meta((num_slots, 1)), meta((num_slots,))
+    if kv_block_size:
+        for b in art.chunk_buckets:
+            cells[f"prefill-chunk@{b}"] = count_step(lambda: art.prefill_raw(
+                params, state, meta((1, b)), one(), one(), one(),
+                meta((art.max_blocks,))))
+    else:
+        cells["admit"] = count_step(lambda: art.admit_raw(
+            params, state, meta((1, prompt_pad)), one(), one()))
+    cells["decode"] = count_step(lambda: art.decode_raw(params, state, toks,
+                                                        active))
+    if draft_cfg is not None:
+        spec = servestep.make_spec_step(
+            cfg, draft_cfg, num_slots=num_slots, max_len=max_len,
+            prompt_pad=prompt_pad, spec_k=spec_k, device="meta", mesh=mesh,
+            target=art)
+        dparams = spec.draft_layout.shard_params(models.init(draft_cfg,
+                                                             device="meta"))
+        dstate = spec.init_draft_state("meta")
+        cells["spec-verify"] = count_step(lambda: spec.verify_raw(
+            params, state, meta((num_slots, spec_k + 1)), active))
+        cells["admit"] = count_step(lambda: spec.draft_admit_raw(
+            dparams, dstate, meta((1, prompt_pad)), one(), one()))
+        cells["spec-draft"] = count_step(lambda: spec.propose_raw(
+            dparams, dstate, toks, active, toks, active))
+    return cells
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str

@@ -33,6 +33,8 @@ CUDA graph (``train.servestep``).
       --smoke --device cpu
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2 \\
       --backend gloo --batch 4 --prompt-len 128 --gen 16
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --engine \\
+      --kv-block-size 4 --mesh 1x2 --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
       --kv-block-size 4 --device cpu --metrics-json serve.json
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --engine \\
@@ -61,11 +63,21 @@ torchrun: each rank makes the whole model from seed 0, keeps its blocks
 tensor-parallel over 'model'; every rank ends with every row's tokens and
 rank 0 prints. ``--backend gloo`` puts several ranks on one card (each
 collective staged through host memory); nccl is the default on the card.
-``--n-layers`` cuts the config's depth (its width stays).
-``--record-out PREFIX`` writes what the static run measured (tokens, the
-prefill's and each step's logits and top-2 margins, collective bytes,
-seconds, launches, plan-cache counters, the load's and serving's peak
-memory) to ``PREFIX.rank<r>.pt``.
+With ``--engine --mesh`` the engine (the dense family; paged, contiguous
+or speculative) runs over the mesh the same way: each rank makes the whole
+model, the engine keeps its blocks (``ServeEngine(mesh=)``), and every rank
+runs the whole schedule on the same logits and rank 0's clock.
+``--n-layers`` cuts the config's depth (its width stays), the draft's
+too.
+``--record-out PREFIX`` writes what the run measured to
+``PREFIX.rank<r>.pt``: for the static run its tokens, the prefill's and
+each step's logits and top-2 margins, collective bytes, seconds,
+launches, plan-cache counters, the load's and serving's peak memory; for
+the engine each request's tokens, the admission sequence, the aggregate
+counters and the speculation section, the dispatches, each step's
+collective bytes and host ms by phase tag, the clock's bytes, launches,
+plan-cache counters, this rank's state bytes, the peaks, every committed
+token's top-2 margin and each request's first-token logits.
 
 With ``--spec-draft-config`` the engine decodes speculatively: the draft
 (built from seed 0 like the target, shrunk with it under ``--smoke``, and
@@ -76,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import statistics
 import time
 
 import numpy as np
@@ -288,12 +301,14 @@ def _report_attrib(ctx, engine, m, *, rebalance: bool) -> dict | None:
     return stats
 
 
-def _run_engine(args, ctx, cfg, params, device,
-                measure_factory=None) -> dict:
+def _run_engine(args, ctx, cfg, box: list, device, measure_factory=None,
+                mesh=None) -> dict:
     """--engine: continuous batching over a mixed-length synthetic trace
     (with --prefix-cache a shared-header trace, with --bursty-trace bursts
-    of mixed-priority traffic). Returns the engine, its metrics and the
-    plan-cache counters of serving."""
+    of mixed-priority traffic). ``box`` holds the whole params (taken out,
+    so that over a ``mesh`` the whole tree is freed once the engine keeps
+    its blocks). Returns the engine, its metrics and the plan-cache
+    counters of serving."""
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve import (ServeEngine, SimClock, bursty_trace,
                                    shared_prefix_trace, synthetic_trace)
@@ -318,6 +333,8 @@ def _run_engine(args, ctx, cfg, params, device,
         dcfg = C.get_config(args.spec_draft_config)
         if args.smoke:
             dcfg = C.smoke(dcfg)
+        if args.n_layers is not None:
+            dcfg = dataclasses.replace(dcfg, n_layers=args.n_layers).validate()
         dparams = models.init(dcfg, seed=0, device=device)
         dquant = None
         if args.spec_draft_quantize == "int8":
@@ -369,8 +386,11 @@ def _run_engine(args, ctx, cfg, params, device,
                          "traced attribution: pass --trace-out too")
     tracer = (Tracer(ring_events=args.trace_ring_events)
               if args.trace_out else None)
+    lead = mesh is None or mesh.rank == 0
+    print_ = print if lead else (lambda *a, **k: None)
     engine = ServeEngine(
-        cfg, params, num_slots=args.num_slots, max_len=max_len,
+        cfg, box.pop(), mesh=mesh, num_slots=args.num_slots,
+        max_len=max_len,
         prompt_pad=prompt_pad, kv_block_size=args.kv_block_size or None,
         num_kv_blocks=args.num_kv_blocks, kv_quantize=args.kv_quantize,
         prefill_chunk=args.prefill_chunk,
@@ -382,17 +402,33 @@ def _run_engine(args, ctx, cfg, params, device,
         clock=SimClock(args.sim_clock) if args.sim_clock else None,
         tracer=tracer, metrics_interval_ticks=args.metrics_interval_ticks,
         attrib_tol=args.attrib_tol, **spec_kwargs)
+    spec_kwargs = dparams = None  # the engine keeps (its blocks of) them
+    # the load's peak (over a mesh: the whole init and the blocks at once)
+    init_peak = _peak_gib(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if mesh is not None:
+        print_(f"[mesh] {mesh.describe()}: {mesh.size} ranks; this rank's "
+               f"state {engine.pool_bytes} bytes (the load's transient peak "
+               f"{init_peak:.2f} GiB); the steps run "
+               + ("eager" if any(n > 1 for n in mesh.shape) else "captured"))
+    if args.record_out:
+        engine.token_log = []
     measured = None
     if not args.no_warmup:
         t0 = time.perf_counter()
         warm = engine.plan_warmup()
-        _report_warmup(ctx, warm, time.perf_counter() - t0, "engine warm-up")
+        if lead:
+            _report_warmup(ctx, warm, time.perf_counter() - t0,
+                           "engine warm-up")
         if args.measure_plans:
             # before the first call: each bucket's graph is captured at
             # its first call, with the refined plans
             measured = _measure_plans(ctx, device, measure_factory)
 
+    before = graphs.launches()
     m = engine.run(trace)
+    launched = {k: n - before[k] for k, n in graphs.launches().items()}
     qtag = f" quant={ctx.quant_mode}" if ctx.quant_mode else ""
     ptag = (f" paged(block={engine.kv_block_size},"
             f"pool={engine.num_kv_blocks})" if engine.paged else "")
@@ -402,73 +438,107 @@ def _run_engine(args, ctx, cfg, params, device,
            else f"{m.tokens_per_tick:.2f} tok/tick")
     occ = (f"{m.mean_occupancy:.2f}" if m.mean_occupancy is not None
            else "n/a")
-    print(f"[engine]{ptag} arch={cfg.name}{qtag} hw={ctx.hw.name} "
-          f"device={device} "
-          f"slots={args.num_slots}: {len(trace)} requests, "
-          f"{m.generated_tokens} tokens in {m.wall_s:.2f}s ({tps} incl. "
-          f"first calls), mean occupancy {occ}/{args.num_slots}, "
-          f"{m.ticks} ticks, steps {dict(sorted(engine.dispatches.items()))}")
+    print_(f"[engine]{ptag} arch={cfg.name}{qtag} hw={ctx.hw.name} "
+           f"device={device} "
+           f"slots={args.num_slots}: {len(trace)} requests, "
+           f"{m.generated_tokens} tokens in {m.wall_s:.2f}s ({tps} incl. "
+           f"first calls), mean occupancy {occ}/{args.num_slots}, "
+           f"{m.ticks} ticks, steps {dict(sorted(engine.dispatches.items()))}")
     if engine.paged:
         bp = m.block_pool
-        print(f"[block-pool] peak {bp['peak_in_use']}/{bp['num_blocks'] - 1} "
-              f"blocks ({bp['peak_utilization']:.2f} util), memory ratio "
-              f"{bp['memory_ratio']:.2f}x contiguous, "
-              f"{m.deferred_admissions} deferred admissions, "
-              f"peak internal frag {bp['peak_fragmentation_tokens']} tokens")
+        print_(f"[block-pool] peak {bp['peak_in_use']}/{bp['num_blocks'] - 1} "
+               f"blocks ({bp['peak_utilization']:.2f} util), memory ratio "
+               f"{bp['memory_ratio']:.2f}x contiguous, "
+               f"{m.deferred_admissions} deferred admissions, "
+               f"peak internal frag {bp['peak_fragmentation_tokens']} tokens")
         kv = m.kv_cache
         if kv["quantized"]:
-            print(f"[kv-quant] {kv['kv_dtype']} pool: {kv['pool_bytes']} "
-                  f"bytes vs {kv['bf16_pool_bytes']} bf16 "
-                  f"({kv['bytes_ratio']:.3f}x; {kv['bytes_per_block']} bytes "
-                  f"a block), scale max k {kv['scale_k_max']:.4g} v "
-                  f"{kv['scale_v_max']:.4g}")
+            print_(f"[kv-quant] {kv['kv_dtype']} pool: {kv['pool_bytes']} "
+                   f"bytes vs {kv['bf16_pool_bytes']} bf16 "
+                   f"({kv['bytes_ratio']:.3f}x; {kv['bytes_per_block']} bytes "
+                   f"a block), scale max k {kv['scale_k_max']:.4g} v "
+                   f"{kv['scale_v_max']:.4g}")
     pc = m.plan_cache
     if m.speculation["enabled"]:
         sp = m.speculation
-        print(f"[spec] draft={sp['draft_arch']}"
-              + (f"({sp['draft_quant']})" if sp["draft_quant"] else "")
-              + f" k={sp['spec_k']}: {sp['rounds']} rounds, accepted "
-              f"{sp['accepted_tokens']}/{sp['proposed_tokens']} proposals "
-              f"({sp['acceptance_rate']:.2f}), "
-              f"{sp['mean_committed_per_round']:.2f} tokens/round, "
-              f"draft {sp['draft_s']:.2f}s / verify {sp['verify_s']:.2f}s, "
-              f"lazy_solves={pc['lazy_solves']}")
+        print_(f"[spec] draft={sp['draft_arch']}"
+               + (f"({sp['draft_quant']})" if sp["draft_quant"] else "")
+               + f" k={sp['spec_k']}: {sp['rounds']} rounds, accepted "
+               f"{sp['accepted_tokens']}/{sp['proposed_tokens']} proposals "
+               f"({sp['acceptance_rate']:.2f}), "
+               f"{sp['mean_committed_per_round']:.2f} tokens/round, "
+               f"draft {sp['draft_s']:.2f}s / verify {sp['verify_s']:.2f}s, "
+               f"lazy_solves={pc['lazy_solves']}")
     if m.prefix_cache:
         px = m.prefix_cache
-        print(f"[prefix-cache] hit {px['hit_tokens']}/{px['lookup_tokens']} "
-              f"prompt tokens ({px['hit_rate']:.2f} hit rate), "
-              f"{px['inserted_blocks']} blocks cached, "
-              f"{px['reclaimed_blocks']} reclaimed")
+        print_(f"[prefix-cache] hit {px['hit_tokens']}/{px['lookup_tokens']} "
+               f"prompt tokens ({px['hit_rate']:.2f} hit rate), "
+               f"{px['inserted_blocks']} blocks cached, "
+               f"{px['reclaimed_blocks']} reclaimed")
     if m.policy != "fifo" or m.preemptions or m.deadline_missed:
-        print(f"[sched] policy={m.policy} preemptions={m.preemptions} "
-              f"resumes={m.resumes} deadline_missed={m.deadline_missed} "
-              f"deferred={m.deferred_admissions}")
-    print(f"[plan-cache] serving: hits={pc['hits']} misses={pc['misses']} "
-          f"lazy_solves={pc['lazy_solves']} "
-          f"steady_state={pc['steady_state']}")
+        print_(f"[sched] policy={m.policy} preemptions={m.preemptions} "
+               f"resumes={m.resumes} deadline_missed={m.deadline_missed} "
+               f"deferred={m.deferred_admissions}")
+    print_(f"[plan-cache] serving: hits={pc['hits']} misses={pc['misses']} "
+           f"lazy_solves={pc['lazy_solves']} "
+           f"steady_state={pc['steady_state']}")
     first = engine.finished[0]
-    print(f"first finished: id={first.request.request_id} "
-          f"reason={first.finish_reason} tokens={first.tokens[:12]} ...")
+    print_(f"first finished: id={first.request.request_id} "
+           f"reason={first.finish_reason} tokens={first.tokens[:12]} ...")
     rebalanced = None
     if tracer is not None:
         obj = tracer.save(args.trace_out)
         t = m.timing
-        print(f"[trace] {len(obj['traceEvents'])} events "
-              f"({t.get('events_dropped', 0)} dropped) -> {args.trace_out}; "
-              f"host {t.get('host_s', 0.0):.3f}s / device "
-              f"{t.get('device_s', 0.0):.3f}s across "
-              f"{len(t.get('phases', {}))} phases")
+        print_(f"[trace] {len(obj['traceEvents'])} events "
+               f"({t.get('events_dropped', 0)} dropped) -> {args.trace_out}; "
+               f"host {t.get('host_s', 0.0):.3f}s / device "
+               f"{t.get('device_s', 0.0):.3f}s across "
+               f"{len(t.get('phases', {}))} phases")
         rebalanced = _report_attrib(ctx, engine, m,
                                     rebalance=args.rebalance_drifted)
     if args.metrics_json:
         m.to_json(args.metrics_json)
-        print(f"[engine] metrics written to {args.metrics_json}")
+        print_(f"[engine] metrics written to {args.metrics_json}")
         if args.metrics_interval_ticks:
             prom_path = args.metrics_json + ".prom"
             with open(prom_path, "w") as f:
                 f.write(engine.registry.to_prometheus_text())
-            print(f"[registry] {len(engine.registry.snapshots)} snapshots, "
-                  f"exposition written to {prom_path}")
+            print_(f"[registry] {len(engine.registry.snapshots)} snapshots, "
+                   f"exposition written to {prom_path}")
+    if mesh is not None:
+        ms = {k: 1e3 * statistics.median(v) for k, v in engine.step_s.items()}
+        print_(f"[mesh] collective bytes a rank by step "
+               f"{ {k: sorted(set(v)) for k, v in engine.step_bytes.items()} }"
+               f", clock {engine.clock_bytes.total}; median ms by step "
+               f"{ {k: round(v, 2) for k, v in sorted(ms.items())} }; peak "
+               f"{_peak_gib(device):.2f} GiB")
+    if args.record_out:
+        ids = {r.request_id: i for i, r in enumerate(trace)}
+        rank = 0 if mesh is None else mesh.rank
+        torch.save({
+            "tokens": {ids[st.request.request_id]: list(st.tokens)
+                       for st in engine.finished},
+            "admissions": [(ids[st.request.request_id], st.slot,
+                            st.admitted_tick, st.first_token_tick,
+                            st.finished_tick, st.finish_reason,
+                            st.preemptions, st.cached_tokens)
+                           for st in engine.finished],
+            "engine": m.to_dict()["engine"],
+            "aggregate": m.to_dict()["aggregate"],
+            "speculation": m.speculation,
+            "dispatches": dict(engine.dispatches),
+            "step_bytes": engine.step_bytes,
+            "clock_bytes": engine.clock_bytes.by_kind(),
+            "step_ms": {k: [1e3 * x for x in v]
+                        for k, v in engine.step_s.items()},
+            "launches": launched, "lazy_solves": pc["lazy_solves"],
+            "misses": pc["misses"], "pool_bytes": engine.pool_bytes,
+            "init_peak_gib": init_peak, "peak_gib": _peak_gib(device),
+            "token_log": [(ids[r], *rest) for r, *rest in engine.token_log],
+            "first_logits": {ids[r]: torch.from_numpy(v) for r, v in
+                             engine.first_logits.items()},
+            "mesh": None if mesh is None else mesh.describe(),
+            "rank": rank}, f"{args.record_out}.rank{rank}.pt")
     if not args.no_warmup and (pc["lazy_solves"] or pc["misses"]):
         raise SystemExit(
             f"plan warm-up incomplete: {pc['misses']} unseen signatures, "
@@ -495,8 +565,9 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the plan pre-solve (plans solve lazily)")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="the static server over a (data, model) mesh of "
-                         "the world's ranks (default: one device)")
+                    help="the static server or the engine over a (data, "
+                         "model) mesh of the world's ranks (default: one "
+                         "device)")
     ap.add_argument("--backend", default=None, choices=BACKENDS,
                     help="the mesh's collectives (default: nccl on the "
                          "card, gloo on the CPU; gloo on the card stages "
@@ -504,8 +575,7 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the config's depth to N layers (full width)")
     ap.add_argument("--record-out", default=None, metavar="PREFIX",
-                    help="static server: write what the run measured to "
-                         "PREFIX.rank<r>.pt")
+                    help="write what the run measured to PREFIX.rank<r>.pt")
     add_context_args(ap)
     add_serve_engine_args(ap)
     args = ap.parse_args(argv)
@@ -514,9 +584,6 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
     ctx = context_from_args(args)
     mesh = None
     if args.mesh is not None:
-        if args.engine:
-            raise NotImplementedError("the engine over a mesh: ROADMAP "
-                                      "queue 1, item 5")
         mesh = make_local_mesh(*parse_mesh(args.mesh), device=device,
                                backend=args.backend)
     elif args.backend is not None:
@@ -529,7 +596,8 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
             cfg = C.smoke(cfg)
         if args.n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=args.n_layers).validate()
-        check_mesh_family(cfg, mesh, ctx.quant_mode == "int8")
+        check_mesh_family(cfg, mesh, ctx.quant_mode == "int8",
+                          args.engine and args.kv_quantize == "int8")
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         params = models.init(cfg, seed=0, device=device)
@@ -546,8 +614,10 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
             say(f"[quant] int8 weights quantized at load in "
                 f"{quantize_s:.2f}s")
         if args.engine:
-            res = _run_engine(args, ctx, cfg, params, device,
-                              measure_factory)
+            box = [params]
+            del params
+            res = _run_engine(args, ctx, cfg, box, device, measure_factory,
+                              mesh)
             res["quantize_s"] = quantize_s
             return res
         if mesh is not None:

@@ -18,17 +18,33 @@ PyTorch raises on the CPU and faults on the card, so each write here
 keeps its indices in range by construction and says how.
 
 Under a sharded plan with 'model' above 1 (``parallel.fsdp.ShardPlan``)
-full-sequence attention, prefill and the contiguous decode are
-tensor-parallel (:func:`_attend_full`, :func:`decode_attention`); the
-paged paths are not (the engine does not run over a mesh).
+full-sequence attention, prefill, the contiguous decode and the paged
+prefill chunk, decode tick and verify pass are tensor-parallel
+(:func:`_attend_full`, :func:`decode_attention`, :func:`_paged_attention`):
+a cache or pool holds this rank's kv heads, or its head_dim block where the
+kv heads do not divide 'model' (``decode_state_specs``).
+
+Over the DP axes (a plan whose ``kv`` names the decode state's layout) a
+step's rows may be this rank's lanes, and the cache this rank's block of
+the lanes, of the sequence (a contiguous cache whose lanes DP does not
+divide) or of a pool's blocks; the lengths and the block table stay whole
+on every rank. A lane-split step all-gathers its new K/V rows over DP and
+each rank writes the rows whose block it holds (:func:`_pool_write`'s
+last-row rule over the whole rows, so the bytes are the one-device
+pool's). A split pool's gather reads the blocks held here, zeros for the
+others, and sums over DP on the raw bytes (one nonzero plus zeros is
+exact): reduce-scattered by lanes where the lanes are split, all-reduced
+where they are not. A sequence-split cache writes the position it holds
+and all-gathers the sequence before the contraction.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.core import distributed as cd
+from repro_torch.core.context import current_context
 from repro_torch.layers import common as cm
 from repro_torch.quant import int8 as q8
 from repro_torch.quant.kvcache import KVCacheDtype
@@ -386,21 +402,128 @@ def _cache_layout(n_kv: int, hd: int) -> str:
         return "head_dim"
     raise NotImplementedError(
         f"a KV cache of {n_kv} kv heads x {hd} over a 'model' axis of {tp} "
-        "(the decode cache's sequence fallback): ROADMAP queue 1, item 5")
+        "(the decode cache's sequence fallback; a pool the reference "
+        "keeps whole): ROADMAP queue 1, item 10")
 
 
-def _cache_block(t, cache, layout: str):
-    """This rank's block of k or v (B, S, Hkv', Dh) as ``cache`` stores it:
-    ``t`` itself where it already is (this rank's kv heads, or a whole
-    cache), else its kv heads' or head_dim's block."""
-    if t.shape[2:] == cache.k.shape[2:]:
+def _cache_block(t, shape, layout: str):
+    """This rank's block of k or v (..., Hkv, Dh) as a cache whose trailing
+    dims are ``shape`` stores it: ``t`` itself where it already is (this
+    rank's kv heads, or a whole cache), else its kv heads' or head_dim's
+    block."""
+    if tuple(t.shape[-2:]) == tuple(shape):
         return t
     r = cm.tp_mesh().axis_index("model")
     if layout == "heads":
-        n = cache.k.shape[2]
-        return t[:, :, r * n:(r + 1) * n]
-    n = cache.k.shape[3]
+        n = shape[0]
+        return t[..., r * n:(r + 1) * n, :]
+    n = shape[1]
     return t[..., r * n:(r + 1) * n]
+
+
+class _DP(NamedTuple):
+    """How a step's rows and a decode state lie over the DP axes."""
+    mesh: Any
+    entry: Any                         # the DP axes' spec entry
+    size: int                          # their extent
+    lanes: slice | None                # this rank's lanes (None: every one)
+    held: tuple[int, int] | None       # (first, count) of the split dim
+
+
+def _over_dp(total: int, rows: int, dim: int, local: int) -> _DP | None:
+    """The DP layout of a step under the active plan, or None (no plan
+    naming the state's layout, no DP axis above 1, nothing split). A step
+    of ``rows`` rows over a state of ``total`` lanes holds this rank's
+    lanes where they differ; ``dim`` is the stacked K leaf's dim that DP
+    may split besides the lanes (1: a pool's blocks, 2: a contiguous
+    cache's sequence), of which ``local`` are held here."""
+    plan = current_context().shard
+    if plan is None or plan.kv is None:
+        return None
+    mesh = plan.mesh
+    entry, size, index = cd.data_parallel(mesh)
+    if size == 1:
+        return None
+    lanes = None if rows == total else slice(index * rows, (index + 1) * rows)
+    split = plan.kv[dim] if len(plan.kv) > dim else None
+    held = ((index * local, local)
+            if set(cd.entry_axes(split)) & set(mesh.dp_axes()) else None)
+    if lanes is None and held is None:
+        return None
+    return _DP(mesh, entry, size, lanes, held)
+
+
+def _dp_sum(t: torch.Tensor, dp: _DP) -> torch.Tensor:
+    """The sum over DP of ``t`` (lanes leading), each element's bytes held
+    by one rank and zero on the others: reduce-scattered by lanes where
+    they are split, else all-reduced, on the raw bytes (one nonzero plus
+    zeros is exact in any dtype)."""
+    bits = t.contiguous().view(torch.uint8)
+    if dp.lanes is not None:
+        bits = cd.reduce_scatter_over(bits, dp.mesh, dp.entry, 0)
+    else:
+        bits = cd.all_reduce(bits, dp.mesh, cd.entry_axes(dp.entry))
+    return bits.view(t.dtype)
+
+
+def _held(t: torch.Tensor, idx: torch.Tensor, held) -> torch.Tensor:
+    """``t[idx]`` for the global ids ``idx`` of ``t``'s split leading dim,
+    of which this rank holds ``held`` = (first, count): zeros for the ids
+    held elsewhere."""
+    lo, n = held
+    loc = idx - lo
+    own = (loc >= 0) & (loc < n)
+    g = t[loc.clamp(0, n - 1)]
+    return torch.where(own.reshape(*own.shape, *(1,) * (g.dim() - own.dim())),
+                       g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def _qkv(p: AttnParams, x, layout: str, n_kv: int, hd: int, positions,
+         rope_theta: float, shape):
+    """q, k, v of x (B, S, d), rotated at ``positions``: with the whole
+    leaves (``layout`` 'whole'), or tensor-parallel: q of this rank's
+    heads ('heads', column-parallel) or of every head ('head_dim': the
+    column blocks' outputs gathered); k and v as a cache whose trailing
+    dims are ``shape`` stores them (:func:`_cache_block`)."""
+    if layout == "whole":
+        return _qkv_rotary(p, x, n_kv, hd, positions, rope_theta)
+    mesh = cm.tp_mesh()
+    B, S, _ = x.shape
+    xin = cd.copy_to_model(x, mesh)
+    proj = cd.local_gemm if layout == "heads" else \
+        (lambda a, w, b: _proj_whole(a, w, b, mesh))
+    q, k, v = (proj(xin, w, b).reshape(B, S, -1, hd)
+               for w, b in ((p.wq, p.bq), (p.wk, p.bk), (p.wv, p.bv)))
+    q, k = _rope(q, k, positions, hd, rope_theta)
+    return q, _cache_block(k, shape, layout), _cache_block(v, shape, layout)
+
+
+def _contract(p: AttnParams, q, x, gk, gv, valid, layout: str):
+    """The masked contraction of ``q`` against a cache's gathered keys and
+    values, then ``wo`` (:func:`_decode_contract` with the whole leaves).
+    Tensor-parallel: this rank's heads ('heads'), or its head_dim block
+    with the scores summed over 'model' before the softmax and the output
+    gathered over head_dim ('head_dim'); ``wo`` row-parallel."""
+    if layout == "whole":
+        return _decode_contract(p, q, x, gk, gv, valid)
+    mesh = cm.tp_mesh()
+    r = mesh.axis_index("model")
+    B, S = x.shape[:2]
+    qs = _scaled(q).to(gk.dtype)
+    if layout == "heads":
+        o = _attend(qs, gk, gv, valid)
+    else:
+        hd = gk.shape[-1]
+        o = _attend(qs[..., r * hd:(r + 1) * hd], gk, gv, valid,
+                    scores=lambda s: cd.reduce_from_model(s, mesh))
+        o = cd.gather_from_model(o, mesh, -1)
+    o = o.reshape(B, S, -1).to(x.dtype)
+    if cm.block_dim(p.wo) != 0:
+        return cd.local_gemm(o, p.wo)
+    n = p.wo.shape[0]
+    if o.shape[-1] != n:  # every head's output: this rank's rows of wo
+        o = o[..., r * n:(r + 1) * n]
+    return cd.row_parallel(o, p.wo, mesh=mesh, out_dtype=x.dtype)
 
 
 def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
@@ -414,7 +537,8 @@ def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     The caller sets the length (``lm.prefill``). The head counts default
     to the cache's; under a tensor-parallel plan they are the model's
     (the cache is this rank's block, ``decode_state_specs``) and the
-    attention runs as :func:`_attend_full` does."""
+    attention runs as :func:`_attend_full` does. A cache whose sequence is
+    split over DP keeps the positions it holds."""
     B, S, _ = x.shape
     n_kv = n_kv_heads or cache.k.shape[2]
     hd = head_dim or cache.k.shape[3]
@@ -426,8 +550,17 @@ def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
         p, x, None, n_heads=n_heads, n_kv=n_kv, hd=hd, causal=True,
         chunk=chunk, positions=torch.arange(S, device=x.device)[None, :],
         rope_theta=rope_theta)
-    cache.k[:, :S] = _cache_block(k, cache, layout)
-    cache.v[:, :S] = _cache_block(v, cache, layout)
+    k = _cache_block(k, cache.k.shape[-2:], layout)
+    v = _cache_block(v, cache.k.shape[-2:], layout)
+    dp = _over_dp(cache.k.shape[0], cache.k.shape[0], 2, cache.k.shape[1])
+    if dp is None or dp.held is None:
+        cache.k[:, :S] = k
+        cache.v[:, :S] = v
+    else:
+        lo, n = dp.held
+        m = max(0, min(n, S - lo))
+        cache.k[:, :m] = k[:, lo:lo + m]
+        cache.v[:, :m] = v[:, lo:lo + m]
     return y, cache
 
 
@@ -496,14 +629,23 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     head (the column blocks' outputs gathered), this rank's head_dim block
     written and contracted, the scores summed over 'model' before the
     softmax, the output gathered over head_dim before ``wo``
-    (row-parallel).
+    (row-parallel) (:func:`_qkv`, :func:`_contract`).
+
+    Over DP (a plan naming the state's layout) ``x`` may be this rank's
+    lanes of the whole (B,) length, and the cache its lanes, or its block
+    of the sequence: the rank holding a lane's position writes it (the
+    others write the old value back) and the sequence is all-gathered for
+    the contraction.
     """
     B, S1, _ = x.shape
     if S1 != 1:
         raise ValueError(f"decode takes one token per row, got {S1}")
-    S_max, n_kv, hd = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
+    S_loc, n_kv, hd = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
+    per_slot = cache.length.dim() == 1
+    dp = _over_dp(cache.length.shape[0] if per_slot else B, B, 2, S_loc)
     pos = cache.length
-    per_slot = pos.dim() == 1
+    if dp is not None and dp.lanes is not None:
+        pos = pos[dp.lanes]
     positions = pos[:, None] if per_slot else pos.reshape(1, 1)
     layout = "whole"
     if cm.tp_size() > 1:
@@ -511,48 +653,39 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
             raise ValueError("a tensor-parallel decode needs the model's "
                              "head counts")
         layout = _cache_layout(n_kv_heads, head_dim)
-    if layout == "whole":
-        q, k, v = _qkv_rotary(p, x, n_kv, hd, positions, rope_theta)
-    else:
-        mesh = cm.tp_mesh()
-        xin = cd.copy_to_model(x, mesh)
-        proj = cd.local_gemm if layout == "heads" else \
-            (lambda a, w, b: _proj_whole(a, w, b, mesh))
-        q, k, v = (proj(xin, w, b).reshape(B, 1, -1, head_dim)
-                   for w, b in ((p.wq, p.bq), (p.wk, p.bk), (p.wv, p.bv)))
-        q, k = _rope(q, k, positions, head_dim, rope_theta)
-        k, v = _cache_block(k, cache, layout), _cache_block(v, cache, layout)
+        n_kv, hd = n_kv_heads, head_dim
+    q, k, v = _qkv(p, x, layout, n_kv, hd, positions, rope_theta,
+                   cache.k.shape[-2:])
+    seq = None if dp is None else dp.held
+    S_max = S_loc if seq is None else S_loc * dp.size
+    at = pos.clamp(max=S_max - 1)
+    own = None
+    if seq is not None:  # the position's rank writes it
+        at = at - seq[0]
+        own = (at >= 0) & (at < S_loc)
+        at = at.clamp(0, S_loc - 1)
     kpos = torch.arange(S_max, device=x.device)
     if per_slot:
         rows = torch.arange(B, device=x.device)
-        at = pos.clamp(max=S_max - 1)
-        keep = (pos >= S_max)[:, None, None]
+        keep = pos >= S_max
+        if own is not None:
+            keep = keep | ~own
+        keep = keep[:, None, None]
         for c, new in ((cache.k, k), (cache.v, v)):
             c[rows, at] = torch.where(keep, c[rows, at], new[:, 0])
         valid = kpos[None, :] <= pos[:, None]
     else:
-        at = pos.clamp(max=S_max - 1).reshape(1).long()
-        cache.k.index_copy_(1, at, k)
-        cache.v.index_copy_(1, at, v)
+        at = at.reshape(1).long()
+        for c, new in ((cache.k, k), (cache.v, v)):
+            if own is not None:
+                new = torch.where(own, new, c.index_select(1, at))
+            c.index_copy_(1, at, new)
         valid = (kpos <= pos).expand(B, S_max)
-    if layout == "whole":
-        return _decode_contract(p, q, x, cache.k, cache.v, valid), cache
-    qs = _scaled(q).to(cache.k.dtype)
-    if layout == "heads":
-        o = _attend(qs, cache.k, cache.v, valid)
-    else:
-        r = mesh.axis_index("model")
-        o = _attend(qs[..., r * hd:(r + 1) * hd], cache.k, cache.v, valid,
-                    scores=lambda s: cd.reduce_from_model(s, mesh))
-        o = cd.gather_from_model(o, mesh, -1)
-    o = o.reshape(B, 1, -1).to(x.dtype)
-    if cm.block_dim(p.wo) != 0:
-        return cd.local_gemm(o, p.wo), cache
-    n = p.wo.shape[0]
-    if o.shape[-1] != n:  # every head's output: this rank's rows of wo
-        r = mesh.axis_index("model")
-        o = o[..., r * n:(r + 1) * n]
-    return cd.row_parallel(o, p.wo, mesh=mesh, out_dtype=x.dtype), cache
+    gk, gv = cache.k, cache.v
+    if seq is not None:
+        gk, gv = (cd.all_gather_over(t, dp.mesh, dp.entry, 1)
+                  for t in (gk, gv))
+    return _contract(p, q, x, gk, gv, valid, layout), cache
 
 
 class PagedKVCache(NamedTuple):
@@ -624,7 +757,8 @@ def _pool_gather(cache: PagedKVCache, idx: torch.Tensor, dtype
             q8.dequantize_block(cache.v[idx], cache.v_scale[idx], dtype))
 
 
-def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv) -> None:
+def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv,
+                       held=None) -> None:
     """Whole-block dequantize, merge and requantize write into the int8
     pool, in place (the reference's ``_quantized_scatter``).
 
@@ -644,19 +778,36 @@ def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv) -> None:
     carries the same bytes, the write is deterministic (a replayed step
     equals its eager run on every block, block 0 included), and the result
     is what the reference's sequential scatter on the CPU keeps.
+
+    ``held`` = (first, count): the pool is this rank's block of the block
+    axis (ids global); rows bound elsewhere write nothing (they carry the
+    bytes local block 0 ends with).
     """
+    rows = torch.arange(blk.shape[0], device=blk.device)
+    own = None
+    if held is not None:
+        lo, n = held
+        own = (blk >= lo) & (blk < lo + n)
+        blk = torch.where(own, blk - lo, 0)
     old = q8.dequantize_block(pool[blk], scales[blk])
     merged = torch.where(write_new[..., None, None], newv.float(),
                          torch.where(keep_old[..., None, None], old, 0.0))
     qblk, qs = q8.quantize_block(merged)
-    rows = torch.arange(blk.shape[0], device=blk.device)
-    last = torch.where(blk[:, None] == blk[None, :], rows, -1).amax(dim=1)
-    pool[blk] = qblk[last]
-    scales[blk] = qs[last]
+    same = blk[:, None] == blk[None, :]
+    if own is None:
+        last = torch.where(same, rows, -1).amax(dim=1)
+        pool[blk] = qblk[last]
+        scales[blk] = qs[last]
+        return
+    last = torch.where(same & own[None, :], rows, -1).amax(dim=1)
+    mine = last >= 0
+    at = last.clamp(min=0)
+    pool[blk] = torch.where(mine[:, None, None, None], qblk[at], pool[blk])
+    scales[blk] = torch.where(mine[:, None], qs[at], scales[blk])
 
 
-def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int
-                ) -> None:
+def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int,
+                held=None) -> None:
     """Write the K/V of W consecutive positions a lane into the pool, in
     place: the one pool write of prefill, decode and verify, for both
     formats.
@@ -680,6 +831,13 @@ def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int
     int8 pool: ``span`` consecutive table entries from ``start // bs`` are
     rewritten whole (:func:`_quantized_scatter`): offsets before ``start``
     kept, the window's real positions written, the rest zeroed.
+
+    ``held`` = (first, count): the pool is this rank's block of the block
+    axis (a pool split over DP; the table's ids global). Only the rows
+    bound for a block held here are written, by the same last-row rule over
+    every row, so each rank's blocks end with the bytes the whole pool's
+    would; rows bound elsewhere carry what local (block 0, offset 0) ends
+    with.
     """
     B, W = k.shape[:2]
     bs = cache.k.shape[1]
@@ -696,11 +854,26 @@ def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int
         blk = torch.where(ok, row[lanes, torch.clamp(pos // bs, max=mb - 1)],
                           0).reshape(-1)
         off = torch.where(real, pos % bs, 0).reshape(-1)
-        key = blk * bs + off
         rows = torch.arange(B * W, device=dev)
-        last = torch.where(key[:, None] == key[None, :], rows, -1).amax(dim=1)
+        if held is None:
+            key = blk * bs + off
+            last = torch.where(key[:, None] == key[None, :], rows,
+                               -1).amax(dim=1)
+            for pool, new in ((cache.k, k), (cache.v, v)):
+                pool[blk, off] = new.reshape(B * W, *new.shape[2:])[last]
+            return
+        lo, nb = held
+        own = (blk >= lo) & (blk < lo + nb)
+        blk = torch.where(own, blk - lo, 0)
+        off = torch.where(own, off, 0)
+        key = blk * bs + off
+        last = torch.where((key[:, None] == key[None, :]) & own[None, :],
+                           rows, -1).amax(dim=1)
+        mine = (last >= 0)[:, None, None]
+        at = last.clamp(min=0)
         for pool, new in ((cache.k, k), (cache.v, v)):
-            pool[blk, off] = new.reshape(B * W, *new.shape[2:])[last]
+            pool[blk, off] = torch.where(
+                mine, new.reshape(B * W, *new.shape[2:])[at], pool[blk, off])
         return
     cand = start // bs + torch.arange(span, device=dev)[None, :]  # (B, T)
     ok = (cand < mb) & live
@@ -715,12 +888,96 @@ def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int
         _quantized_scatter(
             pool, scales, blk.reshape(-1), keep_old.expand_as(bpos).reshape(
                 -1, bs), write_new.expand_as(bpos).reshape(-1, bs),
-            new[lanes[:, :, None], src].reshape(-1, bs, *new.shape[2:]))
+            new[lanes[:, :, None], src].reshape(-1, bs, *new.shape[2:]),
+            held)
+
+
+def _pool_layout(cache: PagedKVCache, n_kv: int, hd: int) -> str:
+    """How a pool lies over 'model' (``decode_state_specs(paged=True)``):
+    as :func:`_cache_layout` lays a contiguous cache. The int8 pool stays
+    off a 'model' axis above 1."""
+    if cm.tp_size() > 1 and cache.k_scale is not None:
+        raise NotImplementedError(
+            f"the int8 KV pool over a 'model' axis of {cm.tp_size()} (its "
+            "head_dim layout needs a per-block max over 'model'): ROADMAP "
+            "queue 1, item 9")
+    return _cache_layout(n_kv, hd)
+
+
+def _pool_dp(cache: PagedKVCache, rows: int | None) -> _DP | None:
+    """:func:`_over_dp` of a pool: ``rows`` lanes of the table's (None: a
+    prefill chunk, one request on every rank), its blocks split where the
+    plan's layout splits them."""
+    total = cache.table.shape[0]
+    return _over_dp(total, total if rows is None else rows, 1,
+                    cache.k.shape[0])
+
+
+def _paged_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int,
+                 dp: _DP | None) -> None:
+    """:func:`_pool_write` of a step's rows: a lane-split step's new K/V
+    all-gathered over DP first (``row``, ``start`` and ``spill`` are every
+    lane's), each rank writing the blocks it holds."""
+    if dp is not None and dp.lanes is not None:
+        k, v = (cd.all_gather_over(t, dp.mesh, dp.entry, 0) for t in (k, v))
+    _pool_write(cache, k, v, row, start, n, spill, span,
+                None if dp is None else dp.held)
+
+
+def _paged_kv(cache: PagedKVCache, rows, dtype, dp: _DP | None):
+    """K and V (R, max_blocks * bs, Hkv', Dh) of the table rows ``rows``
+    (every lane's, or a chunk's), for this rank's lanes: an int8 pool
+    dequantized to ``dtype``. A pool split over DP gathers the blocks it
+    holds, zeros for the others, and sums over DP (:func:`_dp_sum`)."""
+    R, mb = rows.shape
+    bs = cache.k.shape[1]
+    if dp is None or dp.held is None:
+        if dp is not None and dp.lanes is not None:
+            rows = rows[dp.lanes]
+        gk, gv = _pool_gather(cache, rows, dtype)
+    else:
+        parts = [_dp_sum(_held(t, rows, dp.held), dp)
+                 for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+                 if t is not None]
+        gk, gv = parts[:2]
+        if cache.k_scale is not None:
+            gk = q8.dequantize_block(gk, parts[2], dtype)
+            gv = q8.dequantize_block(gv, parts[3], dtype)
+    return (g.reshape(g.shape[0], mb * bs, *g.shape[-2:]) for g in (gk, gv))
+
+
+def _paged_attention(p: AttnParams, x, cache: PagedKVCache, *, positions,
+                     row, start, n, spill, span: int, dp: _DP | None,
+                     heads: dict, rope_theta: float):
+    """The paged step's attention: q, k, v of ``x`` rotated at
+    ``positions`` (B, S), the new K/V written through the table rows
+    ``row`` from ``start`` (``n`` real a row, ``span`` int8 blocks;
+    :func:`_paged_write`), the rows' K/V gathered back
+    (:func:`_paged_kv`), each query attending causally to its lane's
+    written prefix (:func:`_contract`). Under a tensor-parallel plan the
+    pool is this rank's kv heads or head_dim block (:func:`_pool_layout`,
+    ``heads`` the model's head counts)."""
+    bs, n_kv, hd = cache.k.shape[1:]
+    mb = row.shape[1]
+    layout = "whole"
+    if cm.tp_size() > 1:
+        if heads.get("n_kv_heads") is None or heads.get("head_dim") is None:
+            raise ValueError("a tensor-parallel paged step needs the "
+                             "model's head counts")
+        n_kv, hd = heads["n_kv_heads"], heads["head_dim"]
+        layout = _pool_layout(cache, n_kv, hd)
+    q, k, v = _qkv(p, x, layout, n_kv, hd, positions, rope_theta,
+                   cache.k.shape[-2:])
+    _paged_write(cache, k, v, row, start, n, spill, span, dp)
+    gk, gv = _paged_kv(cache, row, q.dtype, dp)
+    kpos = torch.arange(mb * bs, device=x.device)
+    valid = kpos[None, None, :] <= positions[:, :, None]        # (B, S, K)
+    return _contract(p, q, x, gk, gv, valid, layout)
 
 
 def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
                             cache: PagedKVCache, *, slot, start, true_len,
-                            rope_theta: float = 10000.0
+                            rope_theta: float = 10000.0, **heads
                             ) -> tuple[torch.Tensor, PagedKVCache]:
     """One prefill chunk for the request in lane ``slot`` (0-d int
     tensors: ``slot``, ``start`` = prompt tokens earlier chunks wrote,
@@ -734,38 +991,27 @@ def paged_prefill_attention(p: AttnParams, x: torch.Tensor,
     the table sent to the null block (:func:`_pool_write`). Queries then
     attend causally to the slot's whole written prefix through the block
     table (an int8 pool dequantized inside the gather, to the activation
-    dtype).
+    dtype). ``heads``: the model's head counts (``n_heads``,
+    ``n_kv_heads``, ``head_dim``), which a tensor-parallel step needs; over
+    DP the chunk runs on every rank, each writing the blocks it holds.
     """
     B, C, _ = x.shape
     if B != 1:
         raise ValueError(f"a prefill chunk is one request, got {B} rows")
-    bs, n_kv, hd = cache.k.shape[1:]
-    mb = cache.table.shape[1]
-    ar = torch.arange(C, device=x.device)
-    pos = start + ar
-    q, k, v = _qkv_rotary(p, x, n_kv, hd, pos[None, :], rope_theta)
+    bs = cache.k.shape[1]
+    pos = start + torch.arange(C, device=x.device)
     # (1, max_blocks); indexing with the 0-d tensor itself would read it back
     row = cache.table.index_select(0, slot.reshape(1))
-    _pool_write(cache, k, v, row, start, true_len, None, C // bs + 2)
-    kr, vr = (g.reshape(1, mb * bs, n_kv, hd)
-              for g in _pool_gather(cache, row[0], q.dtype))
-    n_heads = q.shape[2]
-    kr = _repeat_kv(kr, n_heads // n_kv)
-    vr = _repeat_kv(vr, n_heads // n_kv)
-    s = torch.einsum("bqhd,bkhd->bhqk", _scaled(q).float(),
-                     kr.to(q.dtype).float())
-    kpos = torch.arange(mb * bs, device=x.device)
-    s = torch.where((kpos[None, :] <= pos[:, None])[None, None], s, NEG_INF)
-    prob = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", prob.to(vr.dtype).float(),
-                     vr.float()).to(q.dtype)
-    return cm.dense(o.reshape(B, C, -1), p.wo), cache
+    return _paged_attention(
+        p, x, cache, positions=pos[None, :], row=row, start=start,
+        n=true_len, spill=None, span=C // bs + 2, dp=_pool_dp(cache, None),
+        heads=heads, rope_theta=rope_theta), cache
 
 
 def paged_decode_attention(p: AttnParams, x: torch.Tensor,
                            cache: PagedKVCache, *,
                            rope_theta: float = 10000.0,
-                           active: torch.Tensor | None = None
+                           active: torch.Tensor | None = None, **heads
                            ) -> tuple[torch.Tensor, PagedKVCache]:
     """One decode step against the block pool: the contraction of the
     contiguous per-slot :func:`decode_attention` over the same logical
@@ -776,28 +1022,25 @@ def paged_decode_attention(p: AttnParams, x: torch.Tensor,
     another request), and so does a position past the table. On an int8
     pool each lane rewrites its current block whole: the offsets before
     the append point kept, the tail past it zeroed (:func:`_pool_write`).
-    The caller advances the length.
+    The caller advances the length. Over DP ``x`` may be this rank's lanes
+    (``active`` and the lengths are every lane's).
     """
     B, S1, _ = x.shape
     if S1 != 1:
         raise ValueError(f"decode takes one token per row, got {S1}")
-    bs, n_kv, hd = cache.k.shape[1:]
-    mb = cache.table.shape[1]
-    pos = cache.length                                      # (B,)
-    q, k, v = _qkv_rotary(p, x, n_kv, hd, pos[:, None], rope_theta)
-    _pool_write(cache, k, v, cache.table, pos, 1,
-                None if active is None else ~active.bool(), 1)
-    gk, gv = (g.reshape(B, mb * bs, n_kv, hd)
-              for g in _pool_gather(cache, cache.table, q.dtype))
-    kpos = torch.arange(mb * bs, device=x.device)
-    valid = kpos[None, :] <= pos[:, None]
-    return _decode_contract(p, q, x, gk, gv, valid), cache
+    dp = _pool_dp(cache, B)
+    pos = cache.length                                      # (num_slots,)
+    mine = pos if dp is None or dp.lanes is None else pos[dp.lanes]
+    return _paged_attention(
+        p, x, cache, positions=mine[:, None], row=cache.table, start=pos,
+        n=1, spill=None if active is None else ~active.bool(), span=1,
+        dp=dp, heads=heads, rope_theta=rope_theta), cache
 
 
 def paged_verify_attention(p: AttnParams, x: torch.Tensor,
                            cache: PagedKVCache, *,
                            rope_theta: float = 10000.0,
-                           active: torch.Tensor | None = None
+                           active: torch.Tensor | None = None, **heads
                            ) -> tuple[torch.Tensor, PagedKVCache]:
     """Speculative-verify step: S candidate tokens per lane in one pass
     (the reference's ``paged_verify_attention``).
@@ -813,17 +1056,15 @@ def paged_verify_attention(p: AttnParams, x: torch.Tensor,
     lane's rejected tail stays in its blocks until the next round rewrites
     those positions; causality keeps any committable query from attending
     it. The caller (``lm.verify_step``) advances the lengths and the engine
-    rewinds the rejected tail.
+    rewinds the rejected tail. Over DP ``x`` may be this rank's lanes.
     """
     B, S, _ = x.shape
-    bs, n_kv, hd = cache.k.shape[1:]
-    mb = cache.table.shape[1]
-    pos = cache.length[:, None] + torch.arange(S, device=x.device)  # (B, S)
-    q, k, v = _qkv_rotary(p, x, n_kv, hd, pos, rope_theta)
-    _pool_write(cache, k, v, cache.table, cache.length, S,
-                None if active is None else ~active.bool(), S // bs + 2)
-    gk, gv = (g.reshape(B, mb * bs, n_kv, hd)
-              for g in _pool_gather(cache, cache.table, q.dtype))
-    kpos = torch.arange(mb * bs, device=x.device)
-    valid = kpos[None, None, :] <= pos[:, :, None]          # (B, S, K)
-    return _decode_contract(p, q, x, gk, gv, valid), cache
+    bs = cache.k.shape[1]
+    dp = _pool_dp(cache, B)
+    length = cache.length
+    mine = length if dp is None or dp.lanes is None else length[dp.lanes]
+    pos = mine[:, None] + torch.arange(S, device=x.device)      # (B, S)
+    return _paged_attention(
+        p, x, cache, positions=pos, row=cache.table, start=length, n=S,
+        spill=None if active is None else ~active.bool(), span=S // bs + 2,
+        dp=dp, heads=heads, rope_theta=rope_theta), cache

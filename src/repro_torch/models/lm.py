@@ -610,11 +610,11 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, state, *, slot, start,
     live = ((torch.arange(tokens.shape[1], device=x.device) < true_len)[None]
             if cfg.family == "moe" else None)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = cm.gathered(_layer(params["layers"], i))
         h = apply_norm(cfg, lp["ln1"], x)
         y, _ = attn.paged_prefill_attention(
             lp["attn"], h, _paged_layer(kv, i), slot=slot, start=start,
-            true_len=true_len, rope_theta=cfg.rope_theta)
+            true_len=true_len, rope_theta=cfg.rope_theta, **_heads_kw(cfg))
         x = x + y
         x = x + _ffn(cfg, lp, x, live)
     kv.length.index_copy_(0, lane,
@@ -657,7 +657,8 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
             if paged:
                 y, _ = attn.paged_decode_attention(
                     lp["attn"], h, _paged_layer(kv, i),
-                    rope_theta=cfg.rope_theta, active=active)
+                    rope_theta=cfg.rope_theta, active=active,
+                    **_heads_kw(cfg))
             else:
                 cache = attn.KVCache(k=kv.k[i], v=kv.v[i],
                                      length=kv.length)
@@ -699,11 +700,11 @@ def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
     live = ((active > 0)[:, None].expand(B, S)
             if active is not None and cfg.family == "moe" else None)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = cm.gathered(_layer(params["layers"], i))
         h = apply_norm(cfg, lp["ln1"], x)
         y, _ = attn.paged_verify_attention(
             lp["attn"], h, _paged_layer(kv, i), rope_theta=cfg.rope_theta,
-            active=active)
+            active=active, **_heads_kw(cfg))
         x = x + y
         x = x + _ffn(cfg, lp, x, live)
     kv.length.add_(S if active is None else S * active.to(kv.length.dtype))

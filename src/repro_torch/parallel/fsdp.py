@@ -26,6 +26,7 @@ Function is inserted: the step is the one-device step, bit for bit.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -129,16 +130,25 @@ class Gather(torch.autograd.Function):
 class ShardPlan:
     """What a sharded step gathers: ``mesh`` and the parameter spec tree.
     ``blocked``: the paths of the leaves that keep their 'model' block
-    (empty when 'model' has extent 1)."""
+    (empty when 'model' has extent 1). ``kv``: the spec of the decode
+    state's stacked K leaf (``decode_state_specs``; None: not given), by
+    which the attention layers read how the KV cache lies over the DP axes
+    (the engine's lanes or the cache's sequence, a pool's blocks)."""
 
-    def __init__(self, mesh, specs):
-        self.mesh, self.specs = mesh, specs
+    def __init__(self, mesh, specs, kv=None):
+        self.mesh, self.specs, self.kv = mesh, specs, kv
         self.dp_size = math.prod(mesh.axis_size(a) for a in mesh.dp_axes())
         self.tp = mesh.axis_size("model")
         self.blocked = set()
         if self.tp > 1:
             self.blocked = set(_tp_paths(specs)) | {
                 k for k in VOCAB_LEAVES if k in specs}
+
+    def with_kv(self, kv) -> "ShardPlan":
+        """This plan over a decode state whose K leaf lies by ``kv``."""
+        out = copy.copy(self)
+        out.kv = kv
+        return out
 
     def trivial(self, spec) -> bool:
         """Nothing to gather and nothing to reduce."""

@@ -45,6 +45,17 @@ prefix plus one bonus token, then rewinds both models' device lengths in
 place (the captured graphs hold their addresses). Every committed token is
 the target's own argmax, so the output equals non-speculative decode.
 
+Over a ``mesh`` (``ServeEngine(cfg, params, mesh=...)``, the dense
+family) every step runs sharded (``train.servestep``): the params and the
+state are this rank's blocks, tensor-parallel over 'model', the lanes and
+a pool's blocks over DP where its extent divides them, the logits whole on
+every rank. Every rank runs the whole host schedule: the scheduler, the
+budget controller and sampling (the same seeds) read the same logits and
+the same clock, rank 0's reading broadcast over the mesh at every reading
+(counted under the ``clock`` kind, apart from the steps' bytes). Each
+step's collective bytes and host seconds are kept by phase tag
+(``step_bytes``, ``step_s``).
+
 Observability (``repro_torch.obs``), off unless a tracer is passed: the
 tracer records phase spans (``expire``, ``bind``, ``prefill-chunk``,
 ``admit``, ``decode``, ``sample``, ``spec-draft``, ``spec-verify``, and the
@@ -65,8 +76,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from repro_torch import interop, models
+from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed as cd
 from repro_torch.core.context import current_context
 from repro_torch.layers.attention import PagedKVCache, reset_paged_kv_cache
 from repro_torch.obs.attrib import AttributionLedger
@@ -81,7 +93,8 @@ from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import SlotScheduler
 from repro_torch.serve import spec as spec_lib
 from repro_torch.train.servestep import (
-    make_engine_step, make_paged_engine_step, make_spec_step)
+    check_mesh_family, make_engine_step, make_paged_engine_step,
+    make_spec_step)
 
 
 def chunk_buckets(chunk: int) -> tuple[int, ...]:
@@ -125,9 +138,10 @@ class ServeEngine:
         registry: Registry | None = None,
         metrics_interval_ticks: int | None = None,
         attrib_tol: float = 0.25,
+        mesh=None,
     ):
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
         self.device = next(t for _, t in interop.tree_items(params)).device
         self.num_slots = num_slots
         self.max_len = max_len
@@ -143,6 +157,19 @@ class ServeEngine:
         # burst arrivals become deterministic functions of the event
         # sequence
         self._now = clock if clock is not None else time.perf_counter
+        # over a mesh: rank 0's reading on every rank, and the bytes of
+        # those broadcasts; each step's collective bytes and host seconds
+        self.clock_bytes = cd.CollectiveCounter()
+        if mesh is not None and mesh.size > 1:
+            self._now = self._mesh_clock(self._now)
+        self.step_bytes: dict[str, list[int]] = {}
+        self.step_s: dict[str, list[float]] = {}
+        # with token_log a list: (request id, token index, token, top-2
+        # margin, top logit) of every committed token, and first_logits
+        # each request's first-token logits row (a record's, off by
+        # default)
+        self.token_log: list | None = None
+        self.first_logits: dict[int, np.ndarray] = {}
         # observability: the tracer keeps its own clock and never reads
         # self._now (under SimClock a reading advances time, so tracing on
         # or off must not change the engine's readings); NULL_TRACER makes
@@ -201,6 +228,11 @@ class ServeEngine:
                 f"refcounts — it needs the paged engine (kv_block_size)")
         self.prefix_cache_enabled = bool(prefix_cache)
         self.prefix_cache_blocks = prefix_cache_blocks
+        self._quantized = quantized = interop.is_quantized(params)
+        check_mesh_family(cfg, mesh, quantized, self.kv_dtype.quantized)
+        if self.spec:
+            check_mesh_family(spec_draft_cfg, mesh,
+                              interop.is_quantized(spec_draft_params))
         if self.paged:
             self.kv_block_size = int(kv_block_size)
             # default pool: full contiguous capacity (+ the null block)
@@ -208,21 +240,27 @@ class ServeEngine:
             self.num_kv_blocks = int(num_kv_blocks or full)
             self.prefill_chunk = int(prefill_chunk or prompt_pad)
             self.chunk_buckets = chunk_buckets(self.prefill_chunk)
-            self.art = make_paged_engine_step(
-                cfg, max_len=max_len, kv_block_size=self.kv_block_size,
-                num_kv_blocks=self.num_kv_blocks,
-                chunk_buckets=self.chunk_buckets, device=self.device)
+            self.art = self._paged_art(self.device, mesh)
         else:
             self.kv_block_size = None
             self.num_kv_blocks = None
             self.prefill_chunk = None
             self.chunk_buckets = None
-            self.art = make_engine_step(cfg, max_len=max_len,
+            self.art = make_engine_step(cfg, num_slots=num_slots,
+                                        max_len=max_len,
                                         prompt_pad=prompt_pad,
-                                        device=self.device)
-        self.spec_art = (make_spec_step(
-            cfg, spec_draft_cfg, max_len=max_len, prompt_pad=prompt_pad,
-            spec_k=self.spec_k, device=self.device) if self.spec else None)
+                                        device=self.device, mesh=mesh,
+                                        quantized=quantized)
+        self.spec_art = (self._spec_art(self.device, mesh, self.art)
+                         if self.spec else None)
+        # over a mesh the params are this rank's blocks
+        self.params = params
+        if self.art.layout is not None:
+            self.params = self.art.layout.shard_params(params)
+            if self.spec:
+                self.spec_draft_params = \
+                    self.spec_art.draft_layout.shard_params(
+                        spec_draft_params)
         self.state = None
         self.draft_state = None
         self._warmed = False
@@ -237,6 +275,63 @@ class ServeEngine:
         launches."""
         return self.attrib.dispatches
 
+    def _paged_art(self, device, mesh):
+        return make_paged_engine_step(
+            self.cfg, num_slots=self.num_slots, max_len=self.max_len,
+            kv_block_size=self.kv_block_size,
+            num_kv_blocks=self.num_kv_blocks,
+            chunk_buckets=self.chunk_buckets, device=device,
+            kv_dtype=self.kv_dtype, mesh=mesh,
+            quantized=self._quantized)
+
+    def _spec_art(self, device, mesh, target):
+        return make_spec_step(
+            self.cfg, self.spec_draft_cfg, num_slots=self.num_slots,
+            max_len=self.max_len, prompt_pad=self.prompt_pad,
+            spec_k=self.spec_k, device=device, mesh=mesh, target=target,
+            draft_quantized=interop.is_quantized(self.spec_draft_params))
+
+    def _mesh_clock(self, clock):
+        """``clock`` read on rank 0 and broadcast over the mesh, axis by
+        axis (each from its index 0): two ranks' clocks differ, and every
+        decision of the schedule (arrivals, TTFT, deadlines, the budget)
+        reads the engine's clock."""
+        mesh = self.mesh
+        dev = mesh.device if mesh.backend == "nccl" else "cpu"
+
+        def now() -> float:
+            t = torch.tensor([clock()], dtype=torch.float64, device=dev)
+            with self.clock_bytes:
+                for axis in mesh.axis_names:
+                    cd.broadcast(t, mesh, axis, 0, kind="clock")
+            return float(t.item())
+
+        return now
+
+    def _call(self, tag: str, fn, *args):
+        """One step call; over a mesh its collective bytes and host seconds
+        (the card synchronized) kept under ``tag``."""
+        if self.mesh is None:
+            return fn(*args)
+        t0 = time.perf_counter()
+        with cd.CollectiveCounter() as counter:
+            out = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.step_s.setdefault(tag, []).append(time.perf_counter() - t0)
+        self.step_bytes.setdefault(tag, []).append(counter.total)
+        return out
+
+    @property
+    def pool_bytes(self) -> int:
+        """The bytes of this rank's KV cache or pool (over a mesh its
+        blocks): K, V and an int8 pool's scales; the table, the lengths and
+        the draft's cache not included."""
+        kv = self.state["kv"]
+        return sum(t.numel() * t.element_size()
+                   for t in (kv.k, kv.v, getattr(kv, "k_scale", None),
+                             getattr(kv, "v_scale", None)) if t is not None)
+
     def _block_bytes(self, kv_dtype: KVCacheDtype) -> int:
         """Bytes of one pool block over the layers (``kv_block_bytes``)."""
         return kv_block_bytes(self.kv_block_size, self.cfg.n_kv_heads,
@@ -244,18 +339,13 @@ class ServeEngine:
                               n_layers=self.cfg.n_layers)
 
     def _new_state(self, device) -> dict:
-        return models.init_decode_state(
-            self.cfg, self.num_slots, self.max_len, per_slot=True,
-            kv_block_size=self.kv_block_size,
-            num_kv_blocks=self.num_kv_blocks, kv_dtype=self.kv_dtype,
-            device=device)
+        """The engine's state (over a mesh, this rank's blocks)."""
+        return self.art.init_state(device)
 
     def _new_draft_state(self, device) -> dict:
         """The draft's per-slot contiguous cache (prompts admit in one
         padded shot, so it needs no pool)."""
-        return models.init_decode_state(self.spec_draft_cfg, self.num_slots,
-                                        self.max_len, per_slot=True,
-                                        device=device)
+        return self.spec_art.init_draft_state(device)
 
     def _rel_now(self) -> float:
         """Seconds on the engine clock since the last reset — the time
@@ -271,6 +361,8 @@ class ServeEngine:
         ctx = current_context()
         self.tracer.reset()
         self.attrib.reset_run()
+        self.clock_bytes = cd.CollectiveCounter()
+        self.step_bytes, self.step_s = {}, {}
         self._t0 = self._now()
         if self.state is None:
             self.state = self._new_state(self.device)
@@ -332,6 +424,8 @@ class ServeEngine:
                 prefix_cache=self.prefix_cache_enabled,
                 prefix_cache_blocks=self.prefix_cache_blocks)
         engine_info["spec"] = self.spec
+        if self.mesh is not None:
+            engine_info["mesh"] = self.mesh.describe()
         if self.spec:
             engine_info.update(
                 spec_k=self.spec_k,
@@ -349,7 +443,10 @@ class ServeEngine:
         propose steps (the draft's int8 signatures run under the target's
         context, so its unembed stays float). Marks the engine warm:
         later ``run`` calls assert steady state. The graphs are captured
-        after this, at each bucket's first call."""
+        after this, at each bucket's first call. Over a mesh the steps are
+        the sharded ones on an abstract copy of it (its collectives count
+        and move nothing), at this rank's local shapes, as
+        ``core.gemm.plan_model`` runs the static server's."""
         cache = current_context().plan_cache
         before = cache.stats.snapshot()
         meta = lambda shape: torch.empty(shape, dtype=torch.int64,
@@ -357,7 +454,19 @@ class ServeEngine:
         on_meta = lambda tree: interop.tree_map(
             lambda t: torch.empty_like(t, device="meta"), tree)
         params = on_meta(self.params)
-        state = self._new_state("meta")
+        art, spec_art = self.art, self.spec_art
+        if self.mesh is not None:
+            abstract = self.mesh.as_abstract()
+            if self.paged:
+                art = self._paged_art("meta", abstract)
+            else:
+                art = make_engine_step(
+                    self.cfg, num_slots=self.num_slots,
+                    max_len=self.max_len, prompt_pad=self.prompt_pad,
+                    device="meta", mesh=abstract, quantized=self._quantized)
+            if self.spec:
+                spec_art = self._spec_art("meta", abstract, art)
+        state = art.init_state("meta")
         # each step runs under an attribution capture: the ledger records
         # which GEMM signatures one execution of the step consults, and how
         # often (the profile it joins with the traced phase seconds)
@@ -366,34 +475,33 @@ class ServeEngine:
             if self.paged:
                 for bucket in self.chunk_buckets:
                     with capture(f"prefill-chunk@{bucket}"):
-                        self.art.prefill_raw(
+                        art.prefill_raw(
                             params, state, meta((1, bucket)), meta(()),
-                            meta(()), meta(()), meta((self.art.max_blocks,)))
+                            meta(()), meta(()), meta((art.max_blocks,)))
             else:
                 with capture("admit"):
-                    self.art.admit_raw(params, state,
-                                       meta((1, self.prompt_pad)), meta(()),
-                                       meta(()))
+                    art.admit_raw(params, state, meta((1, self.prompt_pad)),
+                                  meta(()), meta(()))
             toks, active = meta((self.num_slots, 1)), meta((self.num_slots,))
             with capture("decode"):
-                self.art.decode_raw(params, state, toks, active)
+                art.decode_raw(params, state, toks, active)
             if self.spec:
-                art, dparams = self.spec_art, on_meta(self.spec_draft_params)
-                dstate = self._new_draft_state("meta")
+                dparams = on_meta(self.spec_draft_params)
+                dstate = spec_art.init_draft_state("meta")
                 with capture("spec-verify"):
-                    art.verify_raw(params, state,
-                                   meta((self.num_slots, self.spec_k + 1)),
-                                   active)
+                    spec_art.verify_raw(
+                        params, state, meta((self.num_slots, self.spec_k + 1)),
+                        active)
                 # the draft's admission runs inside the engine's "admit"
                 # spans (speculation needs the paged engine, so the
                 # contiguous admit tag is never live beside it)
                 with capture("admit"):
-                    art.draft_admit_raw(dparams, dstate,
-                                        meta((1, self.prompt_pad)), meta(()),
-                                        meta(()))
+                    spec_art.draft_admit_raw(
+                        dparams, dstate, meta((1, self.prompt_pad)),
+                        meta(()), meta(()))
                 with capture("spec-draft"):
-                    art.propose_raw(dparams, dstate, toks, active, toks,
-                                    active)
+                    spec_art.propose_raw(dparams, dstate, toks, active, toks,
+                                         active)
         self._warmed = True
         solved = cache.stats.warm_solves - before.warm_solves
         signatures = len(cache.warm_keys)
@@ -447,6 +555,19 @@ class ServeEngine:
         return int(st.rng.choice(probs.shape[0], p=probs))
 
     # ------------------------------------------------------------ ticking
+    def _log_token(self, st: RequestState, row: np.ndarray, tok: int) -> None:
+        """Append a committed token to ``token_log`` (when it is a list)
+        with the top-2 margin of the logits row that chose it."""
+        if self.token_log is None:
+            return
+        row = np.asarray(row[: self.cfg.vocab_size], np.float64)
+        top = np.partition(row, row.shape[0] - 2)[-2:]
+        hi, lo = max(top), min(top)
+        rid = st.request.request_id
+        if not st.tokens and rid not in self.first_logits:
+            self.first_logits[rid] = row.astype(np.float32)
+        self.token_log.append((rid, len(st.tokens), int(tok), hi - lo, hi))
+
     def _finish(self, st: RequestState, reason: str, now: float) -> None:
         self.sched.evict(st.slot, reason, now)
         self.metrics.record_request(st)
@@ -463,6 +584,7 @@ class ServeEngine:
         budget controller's TTFT loop)."""
         first_ever = st.first_token_s is None
         tok = self._sample(logits, st)
+        self._log_token(st, logits, tok)
         st.append(tok, now, tick=self.sched.tick)
         if first_ever:
             self.budget.observe_ttft(now - st.request.submitted_s)
@@ -489,8 +611,9 @@ class ServeEngine:
             prompt[0, : req.prompt_len] = req.prompt
             self.attrib.dispatch("admit")
             with self.tracer.phase("admit", slot=st.slot):
-                logits = self.art.admit_fn(self.params, self.state, prompt,
-                                           st.slot, req.prompt_len)
+                logits = self._call("admit", self.art.admit_fn, self.params,
+                                    self.state, prompt, st.slot,
+                                    req.prompt_len)
                 np_logits = logits.cpu().numpy()
             self._first_token(st, np_logits, self._rel_now())
 
@@ -516,9 +639,9 @@ class ServeEngine:
         prompt[0, : req.prompt_len] = req.prompt
         self.attrib.dispatch("admit")
         with self.tracer.phase("admit", slot=st.slot, draft=True):
-            self.spec_art.draft_admit_fn(self.spec_draft_params,
-                                         self.draft_state, prompt, st.slot,
-                                         req.prompt_len)
+            self._call("admit", self.spec_art.draft_admit_fn,
+                       self.spec_draft_params, self.draft_state, prompt,
+                       st.slot, req.prompt_len)
         self._lag[st.slot] = False
 
     def _chunk_shape(self, remaining: int) -> tuple[int, int]:
@@ -550,8 +673,9 @@ class ServeEngine:
         self.attrib.dispatch(f"prefill-chunk@{bucket}")
         with self.tracer.phase("prefill-chunk", slot=st.slot, n=n,
                                bucket=bucket):
-            logits = self.art.prefill_fn(self.params, self.state, chunk,
-                                         st.slot, start, n, blocks)
+            logits = self._call(f"prefill-chunk@{bucket}",
+                                self.art.prefill_fn, self.params, self.state,
+                                chunk, st.slot, start, n, blocks)
         self.sched.prefill_advance(st.slot, n)
         self.tracer.request_event("chunk", st.request.request_id,
                                   slot=st.slot, n=n, done=st.prefill_done)
@@ -580,10 +704,11 @@ class ServeEngine:
         m0 = tr.device_mark()
         start_toks = np.where(mask, self._next_tok, self.pad_id)
         catch_mask = mask & self._lag
-        proposals = self.spec_art.propose_fn(
-            self.spec_draft_params, self.draft_state,
-            self._catch_tok[:, None], catch_mask.astype(np.int64),
-            start_toks[:, None], mask.astype(np.int64))
+        proposals = self._call(
+            "spec-draft", self.spec_art.propose_fn, self.spec_draft_params,
+            self.draft_state, self._catch_tok[:, None],
+            catch_mask.astype(np.int64), start_toks[:, None],
+            mask.astype(np.int64))
         np_props = proposals.cpu().numpy()                 # (num_slots, k)
         t1 = time.perf_counter()
         m1 = tr.device_mark()
@@ -591,8 +716,9 @@ class ServeEngine:
             [start_toks[:, None],
              np.where(mask[:, None], np_props, self.pad_id)],
             axis=1)                                        # (num_slots, k+1)
-        logits = self.spec_art.verify_fn(self.params, self.state, fed,
-                                         mask.astype(np.int64))
+        logits = self._call("spec-verify", self.spec_art.verify_fn,
+                            self.params, self.state, fed,
+                            mask.astype(np.int64))
         np_logits = logits.cpu().numpy()           # (num_slots, k+1, Vp)
         t2 = time.perf_counter()
         m2 = tr.device_mark()
@@ -629,6 +755,7 @@ class ServeEngine:
             finished = False
             n_committed = 0
             for i, tok in enumerate(committed):
+                self._log_token(st, np_logits[slot][i], tok)
                 st.append(tok, now, tick=self.sched.tick)
                 self._next_tok[slot] = tok
                 n_committed += 1
@@ -691,15 +818,16 @@ class ServeEngine:
             toks = np.where(mask, self._next_tok, self.pad_id)
             self.attrib.dispatch("decode")
             with tr.phase("decode", n=ready):
-                logits = self.art.decode_fn(self.params, self.state,
-                                            toks[:, None],
-                                            mask.astype(np.int64))
+                logits = self._call("decode", self.art.decode_fn,
+                                    self.params, self.state, toks[:, None],
+                                    mask.astype(np.int64))
                 np_logits = logits.cpu().numpy()
             now = self._rel_now()
             with tr.phase("sample", n=ready):
                 for slot in np.flatnonzero(mask).tolist():
                     st = self.sched.slots[slot]
                     tok = self._sample(np_logits[slot], st)
+                    self._log_token(st, np_logits[slot], tok)
                     st.append(tok, now, tick=self.sched.tick)
                     self._next_tok[slot] = tok
                     produced += 1
@@ -892,7 +1020,14 @@ class ServeEngine:
             return None
         out = {}
         for name in ("k", "v"):
-            s = getattr(self.state["kv"], f"{name}_scale").double().cpu()
+            s = getattr(self.state["kv"], f"{name}_scale")
+            if self.art.layout is not None:  # the blocks of every rank
+                from repro_torch.parallel import sharding as shd
+
+                spec = dict(interop.tree_items(
+                    self.art.layout.state_specs))[f"kv/{name}_scale"]
+                s = shd.gather_leaf(s, spec, self.mesh)
+            s = s.double().cpu()
             s = s[s != 1.0] if (s != 1.0).any() else s
             out[f"scale_{name}_mean"] = float(s.mean())
             out[f"scale_{name}_max"] = float(s.max())

@@ -105,11 +105,15 @@ class _Graph:
 
 class CapturedStep:
     """One CUDA graph per input bucket of ``fn(params, state, *inputs)``;
-    on a CPU device, ``fn`` itself."""
+    on a CPU device, or with ``capture=False`` (a step whose collectives a
+    graph cannot hold), ``fn`` itself on the inputs moved to the
+    device."""
 
-    def __init__(self, fn: Callable, device: torch.device | str):
+    def __init__(self, fn: Callable, device: torch.device | str,
+                 capture: bool = True):
         self.fn = fn
         self.device = torch.device(device)
+        self.capture = capture
         self.graphs: dict[tuple, _Graph] = {}
         self._stream = None
         self._pool = None
@@ -117,7 +121,7 @@ class CapturedStep:
 
     def __call__(self, params, state, *inputs) -> torch.Tensor:
         ins = [as_tensor(x) for x in inputs]
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             return self.fn(params, state, *(t.to(self.device) for t in ins))
         bound = (_addresses(params), _addresses(state))
         if self._bound is None:

@@ -21,15 +21,16 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.context import use_context
+from repro_torch.core import distributed as cd
+from repro_torch.core.context import current_context, use_context
 from repro_torch.interop import tree_items, tree_map_with_path
 from repro_torch.models.lm import KV_FAMILIES
 from repro_torch.parallel import fsdp
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.graphs import CapturedStep
 
-# the families the static server runs over a mesh (tensor-parallel over
-# 'model'); the others raise (ROADMAP queue 1, item 5)
+# the families the static server and the engines run over a mesh
+# (tensor-parallel over 'model'); the others raise (ROADMAP queue 1, item 2)
 MESH_FAMILIES = ("dense",)
 # families whose recurrent decode state decode_state_specs splits over
 # 'model', which their layers do not consume as blocks
@@ -87,21 +88,27 @@ class ServeArtifacts:
                 for k, v in batch.items()}
 
 
-def check_mesh_family(cfg: ModelConfig, mesh, quantized: bool = False
-                      ) -> None:
-    """Raise for what the static server does not run over ``mesh``: a
-    family outside :data:`MESH_FAMILIES`, and int8 over a 'model' axis
-    above 1 (a W8A8 activation scale spans every row)."""
+def check_mesh_family(cfg: ModelConfig, mesh, quantized: bool = False,
+                      kv_quantized: bool = False) -> None:
+    """Raise for what the static server and the engines do not run over
+    ``mesh``: a family outside :data:`MESH_FAMILIES`, int8 weights over a
+    'model' axis above 1 (a W8A8 activation scale spans every row) and the
+    engine's int8 KV pool over one (``kv_quantized``)."""
     if mesh is None:
         return
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"serving the {cfg.family} family over a mesh: ROADMAP queue 1, "
-            f"item 5 (the static server runs {MESH_FAMILIES} over a mesh)")
+            f"item 2 (the static server and the engines run {MESH_FAMILIES} "
+            "over a mesh; the moe engine needs expert parallelism)")
     if quantized and mesh.axis_size("model") > 1:
         raise NotImplementedError(
             "int8 over 'model' (a W8A8 activation scale spans every row): "
-            "ROADMAP queue 1, item 5")
+            "ROADMAP queue 1, item 3")
+    if kv_quantized and mesh.axis_size("model") > 1:
+        raise NotImplementedError(
+            "the int8 KV pool over 'model' (its head_dim layout needs a "
+            "per-block max over 'model'): ROADMAP queue 1, item 9")
 
 
 def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
@@ -132,29 +139,14 @@ def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
         raise NotImplementedError(
             f"the {cfg.family} family's decode state over 'model' (its "
             "time-mix / SSM layers compute with whole leaves and states): "
-            "ROADMAP queue 1, item 5")
-    axes, shapes = models.axes(cfg), models.init(cfg, device="meta")
-    if quantized:
-        from repro_torch.quant.prequant import quantize_axes, quantize_params
-
-        axes, shapes = quantize_axes(axes), quantize_params(shapes)
-    specs = shd.param_specs(axes, shapes, mesh)
-    plan = fsdp.ShardPlan(mesh, specs)
-    stacked = fsdp.stacked_keys(axes)
-
-    def sharded(fn):
-        def step(params, state, inputs):
-            with torch.no_grad(), use_context(mesh=mesh, shard=plan):
-                return fn(plan.tops(params, stacked), state, inputs)
-
-        return step
-
-    decode_raw = sharded(decode)
+            "ROADMAP queue 1, item 2")
+    lay = _layout(cfg, mesh, None, quantized=quantized)
+    decode_raw = _sharded(lay, decode)
     eager = any(n > 1 for n in mesh.shape)
     return ServeArtifacts(
         decode_fn=decode_raw if eager else CapturedStep(decode_raw, device),
-        prefill_fn=sharded(prefill), decode_raw=decode_raw, mesh=mesh,
-        param_specs=specs, cfg=cfg, device=device)
+        prefill_fn=_sharded(lay, prefill), decode_raw=decode_raw, mesh=mesh,
+        param_specs=lay.param_specs, cfg=cfg, device=device)
 
 
 def prefill_input_shapes(cfg: ModelConfig, batch: int, seq: int
@@ -178,18 +170,145 @@ def _check_engine_family(cfg: ModelConfig, what: str) -> None:
             f"{cfg.family!r}")
 
 
-def _slot_admit(params, state, prompt, slot, true_len, *, cfg, prompt_pad):
+@dataclasses.dataclass
+class _Layout:
+    """A step's params and state over a mesh: the params' specs and the
+    shard plan the steps run under (its ``kv`` the state's K leaf spec),
+    the state's specs and its whole shapes (meta; None for the static
+    server, whose state is sized per batch)."""
+
+    mesh: Any
+    param_specs: Any
+    plan: fsdp.ShardPlan
+    stacked: set
+    state_specs: Any
+    whole: Any
+
+    def init_state(self, device):
+        """This rank's blocks of the state, zeros (an int8 pool's scales
+        1.0), allocated as such."""
+        spec_of = dict(tree_items(self.state_specs))
+
+        def block(path, t):
+            shape = shd.local_shape(tuple(t.shape), spec_of[path], self.mesh)
+            if path.endswith("_scale"):
+                return torch.ones(shape, dtype=t.dtype, device=device)
+            return torch.zeros(shape, dtype=t.dtype, device=device)
+
+        return tree_map_with_path(block, self.whole)
+
+    def shard_params(self, params):
+        return shd.shard_tree(params, self.param_specs, self.mesh)
+
+
+def _layout(cfg: ModelConfig, mesh, whole_state, *, quantized: bool,
+            paged: bool = False) -> _Layout:
+    """The layout of ``cfg``'s params (``quantized``: the
+    ``quantize_params`` tree, its specs by ``quantize_axes``) and of
+    ``whole_state`` (or None) over ``mesh``."""
+    axes, shapes = models.axes(cfg), models.init(cfg, device="meta")
+    if quantized:
+        from repro_torch.quant.prequant import quantize_axes, quantize_params
+
+        axes, shapes = quantize_axes(axes), quantize_params(shapes)
+    specs = shd.param_specs(axes, shapes, mesh)
+    sspecs = None if whole_state is None else shd.decode_state_specs(
+        whole_state, cfg, mesh, paged=paged)
+    return _Layout(mesh, specs, fsdp.ShardPlan(
+        mesh, specs, kv=None if sspecs is None else sspecs["kv"].k),
+        fsdp.stacked_keys(axes), sspecs, whole_state)
+
+
+def _sharded(lay: _Layout, fn, *, lanes=(), gather: bool = False):
+    """``fn`` as a step over the mesh: under the mesh and the plan, in
+    ``no_grad``, the leaves outside the stacked subtrees gathered once a
+    call. The inputs at positions ``lanes`` (after params and state) are
+    cut to this rank's lanes over the DP axes where the DP extent divides
+    them (``batch_specs``); with ``gather`` the output's lanes are then
+    all-gathered back, so every rank returns the whole."""
+    mesh = lay.mesh
+    entry, size, _ = cd.data_parallel(mesh)
+
+    def step(params, state, *inputs):
+        inputs, split = list(inputs), False
+        for i in lanes:
+            t = inputs[i]
+            if size > 1 and t.shape[0] % size == 0:
+                inputs[i] = shd.shard_leaf(t, shd.P(entry), mesh)
+                split = True
+        with torch.no_grad(), use_context(mesh=mesh, shard=lay.plan):
+            out = fn(lay.plan.tops(params, lay.stacked), state, *inputs)
+            if split and gather:
+                out = shd.gather_leaf(out, shd.P(entry), mesh)
+        return out
+
+    return step
+
+
+def _captured(fn, device, mesh):
+    """The step a CUDA graph holds per bucket; over a mesh with an axis
+    above 1 eager (a graph cannot capture a ``gloo`` collective)."""
+    eager = mesh is not None and any(n > 1 for n in mesh.shape)
+    return CapturedStep(fn, device, capture=not eager)
+
+
+def _slot_admit(params, state, prompt, slot, true_len, *, cfg, prompt_pad,
+                sub: _Layout | None = None):
     """Prefill ``prompt`` (1, prompt_pad; right-padded) into a fresh
     one-row state and copy its KV into lane ``slot`` (a 0-d int tensor)
     of the per-slot contiguous cache, in place. Returns the request's
-    first-token logits (Vp,)."""
-    sub = models.init_decode_state(cfg, 1, prompt_pad, device=prompt.device)
-    logits, sub = models.prefill(params, {"tokens": prompt}, cfg, sub,
-                                 last_pos=true_len - 1)
-    kv, skv = state["kv"], sub["kv"]
+    first-token logits (Vp,).
+
+    Over a mesh (``sub``: the one-row state's layout) the one-row state is
+    this rank's block of it (``decode_state_specs``: its kv heads or
+    head_dim over 'model', its sequence over DP where that divides it),
+    the prefill runs under the plan naming that layout, a sequence split
+    over DP is all-gathered, and the copy writes what this rank holds of
+    the lane cache: the lane where the lanes are split over DP (the others
+    write the lane's old bytes back), its block of the positions where the
+    sequence is."""
+    if sub is None:
+        sub_state = models.init_decode_state(cfg, 1, prompt_pad,
+                                             device=prompt.device)
+        logits, sub_state = models.prefill(params, {"tokens": prompt}, cfg,
+                                           sub_state, last_pos=true_len - 1)
+    else:
+        plan = current_context().shard
+        sub_state = sub.init_state(prompt.device)
+        with use_context(shard=plan.with_kv(sub.plan.kv)):
+            logits, sub_state = models.prefill(
+                params, {"tokens": prompt}, cfg, sub_state,
+                last_pos=true_len - 1)
+    kv, skv = state["kv"], sub_state["kv"]
     lane = slot.reshape(1).long()
-    for dst, src in ((kv.k, skv.k), (kv.v, skv.v)):
-        dst[:, :, :prompt_pad].index_copy_(1, lane, src)
+    srcs = (skv.k, skv.v)
+    if sub is None:
+        for dst, src in zip((kv.k, kv.v), srcs):
+            dst[:, :, :prompt_pad].index_copy_(1, lane, src)
+    else:
+        mesh = sub.mesh
+        entry, _, index = cd.data_parallel(mesh)
+        split = lambda spec, dim: bool(set(cd.entry_axes(
+            spec[dim] if len(spec) > dim else None)) & set(mesh.dp_axes()))
+        if split(sub.plan.kv, 2):
+            srcs = [cd.all_gather_over(t, mesh, entry, 2) for t in srcs]
+        eng = plan.kv
+        for dst, src in zip((kv.k, kv.v), srcs):
+            if split(eng, 1):  # lanes over DP: the lane's rank writes it
+                n = dst.shape[1]
+                at = slot.reshape(1).long() - index * n
+                own = (at >= 0) & (at < n)
+                at = at.clamp(0, n - 1)
+                old = dst[:, :, :prompt_pad].index_select(1, at)
+                dst[:, :, :prompt_pad].index_copy_(
+                    1, at, torch.where(own, src, old))
+            elif split(eng, 2):  # the sequence over DP: this rank's block
+                n = dst.shape[2]
+                m = max(0, min(n, prompt_pad - index * n))
+                dst[:, :, :m].index_copy_(
+                    1, lane, src[:, :, index * n:index * n + m])
+            else:
+                dst[:, :, :prompt_pad].index_copy_(1, lane, src)
     kv.length.index_copy_(0, lane, true_len.reshape(1).to(kv.length.dtype))
     return logits[0]
 
@@ -201,24 +320,56 @@ class EngineArtifacts:
     ``decode_fn(params, state, tokens, active)``: one masked decode tick
     for all ``num_slots`` lanes; ``admit_fn(params, state, prompt, slot,
     true_len)``: a one-request prefill whose KV lands in lane ``slot``.
+    ``init_state(device)``: the engine's state (over a mesh, this rank's
+    blocks of it; None without ``num_slots``); ``layout``: its layout over
+    the mesh (None without one).
     """
 
     decode_fn: Callable
     admit_fn: Callable
     decode_raw: Callable
     admit_raw: Callable
+    init_state: Callable
+    layout: _Layout | None = None
+
+
+def _engine_state(cfg, num_slots, max_len, mesh, **kw):
+    """The engine state's allocator: ``init_decode_state`` of
+    ``num_slots`` lanes (None: not given, which a mesh needs)."""
+    if num_slots is None:
+        if mesh is not None:
+            raise ValueError("an engine step over a mesh needs num_slots")
+        return None
+    return lambda device: models.init_decode_state(
+        cfg, num_slots, max_len, per_slot=True, device=device, **kw)
 
 
 def make_engine_step(cfg: ModelConfig, *, max_len: int, prompt_pad: int,
-                     device) -> EngineArtifacts:
+                     device, num_slots: int | None = None, mesh=None,
+                     quantized: bool = False) -> EngineArtifacts:
     """Both steps see one shape each: the tick (num_slots, 1) tokens against
     the (num_slots, max_len) per-slot cache, an admission a (1,
     prompt_pad) prompt; so each is one graph, and steady-state traffic
-    issues one fixed GEMM-signature set."""
+    issues one fixed GEMM-signature set.
+
+    Over a ``mesh`` (the dense family, :func:`check_mesh_family`) the
+    steps run sharded (:func:`_sharded`): the params this rank's blocks
+    (``layout.shard_params``), the state too (``decode_state_specs``:
+    the lanes over DP where its extent divides them, else the sequence,
+    kv heads or head_dim over 'model'), the tick's tokens this rank's
+    lanes and its logits gathered whole. Eager where an axis is above 1;
+    on a 1 x 1 mesh captured."""
     _check_engine_family(cfg, "slot engine")
     if not 0 < prompt_pad < max_len:
         raise ValueError(
             f"need 0 < prompt_pad ({prompt_pad}) < max_len ({max_len})")
+    state_fn = _engine_state(cfg, num_slots, max_len, mesh)
+    lay = sub = None
+    if mesh is not None:
+        lay = _layout(cfg, mesh, state_fn("meta"), quantized=quantized)
+        sub = _layout(cfg, mesh, models.init_decode_state(
+            cfg, 1, prompt_pad, device="meta"), quantized=quantized)
+        state_fn = lay.init_state
 
     def decode(params, state, tokens, active):
         return models.decode_step(params, tokens, cfg, state,
@@ -226,11 +377,15 @@ def make_engine_step(cfg: ModelConfig, *, max_len: int, prompt_pad: int,
 
     def admit(params, state, prompt, slot, true_len):
         return _slot_admit(params, state, prompt, slot, true_len, cfg=cfg,
-                           prompt_pad=prompt_pad)
+                           prompt_pad=prompt_pad, sub=sub)
 
-    return EngineArtifacts(decode_fn=CapturedStep(decode, device),
-                           admit_fn=CapturedStep(admit, device),
-                           decode_raw=decode, admit_raw=admit)
+    if lay is not None:
+        decode = _sharded(lay, decode, lanes=(0,), gather=True)
+        admit = _sharded(lay, admit)
+    return EngineArtifacts(decode_fn=_captured(decode, device, mesh),
+                           admit_fn=_captured(admit, device, mesh),
+                           decode_raw=decode, admit_raw=admit,
+                           init_state=state_fn, layout=lay)
 
 
 @dataclasses.dataclass
@@ -238,7 +393,8 @@ class PagedEngineArtifacts:
     """Steps of the paged engine: ``decode_fn(params, state, tokens,
     active)``, one masked tick against the block pool; ``prefill_fn(params,
     state, chunk, slot, start, true_len, blocks)``, one chunked-prefill
-    step, the chunk padded to one of ``chunk_buckets`` (one graph each)."""
+    step, the chunk padded to one of ``chunk_buckets`` (one graph each).
+    ``init_state(device)`` and ``layout`` as in :class:`EngineArtifacts`."""
 
     decode_fn: Callable
     prefill_fn: Callable
@@ -246,18 +402,28 @@ class PagedEngineArtifacts:
     prefill_raw: Callable
     chunk_buckets: tuple[int, ...]
     max_blocks: int
+    init_state: Callable
+    layout: _Layout | None = None
 
 
 def make_paged_engine_step(cfg: ModelConfig, *, max_len: int,
                            kv_block_size: int, num_kv_blocks: int,
-                           chunk_buckets: tuple[int, ...],
-                           device) -> PagedEngineArtifacts:
+                           chunk_buckets: tuple[int, ...], device,
+                           num_slots: int | None = None, kv_dtype=None,
+                           mesh=None,
+                           quantized: bool = False) -> PagedEngineArtifacts:
     """Step factory for the paged (block-table) engine: the cache is a pool
     of ``num_kv_blocks`` x ``kv_block_size`` tokens (block 0 reserved), and
-    admission prefill is chunked through the block table. The steps take
-    the state the engine allocates (``init_decode_state``: an int8 pool
-    with its scales under ``kv_quantize="int8"``), so one factory serves
-    both pool formats."""
+    admission prefill is chunked through the block table. ``kv_dtype``
+    "int8" stores the pool in int8 with its scales; one factory serves
+    both pool formats.
+
+    Over a ``mesh`` as :func:`make_engine_step`, the pool by
+    ``decode_state_specs(paged=True)``: its blocks over DP where the DP
+    extent divides ``num_kv_blocks``, kv heads (else head_dim) over
+    'model'; the table and lengths whole on every rank. A tick's lanes are
+    cut over DP where the extent divides ``num_slots`` (its logits
+    gathered whole); a chunk (one request) runs on every rank."""
     _check_engine_family(cfg, "paged engine")
     if kv_block_size < 1:
         raise ValueError(f"kv_block_size must be >= 1, got {kv_block_size}")
@@ -272,6 +438,14 @@ def make_paged_engine_step(cfg: ModelConfig, *, max_len: int,
         raise ValueError(
             f"largest chunk bucket ({buckets[-1]}) must be < max_len "
             f"({max_len})")
+    state_fn = _engine_state(cfg, num_slots, max_len, mesh,
+                             kv_block_size=kv_block_size,
+                             num_kv_blocks=num_kv_blocks, kv_dtype=kv_dtype)
+    lay = None
+    if mesh is not None:
+        lay = _layout(cfg, mesh, state_fn("meta"), quantized=quantized,
+                      paged=True)
+        state_fn = lay.init_state
 
     def decode(params, state, tokens, active):
         return models.decode_step(params, tokens, cfg, state,
@@ -282,11 +456,15 @@ def make_paged_engine_step(cfg: ModelConfig, *, max_len: int,
                                     start=start, true_len=true_len,
                                     blocks=blocks)[0][0]
 
+    if lay is not None:
+        decode = _sharded(lay, decode, lanes=(0,), gather=True)
+        prefill_chunk = _sharded(lay, prefill_chunk)
     return PagedEngineArtifacts(
-        decode_fn=CapturedStep(decode, device),
-        prefill_fn=CapturedStep(prefill_chunk, device),
+        decode_fn=_captured(decode, device, mesh),
+        prefill_fn=_captured(prefill_chunk, device, mesh),
         decode_raw=decode, prefill_raw=prefill_chunk,
-        chunk_buckets=buckets, max_blocks=-(-max_len // kv_block_size))
+        chunk_buckets=buckets, max_blocks=-(-max_len // kv_block_size),
+        init_state=state_fn, layout=lay)
 
 
 @dataclasses.dataclass
@@ -305,7 +483,8 @@ class SpecArtifacts:
     the true vocab; returns the (num_slots, k) proposals and updates the
     draft state in place. A speculative round is two replays, whatever k.
     All three see one shape each, so the engine's plan warm-up solves
-    their GEMM signatures before serving.
+    their GEMM signatures before serving. ``init_draft_state(device)``:
+    the draft's state; ``draft_layout``: its layout over the mesh.
     """
 
     verify_fn: Callable
@@ -315,15 +494,25 @@ class SpecArtifacts:
     draft_admit_raw: Callable
     propose_raw: Callable
     spec_k: int
+    init_draft_state: Callable
+    draft_layout: _Layout | None = None
 
 
 def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
-                   max_len: int, prompt_pad: int, spec_k: int,
-                   device) -> SpecArtifacts:
+                   max_len: int, prompt_pad: int, spec_k: int, device,
+                   num_slots: int | None = None, mesh=None,
+                   target: PagedEngineArtifacts | None = None,
+                   draft_quantized: bool = False) -> SpecArtifacts:
     """Step factory for speculative decoding: the target's verify pass on
     the paged engine's state, and the draft's admit and propose on its own
     per-slot contiguous state (``init_decode_state(draft_cfg, num_slots,
-    max_len, per_slot=True)``)."""
+    max_len, per_slot=True)``).
+
+    Over a ``mesh`` the verify pass runs under the target's layout
+    (``target``, the paged engine's artifacts), its lanes cut over DP and
+    its logits gathered whole; the draft's steps under the draft's own
+    layout (its contiguous state by ``decode_state_specs``), propose's
+    tokens cut by lanes and its proposals gathered whole."""
     _check_engine_family(cfg, "speculative verify")
     _check_engine_family(draft_cfg, "draft model")
     if spec_k < 1:
@@ -335,6 +524,18 @@ def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
     if not 0 < prompt_pad < max_len:
         raise ValueError(
             f"need 0 < prompt_pad ({prompt_pad}) < max_len ({max_len})")
+    state_fn = _engine_state(draft_cfg, num_slots, max_len, mesh)
+    lay = sub = None
+    if mesh is not None:
+        if target is None or target.layout is None:
+            raise ValueError("over a mesh the verify pass needs the paged "
+                             "engine's artifacts on it (target=)")
+        lay = _layout(draft_cfg, mesh, state_fn("meta"),
+                      quantized=draft_quantized)
+        sub = _layout(draft_cfg, mesh, models.init_decode_state(
+            draft_cfg, 1, prompt_pad, device="meta"),
+            quantized=draft_quantized)
+        state_fn = lay.init_state
 
     def verify(params, state, tokens, active):
         return models.verify_step(params, tokens, cfg, state,
@@ -342,7 +543,7 @@ def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
 
     def draft_admit(dparams, dstate, prompt, slot, true_len):
         return _slot_admit(dparams, dstate, prompt, slot, true_len,
-                           cfg=draft_cfg, prompt_pad=prompt_pad)
+                           cfg=draft_cfg, prompt_pad=prompt_pad, sub=sub)
 
     def propose(dparams, dstate, catch_tok, catch_active, start_tok, active):
         models.decode_step(dparams, catch_tok, draft_cfg, dstate,
@@ -355,12 +556,16 @@ def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
             proposals.append(tok[:, 0])
         return torch.stack(proposals, dim=1)
 
+    if lay is not None:
+        verify = _sharded(target.layout, verify, lanes=(0,), gather=True)
+        draft_admit = _sharded(lay, draft_admit)
+        propose = _sharded(lay, propose, lanes=(0, 2), gather=True)
     return SpecArtifacts(
-        verify_fn=CapturedStep(verify, device),
-        draft_admit_fn=CapturedStep(draft_admit, device),
-        propose_fn=CapturedStep(propose, device),
+        verify_fn=_captured(verify, device, mesh),
+        draft_admit_fn=_captured(draft_admit, device, mesh),
+        propose_fn=_captured(propose, device, mesh),
         verify_raw=verify, draft_admit_raw=draft_admit, propose_raw=propose,
-        spec_k=spec_k)
+        spec_k=spec_k, init_draft_state=state_fn, draft_layout=lay)
 
 
 __all__ = ["ServeArtifacts", "EngineArtifacts", "PagedEngineArtifacts",

@@ -220,29 +220,47 @@ ends the run with a non-zero exit:
    2) (data, model) mesh over gloo (``--backend gloo``: each collective
    staged through host memory, the products on the kernels), one process
    a rank under ``torchrun --nproc-per-node 2``: 15a ``launch.serve
-   --mesh 1x2`` at qwen1.5-4b's full width and depth (4 x 128, 16
+   --mesh 1x2`` at qwen1.5-4b's full width, 2 layers (4 x 128, 16
    tokens) against the same path at 1 x 1: the prefill's logits, the
    greedy tokens (12c's rule), both ranks' tokens equal, each rank's
    launches (phase 4a's rule at the local shapes), zero lazy solves, the
    collective bytes of the prefill and of a decode step against the dry
    run's, each rank's peak memory beside the one-device peak, the step
-   ms; 15b ``launch.train --mesh 1x2 --n-layers 4`` at 13b's batch, 2
+   ms; 15b ``launch.train --mesh 1x2 --n-layers 2`` at 13b's batch, 2
    AdamW steps, against make_train_step(mesh=None) on the card (losses,
    gradient norms, updates, collective bytes against the dry run's); 15c
    the dry run's qwen1.5-4b x train_4k x 16x16 model-FLOPs ratio (at
    least 0.4) and decode_32k's collective bytes (nonzero).
 16. the serving engines over the same (1, 2) mesh: 16a phase 7's engine
-   through ``launch.serve --engine --mesh 1x2`` at full width and depth
-   against the same engine on one device in this process: both ranks'
-   tokens and admissions equal, the tokens equal to the one device's
-   before each near-tie, each rank's launches phase 7's rule at the
-   local shapes, zero lazy solves, each tick's and chunk's collective
-   bytes the dry run's (``launch.dryrun.engine_cells``), a rank's pool
-   half the one device's; at 4 layers each request's first-token logits
+   through ``launch.serve --engine --mesh 1x2`` at full width, cut to 2
+   layers, against the same engine on one device in this process: both
+   ranks' tokens and admissions equal, the tokens equal to the one
+   device's before each near-tie, each rank's launches phase 7's rule at
+   the local shapes and depth, zero lazy solves, each tick's and chunk's
+   collective bytes the dry run's (``launch.dryrun.engine_cells``), a
+   rank's pool half the one device's, each request's first-token logits
    within PATH_TOL; 16b phase 7c's speculative engine with a float draft
-   of the target's config, both at 4 layers: the same gates, the ranks'
+   of the target's config, both at 2 layers: the same gates, the ranks'
    speculation sections equal. Printed: a rank's peak, the eager steps'
    host ms, the acceptance beside the one device's.
+17. expert parallelism: olmoe-1b-7b over a (2, 1) (data, model) mesh, two
+   ranks on the one card over gloo (the first DP extent above 1 here:
+   the attention leaves' FSDP gathers staged through host memory), the
+   ranks building the model one at a time: 17a ``launch.serve --mesh
+   2x1`` at full width and depth (4 x 128, 16 tokens) against the same
+   path on one device with ``moe_ep_plain`` over 2 shards (the mesh's
+   semantics; 9a's one-shard run printed): both ranks' tokens equal, the
+   tokens equal before each near-tie, the first-token logits within
+   PATH_TOL (at 4 layers where full depth does not hold), each rank's
+   launches 9a's rule at the local shapes, zero lazy solves, the
+   prefill's and each decode step's collective bytes by kind the dry
+   run's; 17b phase 9e's paged engine
+   over the same mesh at 2 layers: the ranks' tokens and admissions
+   equal, the bytes, the pool, the launch rule (the tokens against one
+   device printed); 17c one MoE layer at full width on the two ranks at
+   the prefill's and the decode's rows, each rank's output within 2^-7
+   of 1 + |y| of ``layers.moe.moe_ep_plain`` on the card. Printed: each
+   rank's load and serving peaks beside 9a's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -1475,7 +1493,15 @@ def moe_split(torch, cfg, params, art, state, prompts, quant: bool) -> None:
                   f"{key.replace('void ', '')[:90]}")
 
 
-def run_path(torch, path: str, label: str) -> dict[str, int]:
+# the records of the paths run_path keeps (their tokens and each step's
+# logits on the host): phase 17 holds the expert-parallel server to 9a's
+KEPT = {}
+
+
+def run_path(torch, path: str, label: str, keep: bool = False
+             ) -> dict[str, int]:
+    """``keep``: the run's record (``launch.serve --record-out``) goes
+    to ``KEPT[path]``."""
     from repro_torch.launch import serve
     from repro_torch.train import graphs
 
@@ -1486,9 +1512,15 @@ def run_path(torch, path: str, label: str) -> dict[str, int]:
     torch.cuda.reset_peak_memory_stats()
     graphs.reset_launches()
     t0 = time.perf_counter()
+    out = os.path.join(ROOT, "build", "kept")
+    os.makedirs(out, exist_ok=True)
     res = serve.main(["--arch", spec["arch"], "--batch", str(BATCH),
                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
-                      "--plan-cache", "", *spec["args"]])
+                      "--plan-cache", "", *spec["args"]]
+                     + (["--record-out", os.path.join(out, label)]
+                        if keep else []))
+    if keep:
+        KEPT[path] = res["record"]
     wall = time.perf_counter() - t0
     # eager launches (prefill, the decode step's first call) plus those of
     # the decode graph's replays
@@ -3844,7 +3876,9 @@ def dist_dryrun(torch) -> dict:
 # (data, model) mesh over gloo (NCCL refuses two ranks on one GPU; each
 # collective is staged through host memory, the products stay on the
 # kernels), each rank a process of torchrun. 15a: the static server at
-# qwen1.5-4b's full width and depth (4 x 128, 16 tokens, seed 0) against
+# qwen1.5-4b's full width, cut to TP_CUT layers (4 x 128, 16 tokens, seed
+# 0; its 40-layer run made room for phase 17, whose 17a serves over a
+# mesh at full depth) against
 # the same path at 1 x 1 in this process: the prefill's logits within
 # PATH_TOL of 1 + |logit|, the greedy tokens equal wherever the 1 x 1
 # run's top-2 margin exceeds that tolerance (12c's rule; a row is compared
@@ -3866,7 +3900,9 @@ def dist_dryrun(torch) -> dict:
 # record): 6ND over the counted FLOPs at least TP_RATIO (0.03 while the
 # ranks of 'model' repeated each other's products); decode_32k x 16x16:
 # nonzero collective bytes
-TP_MESH, TP_LAYERS, TP_RATIO, TP_CUT = "1x2", 4, 0.4, 4
+# the TP paths at 2 layers (15a and 16a once at full depth, 15b and 16b
+# at 4): their time made room for phase 17
+TP_MESH, TP_LAYERS, TP_RATIO, TP_CUT = "1x2", 2, 0.4, 2
 TP_GNORM_TOL = 5e-3
 
 
@@ -3916,48 +3952,37 @@ def _logit_err(a, b) -> float:
 
 
 def tp_serve(torch) -> dict[str, int]:
-    """15a: the static server over a (1, 2) mesh on the card, at full
-    depth and cut to TP_CUT layers."""
-    import numpy as np
+    """15a: the static server over a (1, 2) mesh on the card, cut to
+    TP_CUT layers (its full depth's run made room for phase 17, whose 17a
+    serves olmoe over a mesh at full depth)."""
+    import dataclasses as dc
 
     from repro_torch import configs as C
-    from repro_torch import models
     from repro_torch.core.context import use_context
     from repro_torch.core.plancache import PlanCache
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.serve import serve_batch
 
     arch = "qwen1.5-4b"
     args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN), "--plan-cache", ""]
+            str(PROMPT), "--gen", str(GEN), "--plan-cache", "",
+            "--n-layers", str(TP_CUT)]
     phase(f"15a tensor-parallel static server: torchrun --nproc-per-node 2 "
           f"-m repro_torch.launch.serve --mesh {TP_MESH} --backend gloo "
-          + " ".join(args) + " (full width and depth; the logits gate at "
-          f"--n-layers {TP_CUT}), against the same path at 1 x 1 in this "
-          "process")
-    ref, recs = _tp_serve_run(torch, args, "tp")
-    cfg = C.get_config(arch)
+          + " ".join(args) + " (full width), against the same path at 1 x 1 "
+          "in this process")
+    ref, recs = _tp_serve_run(torch, args, "tp_cut")
+    cfg = dc.replace(C.get_config(arch), n_layers=TP_CUT)
     with use_context(hw="h100", plan_cache=PlanCache()):
         abstract = Mesh(("data", "model"), (1, 2))
         want_pre = dryrun.serve_cell(cfg, abstract, "prefill", BATCH,
                                      PROMPT)["cost"]
         want_dec = dryrun.serve_cell(cfg, abstract, "decode", BATCH,
                                      PROMPT + GEN + 1)["cost"]
-        # the 1 x 1 path's own spread: its embedding table x (1 + 2**-20)
-        params = models.init(cfg, seed=0, device="cuda")
-        params["embed"].mul_(1 + 2 ** -20)
-        rng = np.random.default_rng(0)
-        prompts = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, size=(BATCH, PROMPT))).cuda()
-        moved = {}
-        serve_batch(cfg, params, prompts, gen_len=1, max_len=PROMPT + 2,
-                    record=moved)
-        del params
-        _free(torch)
-    rule = PATHS[arch]["want"]
+    L = TP_CUT
+    rule = {"matmul": 7 * L + GEN * 4 * L, "gemv": 1 + GEN * (3 * L + 1),
+            "wkv": 0}
     pre_err = _logit_err(recs[0]["logits"][0], ref["logits"][0])
-    spread = _logit_err(moved["logits"][0], ref["logits"][0])
     # greedy tokens: each row up to its first position whose 1 x 1 top-2
     # margin is within the tolerance
     held = same = 0
@@ -3983,9 +4008,8 @@ def tp_serve(torch) -> dict[str, int]:
               f"{sorted(set(rec['decode_bytes']))} (dry run "
               f"{want_dec['collective_bytes_per_device']}); peak "
               f"serving {rec['peak_gib']:.2f} GiB (one device "
-              f"{ref['peak_gib']:.2f}), loading the whole init and its "
-              f"blocks {rec['init_peak_gib']:.2f} (one device "
-              f"{ref['init_peak_gib']:.2f}); prefill "
+              f"{ref['peak_gib']:.2f}), the load {rec['init_peak_gib']:.2f} "
+              f"(one device {ref['init_peak_gib']:.2f}); prefill "
               f"{rec['prefill_s'] * 1e3:.1f} ms, decode step {ms:.2f} ms "
               f"(median; one device, replayed "
               f"{statistics.median(ref['decode_s']) * 1e3:.2f} ms)",
@@ -3999,23 +4023,16 @@ def tp_serve(torch) -> dict[str, int]:
                     want_dec["collective_bytes_per_device"]}:
             failed.append(f"rank {r} collective bytes differ from the dry "
                           "run's")
-    print(f"full depth: prefill logits max |tp - one| / (1 + |one|) = "
-          f"{pre_err:.4g}, printed, not gated: the 1 x 1 path moves "
-          f"{spread:.4g} against itself with its embedding x (1 + 2**-20); "
-          f"greedy tokens equal at {same}/{held} positions whose top-2 "
-          f"margin exceeds {PATH_TOL}; the ranks' tokens equal: "
+    print(f"{TP_CUT} layers: prefill logits max |tp - one| / (1 + |one|) = "
+          f"{pre_err:.4g} (tol {PATH_TOL}); greedy tokens equal at "
+          f"{same}/{held} positions whose top-2 margin exceeds {PATH_TOL}; "
+          f"the ranks' tokens equal: "
           f"{torch.equal(recs[0]['tokens'], recs[1]['tokens'])}", flush=True)
+    if not pre_err <= PATH_TOL:
+        failed.append(f"prefill logits at {TP_CUT} layers {pre_err} > "
+                      f"{PATH_TOL}")
     counts = recs[0]["launches"]
     del recs, ref
-    cut_ref, cut = _tp_serve_run(
-        torch, args + ["--n-layers", str(TP_CUT)], "tp_cut")
-    cut_err = _logit_err(cut[0]["logits"][0], cut_ref["logits"][0])
-    print(f"{TP_CUT} layers: prefill logits max |tp - one| / (1 + |one|) = "
-          f"{cut_err:.4g} (tol {PATH_TOL})", flush=True)
-    if not cut_err <= PATH_TOL:
-        failed.append(f"prefill logits at {TP_CUT} layers {cut_err} > "
-                      f"{PATH_TOL}")
-    del cut, cut_ref
     _free(torch)
     if failed:
         raise SystemExit("15a: " + "; ".join(failed))
@@ -4131,18 +4148,18 @@ def tp_dryrun(torch, train_rec: dict) -> None:
 
 # ------------------------------------------------------------ phase 16
 # the serving engines over the (1, 2) mesh of phase 15 (gloo, two ranks on
-# the card): 16a phase 7's engine (qwen1.5-4b at full width and depth, 8
-# lanes, 74 blocks of 16, chunks <= 128, its trace) through ``launch.serve
-# --engine --mesh 1x2``, against the same engine on one device in this
-# process (captured): both ranks' tokens and admission sequences equal;
-# the tokens equal to the one device's up to each request's first
-# position whose one-device top-2 margin is within PATH_TOL of (1 + |top|)
-# (15a's rule); a rank's launches phase 7's rule at the local shapes
-# (_engine_rule), zero lazy solves; each tick's and chunk's collective
-# bytes the dry run's cell (launch.dryrun.engine_cells); a rank's pool
-# half the one device's. The logits are gated at TP_CUT layers (each
-# request's first-token logits within PATH_TOL, as 15a gates its
-# prefill's); at full depth printed. 16b: phase 7c's speculative engine
+# the card): 16a phase 7's engine (qwen1.5-4b at full width, 8 lanes, 74
+# blocks of 16, chunks <= 128, its trace), cut to TP_CUT layers (its full
+# depth's run, ~60 s, made room for phase 17), through
+# ``launch.serve --engine --mesh 1x2``, against the same engine on one
+# device in this process (captured): both ranks' tokens and admission
+# sequences equal; the tokens equal to the one device's up to each
+# request's first position whose one-device top-2 margin is within
+# PATH_TOL of (1 + |top|) (15a's rule); a rank's launches phase 7's rule
+# at the local shapes and the cut depth, zero lazy solves; each tick's
+# and chunk's collective bytes the dry run's cell
+# (launch.dryrun.engine_cells); a rank's pool half the one device's; each
+# request's first-token logits within PATH_TOL. 16b: phase 7c's speculative engine
 # over the same mesh, the draft float and the target's config, both cut
 # to TP_CUT layers: the same gates (a float draft step runs a tick's
 # kernels: TP_SPEC_STEP, k + 1 of them a propose step), the ranks'
@@ -4156,12 +4173,13 @@ def tp_dryrun(torch, train_rec: dict) -> None:
 TP_SPEC_STEP = {"matmul": 4 * TP_CUT, "gemv": 3 * TP_CUT + 1, "wkv": 0}
 
 
-def _tp_engine_run(torch, args: list[str], tag: str) -> tuple[dict, list]:
-    """The engine on one device in this process, then over the (1, 2)
-    mesh under torchrun: (the one device's record, the ranks')."""
+def _tp_engine_run(torch, args: list[str], tag: str, mesh: str = TP_MESH,
+                   where: str = "phase16") -> tuple[dict, list]:
+    """The engine on one device in this process, then over ``mesh`` under
+    torchrun: (the one device's record, the ranks')."""
     from repro_torch.launch import serve
 
-    out = os.path.join(ROOT, "build", "phase16")
+    out = os.path.join(ROOT, "build", where)
     os.makedirs(out, exist_ok=True)
     _free(torch)
     one = serve.main(args + ["--record-out", os.path.join(out, tag + "1")])
@@ -4171,13 +4189,13 @@ def _tp_engine_run(torch, args: list[str], tag: str) -> tuple[dict, list]:
                      weights_only=False)
     t0 = time.perf_counter()
     run = _torchrun2("repro_torch.launch.serve",
-                     args + ["--mesh", TP_MESH, "--backend", "gloo",
+                     args + ["--mesh", mesh, "--backend", "gloo",
                              "--record-out", os.path.join(out, tag)], 600)
     print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
           + _lines(run.stdout, ("[mesh]", "[engine]", "[spec]",
                                 "[plan-cache] serving")), flush=True)
     if run.returncode != 0:
-        raise SystemExit(f"16 ({tag}): the launcher failed: "
+        raise SystemExit(f"{where} ({tag}): the launcher failed: "
                          + run.stderr[-3000:])
     return ref, [torch.load(os.path.join(out, f"{tag}.rank{r}.pt"),
                             weights_only=False) for r in range(2)]
@@ -4199,15 +4217,16 @@ def _held_tokens(ref: dict, rec: dict) -> tuple[int, int]:
 
 
 def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
-                     cells: dict) -> list[str]:
-    """Phase 16's gates shared by 16a and 16b; prints each rank's
-    numbers. Returns the failures."""
+                     cells: dict, gate_tokens: bool = True) -> list[str]:
+    """Phase 16's gates shared by 16a, 16b and 17b; prints each rank's
+    numbers. ``gate_tokens``: the tokens held to the one device's before
+    each near-tie (else printed). Returns the failures."""
     failed = []
     a, b = recs
     if a["tokens"] != b["tokens"] or a["admissions"] != b["admissions"]:
         failed.append("the ranks' tokens or admissions differ")
     held, same = _held_tokens(ref, a)
-    if same != held:
+    if same != held and gate_tokens:
         failed.append(f"tokens {same}/{held} equal to the one device's")
     want_bytes = {k: c["collective_bytes_per_device"]
                   for k, c in cells.items()}
@@ -4239,8 +4258,10 @@ def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
                           f"of {ref['pool_bytes']}")
     total = sum(map(len, ref["tokens"].values()))
     print(f"{label}: tokens equal to the one device's at {same}/{held} "
-          f"positions before a near-tie ({total} in all); the ranks' tokens "
-          f"equal: {a['tokens'] == b['tokens']}", flush=True)
+          f"positions before a near-tie ({total} in all"
+          + ("" if gate_tokens else "; printed, not gated")
+          + f"); the ranks' tokens equal: {a['tokens'] == b['tokens']}",
+          flush=True)
     return failed
 
 
@@ -4249,9 +4270,10 @@ def _first_logits_err(ref: dict, rec: dict) -> float:
                for i in ref["first_logits"])
 
 
-def _engine_cells(torch, cfg, engine: dict, draft: bool) -> dict:
+def _engine_cells(torch, cfg, engine: dict, draft: bool,
+                  shape: tuple = (1, 2)) -> dict:
     """The dry run's cells of the engine a record describes (its
-    ``engine`` section), over a (1, 2) abstract mesh."""
+    ``engine`` section), over an abstract mesh of ``shape``."""
     from repro_torch.core.context import use_context
     from repro_torch.core.plancache import PlanCache
     from repro_torch.launch import dryrun
@@ -4259,7 +4281,7 @@ def _engine_cells(torch, cfg, engine: dict, draft: bool) -> dict:
 
     with use_context(hw="h100", plan_cache=PlanCache()):
         return dryrun.engine_cells(
-            cfg, Mesh(("data", "model"), (1, 2)),
+            cfg, Mesh(("data", "model"), shape),
             num_slots=engine["num_slots"], max_len=engine["max_len"],
             prompt_pad=engine["prompt_pad"],
             kv_block_size=engine["kv_block_size"],
@@ -4270,39 +4292,39 @@ def _engine_cells(torch, cfg, engine: dict, draft: bool) -> dict:
 
 
 def tp_engine(torch) -> dict[str, int]:
-    """16a: phase 7's engine over the (1, 2) mesh, at full depth and cut
-    to TP_CUT layers."""
+    """16a: phase 7's engine over the (1, 2) mesh, cut to TP_CUT layers
+    (the full depth's run, ~60 s, made room for phase 17)."""
+    import dataclasses as dc
+
     from repro_torch import configs as C
 
-    args = ["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:]
+    args = (["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:]
+            + ["--n-layers", str(TP_CUT)])
     phase("16a the engine over a mesh: torchrun --nproc-per-node 2 -m "
           "repro_torch.launch.serve " + " ".join(a if a else "''"
                                                  for a in args)
-          + f" --mesh {TP_MESH} --backend gloo (full width and depth; the "
-          f"logits gate at --n-layers {TP_CUT}), against the same engine "
-          "on one device in this process")
+          + f" --mesh {TP_MESH} --backend gloo (full width, {TP_CUT} "
+          "layers), against the same engine on one device in this process")
     t0 = time.perf_counter()
-    ref, recs = _tp_engine_run(torch, args, "engine")
-    cells = _engine_cells(torch, C.get_config("qwen1.5-4b"), ref["engine"],
-                          False)
-    failed = _tp_engine_gates(torch, "full depth", ref, recs, _engine_rule,
+    ref, recs = _tp_engine_run(torch, args, "engine_cut")
+    cut = dc.replace(C.get_config("qwen1.5-4b"), n_layers=TP_CUT)
+    cells = _engine_cells(torch, cut, ref["engine"], False)
+
+    def rule(dispatches):
+        steps = sum(dispatches.values())
+        return {k: n * steps for k, n in TP_SPEC_STEP.items()}
+
+    failed = _tp_engine_gates(torch, f"{TP_CUT} layers", ref, recs, rule,
                               cells)
-    full_err = _first_logits_err(ref, recs[0])
+    err = _first_logits_err(ref, recs[0])
+    print(f"first-token logits max |mesh - one| / (1 + |one|): {TP_CUT} "
+          f"layers {err:.4g} (tol {PATH_TOL}); phase 16a "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not err <= PATH_TOL:
+        failed.append(f"first-token logits at {TP_CUT} layers {err} > "
+                      f"{PATH_TOL}")
     counts = recs[0]["launches"]
     del ref, recs
-    cut_ref, cut = _tp_engine_run(torch, args + ["--n-layers", str(TP_CUT)],
-                                  "engine_cut")
-    cut_err = _first_logits_err(cut_ref, cut[0])
-    print(f"first-token logits max |mesh - one| / (1 + |one|): full depth "
-          f"{full_err:.4g} (printed), {TP_CUT} layers {cut_err:.4g} (tol "
-          f"{PATH_TOL}); phase 16a {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    if not cut_err <= PATH_TOL:
-        failed.append(f"first-token logits at {TP_CUT} layers {cut_err} > "
-                      f"{PATH_TOL}")
-    if cut[0]["tokens"] != cut[1]["tokens"]:
-        failed.append(f"the ranks' tokens differ at {TP_CUT} layers")
-    del cut, cut_ref
     _free(torch)
     if failed:
         raise SystemExit("16a: " + "; ".join(failed))
@@ -4366,6 +4388,360 @@ def tp_spec_engine(torch) -> dict[str, int]:
     return counts
 
 
+# ------------------------------------------------------------ phase 17
+# expert parallelism: olmoe-1b-7b over a (2, 1) (data, model) mesh, two
+# ranks on the card over gloo, the ranks building the model one at a time
+# (launch.serve: the whole f32 model is 27.7 GB, a rank keeps 13.8 GB; two
+# whole models at once would not fit in 80 GB). 17a: the static server at
+# full width and depth (4 x 128, 16 tokens, seed 0). Its yardstick is the
+# same path on one device with every MoE layer ``moe_ep_plain`` over 2
+# shards of the rows (the mesh's semantics), not 9a's one-shard path: the
+# reference's level 2 counts a source's empty slots in local expert 0's
+# bucket (``re_c = where(valid, re, 0)`` before the cumsum), so on a mesh
+# each shard's local expert 0 (experts 0 and 32) loses what the sources
+# after the first send it once an earlier source had free slots; against
+# 9a that moved the first-token logits by 0.33 (on an H100, 700 W),
+# printed here with 9a's tokens. Gates: both ranks' tokens equal; the
+# tokens equal to the one-device run's up to each row's first position
+# whose top-2 margin is within PATH_TOL of (1 + |top|) (15a's rule); the
+# first-token logits within PATH_TOL of 1 + |logit|, at EP_CUT layers (a
+# one-device run and a mesh run of the cut config) where full depth does
+# not hold; each rank's launches 9a's rule at the local shapes, zero lazy
+# solves; the prefill's and each decode step's collective bytes by kind
+# the dry run's for a (2, 1) abstract mesh. 17b: phase 9e's paged engine
+# over the same mesh at EP_ENGINE_CUT layers: phase 16's gates but the tokens
+# against one device, which are printed (with 4 of 8 lanes a rank, Cs =
+# 24 a destination against 32 assignments, and the level-2 rule above:
+# the reference's semantics). 17c: one olmoe MoE layer at full width
+# (seed 0, f32 tables, bf16 rows) on the two ranks at the prefill's rows
+# (256 a rank) and the decode's (2 a rank), each rank's output within
+# EP_LAYER_TOL of 1 + |y| of layers.moe.moe_ep_plain on the card.
+# Printed: each rank's load and serving peaks beside 9a's
+# 17b's engine at 2 layers: the whole script's budget (1,080 s)
+EP_MESH, EP_SHAPE, EP_CUT, EP_ENGINE_CUT = "2x1", (2, 1), 4, 2
+EP_LAYER_TOL = 2 ** -7
+EP_LAYER_PROG = r'''
+import os, sys
+import torch
+from repro_torch.core.context import use_context
+from repro_torch.core.distributed import CollectiveCounter
+from repro_torch.interop import tree_items, tree_map_with_path
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.layers import moe
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.fsdp import ShardPlan
+
+out = sys.argv[1]
+mesh = make_local_mesh(2, 1, device="cuda", backend="gloo")
+gen = torch.Generator(device="cuda").manual_seed(0)
+p = moe.init_moe(gen, 2048, 1024, 64, device="cuda")
+xs = {n: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+      for n, shape in (("prefill", (4, 128, 2048)), ("decode", (4, 1, 2048)))}
+specs = shd.param_specs({"moe": moe.moe_axes()}, {"moe": p}, mesh)
+spec_of = dict(tree_items(specs))
+plan = ShardPlan(mesh, specs)
+blocks = shd.shard_tree({"moe": p}, specs, mesh)
+del p
+res = {"rank": mesh.rank}
+with use_context(mesh=mesh, shard=plan):
+    lp = tree_map_with_path(
+        lambda path, t: plan.gather(t, spec_of[path], path), blocks)["moe"]
+    for name, x in xs.items():
+        rows = shd.shard_leaf(x, shd.P("data"), mesh)
+        with CollectiveCounter() as c:
+            y, _ = moe.moe_ffn(lp, rows, top_k=8)
+        torch.cuda.synchronize()
+        res[name] = {"y": y.float().cpu(), "bytes": c.by_kind()}
+torch.save(res, f"{out}.rank{mesh.rank}.pt")
+import torch.distributed as dist
+dist.destroy_process_group()
+'''
+
+
+def _ep_serve_run(torch, args: list[str], tag: str) -> list:
+    """The static server over the (2, 1) mesh under torchrun: the ranks'
+    records."""
+    out = os.path.join(ROOT, "build", "phase17")
+    os.makedirs(out, exist_ok=True)
+    _free(torch)
+    t0 = time.perf_counter()
+    run = _torchrun2("repro_torch.launch.serve",
+                     args + ["--mesh", EP_MESH, "--backend", "gloo",
+                             "--record-out", os.path.join(out, tag)], 600)
+    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
+          + _lines(run.stdout, ("[mesh]", "[serve]", "[plan-cache]")),
+          flush=True)
+    if run.returncode != 0:
+        raise SystemExit(f"17a ({tag}): the launcher failed: "
+                         + run.stderr[-3000:])
+    return [torch.load(os.path.join(out, f"{tag}.rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+
+
+def _rows_err(recs: list, ref: dict, step: int = 0) -> float:
+    """The ranks' logits at ``step`` (each its rows) against the
+    one-device record's rows, max |ep - one| / (1 + |one|)."""
+    n = recs[0]["logits"][step].shape[0]
+    return max(_logit_err(rec["logits"][step],
+                          ref["logits"][step][r * n:(r + 1) * n])
+               for r, rec in enumerate(recs))
+
+
+class _plain_ep:
+    """Within it, every MoE layer runs ``layers.moe.moe_ep_plain`` over
+    ``shards`` DP shards of its rows: the mesh's expert-parallel
+    semantics on one device."""
+
+    def __init__(self, shards: int):
+        self.shards = shards
+
+    def __enter__(self):
+        from repro_torch.layers import moe
+
+        self.saved = moe.moe_ffn
+        moe.moe_ffn = lambda p, x, **kw: moe.moe_ep_plain(p, x, self.shards,
+                                                          **kw)
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe
+
+        moe.moe_ffn = self.saved
+
+
+def _held_rows(torch, ref: dict, tokens, vocab: int) -> tuple[int, int]:
+    """(positions compared, positions equal): each row's greedy tokens up
+    to its first position whose ``ref`` top-2 margin is within PATH_TOL
+    (15a's rule)."""
+    held = same = 0
+    for row in range(BATCH):
+        for t in range(GEN):
+            top2 = ref["logits"][t][row, :vocab].topk(2).values
+            if not top2[0] - top2[1] > PATH_TOL * (1 + top2[0].abs()):
+                break
+            held += 1
+            same += int(tokens[row, t] == ref["tokens"][row, t])
+    return held, same
+
+
+def ep_serve(torch) -> dict[str, int]:
+    """17a: the static server over the (2, 1) mesh at full width and
+    depth, against the same EP semantics on one device (and phase 9a's
+    record, printed)."""
+    from repro_torch import configs as C
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.mesh import Mesh
+
+    arch = "olmoe-1b-7b"
+    args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--plan-cache", ""]
+    phase(f"17a expert-parallel static server: torchrun --nproc-per-node 2 "
+          f"-m repro_torch.launch.serve --mesh {EP_MESH} --backend gloo "
+          + " ".join(args) + " (full width and depth), against the same "
+          "path on one device with every MoE layer moe_ep_plain over "
+          f"{EP_SHAPE[0]} shards, and phase 9a's record (printed)")
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "build", "phase17")
+    os.makedirs(out, exist_ok=True)
+
+    def one(extra, tag):
+        _free(torch)
+        with _plain_ep(EP_SHAPE[0]):
+            rec = serve.main(args + extra + [
+                "--record-out", os.path.join(out, tag)])["record"]
+        _free(torch)
+        return rec
+
+    plain = one([], "ep_plain")
+    recs = _ep_serve_run(torch, args, "ep")
+    cfg = C.get_config(arch)
+    with use_context(hw="h100", plan_cache=PlanCache()):
+        abstract = Mesh(("data", "model"), EP_SHAPE)
+        want_pre = dryrun.serve_cell(cfg, abstract, "prefill", BATCH,
+                                     PROMPT)["cost"]["by_collective"]
+        want_dec = dryrun.serve_cell(cfg, abstract, "decode", BATCH,
+                                     PROMPT + GEN + 1)["cost"]["by_collective"]
+    rule = PATHS[arch]["want"]
+    nine = KEPT[arch]
+    held, same = _held_rows(torch, plain, recs[0]["tokens"],
+                            cfg.vocab_size)
+    held9, same9 = _held_rows(torch, nine, recs[0]["tokens"],
+                              cfg.vocab_size)
+    failed = []
+    if not torch.equal(recs[0]["tokens"], recs[1]["tokens"]):
+        failed.append("the ranks' tokens differ")
+    if same != held:
+        failed.append(f"greedy tokens {same}/{held}")
+    for rec in recs:
+        r = rec["rank"]
+        ms = statistics.median(rec["decode_s"]) * 1e3
+        dec = [k for k in rec["decode_by_kind"] if k != want_dec]
+        print(f"rank {r}: launches {rec['launches']} (rule {rule}); lazy "
+              f"solves {rec['lazy_solves']}, misses {rec['misses']}; "
+              f"collective bytes prefill {rec['prefill_by_kind']} (dry run "
+              f"{want_pre}), a decode step {rec['decode_by_kind'][0]} (dry "
+              f"run {want_dec}; {len(dec)} steps differ); peak serving "
+              f"{rec['peak_gib']:.2f} GiB (9a one device "
+              f"{nine['peak_gib']:.2f}), the load {rec['init_peak_gib']:.2f} "
+              f"(9a {nine['init_peak_gib']:.2f}); prefill "
+              f"{rec['prefill_s'] * 1e3:.1f} ms, decode step {ms:.2f} ms "
+              f"(median, eager over gloo; 9a "
+              f"{statistics.median(nine['decode_s']) * 1e3:.2f} ms replayed)",
+              flush=True)
+        if rec["launches"] != rule:
+            failed.append(f"rank {r} launches {rec['launches']}")
+        if rec["lazy_solves"] or rec["misses"]:
+            failed.append(f"rank {r} was not plan-warm")
+        if rec["prefill_by_kind"] != want_pre or dec:
+            failed.append(f"rank {r} collective bytes differ from the dry "
+                          "run's")
+    err = _rows_err(recs, plain)
+    print(f"full depth, against one device's moe_ep_plain: first-token "
+          f"logits max |ep - plain| / (1 + |plain|) = {err:.4g} (tol "
+          f"{PATH_TOL}); greedy tokens equal at {same}/{held} positions "
+          f"whose top-2 margin exceeds {PATH_TOL} (at "
+          f"{int((recs[0]['tokens'] == plain['tokens']).sum())} of "
+          f"{BATCH * GEN} in all, printed); the ranks' tokens "
+          f"equal: {torch.equal(recs[0]['tokens'], recs[1]['tokens'])}. "
+          f"Against 9a (one shard's capacities; printed): first-token "
+          f"logits {_rows_err(recs, nine):.4g}, tokens {same9}/{held9}",
+          flush=True)
+    counts = recs[0]["launches"]
+    del recs, plain
+    if not err <= PATH_TOL:
+        # full depth does not hold: the gate at EP_CUT layers
+        cut = ["--n-layers", str(EP_CUT)]
+        cut_err = _rows_err(_ep_serve_run(torch, args + cut, "ep_cut"),
+                            one(cut, "ep_plain_cut"))
+        print(f"{EP_CUT} layers: first-token logits max |ep - plain| / (1 + "
+              f"|plain|) = {cut_err:.4g} (tol {PATH_TOL})", flush=True)
+        if not cut_err <= PATH_TOL:
+            failed.append(f"first-token logits at {EP_CUT} layers "
+                          f"{cut_err} > {PATH_TOL}")
+    _free(torch)
+    print(f"phase 17a {time.perf_counter() - t0:.1f}s", flush=True)
+    if failed:
+        raise SystemExit("17a: " + "; ".join(failed))
+    return counts
+
+
+def ep_engine(torch) -> dict[str, int]:
+    """17b: phase 9e's paged engine over the (2, 1) mesh at EP_ENGINE_CUT
+    layers."""
+    import dataclasses as dc
+
+    from repro_torch import configs as C
+
+    arch = "olmoe-1b-7b"
+    args = (["--arch", arch] + ENGINE_ARGS[2:]
+            + ["--n-layers", str(EP_ENGINE_CUT)])
+    phase("17b the expert-parallel engine: torchrun --nproc-per-node 2 -m "
+          "repro_torch.launch.serve " + " ".join(a if a else "''"
+                                                 for a in args)
+          + f" --mesh {EP_MESH} --backend gloo, against the same engine on "
+          "one device in this process")
+    t0 = time.perf_counter()
+    ref, recs = _tp_engine_run(torch, args, "ep_engine", mesh=EP_MESH,
+                               where="phase17")
+    cut = dc.replace(C.get_config(arch), n_layers=EP_ENGINE_CUT)
+    cells = _engine_cells(torch, cut, ref["engine"], False, EP_SHAPE)
+    # a tick (4 lanes a rank) and a chunk (its rows whole; the MoE block
+    # splits them over 'data') run q, k, v, wo on the GEMV and the router
+    # on the fat GEMM a layer, then the unembed GEMV
+    step = {"matmul": EP_ENGINE_CUT, "gemv": 4 * EP_ENGINE_CUT + 1, "wkv": 0}
+
+    def rule(dispatches):
+        steps = sum(dispatches.values())
+        return {k: n * steps for k, n in step.items()}
+
+    failed = _tp_engine_gates(torch, f"{EP_ENGINE_CUT} layers", ref, recs, rule,
+                              cells, gate_tokens=False)
+    counts = recs[0]["launches"]
+    print(f"phase 17b {time.perf_counter() - t0:.1f}s", flush=True)
+    del ref, recs
+    _free(torch)
+    if failed:
+        raise SystemExit("17b: " + "; ".join(failed))
+    return counts
+
+
+def _stop(job) -> None:
+    """Ends a background torchrun that is still running: SIGTERM, which it
+    passes to its ranks, then SIGKILL."""
+    if job.poll() is None:
+        job.terminate()
+        try:
+            job.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            job.kill()
+            job.wait()
+
+
+def ep_layer_start():
+    """17c's two ranks, started in the background (they run beside 17a's
+    one-device run: the script's time budget); :func:`ep_layer` collects
+    them."""
+    out = os.path.join(ROOT, "build", "phase17")
+    os.makedirs(out, exist_ok=True)
+    prog = os.path.join(out, "ep_layer.py")
+    with open(prog, "w") as f:
+        f.write(EP_LAYER_PROG)
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "localhost", "--master-port",
+         str(_free_port()), prog, os.path.join(out, "ep_layer")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+
+
+def ep_layer(torch, job) -> None:
+    """17c: one olmoe MoE layer at full width on the two ranks (``job``,
+    from :func:`ep_layer_start`) against its plain D-shard version on the
+    card."""
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.layers import moe
+
+    phase(f"17c one olmoe-1b-7b MoE layer (64 experts of 1024, top-8, f32 "
+          f"tables, bf16 rows) on the {EP_MESH} mesh at 256 and 2 rows a "
+          f"rank (the ranks ran beside 17a), against layers.moe.moe_ep_plain "
+          f"on the card (tol {EP_LAYER_TOL:.4g} of 1 + |y|)")
+    t0 = time.perf_counter()
+    out = os.path.join(ROOT, "build", "phase17")
+    try:
+        _, err = job.communicate(timeout=300)
+    finally:
+        _stop(job)
+    if job.returncode != 0:
+        raise SystemExit("17c: the ranks failed: " + err[-3000:])
+    recs = [torch.load(os.path.join(out, f"ep_layer.rank{r}.pt"))
+            for r in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.init_moe(gen, 2048, 1024, 64, device="cuda")
+    xs = {n: torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for n, shape in (("prefill", (4, 128, 2048)),
+                                         ("decode", (4, 1, 2048)))}
+    failed = []
+    with use_context(hw="h100", plan_cache=PlanCache()):
+        for name, x in xs.items():
+            want = moe.moe_ep_plain(p, x, 2, top_k=8)[0].float().cpu()
+            for r, rec in enumerate(recs):
+                got = rec[name]["y"]
+                rows = want[r * got.shape[0]:(r + 1) * got.shape[0]]
+                err = _logit_err(got, rows)
+                print(f"{name} rank {r}: y {tuple(got.shape)} max |ep - "
+                      f"plain| / (1 + |plain|) = {err:.4g}; collective "
+                      f"bytes {rec[name]['bytes']}", flush=True)
+                if not err <= EP_LAYER_TOL:
+                    failed.append(f"{name} rank {r} {err}")
+    del p, xs
+    _free(torch)
+    print(f"phase 17c {time.perf_counter() - t0:.1f}s", flush=True)
+    if failed:
+        raise SystemExit("17c: " + "; ".join(failed))
+
+
 ZAMBA_STEP_CUT = {"n_layers": 12}  # 10a / 10b's static steps (main)
 
 
@@ -4421,7 +4797,7 @@ def main() -> int:
         torch, traced)
     # 9: the MoE family, olmoe-1b-7b at its full width and depth
     moe = "olmoe-1b-7b"
-    counts[moe] = run_path(torch, moe, "9a")
+    counts[moe] = run_path(torch, moe, "9a", keep=True)
     static_steps(torch, moe, "9a")
     counts[moe + " int8"] = run_path(torch, moe + " int8", "9b")
     static_steps(torch, moe, "9b", quant=True)
@@ -4481,13 +4857,23 @@ def main() -> int:
     counts["qwen1.5-4b mesh train launcher"] = dist_train(torch)
     train_rec = dist_dryrun(torch)
     # 15: tensor parallelism over 'model', two ranks on the one card
-    counts["qwen1.5-4b tp serve (1x2, a rank)"] = tp_serve(torch)
-    counts["qwen1.5-4b tp train (1x2, a rank)"] = tp_train(torch)
+    counts["qwen1.5-4b tp serve (1x2, a rank, 2 layers)"] = tp_serve(torch)
+    counts["qwen1.5-4b tp train (1x2, a rank, 2 layers)"] = tp_train(torch)
     tp_dryrun(torch, train_rec)
     # 16: the serving engines over the same mesh
-    counts["qwen1.5-4b tp engine (1x2, a rank)"] = tp_engine(torch)
-    counts["qwen1.5-4b tp spec engine (1x2, a rank, 4 layers)"] = \
+    counts["qwen1.5-4b tp engine (1x2, a rank, 2 layers)"] = \
+        tp_engine(torch)
+    counts["qwen1.5-4b tp spec engine (1x2, a rank, 2 layers)"] = \
         tp_spec_engine(torch)
+    # 17: expert parallelism, olmoe-1b-7b over a (2, 1) mesh
+    layer_job = ep_layer_start()
+    try:
+        counts["olmoe-1b-7b ep serve (2x1, a rank)"] = ep_serve(torch)
+        counts["olmoe-1b-7b ep engine (2x1, a rank, 2 layers)"] = \
+            ep_engine(torch)
+        ep_layer(torch, layer_job)
+    finally:
+        _stop(layer_job)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),

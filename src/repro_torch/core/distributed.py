@@ -23,11 +23,13 @@ card. Neither uses a DTensor op (that would put the product on
 ``aten::mm``, a library call).
 
 The collective helpers (``all_gather``, ``reduce_scatter``,
-``all_reduce``, ``broadcast``, ``send_recv``) are what every sharded path
-of the port calls; they are not differentiable (``parallel.fsdp.Gather``
-is the gather autograd sees). Each adds the bytes of its operand on this rank (an
-all-gather's local block, a reduce-scatter's or all-reduce's whole input,
-a broadcast's tensor, a send's tensor) to the active context's
+``all_reduce``, ``all_to_all``, ``broadcast``, ``send_recv``) are what
+every sharded path of the port calls; they are not differentiable
+(``parallel.fsdp.Gather`` is the gather autograd sees, and
+:func:`exchange` the all-to-all). Each adds the bytes of its operand on
+this rank (an all-gather's local block, a reduce-scatter's, all-reduce's
+or all-to-all's whole input, a broadcast's tensor, a send's tensor) to the
+active context's
 :class:`CollectiveCounter` (the serving engine's clock, broadcast from
 rank 0, under a kind of its own, ``clock``), the counterpart of the
 reference's
@@ -76,8 +78,8 @@ from repro_torch.core.context import current_context, use_context
 from repro_torch.core.gemm import balanced_gemm
 from repro_torch.kernels.ops import GemmPlan
 
-KINDS = ("all_gather", "reduce_scatter", "all_reduce", "send_recv",
-         "broadcast", "clock")
+KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
+         "send_recv", "broadcast", "clock")
 
 
 class CollectiveCounter:
@@ -144,7 +146,7 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0
         gather = getattr(dist, "all_gather_single", None) or \
             dist.all_gather_into_tensor
         if _staged(mesh, x):
-            host = out.cpu()
+            host = torch.empty_like(out, device="cpu")
             gather(host, x.cpu(), group=mesh.group(axis))
             out.copy_(host)
         else:
@@ -167,7 +169,7 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
     if not mesh.abstract:
         if _staged(mesh, x):
-            host = out.cpu()
+            host = torch.empty_like(out, device="cpu")
             dist.reduce_scatter_tensor(host, x.cpu(), op=dist.ReduceOp.SUM,
                                        group=mesh.group(axis))
             out.copy_(host)
@@ -196,6 +198,31 @@ def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
                 dist.all_reduce(t, op=dist.ReduceOp.SUM,
                                 group=mesh.group(axis))
     return t
+
+
+def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The tiled all-to-all over ``axis`` (``lax.all_to_all(split_axis=0,
+    concat_axis=0, tiled=True)``): dim 0 of ``t`` split into the axis's
+    extent, block ``j`` sent to the rank at index ``j``, and the blocks
+    received concatenated on dim 0 in source order. Its own inverse."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return t
+    _check_abstract(mesh, t)
+    if t.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(t.shape)} does not split over "
+                         f"{axis} ({n})")
+    _count("all_to_all", t)
+    x = t.detach().contiguous()
+    out = torch.empty_like(x)
+    if not mesh.abstract:
+        if _staged(mesh, x):
+            host = torch.empty_like(out, device="cpu")
+            dist.all_to_all_single(host, x.cpu(), group=mesh.group(axis))
+            out.copy_(host)
+        else:
+            dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return out
 
 
 def broadcast(t: torch.Tensor, mesh, axis: str, src: int,
@@ -411,6 +438,81 @@ class _ScatterToModel(torch.autograd.Function):
         mesh, dim = ctx.args
         with use_context(ctx.gemm_context):
             return all_gather(g, mesh, "model", dim).contiguous(), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args, ctx.gemm_context = (mesh, axis), current_context()
+        return all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        with use_context(ctx.gemm_context):
+            return all_to_all(g, mesh, axis), None, None
+
+
+class _ReduceScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.args, ctx.gemm_context = (mesh, dim), current_context()
+        return reduce_scatter(x, mesh, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.args
+        with use_context(ctx.gemm_context):
+            return all_gather(g, mesh, "model", dim).contiguous(), None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, n):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, axes) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def exchange(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """:func:`all_to_all` under autograd: the tiled exchange is its own
+    transpose, so its backward is the same exchange of the gradient."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    if not _recorded(x):
+        return all_to_all(x, mesh, axis)
+    return _Exchange.apply(x, mesh, axis)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, mesh, dim: int
+                            ) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over 'model' of the
+    ranks' ``x`` (a reduce-scatter); backward the gradient's blocks
+    gathered along ``dim``."""
+    if mesh.axis_size("model") == 1:
+        return x
+    dim %= x.dim()
+    if not _recorded(x):
+        return reduce_scatter(x, mesh, "model", dim)
+    return _ReduceScatterToModel.apply(x, mesh, dim)
+
+
+def mean_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean over ``axes`` of the ranks' ``x`` (the reference's
+    ``pmean``); backward the identity: each rank's gradient then carries
+    its own term, and the DP mean of the gradients (``parallel.fsdp``)
+    makes it the mean's."""
+    axes = [a for a in axes if mesh.axis_size(a) > 1]
+    if not axes:
+        return x
+    n = math.prod(mesh.axis_size(a) for a in axes)
+    if not _recorded(x):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, axes) / n
+    return _MeanOver.apply(x, mesh, axes, n)
 
 
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -269,7 +269,9 @@ def plan_model(
     if mesh is not None:
         from repro_torch.train.servestep import make_serve_step
 
-        art = make_serve_step(cfg, device="meta", mesh=mesh.as_abstract())
+        art = make_serve_step(
+            cfg, device="meta", mesh=mesh.as_abstract(),
+            quantized=params is not None and interop.is_quantized(params))
     if params is None:
         params = models.init(cfg, device="meta")
         if art is not None:

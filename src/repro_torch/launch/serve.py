@@ -56,17 +56,21 @@ the CUDA graphs are captured with the refined plans);
 ``--rebalance-drifted`` re-solves the plans the balance auditor flags as
 drifted after a traced run.
 
-With ``--mesh DATAxMODEL`` the static server (the dense family) runs
-over a (data, model) mesh of the world's ranks, one process a rank under
-torchrun: each rank makes the whole model from seed 0, keeps its blocks
-(``parallel.sharding.param_specs``) and serves its rows over 'data',
-tensor-parallel over 'model'; every rank ends with every row's tokens and
-rank 0 prints. ``--backend gloo`` puts several ranks on one card (each
+With ``--mesh DATAxMODEL`` the static server (the dense and moe families)
+runs over a (data, model) mesh of the world's ranks, one process a rank
+under torchrun: the ranks make the whole model from seed 0 one at a time
+(the others wait at a barrier), each keeping its blocks
+(``parallel.sharding.param_specs``) and freeing the whole before the next
+begins, so the card holds one whole model at a time; each serves its rows
+over 'data', tensor-parallel over 'model', the MoE experts over 'data'
+(expert parallelism); every rank ends with every row's tokens and rank 0
+prints. ``--backend gloo`` puts several ranks on one card (each
 collective staged through host memory); nccl is the default on the card.
-With ``--engine --mesh`` the engine (the dense family; paged, contiguous
-or speculative) runs over the mesh the same way: each rank makes the whole
-model, the engine keeps its blocks (``ServeEngine(mesh=)``), and every rank
-runs the whole schedule on the same logits and rank 0's clock.
+With ``--engine --mesh`` the engine (the dense and moe families; paged,
+contiguous or speculative) runs over the mesh the same way: the ranks make
+the model (and the draft) in turn, the engine takes their blocks
+(``ServeEngine(mesh=, blocks=True)``), and every rank runs the whole
+schedule on the same logits and rank 0's clock.
 ``--n-layers`` cuts the config's depth (its width stays), the draft's
 too.
 ``--record-out PREFIX`` writes what the run measured to
@@ -124,17 +128,17 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
     keeps feeding ``pad_id``. The batch decodes until every row finishes or
     ``gen_len``.
 
-    Over a ``mesh`` (the dense family; ``train.servestep``) ``params`` are
-    this rank's blocks (``make_serve_step(...).shard_params``) and every
-    rank passes the whole batch: each runs its rows over the DP axes,
-    tensor-parallel over 'model', and returns the whole (B, gen_len) (the
-    tokens gathered over the DP axes).
+    Over a ``mesh`` (the dense and moe families; ``train.servestep``)
+    ``params`` are this rank's blocks (``make_serve_step(...).
+    shard_params``) and every rank passes the whole batch: each runs its
+    rows over the DP axes, tensor-parallel over 'model', and returns the
+    whole (B, gen_len) (the tokens gathered over the DP axes).
 
     ``record`` (a dict), if given, receives what the run measured: the
     logits of the prefill and of each decode step (this rank's rows, f32
     on the host), each step's top-2 margin of the logits that chose its
-    token, the collective bytes of the prefill and of each decode step,
-    and the host seconds of each (synchronized).
+    token, the collective bytes of the prefill and of each decode step
+    (in all and by kind), and the host seconds of each (synchronized).
     """
     from repro_torch.core.distributed import CollectiveCounter
 
@@ -147,7 +151,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
     inputs = art.rows({"tokens": prompts, **(extras or {})})
     rec = record if record is not None else {}
     rec.update(prefill_bytes=0, decode_bytes=[], decode_s=[], margin=[],
-               logits=[])
+               logits=[], decode_by_kind=[])
 
     def timed(fn, *args):
         t0 = time.perf_counter()
@@ -155,6 +159,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
             out = fn(*args)
         if record is not None and device.type == "cuda":
             torch.cuda.synchronize(device)
+        rec["by_kind"] = counter.by_kind()
         return out, counter.total, time.perf_counter() - t0
 
     def pick(logits):
@@ -167,6 +172,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
 
     logits, rec["prefill_bytes"], rec["prefill_s"] = timed(
         art.prefill_fn, params, state, inputs)
+    rec["prefill_by_kind"] = rec.pop("by_kind")
     rows = logits.shape[0]
     out = []
     finished = torch.zeros((rows,), dtype=torch.bool, device=device)
@@ -182,6 +188,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
         logits, nbytes, secs = timed(art.decode_fn, params, state,
                                      tok[:, None])
         rec["decode_bytes"].append(nbytes)
+        rec["decode_by_kind"].append(rec.pop("by_kind"))
         rec["decode_s"].append(secs)
         tok = pick(logits)
     gen = torch.stack(out, dim=1)
@@ -305,9 +312,9 @@ def _run_engine(args, ctx, cfg, box: list, device, measure_factory=None,
                 mesh=None) -> dict:
     """--engine: continuous batching over a mixed-length synthetic trace
     (with --prefix-cache a shared-header trace, with --bursty-trace bursts
-    of mixed-priority traffic). ``box`` holds the whole params (taken out,
-    so that over a ``mesh`` the whole tree is freed once the engine keeps
-    its blocks). Returns the engine, its metrics and the plan-cache
+    of mixed-priority traffic). ``box`` holds the params (over a ``mesh``
+    this rank's blocks; taken out, so that the engine holds the only
+    reference). Returns the engine, its metrics and the plan-cache
     counters of serving."""
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve import (ServeEngine, SimClock, bursty_trace,
@@ -335,12 +342,9 @@ def _run_engine(args, ctx, cfg, box: list, device, measure_factory=None,
             dcfg = C.smoke(dcfg)
         if args.n_layers is not None:
             dcfg = dataclasses.replace(dcfg, n_layers=args.n_layers).validate()
-        dparams = models.init(dcfg, seed=0, device=device)
-        dquant = None
-        if args.spec_draft_quantize == "int8":
-            # the target's --quantize recipe, once at load
-            dparams = quantize_params(dparams)
-            dquant = "int8"
+        # the target's --quantize recipe, once at load
+        dquant = "int8" if args.spec_draft_quantize == "int8" else None
+        dparams, _ = _load(dcfg, device, mesh, dquant == "int8")
         spec_kwargs = dict(spec_draft_cfg=dcfg, spec_draft_params=dparams,
                            spec_k=args.spec_k, spec_draft_quant=dquant)
     gen = args.max_new_tokens or args.gen
@@ -389,7 +393,8 @@ def _run_engine(args, ctx, cfg, box: list, device, measure_factory=None,
     lead = mesh is None or mesh.rank == 0
     print_ = print if lead else (lambda *a, **k: None)
     engine = ServeEngine(
-        cfg, box.pop(), mesh=mesh, num_slots=args.num_slots,
+        cfg, box.pop(), mesh=mesh, blocks=mesh is not None,
+        num_slots=args.num_slots,
         max_len=max_len,
         prompt_pad=prompt_pad, kv_block_size=args.kv_block_size or None,
         num_kv_blocks=args.num_kv_blocks, kv_quantize=args.kv_quantize,
@@ -600,17 +605,10 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
                           args.engine and args.kv_quantize == "int8")
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        params = models.init(cfg, seed=0, device=device)
-        quantize_s = None
-        if ctx.quant_mode == "int8":
-            # quantize once at load: decode streams int8 weights and the
-            # dequantize rides the GEMM epilogue; the f32 projections are
-            # freed with the float tree
-            t0 = time.perf_counter()
-            params = quantize_params(params)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            quantize_s = time.perf_counter() - t0
+        # over a mesh this rank's blocks, the ranks loading one at a time
+        params, quantize_s = _load(cfg, device, mesh,
+                                   ctx.quant_mode == "int8")
+        if quantize_s is not None:
             say(f"[quant] int8 weights quantized at load in "
                 f"{quantize_s:.2f}s")
         if args.engine:
@@ -620,11 +618,6 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
                               mesh)
             res["quantize_s"] = quantize_s
             return res
-        if mesh is not None:
-            # every rank makes the whole model, then keeps its blocks
-            params = make_serve_step(
-                cfg, device=device, mesh=mesh,
-                quantized=ctx.quant_mode == "int8").shard_params(params)
         # the load's peak (over a mesh: the whole init and the blocks at
         # once), then serving's own
         init_peak = _peak_gib(device)
@@ -701,6 +694,45 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
     return {"tokens": toks, "seconds": dt, "lazy_solves": lazy,
             "misses": missed, "generated": out, "quantize_s": quantize_s,
             "launches": launched, "record": record}
+
+
+def _load(cfg, device, mesh, quantize: bool):
+    """The weights from seed 0 (``quantize``: quantized once at load, so
+    that decode streams int8 weights and the dequantize rides the GEMM
+    epilogue; the f32 projections are freed with the float tree) and the
+    quantization's seconds (None without it). Over a ``mesh`` this rank's
+    blocks (``servestep.param_blocks``): the ranks build the whole model
+    one at a time, each keeping its blocks and freeing the whole before a
+    barrier lets the next begin, so the card holds one whole model at a
+    time."""
+    from repro_torch.train.servestep import param_blocks
+
+    def build():
+        params = models.init(cfg, seed=0, device=device)
+        seconds = None
+        if quantize:
+            t0 = time.perf_counter()
+            params = quantize_params(params)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+        if mesh is not None:
+            params = param_blocks(cfg, params, mesh, quantized=quantize)
+        return params, seconds
+
+    if mesh is None or mesh.size == 1:
+        return build()
+    import torch.distributed as dist
+
+    out = None
+    for rank in range(mesh.size):
+        if rank == mesh.rank:
+            out = build()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
 
 
 def _peak_gib(device) -> float:

@@ -685,8 +685,9 @@ def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
     advances by S in place; the engine rewinds the rejected tail (blocks
     were allocated at budget, so a rewind never touches the allocator).
     Under MoE a live lane's S tokens are all real, and a vacant lane's take
-    no expert capacity (``active`` broadcast over the S positions). rwkv
-    has no KV cache to verify against."""
+    no expert capacity (``active`` broadcast over the S positions; over DP
+    every lane's, of which ``moe_ffn`` takes this rank's). rwkv has no KV
+    cache to verify against."""
     _check_family(cfg)
     if cfg.family not in KV_FAMILIES:
         raise ValueError(
@@ -697,7 +698,7 @@ def verify_step(params, tokens, cfg: ModelConfig, state, active=None):
                          "(init_decode_state with kv_block_size)")
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
-    live = ((active > 0)[:, None].expand(B, S)
+    live = ((active > 0)[:, None].expand(-1, S)
             if active is not None and cfg.family == "moe" else None)
     for i in range(cfg.n_layers):
         lp = cm.gathered(_layer(params["layers"], i))

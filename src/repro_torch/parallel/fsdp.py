@@ -19,7 +19,17 @@ Tensor parallelism: a leaf of an attention or MLP block (``AttnParams``,
 layers (column- and row-parallel products, the vocab-parallel lookup,
 unembedding and loss): their gradient is already this rank's block, so
 ``reduce_grad`` takes no slice over 'model' for them. Any other leaf
-(rwkv's, Mamba-2's, the MoE expert tables) is gathered whole as before.
+(rwkv's, Mamba-2's) is gathered whole as before.
+
+Expert parallelism: a MoE expert table (a leaf with the logical axis
+'expert', split over 'data') is gathered over nothing. Each rank computes
+with its (E / D, d, f / TP) block (``layers.moe``), its 'model' block
+marked where 'model' splits it. Its gradient takes no reduction over
+'data' (the backward all-to-all already brought every rank's
+contribution to the expert's owner): it is summed over the other DP axes
+('pod', over which the tables are replicated) and divided by the whole DP
+extent, as every other gradient is (:class:`ExpertBlock`). The router
+stays a gathered leaf.
 
 With a mesh whose every extent is 1 nothing is gathered or reduced and no
 Function is inserted: the step is the one-device step, bit for bit.
@@ -36,6 +46,7 @@ from repro_torch.core.context import current_context, use_context
 from repro_torch.interop import tree_items, tree_map_with_path
 from repro_torch.layers.attention import AttnParams
 from repro_torch.layers.mlp import MlpParams
+from repro_torch.layers.moe import MoeParams
 from repro_torch.parallel import sharding as shd
 
 # the top-level leaves split over 'vocab', consumed vocab-parallel
@@ -49,21 +60,34 @@ def stacked_keys(axes) -> set[str]:
             if all(ax[:1] == ("layers",) for _, ax in tree_items(a))}
 
 
-def _tp_paths(specs, path: str = "", inside: bool = False):
-    """The paths of the leaves inside an attention or MLP block."""
+def _paths(specs, enters, path: str = "", inside: bool = False):
+    """The paths of the leaves inside a field that ``enters(container,
+    field)`` names (and every leaf below it)."""
     if specs is None:
         return
-    inside = inside or isinstance(specs, (AttnParams, MlpParams))
     join = lambda k: f"{path}/{k}" if path else str(k)
     if isinstance(specs, dict):
         for k, v in specs.items():
-            yield from _tp_paths(v, join(k), inside)
+            yield from _paths(v, enters, join(k), inside)
     elif hasattr(specs, "_fields") and not isinstance(specs,
                                                       shd.PartitionSpec):
         for f, v in zip(specs._fields, specs):
-            yield from _tp_paths(v, join(f), inside)
+            yield from _paths(v, enters, join(f), inside or enters(specs, f))
     elif inside:
         yield path
+
+
+def _tp_paths(specs):
+    """The paths of the leaves inside an attention or MLP block."""
+    return _paths(specs, lambda c, f: isinstance(c, (AttnParams, MlpParams)))
+
+
+def _expert_paths(specs):
+    """The paths of the MoE expert tables' leaves (every leaf of a
+    ``MoeParams``' ``w_in``, ``w_gate`` and ``w_out``, a pre-quantized
+    table's int8 weights and scales included)."""
+    return _paths(specs, lambda c, f: isinstance(c, MoeParams)
+                  and f != "w_router")
 
 
 def model_dim(spec, mesh) -> int | None:
@@ -127,27 +151,66 @@ class Gather(torch.autograd.Function):
             return reduce_grad(g, ctx.spec, ctx.mesh), None, None
 
 
+class ExpertBlock(torch.autograd.Function):
+    """An expert table's block as it is; backward the gradient summed over
+    the DP axes other than 'data' and divided by the DP extent (the module
+    docstring), under the forward's GEMM context."""
+
+    @staticmethod
+    def forward(ctx, local, mesh):
+        ctx.mesh, ctx.gemm_context = mesh, current_context()
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        dp = mesh.dp_axes()
+        n = math.prod(mesh.axis_size(a) for a in dp)
+        with use_context(ctx.gemm_context):
+            g = cd.all_reduce(g.clone(memory_format=torch.contiguous_format),
+                              mesh, [a for a in dp if a != "data"])
+        return g.div_(n), None
+
+
 class ShardPlan:
     """What a sharded step gathers: ``mesh`` and the parameter spec tree.
     ``blocked``: the paths of the leaves that keep their 'model' block
-    (empty when 'model' has extent 1). ``kv``: the spec of the decode
-    state's stacked K leaf (``decode_state_specs``; None: not given), by
-    which the attention layers read how the KV cache lies over the DP axes
-    (the engine's lanes or the cache's sequence, a pool's blocks)."""
+    (empty when 'model' has extent 1); ``experts``: the paths of the MoE
+    expert tables, which keep their blocks (empty on a mesh whose every
+    extent is 1). ``kv``: the spec of the decode state's stacked K leaf
+    (``decode_state_specs``; None: not given), by which the attention
+    layers read how the KV cache lies over the DP axes (the engine's lanes
+    or the cache's sequence, a pool's blocks). ``rows_whole``: the step's
+    rows are every rank's, not this rank's over the DP axes (an engine's
+    chunk or admission, lanes the DP extent does not divide), which the
+    MoE block splits over 'data' itself."""
 
     def __init__(self, mesh, specs, kv=None):
         self.mesh, self.specs, self.kv = mesh, specs, kv
+        self.rows_whole = False
         self.dp_size = math.prod(mesh.axis_size(a) for a in mesh.dp_axes())
         self.tp = mesh.axis_size("model")
         self.blocked = set()
         if self.tp > 1:
             self.blocked = set(_tp_paths(specs)) | {
                 k for k in VOCAB_LEAVES if k in specs}
+        self.experts = set()
+        if any(n > 1 for n in mesh.shape):
+            self.experts = set(_expert_paths(specs))
 
     def with_kv(self, kv) -> "ShardPlan":
         """This plan over a decode state whose K leaf lies by ``kv``."""
         out = copy.copy(self)
         out.kv = kv
+        return out
+
+    def with_rows_whole(self, whole: bool) -> "ShardPlan":
+        """This plan for a step whose rows are every rank's (``whole``) or
+        this rank's over the DP axes."""
+        if whole == self.rows_whole:
+            return self
+        out = copy.copy(self)
+        out.rows_whole = whole
         return out
 
     def trivial(self, spec) -> bool:
@@ -162,6 +225,11 @@ class ShardPlan:
 
     def gather(self, local: torch.Tensor, spec, path: str = ""
                ) -> torch.Tensor:
+        if path in self.experts:
+            out = ExpertBlock.apply(local, self.mesh) if self.dp_size > 1 \
+                else local.view_as(local)
+            dim = model_dim(spec, self.mesh)
+            return out if dim is None else cd.mark_model_block(out, dim)
         spec, dim = self.split(path, spec)
         out = local if self.trivial(spec) else \
             Gather.apply(local, spec, self.mesh)

@@ -49,6 +49,20 @@ SUGGESTIONS = {
 }
 
 
+# the dry run's collective kinds (``core.distributed.KINDS``) under the
+# names the reference's HLO analyzer gives the same operations
+# (``repro.roofline.hlo.COLLECTIVES``); the port's own kinds keep theirs
+HLO_NAMES = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+             "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+             "send_recv": "collective-permute"}
+
+
+def by_collective(rec: dict) -> dict[str, int]:
+    """A record's collective bytes by kind, under the reference's names."""
+    return {HLO_NAMES.get(k, k): v
+            for k, v in rec["cost"]["by_collective"].items()}
+
+
 def _ref_keys(tree, keys=()):
     """(key, leaf) pairs with the reference's key rule: dict keys joined by
     '/', a NamedTuple field contributing an empty part (its path entry has
@@ -163,7 +177,7 @@ def markdown_tables(recs: list[dict], hw=None) -> str:
            "|---|---|---|---|---|---|---|---|---|"]
     for r in sorted(ok, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
         c = r["cost"]
-        colls = sorted(c["by_collective"].items(), key=lambda kv: -kv[1])[:2]
+        colls = sorted(by_collective(r).items(), key=lambda kv: -kv[1])[:2]
         cstr = ", ".join(f"{k} {v/1e6:.0f}MB" for k, v in colls) or "none"
         out.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} "

@@ -45,12 +45,16 @@ prefix plus one bonus token, then rewinds both models' device lengths in
 place (the captured graphs hold their addresses). Every committed token is
 the target's own argmax, so the output equals non-speculative decode.
 
-Over a ``mesh`` (``ServeEngine(cfg, params, mesh=...)``, the dense
-family) every step runs sharded (``train.servestep``): the params and the
-state are this rank's blocks, tensor-parallel over 'model', the lanes and
-a pool's blocks over DP where its extent divides them, the logits whole on
-every rank. Every rank runs the whole host schedule: the scheduler, the
-budget controller and sampling (the same seeds) read the same logits and
+Over a ``mesh`` (``ServeEngine(cfg, params, mesh=...)``, the dense and
+moe families) every step runs sharded (``train.servestep``): the params
+and the state are this rank's blocks, tensor-parallel over 'model', the
+MoE expert tables over 'data' (expert parallelism), the lanes and a pool's
+blocks over DP where its extent divides them, the logits whole on every
+rank. The params may be passed whole (the engine keeps its blocks) or as
+this rank's blocks already (``blocks=True``: ``servestep.param_blocks``,
+as a launcher that builds the model one rank at a time makes them). Every
+rank runs the whole host schedule: the scheduler, the budget controller
+and sampling (the same seeds) read the same logits and
 the same clock, rank 0's reading broadcast over the mesh at every reading
 (counted under the ``clock`` kind, apart from the steps' bytes). Each
 step's collective bytes and host seconds are kept by phase tag
@@ -139,6 +143,7 @@ class ServeEngine:
         metrics_interval_ticks: int | None = None,
         attrib_tol: float = 0.25,
         mesh=None,
+        blocks: bool = False,
     ):
         self.cfg = cfg
         self.mesh = mesh
@@ -255,7 +260,7 @@ class ServeEngine:
                          if self.spec else None)
         # over a mesh the params are this rank's blocks
         self.params = params
-        if self.art.layout is not None:
+        if self.art.layout is not None and not blocks:
             self.params = self.art.layout.shard_params(params)
             if self.spec:
                 self.spec_draft_params = \

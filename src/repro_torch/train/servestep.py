@@ -15,6 +15,7 @@ same graph.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -30,8 +31,9 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.train.graphs import CapturedStep
 
 # the families the static server and the engines run over a mesh
-# (tensor-parallel over 'model'); the others raise (ROADMAP queue 1, item 2)
-MESH_FAMILIES = ("dense",)
+# (tensor-parallel over 'model'; moe by expert parallelism over 'data');
+# the others raise (ROADMAP queue 1, item 2)
+MESH_FAMILIES = ("dense", "moe")
 # families whose recurrent decode state decode_state_specs splits over
 # 'model', which their layers do not consume as blocks
 STATE_FAMILIES = ("rwkv", "hybrid")
@@ -80,10 +82,19 @@ class ServeArtifacts:
                 dtype=t.dtype, device=self.device), full)
 
     def rows(self, batch: dict) -> dict:
-        """This rank's rows of a prefill batch (``batch_specs``)."""
+        """This rank's rows of a prefill batch (``batch_specs``). The moe
+        family needs them split: expert parallelism runs over the DP
+        ranks' rows, as the reference's ``shard_map`` does."""
         if self.mesh is None:
             return batch
         specs = shd.batch_specs(batch, self.mesh)
+        dp = math.prod(self.mesh.axis_size(a) for a in self.mesh.dp_axes())
+        if self.cfg.family == "moe" and dp > 1 and not shd.is_sharded(
+                next(iter(specs.values())), self.mesh):
+            raise ValueError(
+                f"the moe family over a mesh splits the batch over the DP "
+                f"axes (expert parallelism): their extent {dp} must divide "
+                f"the batch of {next(iter(batch.values())).shape[0]}")
         return {k: shd.shard_leaf(v, specs[k], self.mesh)
                 for k, v in batch.items()}
 
@@ -100,7 +111,7 @@ def check_mesh_family(cfg: ModelConfig, mesh, quantized: bool = False,
         raise NotImplementedError(
             f"serving the {cfg.family} family over a mesh: ROADMAP queue 1, "
             f"item 2 (the static server and the engines run {MESH_FAMILIES} "
-            "over a mesh; the moe engine needs expert parallelism)")
+            "over a mesh)")
     if quantized and mesh.axis_size("model") > 1:
         raise NotImplementedError(
             "int8 over 'model' (a W8A8 activation scale spans every row): "
@@ -114,9 +125,10 @@ def check_mesh_family(cfg: ModelConfig, mesh, quantized: bool = False,
 def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
                     quantized: bool = False) -> ServeArtifacts:
     """The static-batch server's steps, for every ported family; over a
-    ``mesh`` (the dense family) sharded: each step runs under the mesh
-    and a ``parallel.fsdp.ShardPlan`` in ``no_grad``, the layers' leaves
-    gathered over the DP axes, tensor-parallel over 'model'. A mesh with
+    ``mesh`` (the dense and moe families) sharded: each step runs under
+    the mesh and a ``parallel.fsdp.ShardPlan`` in ``no_grad``, the layers'
+    leaves gathered over the DP axes, tensor-parallel over 'model', the
+    MoE expert tables this rank's blocks (expert parallelism). A mesh with
     an axis above 1 runs the decode step eager (a CUDA graph cannot
     capture a ``gloo`` collective); a 1 x 1 mesh keeps the captured
     step. ``quantized``: the params are ``quant.prequant.quantize_params``'
@@ -161,6 +173,14 @@ def prefill_input_shapes(cfg: ModelConfig, batch: int, seq: int
         out["image_embeds"] = ((batch, cfg.n_image_tokens, cfg.d_model),
                                cfg.dtype)
     return out
+
+
+def param_blocks(cfg: ModelConfig, params, mesh, *,
+                 quantized: bool = False):
+    """This rank's blocks of a whole parameter tree of ``cfg`` over
+    ``mesh`` (``quantized``: ``quantize_params``' tree), laid out as every
+    step over the mesh keeps them (``param_specs``)."""
+    return _layout(cfg, mesh, None, quantized=quantized).shard_params(params)
 
 
 def _check_engine_family(cfg: ModelConfig, what: str) -> None:
@@ -219,13 +239,16 @@ def _layout(cfg: ModelConfig, mesh, whole_state, *, quantized: bool,
         fsdp.stacked_keys(axes), sspecs, whole_state)
 
 
-def _sharded(lay: _Layout, fn, *, lanes=(), gather: bool = False):
+def _sharded(lay: _Layout, fn, *, lanes=(), gather: bool = False,
+             whole: bool = False):
     """``fn`` as a step over the mesh: under the mesh and the plan, in
     ``no_grad``, the leaves outside the stacked subtrees gathered once a
     call. The inputs at positions ``lanes`` (after params and state) are
     cut to this rank's lanes over the DP axes where the DP extent divides
     them (``batch_specs``); with ``gather`` the output's lanes are then
-    all-gathered back, so every rank returns the whole."""
+    all-gathered back, so every rank returns the whole. The plan's
+    ``rows_whole`` says whether the step's rows are every rank's: ``whole``
+    (a chunk, an admission), or lanes left uncut."""
     mesh = lay.mesh
     entry, size, _ = cd.data_parallel(mesh)
 
@@ -236,8 +259,10 @@ def _sharded(lay: _Layout, fn, *, lanes=(), gather: bool = False):
             if size > 1 and t.shape[0] % size == 0:
                 inputs[i] = shd.shard_leaf(t, shd.P(entry), mesh)
                 split = True
-        with torch.no_grad(), use_context(mesh=mesh, shard=lay.plan):
-            out = fn(lay.plan.tops(params, lay.stacked), state, *inputs)
+        plan = lay.plan.with_rows_whole(
+            size > 1 and (whole or (bool(lanes) and not split)))
+        with torch.no_grad(), use_context(mesh=mesh, shard=plan):
+            out = fn(plan.tops(params, lay.stacked), state, *inputs)
             if split and gather:
                 out = shd.gather_leaf(out, shd.P(entry), mesh)
         return out
@@ -352,8 +377,8 @@ def make_engine_step(cfg: ModelConfig, *, max_len: int, prompt_pad: int,
     prompt_pad) prompt; so each is one graph, and steady-state traffic
     issues one fixed GEMM-signature set.
 
-    Over a ``mesh`` (the dense family, :func:`check_mesh_family`) the
-    steps run sharded (:func:`_sharded`): the params this rank's blocks
+    Over a ``mesh`` (the dense and moe families, :func:`check_mesh_family`)
+    the steps run sharded (:func:`_sharded`): the params this rank's blocks
     (``layout.shard_params``), the state too (``decode_state_specs``:
     the lanes over DP where its extent divides them, else the sequence,
     kv heads or head_dim over 'model'), the tick's tokens this rank's
@@ -381,7 +406,7 @@ def make_engine_step(cfg: ModelConfig, *, max_len: int, prompt_pad: int,
 
     if lay is not None:
         decode = _sharded(lay, decode, lanes=(0,), gather=True)
-        admit = _sharded(lay, admit)
+        admit = _sharded(lay, admit, whole=True)
     return EngineArtifacts(decode_fn=_captured(decode, device, mesh),
                            admit_fn=_captured(admit, device, mesh),
                            decode_raw=decode, admit_raw=admit,
@@ -458,7 +483,7 @@ def make_paged_engine_step(cfg: ModelConfig, *, max_len: int,
 
     if lay is not None:
         decode = _sharded(lay, decode, lanes=(0,), gather=True)
-        prefill_chunk = _sharded(lay, prefill_chunk)
+        prefill_chunk = _sharded(lay, prefill_chunk, whole=True)
     return PagedEngineArtifacts(
         decode_fn=_captured(decode, device, mesh),
         prefill_fn=_captured(prefill_chunk, device, mesh),
@@ -558,7 +583,7 @@ def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
 
     if lay is not None:
         verify = _sharded(target.layout, verify, lanes=(0,), gather=True)
-        draft_admit = _sharded(lay, draft_admit)
+        draft_admit = _sharded(lay, draft_admit, whole=True)
         propose = _sharded(lay, propose, lanes=(0, 2), gather=True)
     return SpecArtifacts(
         verify_fn=_captured(verify, device, mesh),
@@ -570,5 +595,5 @@ def make_spec_step(cfg: ModelConfig, draft_cfg: ModelConfig, *,
 
 __all__ = ["ServeArtifacts", "EngineArtifacts", "PagedEngineArtifacts",
            "SpecArtifacts", "make_serve_step", "make_engine_step",
-           "make_paged_engine_step", "make_spec_step",
+           "make_paged_engine_step", "make_spec_step", "param_blocks",
            "prefill_input_shapes"]

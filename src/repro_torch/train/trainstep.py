@@ -30,7 +30,12 @@ layout over explicit collectives:
   cross-entropy compute with this rank's blocks, the residual stream whole
   on every rank between layers; any other leaf is gathered whole and its
   layer computed alike on every rank of 'model', its gradient's slice
-  kept. The MoE family's capacity and aux loss are reckoned per DP shard;
+  kept;
+* the MoE family runs the reference's expert parallelism
+  (``layers.moe``): each rank keeps its block of the expert tables, the
+  assignments travel to their expert's rank over all-to-alls over 'data'
+  and back, the capacities are the reference's on that mesh, and the aux
+  loss is the mean over the DP axes;
 * the optimizer updates the local blocks (``train.optimizer.Layout``);
   the loss and the metrics are averaged over the DP group.
 
@@ -214,6 +219,14 @@ def _step(loss_fn, optimizer, device, grads_hook, M, sharded=None):
         if plan is not None:
             mesh = plan.mesh
             bspecs = shd.batch_specs(batch, mesh)
+            if plan.experts and plan.dp_size > 1 and \
+                    not shd.is_sharded(bspecs["tokens"], mesh):
+                raise ValueError(
+                    f"the MoE family over a mesh splits the batch over the "
+                    f"DP axes (expert parallelism): their extent "
+                    f"{plan.dp_size} must divide its "
+                    f"{batch['tokens'].shape[0]} rows, as the reference's "
+                    "shard_map needs")
             batch = {k: shd.shard_leaf(v, bspecs[k], mesh)
                      for k, v in batch.items()}
             # every leaf outside the layer stacks: whole once a step, a leaf

@@ -12,11 +12,14 @@ reference's, on the CPU.
   (``tpu_v6e`` and ``tpu_v5e`` are in both registries). The one wording
   the port changes: the reference's suggestions name Pallas kernels;
 * one full meta dry-run cell runs in under 60 s, and the CLI writes its
-  record and renders the tables from it.
+  record and renders the tables from it;
+* the MoE cells (olmoe-1b-7b, arctic-480b) run expert parallelism: their
+  all-to-alls counted, their expert tables kept as blocks.
 
 Byte counts and FLOP counts are integers compared exactly; the roofline
 terms are float quotients of the same numbers, compared to rtol 1e-12.
 """
+import dataclasses
 import json
 import math
 import os
@@ -248,3 +251,44 @@ def test_one_meta_cell_and_the_cli(tmp_path):
     text = out.read_text()
     assert "| qwen1.5-4b | train_4k | 16x16 |" in text
     assert "| qwen1.5-4b | decode_32k |" in text and "h100" in text
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b"])
+def test_moe_cells_count_all_to_all_and_no_expert_gather(arch, tmp_path):
+    """Expert parallelism in the dry run: the MoE decode cell on the 16 x
+    16 mesh runs to ``ok`` with all-to-alls counted (``all-to-all`` in
+    the reference's names), the train step too (cut to 2 layers here, at
+    full width: the per-layer collectives are the full depth's), and a
+    layer's expert tables are this rank's blocks with nothing gathered for
+    them (the router alone gathered)."""
+    from repro_torch import models
+    from repro_torch.core.distributed import CollectiveCounter
+    from repro_torch.interop import tree_items, tree_map_with_path
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.fsdp import ShardPlan
+
+    with use_context(plan_cache=PlanCache()):
+        rec = dryrun.run_cell(arch, "decode_32k", False, str(tmp_path))
+        assert rec["status"] == "ok", rec.get("trace")
+        assert rec["cost"]["by_collective"]["all_to_all"] > 0
+        assert report.by_collective(rec)["all-to-all"] == \
+            rec["cost"]["by_collective"]["all_to_all"]
+        cfg = dataclasses.replace(C.get_config(arch), n_layers=2)
+        mesh = make_production_mesh()
+        train = dryrun.train_cell(cfg, mesh, 256, 4096)
+    assert train["cost"]["by_collective"]["all_to_all"] > 0
+    params = models.init(cfg, device="meta")
+    specs = shd.param_specs(models.axes(cfg), params, mesh)
+    plan = ShardPlan(mesh, specs)
+    blocks = shd.shard_tree(params, specs, mesh)
+    layer = tree_map_with_path(lambda p, t: t[0], blocks["layers"])
+    with CollectiveCounter() as c:
+        got = plan.layer({"moe": layer["moe"]}, "layers")
+    # the router alone is gathered (its block over 'data')
+    router = layer["moe"].w_router
+    assert c.by_kind() == {"all_gather": router.numel() *
+                           router.element_size()}
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for path, t in tree_items(got["moe"]):
+        if path != "w_router":
+            assert t.shape[0] == E // 16 and t.numel() == E * d * f // 256

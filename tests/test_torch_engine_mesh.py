@@ -74,6 +74,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
 from repro_torch.parallel import sharding as shd
 from repro_torch.quant.prequant import quantize_params
+from repro_torch.train.servestep import check_mesh_family
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("qwen1.5-4b", "internlm2-20b")
@@ -600,11 +601,19 @@ def test_launcher_engine_over_a_mesh(tmp_path):
 
 def test_engine_refusals_name_their_roadmap_items():
     abstract = Mesh(("data", "model"), (1, 2))
-    moe = C.smoke(C.get_config("olmoe-1b-7b"))
+    # the refusal that remains of item 2: rwkv's time-mix over 'model'
+    rwkv = C.smoke(C.get_config("rwkv6-3b"))
     with pytest.raises(NotImplementedError, match="item 2"):
-        TS.ServeEngine(moe, models.init(moe, device="cpu"), mesh=abstract,
-                       num_slots=2, max_len=16, prompt_pad=8,
-                       kv_block_size=4)
+        check_mesh_family(rwkv, abstract)
+    # the moe engine runs over a mesh (expert parallelism): its steps on
+    # the abstract mesh count all-to-alls over 'data'
+    moe = C.smoke(C.get_config("olmoe-1b-7b"))
+    check_mesh_family(moe, abstract)
+    with use_context(plan_cache=PlanCache()):
+        cells = dryrun.engine_cells(
+            moe, Mesh(("data", "model"), (2, 2)), num_slots=2, max_len=16,
+            prompt_pad=8, kv_block_size=4, prefill_chunk=4)
+    assert cells["decode"]["by_collective"]["all_to_all"] > 0
     cfg = C.smoke(C.get_config("qwen1.5-4b"))
     params = models.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="int8 over 'model'.*"

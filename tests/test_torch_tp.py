@@ -149,7 +149,7 @@ def test_dryrun_train_cell_useful_flops_ratio(tmp_path):
 
 def test_refusals():
     abstract = Mesh(("data", "model"), (1, 2))
-    for arch in ("rwkv6-3b", "olmoe-1b-7b", "whisper-base"):
+    for arch in ("rwkv6-3b", "zamba2-1.2b", "whisper-base"):
         cfg = C.smoke(C.get_config(arch))
         tokens = torch.zeros((2, 4), dtype=torch.int64)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7-16; one CUDA card
+  python3 chip_smoke.py            # phases 1-5 and 7-18; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
@@ -137,7 +137,7 @@ ends the run with a non-zero exit:
    shared attention + MLP block at every 6th layer, vocab 32,000): 10a
    the static path and 10b with ``--quantize int8``, phase 4's gates
    (launches: 38 x 2 Mamba projections, 7 shared-block calls of 7 GEMMs,
-   the unembed), then at 12 layers (for the script's time)
+   the unembed), then at 7 layers (for the script's time)
    the decode step eager against replayed, the eager prefill's ms and
    the share of it the SSM steps take (the prefill again with them
    stubbed); 10c, 10d phase 5's card against CPU at 4
@@ -162,11 +162,9 @@ ends the run with a non-zero exit:
    at M = 4 x 1600, and 225 GEMVs; int8 281 fat GEMMs each), the decode
    step eager against replayed, the cross K/V's device ms a step and
    share, the eager prefill, the peak memory; 12c, 12d phase 5's card
-   against CPU with nonzero gates from the seed, 12c at 10 layers (two
-   groups), 12d at 2 (one group of a self layer and the cross layer,
-   cross_attn_every 2: its CPU side runs the int8 products in f64, 162 s
-   at 10 layers on an H100's host, ~80 s at 5; cut to keep the script's
-   time)
+   against CPU with nonzero gates from the seed, cross_attn_every 2:
+   12c at 4 layers (two groups of a self layer and the cross layer), 12d
+   at 2 (one group; cut to keep the script's time)
    (the reference's init zeroes them, and a cross layer then adds
    nothing), the stack layer by layer from the CPU's input to each layer
    (each layer's output and the head within the tolerance), beside the
@@ -191,7 +189,9 @@ ends the run with a non-zero exit:
    step on the card against the CPU at 2 layers, 3 steps at 1 x 136 and 1
    x 64 (the GEMV forward and its dA): each loss, each leaf's step-1
    gradient and the 3 steps' updates within tolerances stated
-   beforehand; 13d ``python -m repro_torch.launch.train --arch
+   beforehand (in a process of its own: its card runs before 14a, its
+   CPU runs beside 13d and phase 14, its output after 14d); 13d
+   ``python -m repro_torch.launch.train --arch
    qwen1.5-4b --smoke`` for 30 steps with a checkpoint every 10, then to
    40: it resumes at step 30 and the mean loss of its last 5 steps is
    below that of the first 5.
@@ -219,7 +219,9 @@ ends the run with a non-zero exit:
 15. tensor parallelism over 'model' with two ranks on the one card: a (1,
    2) (data, model) mesh over gloo (``--backend gloo``: each collective
    staged through host memory, the products on the kernels), one process
-   a rank under ``torchrun --nproc-per-node 2``: 15a ``launch.serve
+   a rank under ``torchrun --nproc-per-node 2`` (phases 15-18's nine such
+   jobs start together, MESH_SLOTS at a time, beside this process's
+   one-device yardsticks): 15a ``launch.serve
    --mesh 1x2`` at qwen1.5-4b's full width, 2 layers (4 x 128, 16
    tokens) against the same path at 1 x 1: the prefill's logits, the
    greedy tokens (12c's rule), both ranks' tokens equal, each rank's
@@ -247,12 +249,11 @@ ends the run with a non-zero exit:
    ranks on the one card over gloo (the first DP extent above 1 here:
    the attention leaves' FSDP gathers staged through host memory), the
    ranks building the model one at a time: 17a ``launch.serve --mesh
-   2x1`` at full width and depth (4 x 128, 16 tokens) against the same
+   2x1`` at full width and 4 layers (4 x 128, 16 tokens) against the same
    path on one device with ``moe_ep_plain`` over 2 shards (the mesh's
-   semantics; 9a's one-shard run printed): both ranks' tokens equal, the
-   tokens equal before each near-tie, the first-token logits within
-   PATH_TOL (at 4 layers where full depth does not hold), each rank's
-   launches 9a's rule at the local shapes, zero lazy solves, the
+   semantics): both ranks' tokens equal, the tokens equal before each
+   near-tie, the first-token logits within PATH_TOL, each rank's launches
+   9a's rule at the local shapes and the cut depth, zero lazy solves, the
    prefill's and each decode step's collective bytes by kind the dry
    run's; 17b phase 9e's paged engine
    over the same mesh at 2 layers: the ranks' tokens and admissions
@@ -260,7 +261,16 @@ ends the run with a non-zero exit:
    device printed); 17c one MoE layer at full width on the two ranks at
    the prefill's and the decode's rows, each rank's output within 2^-7
    of 1 + |y| of ``layers.moe.moe_ep_plain`` on the card. Printed: each
-   rank's load and serving peaks beside 9a's.
+   rank's load and serving peaks beside the one device's;
+18. int8 over 'model' on phase 15's (1, 2) mesh at 2 layers: 18a the
+   static server with ``--quantize int8`` (W8A8 column- and row-parallel,
+   the row-parallel products' int32 partials summed over 'model'), 18b
+   the paged engine with ``--quantize int8 --kv-quantize int8`` (the int8
+   pool over 'model'): each against the same path
+   on one device (first logits within PATH_TOL, tokens to the first
+   near-tie, the ranks equal), zero lazy solves, every product on the fat
+   GEMM, the bytes by kind the float step's dry-run cell's plus the W8A8
+   scales' ``scale_max``, 18b's pool half; 3a holds the 'model' blocks.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -273,6 +283,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -795,6 +806,22 @@ CASES = [
         ("prefill gate + silu M=512", 512, 4096, 14336, "bfloat16", "silu"),
         ("unembed M=4 f32 out", 4, 4096, 128256, "float32", None),
     ]
+] + [
+    # W8A8 over 'model' (phase 18): qwen1.5-4b's blocks on a (1, 2) mesh at
+    # a decode step's 4 rows and a prefill's 512. Column-parallel q/k/v
+    # (bias; N = 2560 / 2) and gate (silu; N = 6912 / 2) with the fused
+    # epilogue; row-parallel wo and w_out (K = 2560 / 2, 6912 / 2) with
+    # int32 out and no epilogue, whose partials the ranks sum
+    Case(f"W8A8 TP {name} M={M}", "matmul", M, K, N, a_dtype="int8",
+         b_dtype="int8", out_dtype=out, layout="col",
+         bias=name.startswith("q/k/v"),
+         activation="silu" if name.startswith("gate") else None,
+         scale=out != "int32")
+    for name, K, N, out in [("q/k/v + bias", 2560, 1280, "bfloat16"),
+                            ("gate + silu", 2560, 3456, "bfloat16"),
+                            ("wo int32 out", 1280, 2560, "int32"),
+                            ("w_out int32 out", 3456, 2560, "int32")]
+    for M in (4, 512)
 ]
 # GEMV cases held to their plain version but not timed: every dtype pair,
 # both layouts, 1..128 rows, ragged K and N, both routes
@@ -1493,15 +1520,7 @@ def moe_split(torch, cfg, params, art, state, prompts, quant: bool) -> None:
                   f"{key.replace('void ', '')[:90]}")
 
 
-# the records of the paths run_path keeps (their tokens and each step's
-# logits on the host): phase 17 holds the expert-parallel server to 9a's
-KEPT = {}
-
-
-def run_path(torch, path: str, label: str, keep: bool = False
-             ) -> dict[str, int]:
-    """``keep``: the run's record (``launch.serve --record-out``) goes
-    to ``KEPT[path]``."""
+def run_path(torch, path: str, label: str) -> dict[str, int]:
     from repro_torch.launch import serve
     from repro_torch.train import graphs
 
@@ -1512,15 +1531,9 @@ def run_path(torch, path: str, label: str, keep: bool = False
     torch.cuda.reset_peak_memory_stats()
     graphs.reset_launches()
     t0 = time.perf_counter()
-    out = os.path.join(ROOT, "build", "kept")
-    os.makedirs(out, exist_ok=True)
     res = serve.main(["--arch", spec["arch"], "--batch", str(BATCH),
                       "--prompt-len", str(PROMPT), "--gen", str(GEN),
-                      "--plan-cache", "", *spec["args"]]
-                     + (["--record-out", os.path.join(out, label)]
-                        if keep else []))
-    if keep:
-        KEPT[path] = res["record"]
+                      "--plan-cache", "", *spec["args"]])
     wall = time.perf_counter() - t0
     # eager launches (prefill, the decode step's first call) plus those of
     # the decode graph's replays
@@ -3498,40 +3511,105 @@ def _train_run(torch, cfg, params0, batch: int, seq: int, device) -> dict:
             "update": update}
 
 
+TRAIN_CPU_THREADS = 4  # 13c's CPU runs, beside phases 7-9 (see below)
+
+
+def _phase13(name: str) -> str:
+    return os.path.join(ROOT, "build", "phase13", name)
+
+
+def train_vs_cpu_start() -> subprocess.Popen:
+    """13c in a process of its own (:func:`train_vs_cpu`), started before
+    phase 7: its CPU runs (71 s of 99 on 8 threads of an H100's host) take
+    TRAIN_CPU_THREADS threads beside the engines of phases 7-9, whose
+    process drives the card from one thread; its card runs wait for
+    :func:`train_vs_cpu_go` (after 13b) and take the card before 14a
+    (:func:`train_vs_cpu_card`); :func:`train_vs_cpu_end` reads its
+    result."""
+    os.makedirs(_phase13(""), exist_ok=True)
+    for name in ("go", "card_done"):
+        if os.path.exists(_phase13(name)):
+            os.remove(_phase13(name))
+    print(f"(13c's CPU runs start in a process of their own, "
+          f"{TRAIN_CPU_THREADS} threads)", flush=True)
+    code = (f"import sys; sys.path[:0] = {[ROOT, os.path.join(ROOT, 'src')]!r}"
+            "; import torch, chip_smoke; chip_smoke.train_vs_cpu(torch)")
+    with open(_phase13("13c.log"), "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                                stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+
+
+def train_vs_cpu_go() -> None:
+    phase(f"13c training step, card against CPU: {TRAIN_ARCH}, n_layers 2, "
+          f"full width, 3 steps at batch x seq {TRAIN_CUT}; tolerances "
+          f"loss {TRAIN_LOSS_TOL}, gradients {TRAIN_GRAD_TOL} (relative L2 "
+          f"per leaf), updates {TRAIN_UPDATE_TOL} (all leaves; each below "
+          f"{TRAIN_LEAF_UPDATE_TOL}); in a process of its own, its card runs "
+          "now, its output after 14d")
+    open(_phase13("go"), "w").close()
+
+
+def train_vs_cpu_card(job: subprocess.Popen) -> None:
+    """Waits until 13c's process has left the card (or ended)."""
+    t0 = time.perf_counter()
+    while not os.path.exists(_phase13("card_done")) and job.poll() is None:
+        time.sleep(0.2)
+    print(f"(13c's card runs done; waited {time.perf_counter() - t0:.1f}s)",
+          flush=True)
+
+
+def train_vs_cpu_end(job: subprocess.Popen) -> None:
+    t0 = time.perf_counter()
+    try:
+        job.wait(timeout=600)
+    finally:
+        _stop(job)
+    phase(f"13c's result (waited {time.perf_counter() - t0:.1f}s for it)")
+    with open(_phase13("13c.log")) as f:
+        print(f.read().rstrip(), flush=True)
+    if job.returncode != 0:
+        raise SystemExit(f"13c: its process exited {job.returncode}")
+
+
 def train_vs_cpu(torch) -> None:
     """13c: the training step on the card against the CPU at 2 layers and
-    full width, from one seed's weights and the same batches."""
+    full width, from one seed's weights (made on the CPU) and the same
+    batches: the CPU runs first, then, once ``go`` exists, the card runs,
+    then ``card_done`` is written and the card left alone."""
     from repro_torch import configs as C
     from repro_torch import interop, models
     from repro_torch.core.context import use_context
     from repro_torch.core.plancache import PlanCache
 
+    torch.set_num_threads(TRAIN_CPU_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(C.get_config(TRAIN_ARCH), n_layers=2)
-    phase(f"13c training step, card against CPU: {TRAIN_ARCH}, n_layers 2, "
-          f"full width, 3 steps at batch x seq {TRAIN_CUT}; tolerances "
-          f"loss {TRAIN_LOSS_TOL}, gradients {TRAIN_GRAD_TOL} (relative L2 "
-          f"per leaf), updates {TRAIN_UPDATE_TOL} (all leaves; each below "
-          f"{TRAIN_LEAF_UPDATE_TOL})")
-    params0 = interop.tree_map(lambda t: t.cpu(), models.init(
-        cfg, seed=1, device="cuda"))
+    params0 = models.init(cfg, seed=1, device="cpu")
     rel = lambda x, y: ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
     failed = []
-    for batch, seq in TRAIN_CUT:
-        res = {}
-        with use_context(hw="h100", plan_cache=PlanCache()):
-            for dev in ("cuda", "cpu"):
+    res = {cut: {} for cut in TRAIN_CUT}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            while not os.path.exists(_phase13("go")):
+                time.sleep(0.2)
+        for batch, seq in TRAIN_CUT:
+            with use_context(hw="h100", plan_cache=PlanCache()):
                 t0 = time.perf_counter()
-                res[dev] = _train_run(torch, cfg, params0, batch, seq, dev)
-                print(f"  {batch} x {seq} {dev}: losses "
-                      + " ".join(f"{x:.6f}" for x in res[dev]["losses"])
+                res[batch, seq][dev] = _train_run(torch, cfg, params0, batch,
+                                                  seq, dev)
+                print(f"  {batch} x {seq} {dev}: losses " + " ".join(
+                    f"{x:.6f}" for x in res[batch, seq][dev]["losses"])
                       + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
                 _free(torch)
+    open(_phase13("card_done"), "w").close()
+    for batch, seq in TRAIN_CUT:
+        card, ref = res[batch, seq]["cuda"], res[batch, seq]["cpu"]
         want = _train_rule(cfg, batch, seq)
-        print(f"  {batch} x {seq} card launches a step "
-              f"{res['cuda']['launches']} (rule {want})")
-        if any(n != want for n in res["cuda"]["launches"]):
+        print(f"  {batch} x {seq} card launches a step {card['launches']} "
+              f"(rule {want})")
+        if any(n != want for n in card["launches"]):
             failed.append(f"{batch} x {seq}: launches differ from the rule")
-        card, ref = res["cuda"], res["cpu"]
         loss = max(abs(a - b) / abs(b)
                    for a, b in zip(card["losses"], ref["losses"]))
         grad = max((rel(card["grads"][k], ref["grads"][k]), k)
@@ -3550,9 +3628,8 @@ def train_vs_cpu(torch) -> None:
                 and upd[0] < TRAIN_LEAF_UPDATE_TOL):
             failed.append(f"{batch} x {seq}: the card's step is beyond a "
                           "tolerance of the CPU's")
-        del res, card, ref
-    del params0
-    _free(torch)
+        del card, ref
+        res[batch, seq] = None
     if failed:
         raise SystemExit("13c: " + "; ".join(failed))
 
@@ -3753,10 +3830,21 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def dist_train(torch) -> dict[str, int]:
+def dist_smoke_start() -> _Jobs:
+    """14c's launcher under torchrun on the smoke config, started with
+    13c's card runs (it spends ~25 s, most of it starting up and its
+    first step's NCCL set-up); :func:`dist_train` waits for it."""
+    return _Jobs([_Job("14c", [
+        "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+        "--mesh", "1x1", "--steps", "3", "--ckpt-every", "0", "--log-every",
+        "1", "--plan-cache", ""], nproc=1)], slots=1)
+
+
+def dist_train(torch, smoke: _Jobs) -> dict[str, int]:
     """14c: the sharded step through ``launch/train.py --mesh 1x1`` at
-    qwen1.5-4b's full width and depth, then DIST_CUT layers bit for bit
-    against the one-device step."""
+    qwen1.5-4b's full width and depth, the launcher under torchrun
+    (``smoke``, from :func:`dist_smoke_start`), then DIST_CUT layers bit
+    for bit against the one-device step."""
     from repro_torch import configs as C
     from repro_torch.core.context import use_context
     from repro_torch.core.plancache import PlanCache
@@ -3769,6 +3857,17 @@ def dist_train(torch) -> dict[str, int]:
           f"{TRAIN_ARCH} --mesh 1x1 (full width and depth, remat on, "
           f"AdamW), batch {TRAIN_BATCH} x {TRAIN_SEQ} from data.synthetic "
           f"(seed 0), {DIST_STEPS} steps, no checkpoint")
+    failed = []
+    # the same launcher under torchrun (env:// rendezvous over loopback,
+    # nccl), on the smoke config: a process of its own, ended before the
+    # full-depth step takes the card (its 62.75 GiB leave no room for
+    # another process's CUDA context)
+    print("torchrun --nproc-per-node 1 -m repro_torch.launch.train --smoke "
+          "--mesh 1x1: ", end="")
+    run = smoke.result("14c", "14c", ("[train]", "step"))
+    if "mesh=1x1" not in run.out:
+        failed.append("the launcher under torchrun failed: "
+                      + run.err[-2000:])
     cfg = C.get_config(TRAIN_ARCH)
     want = _train_rule(cfg, TRAIN_BATCH, TRAIN_SEQ)
     torch.cuda.reset_peak_memory_stats()
@@ -3787,32 +3886,12 @@ def dist_train(torch) -> dict[str, int]:
           f"launches of the {DIST_STEPS} steps {counts} (rule a step "
           f"{want}); collective bytes a step {coll}; losses "
           f"{[round(x, 4) for x in res['losses']]}", flush=True)
-    failed = []
     if counts != {k: n * DIST_STEPS for k, n in want.items()}:
         failed.append(f"launches {counts} differ from the rule")
     if any(coll) or not peak < TRAIN_PEAK_GIB:
         failed.append(f"collective bytes {coll} or peak {peak:.2f} GiB")
     del res
     _free(torch)
-    # the same launcher under torchrun (env:// rendezvous over loopback,
-    # nccl), on the smoke config: a process of its own
-    run = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "1", "--master-addr", "localhost", "--master-port",
-         str(_free_port()), "-m", "repro_torch.launch.train", "--arch",
-         TRAIN_ARCH, "--smoke", "--mesh", "1x1", "--steps", "3",
-         "--ckpt-every", "0", "--log-every", "1", "--plan-cache", ""],
-        capture_output=True, text=True, timeout=600, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-    print(f"torchrun --nproc-per-node 1 -m repro_torch.launch.train --smoke "
-          f"--mesh 1x1: exit {run.returncode}; "
-          + " | ".join(ln.strip() for ln in run.stdout.splitlines()
-                       if ln.lstrip().startswith(("[train]", "step"))),
-          flush=True)
-    if run.returncode != 0 or "mesh=1x1" not in run.stdout:
-        failed.append("the launcher under torchrun failed: "
-                      + run.stderr[-2000:])
-
     cut = dataclasses.replace(cfg, n_layers=DIST_CUT)
     print(f"{DIST_CUT} layers at full width, 2 steps: make_train_step("
           "mesh=1x1) against make_train_step(mesh=None), bit for bit "
@@ -3904,16 +3983,172 @@ def dist_dryrun(torch) -> dict:
 # at 4): their time made room for phase 17
 TP_MESH, TP_LAYERS, TP_RATIO, TP_CUT = "1x2", 2, 0.4, 2
 TP_GNORM_TOL = 5e-3
+# phases 15-18's two-rank jobs (torchrun, gloo, both ranks on the card)
+# start when phase 15 does and run MESH_SLOTS at a time, in the order the
+# phases read them; this process meanwhile runs each phase's one-device
+# yardstick, then waits for the phase's job. A job spends most of its
+# 30-45 s alone on the host (start-up, the load, the plan warm-up), so
+# the jobs share the host's cores; their eager step ms are taken beside
+# the other jobs
+MESH_SLOTS = 4
 
 
-def _torchrun2(module: str, args: list[str], timeout: int):
-    """``module`` under torchrun, 2 processes on this host (loopback)."""
-    return subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-addr", "localhost", "--master-port",
-         str(_free_port()), "-m", module, *args],
-        capture_output=True, text=True, timeout=timeout, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+class _Job:
+    """One torchrun of ``target`` (``-m module args`` or a script and its
+    arguments) over ``nproc`` ranks; :class:`_Jobs` starts it."""
+
+    def __init__(self, tag: str, target: list[str], timeout: int = 600,
+                 nproc: int = 2):
+        self.tag, self.target, self.timeout = tag, target, timeout
+        self.nproc = nproc
+        self.proc, self.out, self.err, self.rc = None, "", "", None
+        self.started = self.seconds = 0.0
+        self.done = threading.Event()
+
+
+class _Jobs:
+    """Runs ``jobs`` in order, at most ``slots`` at a time,
+    each in a thread of its own; :meth:`result` waits for one, :meth:`stop`
+    ends every one still running and starts no other."""
+
+    def __init__(self, jobs: list[_Job], slots: int = MESH_SLOTS):
+        self.jobs = {j.tag: j for j in jobs}
+        self.slots = threading.Semaphore(slots)
+        self.lock = threading.Lock()
+        self.closed = False
+        threading.Thread(target=self._dispatch, daemon=True).start()
+
+    def _dispatch(self) -> None:
+        for job in self.jobs.values():
+            self.slots.acquire()
+            with self.lock:
+                if self.closed:
+                    job.err = "stopped before it started"
+                    job.done.set()
+                    self.slots.release()
+                    continue
+                job.started = time.perf_counter()
+                job.proc = subprocess.Popen(
+                    [sys.executable, "-m", "torch.distributed.run",
+                     "--nproc-per-node", str(job.nproc), "--master-addr",
+                     "localhost",
+                     "--master-port", str(_free_port()), *job.target],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, cwd=ROOT,
+                    env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+            threading.Thread(target=self._wait, args=(job,),
+                             daemon=True).start()
+
+    def _wait(self, job: _Job) -> None:
+        try:
+            job.out, job.err = job.proc.communicate(timeout=job.timeout)
+        except subprocess.TimeoutExpired:
+            _stop(job.proc)
+            job.out, job.err = job.proc.communicate()
+            job.err += f"\n{job.tag}: stopped after {job.timeout} s"
+        job.rc = job.proc.returncode
+        job.seconds = time.perf_counter() - job.started
+        job.done.set()
+        self.slots.release()
+
+    def result(self, tag: str, label: str, heads: tuple[str, ...]) -> _Job:
+        """Waits for job ``tag``, prints its time and the lines of its rank
+        0 that start with ``heads``; a failed job fails phase ``label``."""
+        job = self.jobs[tag]
+        job.done.wait()
+        print(f"exit {job.rc} in {job.seconds:.1f}s (started at "
+              f"{job.started - _T0:.1f}s, beside the other jobs): "
+              + _lines(job.out, heads), flush=True)
+        if job.rc != 0:
+            raise SystemExit(f"{label}: the ranks failed: "
+                             + job.err[-3000:])
+        return job
+
+    def stop(self) -> None:
+        with self.lock:
+            self.closed = True
+            running = [j.proc for j in self.jobs.values() if j.proc]
+        for proc in running:
+            _stop(proc)
+
+
+def _mesh(mesh: str, where: str, tag: str) -> list[str]:
+    """The launcher's arguments for ``mesh`` over gloo, with each rank's
+    record under build/``where``/``tag``."""
+    out = os.path.join(ROOT, "build", where)
+    os.makedirs(out, exist_ok=True)
+    return ["--mesh", mesh, "--backend", "gloo", "--record-out",
+            os.path.join(out, tag)]
+
+
+def _records(torch, where: str, tag: str) -> list:
+    return [torch.load(os.path.join(ROOT, "build", where,
+                                    f"{tag}.rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def _tp_static_args(extra: list[str]) -> list[str]:
+    return ["--arch", "qwen1.5-4b", "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--plan-cache", "",
+            "--n-layers", str(TP_CUT)] + extra
+
+
+def _tp_train_args() -> list[str]:
+    return ["--arch", TRAIN_ARCH, "--n-layers", str(TP_LAYERS), "--mesh",
+            TP_MESH, "--backend", "gloo", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", "2", "--ckpt-every", "0",
+            "--log-every", "1", "--plan-cache", "", "--record-out",
+            os.path.join(ROOT, "build", "phase15", "train.pt")]
+
+
+def _tp_engine_args(spec: bool = False) -> list[str]:
+    return (["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:]
+            + (ENGINE_SPEC_ARGS + ["--spec-draft-quantize", "none"]
+               if spec else []) + ["--n-layers", str(TP_CUT)])
+
+
+def _ep_args() -> list[str]:
+    return ["--arch", "olmoe-1b-7b", "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--plan-cache", "",
+            "--n-layers", str(EP_CUT)]
+
+
+def _ep_engine_args() -> list[str]:
+    return (["--arch", "olmoe-1b-7b"] + ENGINE_ARGS[2:]
+            + ["--n-layers", str(EP_ENGINE_CUT)])
+
+
+def _int8_engine_args() -> list[str]:
+    return (["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:] + ENGINE_INT8_ARGS
+            + ["--n-layers", str(TP_CUT)])
+
+
+def start_mesh_jobs() -> _Jobs:
+    """Phases 15-18's jobs, in the order the phases read them."""
+    serve = ["-m", "repro_torch.launch.serve"]
+    os.makedirs(os.path.join(ROOT, "build", "phase15"), exist_ok=True)
+    prog = os.path.join(ROOT, "build", "phase17", "ep_layer.py")
+    os.makedirs(os.path.dirname(prog), exist_ok=True)
+    with open(prog, "w") as f:
+        f.write(EP_LAYER_PROG)
+    return _Jobs([
+        _Job("15a", serve + _tp_static_args([])
+             + _mesh(TP_MESH, "phase15", "tp_cut")),
+        _Job("15b", ["-m", "repro_torch.launch.train"] + _tp_train_args()),
+        _Job("16a", serve + _tp_engine_args()
+             + _mesh(TP_MESH, "phase16", "engine_cut")),
+        _Job("16b", serve + _tp_engine_args(spec=True)
+             + _mesh(TP_MESH, "phase16", "spec")),
+        _Job("17a", serve + _ep_args() + _mesh(EP_MESH, "phase17", "ep")),
+        _Job("17c", [prog, os.path.join(ROOT, "build", "phase17",
+                                        "ep_layer")]),
+        _Job("17b", serve + _ep_engine_args()
+             + _mesh(EP_MESH, "phase17", "ep_engine")),
+        _Job("18a", serve + _tp_static_args(["--quantize", "int8"])
+             + _mesh(TP_MESH, "phase18", "int8_tp")),
+        _Job("18b", serve + _int8_engine_args()
+             + _mesh(TP_MESH, "phase18", "engine")),
+    ])
 
 
 def _lines(out: str, heads: tuple[str, ...]) -> str:
@@ -3921,12 +4156,13 @@ def _lines(out: str, heads: tuple[str, ...]) -> str:
                       if ln.lstrip().startswith(heads))
 
 
-def _tp_serve_run(torch, args: list[str], tag: str) -> tuple[dict, list]:
-    """The static server at 1 x 1 in this process, then over the (1, 2)
-    mesh under torchrun: (the 1 x 1 record, the ranks' records)."""
+def _tp_serve_run(torch, jobs: _Jobs, label: str, args: list[str],
+                  tag: str, where: str) -> tuple[dict, list]:
+    """The static server at 1 x 1 in this process, then the ranks of job
+    ``label`` over the (1, 2) mesh: (the 1 x 1 record, the ranks')."""
     from repro_torch.launch import serve
 
-    out = os.path.join(ROOT, "build", "phase15")
+    out = os.path.join(ROOT, "build", where)
     os.makedirs(out, exist_ok=True)
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -3934,27 +4170,33 @@ def _tp_serve_run(torch, args: list[str], tag: str) -> tuple[dict, list]:
     ref = one["record"]
     del one
     _free(torch)
-    t0 = time.perf_counter()
-    run = _torchrun2("repro_torch.launch.serve",
-                     args + ["--mesh", TP_MESH, "--backend", "gloo",
-                             "--record-out", os.path.join(out, tag)], 600)
-    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
-          + _lines(run.stdout, ("[mesh]", "[serve]", "[plan-cache]")),
-          flush=True)
-    if run.returncode != 0:
-        raise SystemExit("15a: the launcher failed: " + run.stderr[-3000:])
-    return ref, [torch.load(os.path.join(out, f"{tag}.rank{r}.pt"))
-                 for r in range(2)]
+    jobs.result(label, label, ("[mesh]", "[serve]", "[plan-cache]"))
+    return ref, _records(torch, where, tag)
 
 
 def _logit_err(a, b) -> float:
     return ((a - b).abs() / (1 + b.abs())).max().item()
 
 
-def tp_serve(torch) -> dict[str, int]:
+def _less(kinds: dict, *drop: str) -> dict:
+    """``kinds`` without the kinds ``drop`` names."""
+    return {k: v for k, v in kinds.items() if k not in drop}
+
+
+def tp_serve(torch, jobs: _Jobs) -> dict[str, int]:
     """15a: the static server over a (1, 2) mesh on the card, cut to
-    TP_CUT layers (its full depth's run made room for phase 17, whose 17a
-    serves olmoe over a mesh at full depth)."""
+    TP_CUT layers (its full depth's run made room for phase 17)."""
+    return _tp_static(torch, jobs, "15a", [])
+
+
+def _tp_static(torch, jobs: _Jobs, label: str,
+               extra: list[str]) -> dict[str, int]:
+    """15a (float) and 18a (``extra`` = ``--quantize int8``): the static
+    server over the (1, 2) mesh at TP_CUT layers against the same path at
+    1 x 1 in this process. The collective bytes by kind are the float
+    step's dry-run cell's, and besides them (int8) the W8A8 scales' MAX
+    over 'model': one 4-byte absmax for each row-parallel product (wo and
+    w_out a layer)."""
     import dataclasses as dc
 
     from repro_torch import configs as C
@@ -3964,24 +4206,31 @@ def tp_serve(torch) -> dict[str, int]:
     from repro_torch.launch.mesh import Mesh
 
     arch = "qwen1.5-4b"
-    args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN), "--plan-cache", "",
-            "--n-layers", str(TP_CUT)]
-    phase(f"15a tensor-parallel static server: torchrun --nproc-per-node 2 "
-          f"-m repro_torch.launch.serve --mesh {TP_MESH} --backend gloo "
-          + " ".join(args) + " (full width), against the same path at 1 x 1 "
-          "in this process")
-    ref, recs = _tp_serve_run(torch, args, "tp_cut")
+    quant = "--quantize" in extra
+    args = _tp_static_args(extra)
+    phase(f"{label} tensor-parallel static server"
+          + (" with int8 weights (W8A8 over 'model')" if quant else "")
+          + f": torchrun --nproc-per-node 2 -m repro_torch.launch.serve "
+          f"--mesh {TP_MESH} --backend gloo " + " ".join(args)
+          + " (full width), against the same path at 1 x 1 in this process")
+    t0 = time.perf_counter()
+    ref, recs = _tp_serve_run(torch, jobs, label, args,
+                              "int8_tp" if quant else "tp_cut",
+                              "phase18" if quant else "phase15")
     cfg = dc.replace(C.get_config(arch), n_layers=TP_CUT)
     with use_context(hw="h100", plan_cache=PlanCache()):
         abstract = Mesh(("data", "model"), (1, 2))
         want_pre = dryrun.serve_cell(cfg, abstract, "prefill", BATCH,
-                                     PROMPT)["cost"]
+                                     PROMPT)["cost"]["by_collective"]
         want_dec = dryrun.serve_cell(cfg, abstract, "decode", BATCH,
-                                     PROMPT + GEN + 1)["cost"]
+                                     PROMPT + GEN + 1)["cost"]["by_collective"]
     L = TP_CUT
-    rule = {"matmul": 7 * L + GEN * 4 * L, "gemv": 1 + GEN * (3 * L + 1),
-            "wkv": 0}
+    scale = 2 * 4 * L if quant else 0
+    if quant:  # 4c's rule at the cut depth: every product on the fat GEMM
+        rule = {"matmul": (GEN + 1) * (7 * L + 1), "gemv": 0, "wkv": 0}
+    else:
+        rule = {"matmul": 7 * L + GEN * 4 * L, "gemv": 1 + GEN * (3 * L + 1),
+                "wkv": 0}
     pre_err = _logit_err(recs[0]["logits"][0], ref["logits"][0])
     # greedy tokens: each row up to its first position whose 1 x 1 top-2
     # margin is within the tolerance
@@ -4001,33 +4250,35 @@ def tp_serve(torch) -> dict[str, int]:
     for rec in recs:
         r = rec["rank"]
         ms = statistics.median(rec["decode_s"]) * 1e3
+        steps = [rec["prefill_by_kind"]] + rec["decode_by_kind"]
         print(f"rank {r}: launches {rec['launches']} (rule {rule}); lazy "
               f"solves {rec['lazy_solves']}, misses {rec['misses']}; "
-              f"collective bytes prefill {rec['prefill_bytes']} (dry run "
-              f"{want_pre['collective_bytes_per_device']}), decode steps "
-              f"{sorted(set(rec['decode_bytes']))} (dry run "
-              f"{want_dec['collective_bytes_per_device']}); peak "
-              f"serving {rec['peak_gib']:.2f} GiB (one device "
+              f"collective bytes prefill {rec['prefill_by_kind']} (dry run "
+              f"{want_pre}), decode steps "
+              f"{sorted(set(rec['decode_bytes']))} (dry run {want_dec}"
+              + (f", and scale_max {scale} a step" if quant else "")
+              + f"); peak serving {rec['peak_gib']:.2f} GiB (one device "
               f"{ref['peak_gib']:.2f}), the load {rec['init_peak_gib']:.2f} "
               f"(one device {ref['init_peak_gib']:.2f}); prefill "
               f"{rec['prefill_s'] * 1e3:.1f} ms, decode step {ms:.2f} ms "
-              f"(median; one device, replayed "
+              f"(median, eager; one device, replayed "
               f"{statistics.median(ref['decode_s']) * 1e3:.2f} ms)",
               flush=True)
         if rec["launches"] != rule:
             failed.append(f"rank {r} launches {rec['launches']}")
         if rec["lazy_solves"] or rec["misses"]:
             failed.append(f"rank {r} was not plan-warm")
-        if rec["prefill_bytes"] != want_pre["collective_bytes_per_device"] \
-                or set(rec["decode_bytes"]) != {
-                    want_dec["collective_bytes_per_device"]}:
+        if _less(steps[0], "scale_max") != want_pre or any(
+                _less(k, "scale_max") != want_dec for k in steps[1:]) or \
+                any(k.get("scale_max", 0) != scale for k in steps):
             failed.append(f"rank {r} collective bytes differ from the dry "
-                          "run's")
+                          "run's" + (" plus scale_max" if quant else ""))
     print(f"{TP_CUT} layers: prefill logits max |tp - one| / (1 + |one|) = "
           f"{pre_err:.4g} (tol {PATH_TOL}); greedy tokens equal at "
           f"{same}/{held} positions whose top-2 margin exceeds {PATH_TOL}; "
           f"the ranks' tokens equal: "
-          f"{torch.equal(recs[0]['tokens'], recs[1]['tokens'])}", flush=True)
+          f"{torch.equal(recs[0]['tokens'], recs[1]['tokens'])}; phase "
+          f"{label} {time.perf_counter() - t0:.1f}s", flush=True)
     if not pre_err <= PATH_TOL:
         failed.append(f"prefill logits at {TP_CUT} layers {pre_err} > "
                       f"{PATH_TOL}")
@@ -4035,11 +4286,11 @@ def tp_serve(torch) -> dict[str, int]:
     del recs, ref
     _free(torch)
     if failed:
-        raise SystemExit("15a: " + "; ".join(failed))
+        raise SystemExit(f"{label}: " + "; ".join(failed))
     return counts
 
 
-def tp_train(torch) -> dict[str, int]:
+def tp_train(torch, jobs: _Jobs) -> dict[str, int]:
     """15b: the tensor-parallel train step through the launcher on a
     (1, 2) mesh against the one-device step on the card."""
     from repro_torch import configs as C
@@ -4078,16 +4329,7 @@ def tp_train(torch) -> dict[str, int]:
         want = dryrun.train_cell(cut, Mesh(("data", "model"), (1, 2)),
                                  TRAIN_BATCH, TRAIN_SEQ)["cost"]
     path = os.path.join(ROOT, "build", "phase15", "train.pt")
-    t0 = time.perf_counter()
-    run = _torchrun2("repro_torch.launch.train", [
-        "--arch", TRAIN_ARCH, "--n-layers", str(TP_LAYERS), "--mesh",
-        TP_MESH, "--backend", "gloo", "--batch", str(TRAIN_BATCH), "--seq",
-        str(TRAIN_SEQ), "--steps", "2", "--ckpt-every", "0", "--log-every",
-        "1", "--plan-cache", "", "--record-out", path], 600)
-    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
-          + _lines(run.stdout, ("[train]", "step")), flush=True)
-    if run.returncode != 0:
-        raise SystemExit("15b: the launcher failed: " + run.stderr[-3000:])
+    jobs.result("15b", "15b", ("[train]", "step"))
     rec = torch.load(path)
     tp = {p: t - before[p] for p, t in rec["params"].items()}
     rel = lambda x, y: ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
@@ -4173,10 +4415,10 @@ def tp_dryrun(torch, train_rec: dict) -> None:
 TP_SPEC_STEP = {"matmul": 4 * TP_CUT, "gemv": 3 * TP_CUT + 1, "wkv": 0}
 
 
-def _tp_engine_run(torch, args: list[str], tag: str, mesh: str = TP_MESH,
-                   where: str = "phase16") -> tuple[dict, list]:
-    """The engine on one device in this process, then over ``mesh`` under
-    torchrun: (the one device's record, the ranks')."""
+def _tp_engine_run(torch, jobs: _Jobs, label: str, args: list[str],
+                   tag: str, where: str = "phase16") -> tuple[dict, list]:
+    """The engine on one device in this process, then the ranks of job
+    ``label``: (the one device's record, the ranks')."""
     from repro_torch.launch import serve
 
     out = os.path.join(ROOT, "build", where)
@@ -4187,18 +4429,9 @@ def _tp_engine_run(torch, args: list[str], tag: str, mesh: str = TP_MESH,
     _free(torch)
     ref = torch.load(os.path.join(out, tag + "1.rank0.pt"),
                      weights_only=False)
-    t0 = time.perf_counter()
-    run = _torchrun2("repro_torch.launch.serve",
-                     args + ["--mesh", mesh, "--backend", "gloo",
-                             "--record-out", os.path.join(out, tag)], 600)
-    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
-          + _lines(run.stdout, ("[mesh]", "[engine]", "[spec]",
-                                "[plan-cache] serving")), flush=True)
-    if run.returncode != 0:
-        raise SystemExit(f"{where} ({tag}): the launcher failed: "
-                         + run.stderr[-3000:])
-    return ref, [torch.load(os.path.join(out, f"{tag}.rank{r}.pt"),
-                            weights_only=False) for r in range(2)]
+    jobs.result(label, label, ("[mesh]", "[engine]", "[spec]", "[kv-quant]",
+                               "[plan-cache] serving"))
+    return ref, _records(torch, where, tag)
 
 
 def _held_tokens(ref: dict, rec: dict) -> tuple[int, int]:
@@ -4217,10 +4450,13 @@ def _held_tokens(ref: dict, rec: dict) -> tuple[int, int]:
 
 
 def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
-                     cells: dict, gate_tokens: bool = True) -> list[str]:
-    """Phase 16's gates shared by 16a, 16b and 17b; prints each rank's
-    numbers. ``gate_tokens``: the tokens held to the one device's before
-    each near-tie (else printed). Returns the failures."""
+                     cells: dict, gate_tokens: bool = True,
+                     scale: int = 0) -> list[str]:
+    """Phase 16's gates shared by 16a, 16b, 17b and 18b; prints each
+    rank's numbers. ``gate_tokens``: the tokens held to the one device's
+    before each near-tie (else printed). ``scale``: the bytes of the W8A8
+    and int8-pool scales' MAX reductions a step (``scale_max``) besides
+    the float step's dry-run cell. Returns the failures."""
     failed = []
     a, b = recs
     if a["tokens"] != b["tokens"] or a["admissions"] != b["admissions"]:
@@ -4228,7 +4464,7 @@ def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
     held, same = _held_tokens(ref, a)
     if same != held and gate_tokens:
         failed.append(f"tokens {same}/{held} equal to the one device's")
-    want_bytes = {k: c["collective_bytes_per_device"]
+    want_bytes = {k: c["collective_bytes_per_device"] + scale
                   for k, c in cells.items()}
     for rec in recs:
         r = rec["rank"]
@@ -4250,9 +4486,12 @@ def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
             failed.append(f"rank {r} launches {rec['launches']}")
         if rec["lazy_solves"] or rec["misses"]:
             failed.append(f"rank {r} was not plan-warm")
-        if any(v != [want_bytes.get(k)] for k, v in seen.items()):
+        if any(v != [want_bytes.get(k)] for k, v in seen.items()) or any(
+                _less(kinds, "scale_max") != cells[k]["by_collective"]
+                or kinds.get("scale_max", 0) != scale
+                for k, v in rec["step_kinds"].items() for kinds in v):
             failed.append(f"rank {r} collective bytes differ from the dry "
-                          "run's")
+                          "run's" + (" plus scale_max" if scale else ""))
         if 2 * rec["pool_bytes"] != ref["pool_bytes"]:
             failed.append(f"rank {r} pool {rec['pool_bytes']} is not half "
                           f"of {ref['pool_bytes']}")
@@ -4291,22 +4530,21 @@ def _engine_cells(torch, cfg, engine: dict, draft: bool,
             spec_k=engine.get("spec_k", SPEC_K))
 
 
-def tp_engine(torch) -> dict[str, int]:
+def tp_engine(torch, jobs: _Jobs) -> dict[str, int]:
     """16a: phase 7's engine over the (1, 2) mesh, cut to TP_CUT layers
     (the full depth's run, ~60 s, made room for phase 17)."""
     import dataclasses as dc
 
     from repro_torch import configs as C
 
-    args = (["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:]
-            + ["--n-layers", str(TP_CUT)])
+    args = _tp_engine_args()
     phase("16a the engine over a mesh: torchrun --nproc-per-node 2 -m "
           "repro_torch.launch.serve " + " ".join(a if a else "''"
                                                  for a in args)
           + f" --mesh {TP_MESH} --backend gloo (full width, {TP_CUT} "
           "layers), against the same engine on one device in this process")
     t0 = time.perf_counter()
-    ref, recs = _tp_engine_run(torch, args, "engine_cut")
+    ref, recs = _tp_engine_run(torch, jobs, "16a", args, "engine_cut")
     cut = dc.replace(C.get_config("qwen1.5-4b"), n_layers=TP_CUT)
     cells = _engine_cells(torch, cut, ref["engine"], False)
 
@@ -4331,23 +4569,21 @@ def tp_engine(torch) -> dict[str, int]:
     return counts
 
 
-def tp_spec_engine(torch) -> dict[str, int]:
+def tp_spec_engine(torch, jobs: _Jobs) -> dict[str, int]:
     """16b: the speculative engine over the (1, 2) mesh, target and float
     draft cut to TP_CUT layers."""
     import dataclasses as dc
 
     from repro_torch import configs as C
 
-    args = (["--arch", "qwen1.5-4b"] + ENGINE_ARGS[2:]
-            + ENGINE_SPEC_ARGS + ["--spec-draft-quantize", "none",
-                                  "--n-layers", str(TP_CUT)])
+    args = _tp_engine_args(spec=True)
     phase("16b the speculative engine over a mesh: torchrun "
           "--nproc-per-node 2 -m repro_torch.launch.serve "
           + " ".join(a if a else "''" for a in args)
           + f" --mesh {TP_MESH} --backend gloo (the draft float, the "
           "target's config), against the same engine on one device")
     t0 = time.perf_counter()
-    ref, recs = _tp_engine_run(torch, args, "spec")
+    ref, recs = _tp_engine_run(torch, jobs, "16b", args, "spec")
     cut = dc.replace(C.get_config("qwen1.5-4b"), n_layers=TP_CUT)
     cells = _engine_cells(torch, cut, ref["engine"], True)
 
@@ -4391,22 +4627,23 @@ def tp_spec_engine(torch) -> dict[str, int]:
 # ------------------------------------------------------------ phase 17
 # expert parallelism: olmoe-1b-7b over a (2, 1) (data, model) mesh, two
 # ranks on the card over gloo, the ranks building the model one at a time
-# (launch.serve: the whole f32 model is 27.7 GB, a rank keeps 13.8 GB; two
-# whole models at once would not fit in 80 GB). 17a: the static server at
-# full width and depth (4 x 128, 16 tokens, seed 0). Its yardstick is the
+# (launch.serve: the whole f32 model is 27.7 GB at 16 layers, a rank keeps
+# half). 17a: the static server at full width and EP_CUT layers (4 x 128,
+# 16 tokens, seed 0; at full depth its job took 72 s alone, 39 s of it
+# serving over gloo, and its 38 GiB load kept it from running beside the
+# other jobs: the script's time limit cut it). Its yardstick is the
 # same path on one device with every MoE layer ``moe_ep_plain`` over 2
 # shards of the rows (the mesh's semantics), not 9a's one-shard path: the
 # reference's level 2 counts a source's empty slots in local expert 0's
 # bucket (``re_c = where(valid, re, 0)`` before the cumsum), so on a mesh
 # each shard's local expert 0 (experts 0 and 32) loses what the sources
 # after the first send it once an earlier source had free slots; against
-# 9a that moved the first-token logits by 0.33 (on an H100, 700 W),
-# printed here with 9a's tokens. Gates: both ranks' tokens equal; the
+# 9a that moved the first-token logits by 0.33 (on an H100, 700 W, at
+# full depth). Gates: both ranks' tokens equal; the
 # tokens equal to the one-device run's up to each row's first position
 # whose top-2 margin is within PATH_TOL of (1 + |top|) (15a's rule); the
-# first-token logits within PATH_TOL of 1 + |logit|, at EP_CUT layers (a
-# one-device run and a mesh run of the cut config) where full depth does
-# not hold; each rank's launches 9a's rule at the local shapes, zero lazy
+# first-token logits within PATH_TOL of 1 + |logit|; each rank's launches
+# 9a's rule at the local shapes and the cut depth, zero lazy
 # solves; the prefill's and each decode step's collective bytes by kind
 # the dry run's for a (2, 1) abstract mesh. 17b: phase 9e's paged engine
 # over the same mesh at EP_ENGINE_CUT layers: phase 16's gates but the tokens
@@ -4416,8 +4653,8 @@ def tp_spec_engine(torch) -> dict[str, int]:
 # (seed 0, f32 tables, bf16 rows) on the two ranks at the prefill's rows
 # (256 a rank) and the decode's (2 a rank), each rank's output within
 # EP_LAYER_TOL of 1 + |y| of layers.moe.moe_ep_plain on the card.
-# Printed: each rank's load and serving peaks beside 9a's
-# 17b's engine at 2 layers: the whole script's budget (1,080 s)
+# Printed: each rank's load and serving peaks beside the one device's.
+# 17b's engine at 2 layers: the whole script's time
 EP_MESH, EP_SHAPE, EP_CUT, EP_ENGINE_CUT = "2x1", (2, 1), 4, 2
 EP_LAYER_TOL = 2 ** -7
 EP_LAYER_PROG = r'''
@@ -4456,26 +4693,6 @@ torch.save(res, f"{out}.rank{mesh.rank}.pt")
 import torch.distributed as dist
 dist.destroy_process_group()
 '''
-
-
-def _ep_serve_run(torch, args: list[str], tag: str) -> list:
-    """The static server over the (2, 1) mesh under torchrun: the ranks'
-    records."""
-    out = os.path.join(ROOT, "build", "phase17")
-    os.makedirs(out, exist_ok=True)
-    _free(torch)
-    t0 = time.perf_counter()
-    run = _torchrun2("repro_torch.launch.serve",
-                     args + ["--mesh", EP_MESH, "--backend", "gloo",
-                             "--record-out", os.path.join(out, tag)], 600)
-    print(f"exit {run.returncode} in {time.perf_counter() - t0:.1f}s: "
-          + _lines(run.stdout, ("[mesh]", "[serve]", "[plan-cache]")),
-          flush=True)
-    if run.returncode != 0:
-        raise SystemExit(f"17a ({tag}): the launcher failed: "
-                         + run.stderr[-3000:])
-    return [torch.load(os.path.join(out, f"{tag}.rank{r}.pt"),
-                       weights_only=False) for r in range(2)]
 
 
 def _rows_err(recs: list, ref: dict, step: int = 0) -> float:
@@ -4523,10 +4740,11 @@ def _held_rows(torch, ref: dict, tokens, vocab: int) -> tuple[int, int]:
     return held, same
 
 
-def ep_serve(torch) -> dict[str, int]:
+def ep_serve(torch, jobs: _Jobs) -> dict[str, int]:
     """17a: the static server over the (2, 1) mesh at full width and
-    depth, against the same EP semantics on one device (and phase 9a's
-    record, printed)."""
+    EP_CUT layers, against the same EP semantics on one device."""
+    import dataclasses as dc
+
     from repro_torch import configs as C
     from repro_torch.core.context import use_context
     from repro_torch.core.plancache import PlanCache
@@ -4534,40 +4752,36 @@ def ep_serve(torch) -> dict[str, int]:
     from repro_torch.launch.mesh import Mesh
 
     arch = "olmoe-1b-7b"
-    args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN), "--plan-cache", ""]
+    args = _ep_args()
     phase(f"17a expert-parallel static server: torchrun --nproc-per-node 2 "
           f"-m repro_torch.launch.serve --mesh {EP_MESH} --backend gloo "
-          + " ".join(args) + " (full width and depth), against the same "
-          "path on one device with every MoE layer moe_ep_plain over "
-          f"{EP_SHAPE[0]} shards, and phase 9a's record (printed)")
+          + " ".join(args) + f" (full width, {EP_CUT} layers), against the "
+          "same path on one device with every MoE layer moe_ep_plain over "
+          f"{EP_SHAPE[0]} shards")
     t0 = time.perf_counter()
     out = os.path.join(ROOT, "build", "phase17")
     os.makedirs(out, exist_ok=True)
-
-    def one(extra, tag):
-        _free(torch)
-        with _plain_ep(EP_SHAPE[0]):
-            rec = serve.main(args + extra + [
-                "--record-out", os.path.join(out, tag)])["record"]
-        _free(torch)
-        return rec
-
-    plain = one([], "ep_plain")
-    recs = _ep_serve_run(torch, args, "ep")
-    cfg = C.get_config(arch)
+    _free(torch)
+    with _plain_ep(EP_SHAPE[0]):
+        plain = serve.main(args + [
+            "--record-out", os.path.join(out, "ep_plain")])["record"]
+    _free(torch)
+    jobs.result("17a", "17a", ("[mesh]", "[serve]", "[plan-cache]"))
+    recs = _records(torch, "phase17", "ep")
+    cfg = dc.replace(C.get_config(arch), n_layers=EP_CUT)
     with use_context(hw="h100", plan_cache=PlanCache()):
         abstract = Mesh(("data", "model"), EP_SHAPE)
         want_pre = dryrun.serve_cell(cfg, abstract, "prefill", BATCH,
                                      PROMPT)["cost"]["by_collective"]
         want_dec = dryrun.serve_cell(cfg, abstract, "decode", BATCH,
                                      PROMPT + GEN + 1)["cost"]["by_collective"]
-    rule = PATHS[arch]["want"]
-    nine = KEPT[arch]
+    # 9a's rule at the cut depth and the local shapes (256 prefill rows and
+    # 2 decode rows a rank take the same routes as 9a's 512 and 4)
+    L = EP_CUT
+    rule = {"matmul": 5 * L + GEN * L, "gemv": 1 + GEN * (4 * L + 1),
+            "wkv": 0}
     held, same = _held_rows(torch, plain, recs[0]["tokens"],
                             cfg.vocab_size)
-    held9, same9 = _held_rows(torch, nine, recs[0]["tokens"],
-                              cfg.vocab_size)
     failed = []
     if not torch.equal(recs[0]["tokens"], recs[1]["tokens"]):
         failed.append("the ranks' tokens differ")
@@ -4582,13 +4796,14 @@ def ep_serve(torch) -> dict[str, int]:
               f"collective bytes prefill {rec['prefill_by_kind']} (dry run "
               f"{want_pre}), a decode step {rec['decode_by_kind'][0]} (dry "
               f"run {want_dec}; {len(dec)} steps differ); peak serving "
-              f"{rec['peak_gib']:.2f} GiB (9a one device "
-              f"{nine['peak_gib']:.2f}), the load {rec['init_peak_gib']:.2f} "
-              f"(9a {nine['init_peak_gib']:.2f}); prefill "
+              f"{rec['peak_gib']:.2f} GiB (one device "
+              f"{plain['peak_gib']:.2f}), the load "
+              f"{rec['init_peak_gib']:.2f} (one device "
+              f"{plain['init_peak_gib']:.2f}); prefill "
               f"{rec['prefill_s'] * 1e3:.1f} ms, decode step {ms:.2f} ms "
-              f"(median, eager over gloo; 9a "
-              f"{statistics.median(nine['decode_s']) * 1e3:.2f} ms replayed)",
-              flush=True)
+              f"(median, eager over gloo; one device "
+              f"{statistics.median(plain['decode_s']) * 1e3:.2f} ms "
+              f"replayed)", flush=True)
         if rec["launches"] != rule:
             failed.append(f"rank {r} launches {rec['launches']}")
         if rec["lazy_solves"] or rec["misses"]:
@@ -4597,28 +4812,19 @@ def ep_serve(torch) -> dict[str, int]:
             failed.append(f"rank {r} collective bytes differ from the dry "
                           "run's")
     err = _rows_err(recs, plain)
-    print(f"full depth, against one device's moe_ep_plain: first-token "
+    print(f"{EP_CUT} layers, against one device's moe_ep_plain: first-token "
           f"logits max |ep - plain| / (1 + |plain|) = {err:.4g} (tol "
           f"{PATH_TOL}); greedy tokens equal at {same}/{held} positions "
           f"whose top-2 margin exceeds {PATH_TOL} (at "
           f"{int((recs[0]['tokens'] == plain['tokens']).sum())} of "
           f"{BATCH * GEN} in all, printed); the ranks' tokens "
-          f"equal: {torch.equal(recs[0]['tokens'], recs[1]['tokens'])}. "
-          f"Against 9a (one shard's capacities; printed): first-token "
-          f"logits {_rows_err(recs, nine):.4g}, tokens {same9}/{held9}",
+          f"equal: {torch.equal(recs[0]['tokens'], recs[1]['tokens'])}",
           flush=True)
+    if not err <= PATH_TOL:
+        failed.append(f"first-token logits at {EP_CUT} layers {err} > "
+                      f"{PATH_TOL}")
     counts = recs[0]["launches"]
     del recs, plain
-    if not err <= PATH_TOL:
-        # full depth does not hold: the gate at EP_CUT layers
-        cut = ["--n-layers", str(EP_CUT)]
-        cut_err = _rows_err(_ep_serve_run(torch, args + cut, "ep_cut"),
-                            one(cut, "ep_plain_cut"))
-        print(f"{EP_CUT} layers: first-token logits max |ep - plain| / (1 + "
-              f"|plain|) = {cut_err:.4g} (tol {PATH_TOL})", flush=True)
-        if not cut_err <= PATH_TOL:
-            failed.append(f"first-token logits at {EP_CUT} layers "
-                          f"{cut_err} > {PATH_TOL}")
     _free(torch)
     print(f"phase 17a {time.perf_counter() - t0:.1f}s", flush=True)
     if failed:
@@ -4626,7 +4832,7 @@ def ep_serve(torch) -> dict[str, int]:
     return counts
 
 
-def ep_engine(torch) -> dict[str, int]:
+def ep_engine(torch, jobs: _Jobs) -> dict[str, int]:
     """17b: phase 9e's paged engine over the (2, 1) mesh at EP_ENGINE_CUT
     layers."""
     import dataclasses as dc
@@ -4634,15 +4840,14 @@ def ep_engine(torch) -> dict[str, int]:
     from repro_torch import configs as C
 
     arch = "olmoe-1b-7b"
-    args = (["--arch", arch] + ENGINE_ARGS[2:]
-            + ["--n-layers", str(EP_ENGINE_CUT)])
+    args = _ep_engine_args()
     phase("17b the expert-parallel engine: torchrun --nproc-per-node 2 -m "
           "repro_torch.launch.serve " + " ".join(a if a else "''"
                                                  for a in args)
           + f" --mesh {EP_MESH} --backend gloo, against the same engine on "
           "one device in this process")
     t0 = time.perf_counter()
-    ref, recs = _tp_engine_run(torch, args, "ep_engine", mesh=EP_MESH,
+    ref, recs = _tp_engine_run(torch, jobs, "17b", args, "ep_engine",
                                where="phase17")
     cut = dc.replace(C.get_config(arch), n_layers=EP_ENGINE_CUT)
     cells = _engine_cells(torch, cut, ref["engine"], False, EP_SHAPE)
@@ -4678,45 +4883,21 @@ def _stop(job) -> None:
             job.wait()
 
 
-def ep_layer_start():
-    """17c's two ranks, started in the background (they run beside 17a's
-    one-device run: the script's time budget); :func:`ep_layer` collects
-    them."""
-    out = os.path.join(ROOT, "build", "phase17")
-    os.makedirs(out, exist_ok=True)
-    prog = os.path.join(out, "ep_layer.py")
-    with open(prog, "w") as f:
-        f.write(EP_LAYER_PROG)
-    return subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-addr", "localhost", "--master-port",
-         str(_free_port()), prog, os.path.join(out, "ep_layer")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-
-
-def ep_layer(torch, job) -> None:
-    """17c: one olmoe MoE layer at full width on the two ranks (``job``,
-    from :func:`ep_layer_start`) against its plain D-shard version on the
-    card."""
+def ep_layer(torch, jobs: _Jobs) -> None:
+    """17c: one olmoe MoE layer at full width on the two ranks of job 17c
+    (EP_LAYER_PROG) against its plain D-shard version on the card."""
     from repro_torch.core.context import use_context
     from repro_torch.core.plancache import PlanCache
     from repro_torch.layers import moe
 
     phase(f"17c one olmoe-1b-7b MoE layer (64 experts of 1024, top-8, f32 "
           f"tables, bf16 rows) on the {EP_MESH} mesh at 256 and 2 rows a "
-          f"rank (the ranks ran beside 17a), against layers.moe.moe_ep_plain "
+          f"rank (the ranks ran beside the other jobs), against "
+          f"layers.moe.moe_ep_plain "
           f"on the card (tol {EP_LAYER_TOL:.4g} of 1 + |y|)")
     t0 = time.perf_counter()
-    out = os.path.join(ROOT, "build", "phase17")
-    try:
-        _, err = job.communicate(timeout=300)
-    finally:
-        _stop(job)
-    if job.returncode != 0:
-        raise SystemExit("17c: the ranks failed: " + err[-3000:])
-    recs = [torch.load(os.path.join(out, f"ep_layer.rank{r}.pt"))
-            for r in range(2)]
+    jobs.result("17c", "17c", ())
+    recs = _records(torch, "phase17", "ep_layer")
     gen = torch.Generator(device="cuda").manual_seed(0)
     p = moe.init_moe(gen, 2048, 1024, 64, device="cuda")
     xs = {n: torch.randn(shape, generator=gen, device="cuda").to(
@@ -4742,7 +4923,73 @@ def ep_layer(torch, job) -> None:
         raise SystemExit("17c: " + "; ".join(failed))
 
 
-ZAMBA_STEP_CUT = {"n_layers": 12}  # 10a / 10b's static steps (main)
+# ------------------------------------------------------------ phase 18
+# int8 serving over the (1, 2) mesh of phases 15 and 16 (gloo, two ranks on
+# the card), qwen1.5-4b at full width and TP_CUT layers: W8A8 tensor-
+# parallel over 'model' (q, k, v, gate and in column-parallel with the
+# fused epilogue; wo and w_out row-parallel: the int8 product with int32
+# out, the partials summed over 'model', then out_scale, the bias and the
+# cast; the unembed, a float weight under --quantize int8, column-parallel
+# over the vocabulary) and the int8 KV pool over 'model' (20 kv heads: each
+# rank quantizes its 10, their scales split with them). 18a: the static
+# server with --quantize int8 (15a's run); 18b: phase 7b's engine
+# (--quantize int8 --kv-quantize int8). Each against the same path on one
+# device in this process: the first logits within PATH_TOL (the card
+# against the card; INT8_PATH_TOL is the card against the CPU), the tokens
+# equal up to each row's (request's) first near-tie, the ranks equal, zero
+# lazy solves, launches 4c's (7b's) rule at the cut depth (7 fat GEMMs a
+# layer and the unembed's, no GEMV), the collective bytes by kind the
+# float step's dry-run cell's plus ``scale_max`` (2 x 4 bytes a layer: the
+# activation absmax of wo's and w_out's row-parallel products over
+# 'model'), 18b's int8 pool half the one device's
+def int8_tp_serve(torch, jobs: _Jobs) -> dict[str, int]:
+    """18a: the static server with int8 weights over the (1, 2) mesh."""
+    return _tp_static(torch, jobs, "18a", ["--quantize", "int8"])
+
+
+def int8_tp_engine(torch, jobs: _Jobs) -> dict[str, int]:
+    """18b: the paged engine with int8 weights and the int8 pool over the
+    (1, 2) mesh (job 18b), against the same engine on one device in this
+    process."""
+    import dataclasses as dc
+
+    from repro_torch import configs as C
+
+    args = _int8_engine_args()
+    phase("18b the int8 engine over a mesh: torchrun --nproc-per-node 2 -m "
+          "repro_torch.launch.serve " + " ".join(a if a else "''"
+                                                 for a in args)
+          + f" --mesh {TP_MESH} --backend gloo (full width, {TP_CUT} "
+          "layers), against the same engine on one device in this process")
+    t0 = time.perf_counter()
+    ref, recs = _tp_engine_run(torch, jobs, "18b", args, "engine",
+                               where="phase18")
+    cut = dc.replace(C.get_config("qwen1.5-4b"), n_layers=TP_CUT)
+    cells = _engine_cells(torch, cut, ref["engine"], False)
+    step = {"matmul": 7 * TP_CUT + 1, "gemv": 0, "wkv": 0}
+
+    def rule(dispatches):
+        steps = sum(dispatches.values())
+        return {k: n * steps for k, n in step.items()}
+
+    failed = _tp_engine_gates(torch, f"int8, {TP_CUT} layers", ref, recs,
+                              rule, cells, scale=2 * 4 * TP_CUT)
+    err = _first_logits_err(ref, recs[0])
+    print(f"first-token logits max |mesh - one| / (1 + |one|): {TP_CUT} "
+          f"layers {err:.4g} (tol {PATH_TOL}); phase 18b "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not err <= PATH_TOL:
+        failed.append(f"first-token logits at {TP_CUT} layers {err} > "
+                      f"{PATH_TOL}")
+    counts = recs[0]["launches"]
+    del ref, recs
+    _free(torch)
+    if failed:
+        raise SystemExit("18b: " + "; ".join(failed))
+    return counts
+
+
+ZAMBA_STEP_CUT = {"n_layers": 7}  # 10a / 10b's static steps (main)
 
 
 def main() -> int:
@@ -4780,100 +5027,16 @@ def main() -> int:
     kernel_vs_plain(torch, "qwen1.5-4b", "5c", quant=True)
     kernel_vs_plain(torch, "rwkv6-3b", "5d", quant=True)
     verify_vs_decode(torch)
-    if profile:
-        profile_path(torch, "qwen1.5-4b", "6a")
-        profile_path(torch, "rwkv6-3b", "6b")
-        profile_path(torch, "qwen1.5-4b", "6c", quant=True)
-    bf16 = run_engine(torch, profile)
-    counts["qwen1.5-4b engine"] = bf16.counts
-    counts["qwen1.5-4b int8 engine"] = run_engine(torch, profile, bf16).counts
-    spec = run_spec_engine(torch, profile, bf16)
-    counts["qwen1.5-4b spec engine"] = spec.counts
-    traced = run_traced_engine(torch, "8a", bf16)
-    counts["qwen1.5-4b traced engine"] = traced["counts"]
-    counts["qwen1.5-4b traced spec engine"] = run_traced_engine(
-        torch, "8b", spec)["counts"]
-    counts["qwen1.5-4b measured engine"] = run_measured_engine(
-        torch, traced)
-    # 9: the MoE family, olmoe-1b-7b at its full width and depth
-    moe = "olmoe-1b-7b"
-    counts[moe] = run_path(torch, moe, "9a", keep=True)
-    static_steps(torch, moe, "9a")
-    counts[moe + " int8"] = run_path(torch, moe + " int8", "9b")
-    static_steps(torch, moe, "9b", quant=True)
-    kernel_vs_plain(torch, moe, "9c")
-    kernel_vs_plain(torch, moe, "9d", quant=True)
-    moe_bf16 = run_engine(torch, False, arch=moe, label="9e")
-    counts[moe + " engine"] = moe_bf16.counts
-    counts[moe + " int8 engine"] = run_engine(
-        torch, False, moe_bf16, arch=moe, label="9f").counts
-    counts[moe + " spec engine"] = run_spec_engine(
-        torch, False, moe_bf16, arch=moe, label="9g").counts
-    # 10: the hybrid family, zamba2-1.2b at its full width and depth
-    zamba = "zamba2-1.2b"
-    counts[zamba] = run_path(torch, zamba, "10a")
-    # the static steps at 12 layers (the shared block at layers 0 and 6):
-    # the eager prefill's SSM loop over the tokens dominates them (169 s at
-    # 38 layers), and phase 15's time displaced it (ROADMAP queue 1, item
-    # 1); 10a / 10b's paths above keep the full depth
-    static_steps(torch, zamba, "10a", cut=ZAMBA_STEP_CUT)
-    counts[zamba + " int8"] = run_path(torch, zamba + " int8", "10b")
-    static_steps(torch, zamba, "10b", quant=True, cut=ZAMBA_STEP_CUT)
-    # 4 layers with the shared block every 2: layers 0 and 2 run it (at 2
-    # layers only layer 0 would)
-    cut = {"n_layers": 4, "shared_attn_every": 2}
-    kernel_vs_plain(torch, zamba, "10c", cut=cut)
-    kernel_vs_plain(torch, zamba, "10d", quant=True, cut=cut)
-    # 11: the encoder-decoder family, whisper-base, whole
-    whisper = "whisper-base"
-    counts[whisper] = run_path(torch, whisper, "11a")
-    static_steps(torch, whisper, "11a")
-    kernel_vs_plain(torch, whisper, "11b", cut={})
-    counts[whisper + " int8"] = run_path(torch, whisper + " int8", "11c")
-    static_steps(torch, whisper, "11c", quant=True)
-    kernel_vs_plain(torch, whisper, "11c", quant=True, cut={})
-    # 12: the vision family, llama-3.2-vision-11b at its full width and
-    # depth; card against CPU at 10 layers: two groups of 4 self layers
-    # and 1 cross layer (cross_attn_every kept at 5), so the carry from one
-    # group to the next runs; at int8 one group of a self layer and the
-    # cross layer (the f64 CPU side's time: on an H100 at 5 layers 12d
-    # took 101 s, and with phase 16 the script 1,085 s of its 1,200)
-    vision = "llama-3.2-vision-11b"
-    counts[vision] = run_path(torch, vision, "12a")
-    static_steps(torch, vision, "12a")
-    counts[vision + " int8"] = run_path(torch, vision + " int8", "12b")
-    static_steps(torch, vision, "12b", quant=True)
-    kernel_vs_plain(torch, vision, "12c", cut={"n_layers": 10})
-    kernel_vs_plain(torch, vision, "12d", quant=True,
-                    cut={"n_layers": 2, "cross_attn_every": 2})
-    # 13: training, qwen1.5-4b at its full width and depth
-    train_bwd = check_train_kernels(torch)
-    counts["qwen1.5-4b train"] = train_path(torch)
-    train_vs_cpu(torch)
-    counts["qwen1.5-4b-smoke train launcher"] = train_launcher(torch)
-    # 14: distribution at world size 1 (nccl, the script's own process)
-    dist_rows = dist_gemms(torch)
-    dist_pipeline(torch)
-    counts["qwen1.5-4b mesh train launcher"] = dist_train(torch)
-    train_rec = dist_dryrun(torch)
-    # 15: tensor parallelism over 'model', two ranks on the one card
-    counts["qwen1.5-4b tp serve (1x2, a rank, 2 layers)"] = tp_serve(torch)
-    counts["qwen1.5-4b tp train (1x2, a rank, 2 layers)"] = tp_train(torch)
-    tp_dryrun(torch, train_rec)
-    # 16: the serving engines over the same mesh
-    counts["qwen1.5-4b tp engine (1x2, a rank, 2 layers)"] = \
-        tp_engine(torch)
-    counts["qwen1.5-4b tp spec engine (1x2, a rank, 2 layers)"] = \
-        tp_spec_engine(torch)
-    # 17: expert parallelism, olmoe-1b-7b over a (2, 1) mesh
-    layer_job = ep_layer_start()
+    train_cpu = train_vs_cpu_start()
+    pools = []  # the background jobs' pools (14c's launcher, 15-18)
     try:
-        counts["olmoe-1b-7b ep serve (2x1, a rank)"] = ep_serve(torch)
-        counts["olmoe-1b-7b ep engine (2x1, a rank, 2 layers)"] = \
-            ep_engine(torch)
-        ep_layer(torch, layer_job)
+        more, train_bwd, dist_rows = _phases_7_to_18(torch, profile,
+                                                     train_cpu, pools)
     finally:
-        _stop(layer_job)
+        _stop(train_cpu)
+        for pool in pools:
+            pool.stop()
+    counts.update(more)
 
     src = {"matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                       "src/repro/kernels/matmul.py:193"),
@@ -4908,6 +5071,121 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _phases_7_to_18(torch, profile: bool, train_cpu, pools: list):
+    """Phases 7-18, 13c's CPU runs beside them in ``train_cpu``; the mesh
+    jobs' pool goes to ``pools`` (for ``main`` to stop). Returns the launch
+    counts by path, 13a's records and 14a's."""
+    counts = {}
+    if profile:
+        profile_path(torch, "qwen1.5-4b", "6a")
+        profile_path(torch, "rwkv6-3b", "6b")
+        profile_path(torch, "qwen1.5-4b", "6c", quant=True)
+    bf16 = run_engine(torch, profile)
+    counts["qwen1.5-4b engine"] = bf16.counts
+    counts["qwen1.5-4b int8 engine"] = run_engine(torch, profile, bf16).counts
+    spec = run_spec_engine(torch, profile, bf16)
+    counts["qwen1.5-4b spec engine"] = spec.counts
+    traced = run_traced_engine(torch, "8a", bf16)
+    counts["qwen1.5-4b traced engine"] = traced["counts"]
+    counts["qwen1.5-4b traced spec engine"] = run_traced_engine(
+        torch, "8b", spec)["counts"]
+    counts["qwen1.5-4b measured engine"] = run_measured_engine(
+        torch, traced)
+    # 9: the MoE family, olmoe-1b-7b at its full width and depth
+    moe = "olmoe-1b-7b"
+    counts[moe] = run_path(torch, moe, "9a")
+    static_steps(torch, moe, "9a")
+    counts[moe + " int8"] = run_path(torch, moe + " int8", "9b")
+    static_steps(torch, moe, "9b", quant=True)
+    kernel_vs_plain(torch, moe, "9c")
+    kernel_vs_plain(torch, moe, "9d", quant=True)
+    moe_bf16 = run_engine(torch, False, arch=moe, label="9e")
+    counts[moe + " engine"] = moe_bf16.counts
+    counts[moe + " int8 engine"] = run_engine(
+        torch, False, moe_bf16, arch=moe, label="9f").counts
+    counts[moe + " spec engine"] = run_spec_engine(
+        torch, False, moe_bf16, arch=moe, label="9g").counts
+    # 10: the hybrid family, zamba2-1.2b at its full width and depth
+    zamba = "zamba2-1.2b"
+    counts[zamba] = run_path(torch, zamba, "10a")
+    # the static steps at 7 layers (the shared block at layers 0 and 6):
+    # the eager prefill's SSM loop over the tokens dominates them (169 s at
+    # 38 layers, 41 s for both at 12), and the script's time limit cut
+    # them; 10a / 10b's paths above keep the full depth
+    static_steps(torch, zamba, "10a", cut=ZAMBA_STEP_CUT)
+    counts[zamba + " int8"] = run_path(torch, zamba + " int8", "10b")
+    static_steps(torch, zamba, "10b", quant=True, cut=ZAMBA_STEP_CUT)
+    # 4 layers with the shared block every 2: layers 0 and 2 run it (at 2
+    # layers only layer 0 would)
+    cut = {"n_layers": 4, "shared_attn_every": 2}
+    kernel_vs_plain(torch, zamba, "10c", cut=cut)
+    kernel_vs_plain(torch, zamba, "10d", quant=True, cut=cut)
+    # 11: the encoder-decoder family, whisper-base, whole
+    whisper = "whisper-base"
+    counts[whisper] = run_path(torch, whisper, "11a")
+    static_steps(torch, whisper, "11a")
+    kernel_vs_plain(torch, whisper, "11b", cut={})
+    counts[whisper + " int8"] = run_path(torch, whisper + " int8", "11c")
+    static_steps(torch, whisper, "11c", quant=True)
+    kernel_vs_plain(torch, whisper, "11c", quant=True, cut={})
+    # 12: the vision family, llama-3.2-vision-11b at its full width and
+    # depth; card against CPU at 4 layers: two groups of a self layer and
+    # the cross layer (cross_attn_every 2), so the carry from one group to
+    # the next runs (at 10 layers, two groups of 4 self layers and 1 cross
+    # layer, 12c took 32 s); at int8 one such group
+    vision = "llama-3.2-vision-11b"
+    counts[vision] = run_path(torch, vision, "12a")
+    static_steps(torch, vision, "12a")
+    counts[vision + " int8"] = run_path(torch, vision + " int8", "12b")
+    static_steps(torch, vision, "12b", quant=True)
+    kernel_vs_plain(torch, vision, "12c",
+                    cut={"n_layers": 4, "cross_attn_every": 2})
+    kernel_vs_plain(torch, vision, "12d", quant=True,
+                    cut={"n_layers": 2, "cross_attn_every": 2})
+    # 13: training, qwen1.5-4b at its full width and depth
+    train_bwd = check_train_kernels(torch)
+    counts["qwen1.5-4b train"] = train_path(torch)
+    train_vs_cpu_go()
+    smoke = dist_smoke_start()
+    pools.append(smoke)
+    counts["qwen1.5-4b-smoke train launcher"] = train_launcher(torch)
+    train_vs_cpu_card(train_cpu)
+    # 14: distribution at world size 1 (nccl, the script's own process)
+    dist_rows = dist_gemms(torch)
+    dist_pipeline(torch)
+    counts["qwen1.5-4b mesh train launcher"] = dist_train(torch, smoke)
+    # 15-18: the two-rank jobs, started together (MESH_SLOTS at a time),
+    # beside 14d and the rest of 13c
+    jobs = start_mesh_jobs()
+    pools.append(jobs)
+    train_rec = dist_dryrun(torch)
+    train_vs_cpu_end(train_cpu)
+    # 15: tensor parallelism over 'model', two ranks on the one card
+    counts["qwen1.5-4b tp serve (1x2, a rank, 2 layers)"] = \
+        tp_serve(torch, jobs)
+    counts["qwen1.5-4b tp train (1x2, a rank, 2 layers)"] = \
+        tp_train(torch, jobs)
+    tp_dryrun(torch, train_rec)
+    # 16: the serving engines over the same mesh
+    counts["qwen1.5-4b tp engine (1x2, a rank, 2 layers)"] = \
+        tp_engine(torch, jobs)
+    counts["qwen1.5-4b tp spec engine (1x2, a rank, 2 layers)"] = \
+        tp_spec_engine(torch, jobs)
+    # 17: expert parallelism, olmoe-1b-7b over a (2, 1) mesh
+    counts[f"olmoe-1b-7b ep serve (2x1, a rank, {EP_CUT} layers)"] = \
+        ep_serve(torch, jobs)
+    counts["olmoe-1b-7b ep engine (2x1, a rank, 2 layers)"] = \
+        ep_engine(torch, jobs)
+    ep_layer(torch, jobs)
+    # 18: int8 serving over the (1, 2) mesh: W8A8 over 'model', the int8
+    # pool over 'model'
+    counts["qwen1.5-4b int8 tp serve (1x2, a rank, 2 layers)"] = \
+        int8_tp_serve(torch, jobs)
+    counts["qwen1.5-4b int8 tp engine (1x2, a rank, 2 layers)"] = \
+        int8_tp_engine(torch, jobs)
+    return counts, train_bwd, dist_rows
 
 
 if __name__ == "__main__":

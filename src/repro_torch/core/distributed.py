@@ -33,7 +33,11 @@ active context's
 :class:`CollectiveCounter` (the serving engine's clock, broadcast from
 rank 0, under a kind of its own, ``clock``), the counterpart of the
 reference's
-``roofline.hlo.analyze(...).collective_bytes``. A collective over an axis
+``roofline.hlo.analyze(...).collective_bytes``. A MAX all-reduce
+(:func:`scale_max`: a W8A8 activation, weight or KV-block scale over
+the ranks that hold a share of its tensor) counts under ``scale_max``,
+apart from the sums, so a quantized step's other collectives can be held
+to the float step's. A collective over an axis
 of extent 1 is skipped and counts 0, as XLA drops it. On an abstract mesh
 (``launch.mesh.make_production_mesh``) the helpers take meta tensors,
 return the shapes the collective would, and count the same bytes: the dry
@@ -65,6 +69,14 @@ and ``row_parallel`` (of rows: f32 partials, one ``all_reduce``, then the
 bias once and the cast, as in ``k_sharded_gemm``) are built on them. A
 weight that a layer consumes as its 'model' block is marked so
 (:func:`mark_model_block`, by ``parallel.fsdp.ShardPlan``).
+
+W8A8 (a pre-quantized ``QuantizedLinear`` block, or a float one under
+``quant_mode="int8"``) runs both: column-parallel through
+``layers.quantized.qdense`` on this rank's N block of the int8 weight and
+its scales, row-parallel through ``layers.quantized.row_parallel``: the
+int8 product's int32 partials summed over 'model' (exact, in any order),
+then the epilogue. The activation's per-tensor scale spans every rank
+that holds a share of it (``layers.quantized.activation_scale``).
 """
 from __future__ import annotations
 
@@ -77,9 +89,11 @@ import torch.distributed as dist
 from repro_torch.core.context import current_context, use_context
 from repro_torch.core.gemm import balanced_gemm
 from repro_torch.kernels.ops import GemmPlan
+from repro_torch.quant.int8 import QuantizedLinear
 
 KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
-         "send_recv", "broadcast", "clock")
+         "send_recv", "broadcast", "clock", "scale_max")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class CollectiveCounter:
@@ -179,25 +193,32 @@ def reduce_scatter(t: torch.Tensor, mesh, axis: str, dim: int = 0
     return out.movedim(0, dim).contiguous()
 
 
-def all_reduce(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The sum of ``t`` over ``axes`` (one name or several, reduced one
-    after another), in place where a collective runs."""
+def all_reduce(t: torch.Tensor, mesh, axes, *, op: str = "sum"
+               ) -> torch.Tensor:
+    """The sum (``op="max"``: the maximum, counted under ``scale_max``) of
+    ``t`` over ``axes`` (one name or several, reduced one after another),
+    in place where a collective runs."""
     for axis in (axes,) if isinstance(axes, str) else axes:
         if mesh.axis_size(axis) == 1:
             continue
         _check_abstract(mesh, t)
-        _count("all_reduce", t)
+        _count("scale_max" if op == "max" else "all_reduce", t)
         if not mesh.abstract:
             t = t.contiguous()
             if _staged(mesh, t):
                 host = t.cpu()
-                dist.all_reduce(host, op=dist.ReduceOp.SUM,
-                                group=mesh.group(axis))
+                dist.all_reduce(host, op=_OPS[op], group=mesh.group(axis))
                 t.copy_(host)
             else:
-                dist.all_reduce(t, op=dist.ReduceOp.SUM,
-                                group=mesh.group(axis))
+                dist.all_reduce(t, op=_OPS[op], group=mesh.group(axis))
     return t
+
+
+def scale_max(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The maximum of ``t`` (an absmax) over ``axes``, counted under
+    ``scale_max``: the ranks that each hold a share of a tensor agree on
+    its quantization scale. Exact in any order."""
+    return all_reduce(t, mesh, axes, op="max")
 
 
 def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -379,9 +400,23 @@ def mark_model_block(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t
 
 
-def model_block_dim(t: torch.Tensor | None) -> int | None:
-    """The dim a marked 'model' block is split along (None: whole)."""
+def model_block_dim(t) -> int | None:
+    """The dim a marked 'model' block is split along (None: whole). A
+    ``QuantizedLinear`` answers for its int8 (..., N, K) weight in the
+    float weight's (..., K, N) terms: 1 for a block of columns, 0 of
+    rows."""
+    if isinstance(t, QuantizedLinear):
+        dim = model_block_dim(t.w_q)
+        if dim is None:
+            return None
+        nd = t.w_q.dim()
+        return {nd - 2: nd - 1, nd - 1: nd - 2}.get(dim, dim)
     return None if t is None else getattr(t, _BLOCK_DIM, None)
+
+
+def in_features(w) -> int:
+    """K of a float (K, N) weight or of a ``QuantizedLinear``'s (N, K)."""
+    return w.w_q.shape[-1] if isinstance(w, QuantizedLinear) else w.shape[-2]
 
 
 def _recorded(x: torch.Tensor) -> bool:
@@ -559,18 +594,29 @@ def scatter_to_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     return _ScatterToModel.apply(x, mesh, dim)
 
 
-def local_gemm(x: torch.Tensor, w: torch.Tensor, bias=None, *,
+def is_w8a8(x: torch.Tensor, w) -> bool:
+    """Whether ``x @ w`` takes the W8A8 path: a pre-quantized weight, or a
+    float one under ``quant_mode="int8"``."""
+    return isinstance(w, QuantizedLinear) or (
+        current_context().quant_mode == "int8" and x.is_floating_point())
+
+
+def local_gemm(x: torch.Tensor, w, bias=None, *,
                activation: str | None = None,
                out_dtype: torch.dtype | None = None,
-               b_layout: str = "row") -> torch.Tensor:
+               b_layout: str = "row", split=()) -> torch.Tensor:
     """One rank's product of a tensor-parallel pair, on the planned
-    kernels. The W8A8 path does not run over 'model': its per-tensor
-    activation scale would need a max over the axis."""
-    if not isinstance(w, torch.Tensor) or \
-            current_context().quant_mode == "int8":
-        raise NotImplementedError(
-            "int8 over 'model' (a W8A8 activation scale spans every row): "
-            "ROADMAP queue 1, item 3")
+    kernels. A ``QuantizedLinear`` (this rank's N block, or whole) and,
+    under ``quant_mode="int8"``, a float row-layout ``w`` take the W8A8
+    path (``layers.quantized.w8a8``), whose activation scale spans the DP
+    ranks where the step's rows are cut and ``split``: the other mesh axes
+    that split ``x``'s elements (attention's 'seq' mode: its rows over
+    'model')."""
+    if b_layout == "row" and is_w8a8(x, w):
+        from repro_torch.layers import quantized as lq
+
+        return lq.w8a8(x, w, bias, activation=activation,
+                       out_dtype=out_dtype, scale_over=split)
     return balanced_gemm(x, w, bias, activation=activation,
                          out_dtype=out_dtype or x.dtype, b_layout=b_layout)
 
@@ -587,13 +633,18 @@ def column_parallel(x: torch.Tensor, w_block: torch.Tensor, bias=None, *,
                       b_layout=b_layout)
 
 
-def row_parallel(h_block: torch.Tensor, w_block: torch.Tensor, bias=None,
+def row_parallel(h_block: torch.Tensor, w_block, bias=None,
                  *, mesh, out_dtype: torch.dtype | None = None
                  ) -> torch.Tensor:
     """``h @ W + bias`` whole on every rank from this rank's blocks along K
     (``h_block``'s columns, ``w_block``'s rows): the local product in f32,
     summed over 'model' (:func:`reduce_from_model`), then the bias once,
-    then the cast."""
+    then the cast. W8A8: ``layers.quantized.row_parallel``."""
+    if is_w8a8(h_block, w_block):
+        from repro_torch.layers import quantized as lq
+
+        return lq.row_parallel(h_block, w_block, bias, mesh=mesh,
+                               out_dtype=out_dtype or h_block.dtype)
     part = local_gemm(h_block, w_block, out_dtype=torch.float32)
     part = reduce_from_model(part, mesh)
     if bias is not None:

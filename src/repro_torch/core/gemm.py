@@ -103,15 +103,16 @@ def _is_skinny(M: int, K: int, N: int) -> bool:
 
 def _dispatch(a2, b, bias, *, out_dtype, b_layout, activation, out_scale,
               plan, hw) -> torch.Tensor:
-    """One (M, K) x B product: the GEMV when decode-shaped with no epilogue,
-    else the fat kernel with the fused epilogue."""
+    """One (M, K) x B product: the GEMV when decode-shaped with float
+    inputs and no epilogue, else the fat kernel with the fused epilogue
+    (every int8 product: a W8A8 row-parallel block's int32 partials too)."""
     M, K = a2.shape
     N = b.shape[0] if b_layout == "col" else b.shape[1]
     if plan is None:
         plan = plan_for(M, K, N, in_dtype=a2.dtype, out_dtype=out_dtype,
                         b_layout=b_layout, hw=hw)
     if (bias is None and activation in (None, "none") and out_scale is None
-            and _is_skinny(M, K, N)):
+            and a2.is_floating_point() and _is_skinny(M, K, N)):
         return ops.decode_matvec(a2, b, bk=plan.bk, bn=plan.bn,
                                  out_dtype=out_dtype, w_layout=b_layout,
                                  hw=hw)

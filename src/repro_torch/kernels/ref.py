@@ -47,12 +47,28 @@ def apply_activation(x: torch.Tensor, name: str | None) -> torch.Tensor:
     raise ValueError(f"unknown activation {name!r}")
 
 
+def _plain_strides(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if it is row- or column-major with no dimension of size
+    1, else a row-major copy (a byte an element): a size-1 dimension
+    leaves its stride free, and the CPU's int8 GEMM (torch 2.11) reads
+    such a stride as the leading dimension."""
+    if 1 not in x.shape and (x.is_contiguous() or x.t().is_contiguous()):
+        return x
+    return torch.empty(x.shape, dtype=x.dtype).copy_(x)
+
+
 def _product(a: torch.Tensor, b: torch.Tensor, b_layout: str) -> torch.Tensor:
     if b_layout == "col":
         b = b.t()
     elif b_layout != "row":
         raise ValueError(f"b_layout must be 'row' or 'col', got {b_layout!r}")
     if is_int(a.dtype):
+        if (a.device.type == "cpu" and a.dtype == b.dtype == torch.int8
+                and a.dim() == b.dim() == 2):
+            # exact int32 accumulation, without widening B to float64
+            # (which, for a decode row against a whole weight, costs 8
+            # bytes an element of B a call)
+            return torch._int_mm(_plain_strides(a), _plain_strides(b))
         # exact: |sum| < 2**53 for any K an int8 GEMM can have; float64
         # because integer matmul has no CUDA implementation in torch
         return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
@@ -77,7 +93,19 @@ def matmul_ref(
     """
     if out_dtype is None:
         out_dtype = a.dtype
-    out = _product(a, b, b_layout)
+    return epilogue(_product(a, b, b_layout), out_dtype=out_dtype, bias=bias,
+                    activation=activation, out_scale=out_scale)
+
+
+def epilogue(acc: torch.Tensor, *, out_dtype: torch.dtype,
+             bias: torch.Tensor | None = None,
+             activation: str | None = None,
+             out_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The GEMM's fused epilogue on an f32 (i32) accumulator, in the
+    kernel's order: ``out_scale``, the bias, the activation, the rounding
+    and the saturating cast. The row-parallel W8A8 product runs it on the
+    int32 partials summed over 'model' (``layers.quantized``)."""
+    out = acc
     if out_scale is not None:
         out = out.to(torch.float32) * out_scale.to(torch.float32)
     if bias is not None:

@@ -145,7 +145,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
     B = prompts.shape[0]
     device = prompts.device
     quantized = is_quantized(params)
-    check_mesh_family(cfg, mesh, quantized)
+    check_mesh_family(cfg, mesh)
     art = make_serve_step(cfg, device=device, mesh=mesh, quantized=quantized)
     state = art.init_state(B, max_len)
     inputs = art.rows({"tokens": prompts, **(extras or {})})
@@ -533,6 +533,7 @@ def _run_engine(args, ctx, cfg, box: list, device, measure_factory=None,
             "speculation": m.speculation,
             "dispatches": dict(engine.dispatches),
             "step_bytes": engine.step_bytes,
+            "step_kinds": engine.step_kinds,
             "clock_bytes": engine.clock_bytes.by_kind(),
             "step_ms": {k: [1e3 * x for x in v]
                         for k, v in engine.step_s.items()},
@@ -601,8 +602,7 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
             cfg = C.smoke(cfg)
         if args.n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=args.n_layers).validate()
-        check_mesh_family(cfg, mesh, ctx.quant_mode == "int8",
-                          args.engine and args.kv_quantize == "int8")
+        check_mesh_family(cfg, mesh)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         # over a mesh this rank's blocks, the ranks loading one at a time

@@ -22,7 +22,12 @@ full-sequence attention, prefill, the contiguous decode and the paged
 prefill chunk, decode tick and verify pass are tensor-parallel
 (:func:`_attend_full`, :func:`decode_attention`, :func:`_paged_attention`):
 a cache or pool holds this rank's kv heads, or its head_dim block where the
-kv heads do not divide 'model' (``decode_state_specs``).
+kv heads do not divide 'model' (``decode_state_specs``). An int8 pool's
+scales follow its kv heads, or stay whole on every rank of a head_dim
+pool, whose quantizer takes each block's absmax over 'model'
+(:func:`_pool_reduce`). W8A8 projections run through
+``core.distributed``'s column- and row-parallel products; in 'seq' mode
+their activation scale spans 'model' too (the rows are split over it).
 
 Over the DP axes (a plan whose ``kv`` names the decode state's layout) a
 step's rows may be this rank's lanes, and the cache this rank's block of
@@ -239,13 +244,17 @@ def _seq_attention(p, x, src, *, n_kv, hd, causal, chunk, positions,
     off = r * n
     pw = _whole(p, partial=True)
     xr = cd.scatter_to_model(x, mesh, 1)
-    q = cd.local_gemm(xr, pw.wq, pw.bq).reshape(B, n, -1, hd)
+    # this rank's rows: a W8A8 scale spans 'model' too
+    rows_of = dict(split=("model",))
+    q = cd.local_gemm(xr, pw.wq, pw.bq, **rows_of).reshape(B, n, -1, hd)
     if src is None or src.shape[1] % tp == 0:
         # k and v of this rank's rows, gathered along the sequence
         rows = xr if src is None else cd.scatter_to_model(src, mesh, 1)
         m = rows.shape[1]
-        k = cd.local_gemm(rows, pw.wk, pw.bk).reshape(B, m, n_kv, hd)
-        v = cd.local_gemm(rows, pw.wv, pw.bv).reshape(B, m, n_kv, hd)
+        k = cd.local_gemm(rows, pw.wk, pw.bk, **rows_of).reshape(
+            B, m, n_kv, hd)
+        v = cd.local_gemm(rows, pw.wv, pw.bv, **rows_of).reshape(
+            B, m, n_kv, hd)
         if positions is not None:
             q, k = _rope(q, k, positions[:, off:off + n], hd, rope_theta)
         k = cd.gather_from_model(k, mesh, 1, sum_grad=True)
@@ -257,7 +266,7 @@ def _seq_attention(p, x, src, *, n_kv, hd, causal, chunk, positions,
         v = cd.local_gemm(whole, pw.wv, pw.bv).reshape(B, Sk, n_kv, hd)
     kr, vr = _expand(q, k, v, None)
     o = attention_core(q, kr, vr, causal=causal, chunk=chunk, q_offset=off)
-    y = cd.local_gemm(o.reshape(B, n, -1), pw.wo)
+    y = cd.local_gemm(o.reshape(B, n, -1), pw.wo, **rows_of)
     return cd.gather_from_model(y, mesh, 1), k, v
 
 
@@ -520,7 +529,7 @@ def _contract(p: AttnParams, q, x, gk, gv, valid, layout: str):
     o = o.reshape(B, S, -1).to(x.dtype)
     if cm.block_dim(p.wo) != 0:
         return cd.local_gemm(o, p.wo)
-    n = p.wo.shape[0]
+    n = cd.in_features(p.wo)
     if o.shape[-1] != n:  # every head's output: this rank's rows of wo
         o = o[..., r * n:(r + 1) * n]
     return cd.row_parallel(o, p.wo, mesh=mesh, out_dtype=x.dtype)
@@ -758,7 +767,7 @@ def _pool_gather(cache: PagedKVCache, idx: torch.Tensor, dtype
 
 
 def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv,
-                       held=None) -> None:
+                       held=None, reduce=None) -> None:
     """Whole-block dequantize, merge and requantize write into the int8
     pool, in place (the reference's ``_quantized_scatter``).
 
@@ -781,7 +790,10 @@ def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv,
 
     ``held`` = (first, count): the pool is this rank's block of the block
     axis (ids global); rows bound elsewhere write nothing (they carry the
-    bytes local block 0 ends with).
+    bytes local block 0 ends with). ``reduce``: a pool whose head_dim lies
+    over 'model' takes each merged block's per-kv-head absmax over every
+    rank of it (:func:`q8.quantize_block`'s ``reduce``), so the scales,
+    replicated over 'model', are the whole pool's.
     """
     rows = torch.arange(blk.shape[0], device=blk.device)
     own = None
@@ -792,7 +804,7 @@ def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv,
     old = q8.dequantize_block(pool[blk], scales[blk])
     merged = torch.where(write_new[..., None, None], newv.float(),
                          torch.where(keep_old[..., None, None], old, 0.0))
-    qblk, qs = q8.quantize_block(merged)
+    qblk, qs = q8.quantize_block(merged, reduce)
     same = blk[:, None] == blk[None, :]
     if own is None:
         last = torch.where(same, rows, -1).amax(dim=1)
@@ -807,7 +819,7 @@ def _quantized_scatter(pool, scales, blk, keep_old, write_new, newv,
 
 
 def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int,
-                held=None) -> None:
+                held=None, reduce=None) -> None:
     """Write the K/V of W consecutive positions a lane into the pool, in
     place: the one pool write of prefill, decode and verify, for both
     formats.
@@ -829,8 +841,9 @@ def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int,
     the reference's sequential scatter on the CPU keeps.
 
     int8 pool: ``span`` consecutive table entries from ``start // bs`` are
-    rewritten whole (:func:`_quantized_scatter`): offsets before ``start``
-    kept, the window's real positions written, the rest zeroed.
+    rewritten whole (:func:`_quantized_scatter`, ``reduce`` its absmax's
+    MAX over 'model' for a head_dim pool): offsets before ``start`` kept,
+    the window's real positions written, the rest zeroed.
 
     ``held`` = (first, count): the pool is this rank's block of the block
     axis (a pool split over DP; the table's ids global). Only the rows
@@ -889,19 +902,24 @@ def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int,
             pool, scales, blk.reshape(-1), keep_old.expand_as(bpos).reshape(
                 -1, bs), write_new.expand_as(bpos).reshape(-1, bs),
             new[lanes[:, :, None], src].reshape(-1, bs, *new.shape[2:]),
-            held)
+            held, reduce)
 
 
 def _pool_layout(cache: PagedKVCache, n_kv: int, hd: int) -> str:
     """How a pool lies over 'model' (``decode_state_specs(paged=True)``):
-    as :func:`_cache_layout` lays a contiguous cache. The int8 pool stays
-    off a 'model' axis above 1."""
-    if cm.tp_size() > 1 and cache.k_scale is not None:
-        raise NotImplementedError(
-            f"the int8 KV pool over a 'model' axis of {cm.tp_size()} (its "
-            "head_dim layout needs a per-block max over 'model'): ROADMAP "
-            "queue 1, item 9")
+    as :func:`_cache_layout` lays a contiguous cache. An int8 pool's
+    ``(num_blocks, Hkv)`` scales follow its kv heads ('heads': each rank
+    quantizes its own) or stay whole on every rank ('head_dim': each
+    block's absmax taken over 'model', :func:`_pool_reduce`)."""
     return _cache_layout(n_kv, hd)
+
+
+def _pool_reduce(cache: PagedKVCache, layout: str):
+    """The int8 pool's absmax reduction for ``layout`` (None: local)."""
+    if cache.k_scale is None or layout != "head_dim":
+        return None
+    mesh = cm.tp_mesh()
+    return lambda amax: cd.scale_max(amax, mesh, "model")
 
 
 def _pool_dp(cache: PagedKVCache, rows: int | None) -> _DP | None:
@@ -914,14 +932,14 @@ def _pool_dp(cache: PagedKVCache, rows: int | None) -> _DP | None:
 
 
 def _paged_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int,
-                 dp: _DP | None) -> None:
+                 dp: _DP | None, reduce=None) -> None:
     """:func:`_pool_write` of a step's rows: a lane-split step's new K/V
     all-gathered over DP first (``row``, ``start`` and ``spill`` are every
     lane's), each rank writing the blocks it holds."""
     if dp is not None and dp.lanes is not None:
         k, v = (cd.all_gather_over(t, dp.mesh, dp.entry, 0) for t in (k, v))
     _pool_write(cache, k, v, row, start, n, spill, span,
-                None if dp is None else dp.held)
+                None if dp is None else dp.held, reduce)
 
 
 def _paged_kv(cache: PagedKVCache, rows, dtype, dp: _DP | None):
@@ -968,7 +986,8 @@ def _paged_attention(p: AttnParams, x, cache: PagedKVCache, *, positions,
         layout = _pool_layout(cache, n_kv, hd)
     q, k, v = _qkv(p, x, layout, n_kv, hd, positions, rope_theta,
                    cache.k.shape[-2:])
-    _paged_write(cache, k, v, row, start, n, spill, span, dp)
+    _paged_write(cache, k, v, row, start, n, spill, span, dp,
+                 _pool_reduce(cache, layout))
     gk, gv = _paged_kv(cache, row, q.dtype, dp)
     kpos = torch.arange(mb * bs, device=x.device)
     valid = kpos[None, None, :] <= positions[:, :, None]        # (B, S, K)

@@ -26,6 +26,7 @@ def dense(
     *,
     activation: str | None = None,
     out_dtype: torch.dtype | None = None,
+    scale_over=(),
 ) -> torch.Tensor:
     """x @ w (+bias, +activation) through the balanced-GEMM substrate.
 
@@ -35,20 +36,16 @@ def dense(
     takes the dynamic W8A8 path (re-quantized at every call). Otherwise a
     bf16 ``x`` times an f32 ``w`` is promoted to f32 inside the GEMM, as
     the reference's ``dot_general`` does. The result is cast to
-    ``out_dtype`` (default ``x.dtype``).
+    ``out_dtype`` (default ``x.dtype``). ``scale_over``: the W8A8
+    activation scale's mesh axes besides the rows' DP cut
+    (``layers.quantized.activation_scale``; None: local).
     """
     out_dtype = out_dtype or x.dtype
-    if isinstance(w, QuantizedLinear):
+    if cd.is_w8a8(x, w):
         from repro_torch.layers import quantized as qz
 
-        if bias is not None:
-            w = w._replace(bias=bias.to(torch.float32))
-        return qz.qdense(x, w, activation=activation, out_dtype=out_dtype)
-    if current_context().quant_mode == "int8" and x.is_floating_point():
-        from repro_torch.layers import quantized as qz
-
-        return qz.dynamic_qdense(x, w, bias, activation=activation,
-                                 out_dtype=out_dtype)
+        return qz.w8a8(x, w, bias, activation=activation,
+                       out_dtype=out_dtype, scale_over=scale_over)
     return balanced_gemm(x, w, bias, out_dtype=out_dtype,
                          activation=activation)
 
@@ -165,9 +162,12 @@ def model_whole(t: torch.Tensor | None, *, partial: bool):
     this rank's block of the ranks' gradients, summed (``partial``: each
     rank computes with the whole leaf its own share of the rows) or not
     (every rank computes alike). A whole leaf stays as it is, with its
-    gradient summed over 'model' when ``partial``."""
+    gradient summed over 'model' when ``partial``. A ``QuantizedLinear``
+    field by field."""
     if t is None or tp_size() == 1:
         return t
+    if isinstance(t, QuantizedLinear):
+        return QuantizedLinear(*(model_whole(f, partial=partial) for f in t))
     dim = block_dim(t)
     if dim is None:
         return cd.copy_to_model(t, tp_mesh()) if partial else t

@@ -46,7 +46,8 @@ one shard that is the k order).
 
 The router is a float (d, E) f32 GEMM through ``layers.common.dense``
 (the fat GEMM kernel on the card; under ``quant_mode="int8"`` the dynamic
-W8A8 path, as the reference's). The expert products are batched matmuls
+W8A8 path, as the reference's, its activation scale over this shard's
+rows only: the reference computes it inside ``shard_map``). The expert products are batched matmuls
 on per-call casts of the tables (and per-call dequantizations of
 pre-quantized ones), as the reference's ``jnp.einsum`` outside any Pallas
 kernel.
@@ -194,7 +195,9 @@ def _live(token_mask, B: int, S: int, device) -> torch.Tensor:
 
 
 def _route(p: MoeParams, xf, top_k: int, norm_topk: bool):
-    logits = cm.dense(xf.to(torch.float32), p.w_router)
+    # a W8A8 router's activation scale is this shard's, as the
+    # reference's ``shard_map`` body computes it
+    logits = cm.dense(xf.to(torch.float32), p.w_router, scale_over=None)
     return _top_k_gates(logits, top_k, norm_topk)
 
 

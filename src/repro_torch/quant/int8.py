@@ -55,13 +55,17 @@ def _broadcast(scale: torch.Tensor, ndim: int, axis: int | None
     return scale.reshape(shape)
 
 
-def absmax_scale(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
+def absmax_scale(x: torch.Tensor, axis: int | None = None, *,
+                 reduce=None) -> torch.Tensor:
     """Symmetric absmax calibration scale (1.0 for all-zero inputs).
 
     axis=None -> per-tensor 0-d scale; axis=i -> per-channel scales for
-    channels on axis ``i`` (reduced over every other axis).
+    channels on axis ``i`` (reduced over every other axis). ``reduce``
+    maps the local absmax before the scale is taken: a MAX over the ranks
+    that hold the rest of the tensor (``core.distributed.scale_max``).
     """
-    return _safe_scale(_absmax(x, axis))
+    amax = _absmax(x, axis)
+    return _safe_scale(amax if reduce is None else reduce(amax))
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor,
@@ -80,12 +84,16 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
     return q.to(torch.float32) * torch.where(scale > 0.0, scale, 1.0)
 
 
-def quantize_block(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_block(x: torch.Tensor, reduce=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize KV pool blocks ``(..., block_size, Hkv, Dh)`` to int8 with
     per-block, per-kv-head scales ``(..., Hkv)`` (the token and feature
-    axes reduced away). All-zero blocks get scale 1.0, never 0."""
+    axes reduced away). All-zero blocks get scale 1.0, never 0.
+    ``reduce`` maps the ``(..., Hkv)`` absmax before the scale is taken (a
+    pool whose head_dim lies over 'model': the MAX over its ranks)."""
     x = x.to(torch.float32)
-    scale = _safe_scale(x.abs().amax(dim=(-3, -1)))
+    amax = x.abs().amax(dim=(-3, -1))
+    scale = _safe_scale(amax if reduce is None else reduce(amax))
     q = (x / scale[..., None, :, None]).round_()
     return q.clamp_(-QMAX, QMAX).to(torch.int8), scale
 

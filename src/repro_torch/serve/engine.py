@@ -57,8 +57,8 @@ rank runs the whole host schedule: the scheduler, the budget controller
 and sampling (the same seeds) read the same logits and
 the same clock, rank 0's reading broadcast over the mesh at every reading
 (counted under the ``clock`` kind, apart from the steps' bytes). Each
-step's collective bytes and host seconds are kept by phase tag
-(``step_bytes``, ``step_s``).
+step's collective bytes (in all and by kind) and host seconds are kept by
+phase tag (``step_bytes``, ``step_kinds``, ``step_s``).
 
 Observability (``repro_torch.obs``), off unless a tracer is passed: the
 tracer records phase spans (``expire``, ``bind``, ``prefill-chunk``,
@@ -168,6 +168,7 @@ class ServeEngine:
         if mesh is not None and mesh.size > 1:
             self._now = self._mesh_clock(self._now)
         self.step_bytes: dict[str, list[int]] = {}
+        self.step_kinds: dict[str, list[dict[str, int]]] = {}
         self.step_s: dict[str, list[float]] = {}
         # with token_log a list: (request id, token index, token, top-2
         # margin, top logit) of every committed token, and first_logits
@@ -234,10 +235,9 @@ class ServeEngine:
         self.prefix_cache_enabled = bool(prefix_cache)
         self.prefix_cache_blocks = prefix_cache_blocks
         self._quantized = quantized = interop.is_quantized(params)
-        check_mesh_family(cfg, mesh, quantized, self.kv_dtype.quantized)
+        check_mesh_family(cfg, mesh)
         if self.spec:
-            check_mesh_family(spec_draft_cfg, mesh,
-                              interop.is_quantized(spec_draft_params))
+            check_mesh_family(spec_draft_cfg, mesh)
         if self.paged:
             self.kv_block_size = int(kv_block_size)
             # default pool: full contiguous capacity (+ the null block)
@@ -325,6 +325,7 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
         self.step_s.setdefault(tag, []).append(time.perf_counter() - t0)
         self.step_bytes.setdefault(tag, []).append(counter.total)
+        self.step_kinds.setdefault(tag, []).append(counter.by_kind())
         return out
 
     @property
@@ -367,7 +368,7 @@ class ServeEngine:
         self.tracer.reset()
         self.attrib.reset_run()
         self.clock_bytes = cd.CollectiveCounter()
-        self.step_bytes, self.step_s = {}, {}
+        self.step_bytes, self.step_kinds, self.step_s = {}, {}, {}
         self._t0 = self._now()
         if self.state is None:
             self.state = self._new_state(self.device)

@@ -99,12 +99,11 @@ class ServeArtifacts:
                 for k, v in batch.items()}
 
 
-def check_mesh_family(cfg: ModelConfig, mesh, quantized: bool = False,
-                      kv_quantized: bool = False) -> None:
-    """Raise for what the static server and the engines do not run over
-    ``mesh``: a family outside :data:`MESH_FAMILIES`, int8 weights over a
-    'model' axis above 1 (a W8A8 activation scale spans every row) and the
-    engine's int8 KV pool over one (``kv_quantized``)."""
+def check_mesh_family(cfg: ModelConfig, mesh) -> None:
+    """Raise for a family the static server and the engines do not run
+    over ``mesh``: one outside :data:`MESH_FAMILIES` (ROADMAP queue 1,
+    item 2). int8 weights (W8A8, tensor-parallel over 'model') and the
+    engine's int8 KV pool run over any mesh."""
     if mesh is None:
         return
     if cfg.family not in MESH_FAMILIES:
@@ -112,14 +111,6 @@ def check_mesh_family(cfg: ModelConfig, mesh, quantized: bool = False,
             f"serving the {cfg.family} family over a mesh: ROADMAP queue 1, "
             f"item 2 (the static server and the engines run {MESH_FAMILIES} "
             "over a mesh)")
-    if quantized and mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            "int8 over 'model' (a W8A8 activation scale spans every row): "
-            "ROADMAP queue 1, item 3")
-    if kv_quantized and mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            "the int8 KV pool over 'model' (its head_dim layout needs a "
-            "per-block max over 'model'): ROADMAP queue 1, item 9")
 
 
 def make_serve_step(cfg: ModelConfig, *, device, mesh=None,

@@ -72,7 +72,9 @@ from repro_torch.core.plancache import PlanCache
 from repro_torch.interop import tree_items
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
+from repro_torch.layers import attention as attn
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.fsdp import ShardPlan
 from repro_torch.quant.prequant import quantize_params
 from repro_torch.train.servestep import check_mesh_family
 
@@ -614,13 +616,49 @@ def test_engine_refusals_name_their_roadmap_items():
             moe, Mesh(("data", "model"), (2, 2)), num_slots=2, max_len=16,
             prompt_pad=8, kv_block_size=4, prefill_chunk=4)
     assert cells["decode"]["by_collective"]["all_to_all"] > 0
+    # int8 weights and the int8 pool run over 'model' (items 3 and 9, no
+    # longer refused): the paged tick on the abstract mesh counts the
+    # W8A8 scales' MAX reductions beside the float tick's collectives, and
+    # the pool lies by its kv heads (qwen-smoke's 4 over 'model' = 2, the
+    # scales split with them) or its head_dim (over 8, the scales whole)
     cfg = C.smoke(C.get_config("qwen1.5-4b"))
-    params = models.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 over 'model'.*"
-                                                  "item 3"):
-        TS.ServeEngine(cfg, quantize_params(params), mesh=abstract,
-                       num_slots=2, max_len=16, prompt_pad=8,
-                       kv_block_size=4)
-    with pytest.raises(NotImplementedError, match="int8 KV pool.*item 9"):
-        TS.ServeEngine(cfg, params, mesh=abstract, num_slots=2, max_len=16,
-                       prompt_pad=8, kv_block_size=4, kv_quantize="int8")
+    for shape, layout, hkv in (((1, 2), "heads", 2), ((1, 8), "head_dim",
+                                                      4)):
+        mesh = Mesh(("data", "model"), shape)
+        got = {q: _paged_tick(cfg, mesh, q) for q in (False, True)}
+        assert got[True][1] == [hkv] * 2
+        assert got[True][0].pop("scale_max") > 0
+        assert got[True][0] == got[False][0]
+        specs = shd.param_specs(models.axes(cfg), models.init(
+            cfg, device="meta"), mesh)
+        pool = models.init_decode_state(
+            cfg, 2, 16, per_slot=True, kv_block_size=4, num_kv_blocks=9,
+            kv_dtype="int8", device="meta")["kv"]
+        with use_context(mesh=mesh, shard=ShardPlan(mesh, specs)):
+            assert attn._pool_layout(pool, cfg.n_kv_heads,
+                                     cfg.head_dim) == layout
+
+
+def _paged_tick(cfg, mesh, int8: bool) -> tuple[dict, list]:
+    """One paged tick of 2 lanes on an abstract mesh, float or with int8
+    weights (pre-quantized) and the int8 pool: (its collective bytes by
+    kind, the local scales' trailing dims)."""
+    from repro_torch.core.distributed import CollectiveCounter
+    from repro_torch.train.servestep import make_paged_engine_step
+
+    with use_context(plan_cache=PlanCache()):
+        art = make_paged_engine_step(
+            cfg, max_len=16, kv_block_size=4, num_kv_blocks=9,
+            chunk_buckets=(4,), device="meta", num_slots=2, mesh=mesh,
+            quantized=int8, kv_dtype="int8" if int8 else None)
+        params = models.init(cfg, device="meta")
+        params = art.layout.shard_params(
+            quantize_params(params) if int8 else params)
+        state = art.init_state("meta")
+        tokens = torch.zeros((2, 1), dtype=torch.int64, device="meta")
+        with CollectiveCounter() as c:
+            art.decode_raw(params, state, tokens,
+                           torch.ones(2, dtype=torch.int64, device="meta"))
+    scales = [] if not int8 else [state["kv"].k_scale.shape[-1],
+                                  state["kv"].v_scale.shape[-1]]
+    return c.by_kind(), scales

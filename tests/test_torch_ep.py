@@ -744,16 +744,24 @@ def test_launcher_serves_moe_int8_over_data(tmp_path):
     """``torchrun ... launch.serve --arch olmoe-1b-7b --mesh 2x1 --quantize
     int8``: int8 expert tables over 'data' (the ranks load one at a time,
     the warm-up plans the quantized tree's blocks): both ranks serve the
-    same tokens with zero lazy solves."""
+    same tokens with zero lazy solves, and the one-device server whose MoE
+    layers run ``moe_ep_plain`` over the same 2 shards (the mesh's
+    semantics: each shard's capacities and its router's W8A8 scale)
+    serves the same tokens, every step's logits within 1e-4 of 1 + |logit|
+    (the attention's, the dense projections' and the unembed's W8A8 scales
+    span both ranks' rows)."""
+    from repro_torch.launch import serve
+
     prefix = str(tmp_path / "q")
+    args = ["--arch", ARCH, "--smoke", "--device", "cpu", "--plan-cache", "",
+            "--quantize", "int8"]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
            "OMP_NUM_THREADS": "1"}
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
          "2", "--master-addr", "localhost", "--master-port",
-         str(_free_port()), "-m", "repro_torch.launch.serve", "--arch",
-         ARCH, "--smoke", "--mesh", "2x1", "--device", "cpu",
-         "--plan-cache", "", "--quantize", "int8", "--record-out", prefix],
+         str(_free_port()), "-m", "repro_torch.launch.serve", *args,
+         "--mesh", "2x1", "--record-out", prefix],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=240)
     assert run.returncode == 0, run.stderr[-3000:]
     assert "[mesh] 2x1" in run.stdout and "lazy_solves=0" in run.stdout
@@ -761,3 +769,16 @@ def test_launcher_serves_moe_int8_over_data(tmp_path):
             for r in range(2)]
     assert torch.equal(recs[0]["tokens"], recs[1]["tokens"])
     assert recs[0]["prefill_by_kind"]["all_to_all"] > 0
+    assert recs[0]["prefill_by_kind"]["scale_max"] > 0
+    saved = moe.moe_ffn
+    moe.moe_ffn = lambda p, x, **kw: moe.moe_ep_plain(p, x, 2, **kw)
+    try:
+        with use_context(plan_cache=PlanCache()):
+            serve.main(args + ["--record-out", str(tmp_path / "one")])
+    finally:
+        moe.moe_ffn = saved
+    one = torch.load(str(tmp_path / "one.rank0.pt"), weights_only=False)
+    assert torch.equal(recs[0]["tokens"], one["tokens"])
+    for step, want in enumerate(one["logits"]):
+        got = torch.cat([rec["logits"][step] for rec in recs])
+        assert _rel(got, want) <= TIE, step

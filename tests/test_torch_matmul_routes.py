@@ -10,6 +10,9 @@ tested here:
   product equal to the JAX package's f32 ``matmul_ref`` at the f32
   tolerance (1e-5 of the largest value: both sides are f32 sums of the same
   exact products in another order);
+* the CPU's int8 product (``torch._int_mm`` on operands with plain
+  strides): the JAX package's exact int32 product, size-1 dimensions,
+  both layouts and strided operands included;
 * the route rule: dtypes, B's layout, 16-byte alignment and M -> route;
 * the split-K partition: every k once, whole bk steps, partials summed in
   split order;
@@ -101,6 +104,38 @@ def test_three_pass_product_matches_f32_reference(M, K, N, layout):
                 if layout == "col" else
                 ref.split_bf16x3(torch.from_numpy(b))[0].float())
     assert np.abs(one.double().numpy() - want).max() > 1e-5 * peak
+
+
+@pytest.mark.parametrize("M,K,N,layout,strided", [
+    (5, 1, 7, "col", False), (1, 3, 5, "row", False),
+    (4, 2560, 1280, "col", False), (3, 17, 9, "col", True),
+    (1, 64, 1, "row", True), (33, 100, 64, "row", True)])
+def test_int8_product_on_the_cpu_is_exact(M, K, N, layout, strided):
+    """The plain int8 x int8 -> int32 product on CPU tensors equals the JAX
+    package's, whatever the operands' strides (a size-1 dimension's stride
+    is free, and a slice keeps its parent's row stride)."""
+    shape = (N, K) if layout == "col" else (K, N)
+    a = RNG.integers(-128, 128, size=(M, K + 3 * strided), dtype=np.int8)
+    b = RNG.integers(-128, 128, size=(shape[0], shape[1] + 5 * strided),
+                     dtype=np.int8)
+    a, b = a[:, :K], b[:, :shape[1]]
+    want = np.asarray(RR.matmul_ref(jnp.asarray(a), jnp.asarray(b),
+                                    out_dtype=jnp.int32, b_layout=layout))
+    ta = torch.from_numpy(np.ascontiguousarray(
+        np.pad(a, ((0, 0), (0, 3 * strided)))))[:, :K]
+    tb = torch.from_numpy(np.ascontiguousarray(
+        np.pad(b, ((0, 0), (0, 5 * strided)))))[:, :shape[1]]
+    got = ref.matmul_ref(ta, tb, out_dtype=torch.int32, b_layout=layout)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_int8_product_on_the_cpu_is_exact_at_the_extremes():
+    a = torch.full((3, 70000), -128, dtype=torch.int8)
+    b = torch.full((70000, 9), -128, dtype=torch.int8)
+    got = ref.matmul_ref(a, b, out_dtype=torch.int32)
+    assert torch.equal(got, torch.full((3, 9), 70000 * 128 * 128,
+                                       dtype=torch.int32))
 
 
 @pytest.mark.parametrize("M,a,b,layout,aligned,want", [

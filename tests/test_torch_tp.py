@@ -8,8 +8,9 @@ exactly: a tensor-parallel MLP call is one all-reduce of its (B, S, d) f32
 output, an attention block in 'heads' mode one more, 'seq' mode gathers
 k, v and the output rows. Also here: which leaves a plan keeps as 'model'
 blocks, the mode rule, the dry run's model-FLOPs ratio on the production
-mesh, the refusals (families and int8 the static server does not run over
-'model', the cache's sequence fallback, backends), and the launcher under
+mesh, the refusals (families the static server does not run over
+'model', the cache's sequence fallback, backends) and the W8A8 MLP's
+count over 'model', and the launcher under
 torchrun on 8 CPU ranks against the one-device server.
 """
 import os
@@ -159,9 +160,14 @@ def test_refusals():
         make_serve_step(C.smoke(C.get_config("rwkv6-3b")), device="meta",
                         mesh=abstract)
     cfg = C.smoke(C.get_config("qwen1.5-4b"))
+    # W8A8 runs over 'model' (no longer refused): the row-parallel w_out's
+    # int32 partials take the float partials' all-reduce bytes, and its
+    # activation scale and its float weight's per-channel absmax each one
+    # MAX over 'model'
     with use_context(quant_mode="int8"):
-        with pytest.raises(NotImplementedError, match="int8 over 'model'"):
-            _count(cfg, (1, 2), lambda lp, x: mlp_lib.mlp(lp["mlp"], x))
+        got = _count(cfg, (1, 2), lambda lp, x: mlp_lib.mlp(lp["mlp"], x))
+    assert got == {"all_reduce": B * S * cfg.d_model * 4,
+                   "scale_max": 4 + 4 * cfg.d_model}
     # neither 4 kv heads nor head_dim 16 divide 'model' = 32
     lp, plan = _layer0(cfg, Mesh(("data", "model"), (1, 32)))
     with use_context(mesh=plan.mesh, shard=plan):

@@ -219,7 +219,7 @@ ends the run with a non-zero exit:
 15. tensor parallelism over 'model' with two ranks on the one card: a (1,
    2) (data, model) mesh over gloo (``--backend gloo``: each collective
    staged through host memory, the products on the kernels), one process
-   a rank under ``torchrun --nproc-per-node 2`` (phases 15-18's nine such
+   a rank under ``torchrun --nproc-per-node 2`` (phases 15-19's 13 such
    jobs start together, MESH_SLOTS at a time, beside this process's
    one-device yardsticks): 15a ``launch.serve
    --mesh 1x2`` at qwen1.5-4b's full width, 2 layers (4 x 128, 16
@@ -271,6 +271,26 @@ ends the run with a non-zero exit:
    near-tie, the ranks equal), zero lazy solves, every product on the fat
    GEMM, the bytes by kind the float step's dry-run cell's plus the W8A8
    scales' ``scale_max``, 18b's pool half; 3a holds the 'model' blocks.
+19. the static server over phase 15's (1, 2) mesh for the other
+   families, tensor-parallel inside their own layers: 19a rwkv6-3b at 2
+   layers (its time-mix on a rank's 20 heads, the WKV kernel on (4, 128,
+   20, 64), the channel-mix's FFN split; the WKV state's key-dim block
+   taken to a rank's heads and back by an all-to-all), 19b zamba2-1.2b at
+   2 layers (layer 0 carries the shared block; Mamba-2 on a rank's 32 SSM
+   heads, one product with w_in's stored block and its outputs
+   all-gathered, the gated norm's sum of
+   squares all-reduced, the conv state whole on both ranks), 19c
+   whisper-base whole, 19d llama-3.2-vision-11b at 5 layers (one group:
+   its 4 self layers and its cross layer; nonzero gates would need the
+   reference's init, which zeroes them). Each through ``launch.serve
+   --mesh 1x2`` (4 x 128, 16 tokens) against the same path on one device
+   in this process, 15a's gates: the first logits within PATH_TOL, the
+   tokens to the first near-tie, the ranks equal, zero lazy solves, each
+   rank's launches the one-device rule at the local shapes (whisper's
+   decoder MLP out, row-parallel, loses its bias to the sum and moves to
+   the GEMV), the prefill's and each decode step's bytes by kind the dry
+   run's; each rank's peak beside the one device's. 3a holds the local
+   GEMM and GEMV shapes, 3b the WKV kernel on a rank's 20 heads.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -688,6 +708,49 @@ CASES = [
          out_dtype="float32"),
     Case("tp engine unembed block B=8 f32 out", "gemv", 8, 2560, 75968,
          out_dtype="float32"),
+    # the other families over 'model' = 2 (phase 19): a rank's local
+    # shapes at prefill (512 rows) and decode (4). rwkv6-3b: r, k, v, g on
+    # 20 heads (1280 columns), the decay's up-projection on their columns
+    # (K = 32: the fat GEMM at every M), the channel-mix's wk + relu on
+    # 4480 columns, wo and wv row-parallel with f32 partial sums, the
+    # vocabulary block; zamba2-1.2b: the block of w_in's columns a rank
+    # stores (8384 / 2: its outputs are all-gathered, then a rank takes
+    # z and x of its 32 heads, B and C, dt of its heads), w_out
+    # row-parallel, the vocabulary block; whisper-base's decoder MLP out
+    # and wo row-parallel on the GEMV (the bias after the sum); the
+    # vision model's w_out block
+    Case("tp rwkv r/k/v/g", "matmul", 512, 2560, 1280),
+    Case("tp rwkv decay up-projection", "matmul", 512, 32, 1280),
+    Case("tp rwkv cmix wk + relu", "matmul", 512, 2560, 4480,
+         activation="relu"),
+    Case("tp rwkv wo f32 out", "matmul", 512, 1280, 2560,
+         out_dtype="float32"),
+    Case("tp rwkv cmix wv f32 out", "matmul", 512, 4480, 2560,
+         out_dtype="float32"),
+    Case("tp rwkv decode r/k/v/g", "gemv", 4, 2560, 1280),
+    Case("tp rwkv decode decay up-projection", "matmul", 4, 32, 1280),
+    Case("tp rwkv decode cmix wk + relu", "matmul", 4, 2560, 4480,
+         activation="relu"),
+    Case("tp rwkv decode wo f32 out", "gemv", 4, 1280, 2560,
+         out_dtype="float32"),
+    Case("tp rwkv decode cmix wv f32 out", "gemv", 4, 4480, 2560,
+         out_dtype="float32"),
+    Case("tp rwkv unembed block f32 out", "gemv", 4, 2560, 32768,
+         out_dtype="float32"),
+    Case("tp zamba2 w_in block", "matmul", 512, 2048, 4192),
+    Case("tp zamba2 w_out f32 out", "matmul", 512, 2048, 2048,
+         out_dtype="float32"),
+    Case("tp zamba2 decode w_in block", "gemv", 4, 2048, 4192),
+    Case("tp zamba2 decode w_out f32 out", "gemv", 4, 2048, 2048,
+         out_dtype="float32"),
+    Case("tp zamba2 unembed block f32 out", "gemv", 4, 2048, 16000,
+         out_dtype="float32"),
+    Case("tp whisper decode MLP out f32 out", "gemv", 4, 1024, 512,
+         out_dtype="float32"),
+    Case("tp whisper decode wo f32 out", "gemv", 4, 256, 512,
+         out_dtype="float32"),
+    Case("tp vision decode w_out f32 out", "gemv", 4, 7168, 4096,
+         out_dtype="float32"),
 ] + [
     # the W8A8 path (--quantize int8): int8 x int8, B (N, K), out_scale
     # s_x * s_w; every shape a path gives split_k (static decode M = 4,
@@ -1066,6 +1129,10 @@ WKV_CASES = [
     WkvCase("adversarial decay (1, 2, 64, 32)", 1, 2, 64, 32,
             w0=(-8.0, 1.2), tol=1e-3),
     WkvCase("path heads bf16 B4 T128 H40 N64", 4, 40, 128, 64, heads=True),
+    # a rank's 20 heads over 'model' = 2 (phase 19a): (4, 128, 20, 64)
+    # views of its column-parallel projections
+    WkvCase("tp path heads bf16 B4 T128 H20 N64", 4, 20, 128, 64,
+            heads=True),
     WkvCase("unaligned heads bf16 (2, 4, 64, 16)", 2, 4, 64, 16, heads=True,
             offset=1),
 ]
@@ -4087,10 +4154,18 @@ def _records(torch, where: str, tag: str) -> list:
             for r in range(2)]
 
 
+def _static_args(arch: str, layers: int | None,
+                 extra: list[str] = ()) -> list[str]:
+    """The static server's arguments (4 x 128, 16 tokens), ``layers`` None:
+    the full depth."""
+    return (["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+             str(PROMPT), "--gen", str(GEN), "--plan-cache", ""]
+            + ([] if layers is None else ["--n-layers", str(layers)])
+            + list(extra))
+
+
 def _tp_static_args(extra: list[str]) -> list[str]:
-    return ["--arch", "qwen1.5-4b", "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN), "--plan-cache", "",
-            "--n-layers", str(TP_CUT)] + extra
+    return _static_args("qwen1.5-4b", TP_CUT, extra)
 
 
 def _tp_train_args() -> list[str]:
@@ -4124,7 +4199,7 @@ def _int8_engine_args() -> list[str]:
 
 
 def start_mesh_jobs() -> _Jobs:
-    """Phases 15-18's jobs, in the order the phases read them."""
+    """Phases 15-19's jobs, in the order the phases read them."""
     serve = ["-m", "repro_torch.launch.serve"]
     os.makedirs(os.path.join(ROOT, "build", "phase15"), exist_ok=True)
     prog = os.path.join(ROOT, "build", "phase17", "ep_layer.py")
@@ -4148,7 +4223,9 @@ def start_mesh_jobs() -> _Jobs:
              + _mesh(TP_MESH, "phase18", "int8_tp")),
         _Job("18b", serve + _int8_engine_args()
              + _mesh(TP_MESH, "phase18", "engine")),
-    ])
+    ] + [_Job(label, serve + _static_args(arch, layers)
+              + _mesh(TP_MESH, "phase19", label))
+         for label, (arch, layers) in FAMILY_TP.items()])
 
 
 def _lines(out: str, heads: tuple[str, ...]) -> str:
@@ -4189,14 +4266,16 @@ def tp_serve(torch, jobs: _Jobs) -> dict[str, int]:
     return _tp_static(torch, jobs, "15a", [])
 
 
-def _tp_static(torch, jobs: _Jobs, label: str,
-               extra: list[str]) -> dict[str, int]:
-    """15a (float) and 18a (``extra`` = ``--quantize int8``): the static
-    server over the (1, 2) mesh at TP_CUT layers against the same path at
-    1 x 1 in this process. The collective bytes by kind are the float
-    step's dry-run cell's, and besides them (int8) the W8A8 scales' MAX
-    over 'model': one 4-byte absmax for each row-parallel product (wo and
-    w_out a layer)."""
+def _tp_static(torch, jobs: _Jobs, label: str, extra: list[str],
+               arch: str = "qwen1.5-4b", layers: int | None = TP_CUT
+               ) -> dict[str, int]:
+    """15a (float), 18a (``extra`` = ``--quantize int8``) and 19a-19d
+    (``arch`` at ``layers``, None: the full depth): the static server over
+    the (1, 2) mesh against the same path at 1 x 1 in this process. The
+    collective bytes by kind are the float step's dry-run cell's, and
+    besides them (int8) the W8A8 scales' MAX over 'model': one 4-byte
+    absmax for each row-parallel product (wo and w_out a layer). The
+    launches: the one-device rule at the local shapes (``_tp_rule``)."""
     import dataclasses as dc
 
     from repro_torch import configs as C
@@ -4205,32 +4284,30 @@ def _tp_static(torch, jobs: _Jobs, label: str,
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
 
-    arch = "qwen1.5-4b"
     quant = "--quantize" in extra
-    args = _tp_static_args(extra)
+    args = _static_args(arch, layers, extra)
     phase(f"{label} tensor-parallel static server"
           + (" with int8 weights (W8A8 over 'model')" if quant else "")
           + f": torchrun --nproc-per-node 2 -m repro_torch.launch.serve "
-          f"--mesh {TP_MESH} --backend gloo " + " ".join(args)
+          f"--mesh {TP_MESH} --backend gloo " + " ".join(
+              a if a else "''" for a in args)
           + " (full width), against the same path at 1 x 1 in this process")
     t0 = time.perf_counter()
-    ref, recs = _tp_serve_run(torch, jobs, label, args,
-                              "int8_tp" if quant else "tp_cut",
-                              "phase18" if quant else "phase15")
-    cfg = dc.replace(C.get_config(arch), n_layers=TP_CUT)
+    tag, where = (("int8_tp", "phase18") if quant else ("tp_cut", "phase15")
+                  if label == "15a" else (label, "phase19"))
+    ref, recs = _tp_serve_run(torch, jobs, label, args, tag, where)
+    cfg = C.get_config(arch)
+    if layers is not None:
+        cfg = dc.replace(cfg, n_layers=layers).validate()
     with use_context(hw="h100", plan_cache=PlanCache()):
         abstract = Mesh(("data", "model"), (1, 2))
         want_pre = dryrun.serve_cell(cfg, abstract, "prefill", BATCH,
                                      PROMPT)["cost"]["by_collective"]
         want_dec = dryrun.serve_cell(cfg, abstract, "decode", BATCH,
                                      PROMPT + GEN + 1)["cost"]["by_collective"]
-    L = TP_CUT
+    L = cfg.n_layers
     scale = 2 * 4 * L if quant else 0
-    if quant:  # 4c's rule at the cut depth: every product on the fat GEMM
-        rule = {"matmul": (GEN + 1) * (7 * L + 1), "gemv": 0, "wkv": 0}
-    else:
-        rule = {"matmul": 7 * L + GEN * 4 * L, "gemv": 1 + GEN * (3 * L + 1),
-                "wkv": 0}
+    rule = _tp_rule(cfg, quant)
     pre_err = _logit_err(recs[0]["logits"][0], ref["logits"][0])
     # greedy tokens: each row up to its first position whose 1 x 1 top-2
     # margin is within the tolerance
@@ -4273,14 +4350,14 @@ def _tp_static(torch, jobs: _Jobs, label: str,
                 any(k.get("scale_max", 0) != scale for k in steps):
             failed.append(f"rank {r} collective bytes differ from the dry "
                           "run's" + (" plus scale_max" if quant else ""))
-    print(f"{TP_CUT} layers: prefill logits max |tp - one| / (1 + |one|) = "
+    print(f"{L} layers: prefill logits max |tp - one| / (1 + |one|) = "
           f"{pre_err:.4g} (tol {PATH_TOL}); greedy tokens equal at "
           f"{same}/{held} positions whose top-2 margin exceeds {PATH_TOL}; "
           f"the ranks' tokens equal: "
           f"{torch.equal(recs[0]['tokens'], recs[1]['tokens'])}; phase "
           f"{label} {time.perf_counter() - t0:.1f}s", flush=True)
     if not pre_err <= PATH_TOL:
-        failed.append(f"prefill logits at {TP_CUT} layers {pre_err} > "
+        failed.append(f"prefill logits at {L} layers {pre_err} > "
                       f"{PATH_TOL}")
     counts = recs[0]["launches"]
     del recs, ref
@@ -4288,6 +4365,55 @@ def _tp_static(torch, jobs: _Jobs, label: str,
     if failed:
         raise SystemExit(f"{label}: " + "; ".join(failed))
     return counts
+
+
+def _tp_rule(cfg, quant: bool = False) -> dict[str, int]:
+    """A rank's launches of the static server over 'model' = 2 (prefill,
+    GEN decode steps): the one-device rule of PATHS at ``cfg``'s depth, at
+    the local shapes. qwen1.5-4b int8 (4c): every product fat. whisper:
+    the decoder's MLP out is row-parallel, its bias added after the sum,
+    so at decode its local product has no epilogue and takes the GEMV
+    (7 fat GEMMs and 3 GEMVs a decoder layer a step, 8 and 2 on one
+    device); every other family's local products keep their kernel."""
+    L, g = cfg.n_layers, GEN
+    if quant:
+        return {"matmul": (g + 1) * (7 * L + 1), "gemv": 0, "wkv": 0}
+    if cfg.family == "rwkv":
+        return {"matmul": 11 * L + g * 3 * L, "gemv": 1 + g * (8 * L + 1),
+                "wkv": L}
+    if cfg.family == "hybrid":
+        S = -(-L // cfg.shared_attn_every)  # shared-block calls
+        return {"matmul": 2 * L + 7 * S + g * S,
+                "gemv": 1 + g * (2 * L + 6 * S + 1), "wkv": 0}
+    if cfg.family == "encdec":
+        return {"matmul": 6 * cfg.n_encoder_layers + 10 * L + g * 7 * L,
+                "gemv": 1 + g * (3 * L + 1), "wkv": 0}
+    if cfg.family == "vlm":
+        X = L // cfg.cross_attn_every  # cross layers
+        return {"matmul": 7 * L + g * ((L - X) + 3 * X),
+                "gemv": 1 + g * (6 * (L - X) + 4 * X + 1), "wkv": 0}
+    return {"matmul": 7 * L + g * 4 * L, "gemv": 1 + g * (3 * L + 1),
+            "wkv": 0}
+
+
+# ------------------------------------------------------------ phase 19
+# the static server over the (1, 2) mesh for the other families, each
+# tensor-parallel inside its own layers (module docstring, 19): label:
+# (arch, layers; None: the full depth). rwkv6-3b at TP_CUT layers, zamba2
+# at 2 (layer 0 runs the shared block), whisper-base whole, the vision
+# model at one group (4 self layers and the cross layer)
+FAMILY_TP = {"19a": ("rwkv6-3b", TP_CUT), "19b": ("zamba2-1.2b", 2),
+             "19c": ("whisper-base", None),
+             "19d": ("llama-3.2-vision-11b", 5)}
+
+
+def family_tp(torch, jobs: _Jobs) -> dict[str, dict[str, int]]:
+    """19a-19d: each family's static server over the (1, 2) mesh against
+    the same path on one device; a rank's launches by family."""
+    return {f"{arch} tp serve (1x2, a rank, "
+            f"{'all' if layers is None else layers} layers)":
+            _tp_static(torch, jobs, label, [], arch, layers)
+            for label, (arch, layers) in FAMILY_TP.items()}
 
 
 def tp_train(torch, jobs: _Jobs) -> dict[str, int]:
@@ -5030,7 +5156,7 @@ def main() -> int:
     train_cpu = train_vs_cpu_start()
     pools = []  # the background jobs' pools (14c's launcher, 15-18)
     try:
-        more, train_bwd, dist_rows = _phases_7_to_18(torch, profile,
+        more, train_bwd, dist_rows = _phases_7_to_19(torch, profile,
                                                      train_cpu, pools)
     finally:
         _stop(train_cpu)
@@ -5073,8 +5199,8 @@ def main() -> int:
     return 0
 
 
-def _phases_7_to_18(torch, profile: bool, train_cpu, pools: list):
-    """Phases 7-18, 13c's CPU runs beside them in ``train_cpu``; the mesh
+def _phases_7_to_19(torch, profile: bool, train_cpu, pools: list):
+    """Phases 7-19, 13c's CPU runs beside them in ``train_cpu``; the mesh
     jobs' pool goes to ``pools`` (for ``main`` to stop). Returns the launch
     counts by path, 13a's records and 14a's."""
     counts = {}
@@ -5156,7 +5282,7 @@ def _phases_7_to_18(torch, profile: bool, train_cpu, pools: list):
     dist_rows = dist_gemms(torch)
     dist_pipeline(torch)
     counts["qwen1.5-4b mesh train launcher"] = dist_train(torch, smoke)
-    # 15-18: the two-rank jobs, started together (MESH_SLOTS at a time),
+    # 15-19: the two-rank jobs, started together (MESH_SLOTS at a time),
     # beside 14d and the rest of 13c
     jobs = start_mesh_jobs()
     pools.append(jobs)
@@ -5185,6 +5311,9 @@ def _phases_7_to_18(torch, profile: bool, train_cpu, pools: list):
         int8_tp_serve(torch, jobs)
     counts["qwen1.5-4b int8 tp engine (1x2, a rank, 2 layers)"] = \
         int8_tp_engine(torch, jobs)
+    # 19: the static server over the same mesh for the rwkv, hybrid,
+    # encoder-decoder and vision families
+    counts.update(family_tp(torch, jobs))
     return counts, train_bwd, dist_rows
 
 

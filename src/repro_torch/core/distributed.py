@@ -246,6 +246,23 @@ def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
+def resplit(t: torch.Tensor, mesh, axis: str, have: int, want: int
+            ) -> torch.Tensor:
+    """``t``, this rank's block along dim ``have`` over ``axis``, as its
+    block along dim ``want`` (whole along ``have``): one
+    :func:`all_to_all` of ``t`` cut along ``want``, the blocks received
+    joined along ``have`` in source order."""
+    n = mesh.axis_size(axis)
+    if n == 1 or have == want:
+        return t
+    if t.shape[want] % n:
+        raise ValueError(f"dim {want} of {tuple(t.shape)} does not split "
+                         f"over {axis} ({n})")
+    x = t.unflatten(want, (n, t.shape[want] // n)).movedim(want, 0)
+    return all_to_all(x.contiguous(), mesh, axis).movedim(0, have).flatten(
+        have, have + 1)
+
+
 def broadcast(t: torch.Tensor, mesh, axis: str, src: int,
               kind: str = "broadcast") -> torch.Tensor:
     """``t`` of the rank at ``src`` along ``axis``, on every rank of it (in

@@ -32,11 +32,13 @@ collective helpers counting bytes and moving nothing). Per cell:
   bucket or the admission, the verify pass and the draft's steps);
 * the wall seconds of the cell.
 
-The rwkv and hybrid families' serve cells are recorded as skipped: their
-decode states are split over 'model', which their layers do not consume
-(``train.servestep``). The hybrid family's train and prefill cells are
-recorded as skipped (``UNCOUNTED``): its SSM scan is a Python loop over
-the tokens, which the meta device runs token by token.
+Every family's serve cells are counted: the rwkv and hybrid families'
+layers are tensor-parallel over 'model' and read and write their decode
+states' blocks (an all-to-all takes the WKV state, whose key dim the
+reference's rule splits over 'model', to this rank's heads and back).
+The hybrid family's train and prefill cells are recorded as skipped
+(``UNCOUNTED``): its SSM scan is a Python loop over the tokens, which the
+meta device runs token by token.
 
 One JSON per cell under ``--out`` (default ``build/dryrun``, which git
 ignores); the exit code is 1 if any cell errs. Usage:

@@ -56,18 +56,21 @@ the CUDA graphs are captured with the refined plans);
 ``--rebalance-drifted`` re-solves the plans the balance auditor flags as
 drifted after a traced run.
 
-With ``--mesh DATAxMODEL`` the static server (the dense and moe families)
-runs over a (data, model) mesh of the world's ranks, one process a rank
-under torchrun: the ranks make the whole model from seed 0 one at a time
-(the others wait at a barrier), each keeping its blocks
-(``parallel.sharding.param_specs``) and freeing the whole before the next
-begins, so the card holds one whole model at a time; each serves its rows
-over 'data', tensor-parallel over 'model', the MoE experts over 'data'
-(expert parallelism); every rank ends with every row's tokens and rank 0
-prints. ``--backend gloo`` puts several ranks on one card (each
-collective staged through host memory); nccl is the default on the card.
-With ``--engine --mesh`` the engine (the dense and moe families; paged,
-contiguous or speculative) runs over the mesh the same way: the ranks make
+With ``--mesh DATAxMODEL`` the static server (every family; int8 for the
+dense and moe families) runs over a (data, model) mesh of the world's
+ranks, one process a rank under torchrun: the ranks make the whole model
+from seed 0 one at a time (the others wait at a barrier), each keeping its
+blocks (``parallel.sharding.param_specs``) and freeing the whole before
+the next begins, so the card holds one whole model at a time; each serves
+its rows over 'data' (encdec's frames and vlm's image embeddings, drawn
+whole as on one device, cut to the same rows), tensor-parallel over
+'model' (attention, the MLPs, RWKV-6's time-mix and channel-mix,
+Mamba-2's SSM heads), the MoE experts over 'data' (expert parallelism);
+every rank ends with every row's tokens and rank 0 prints. ``--backend
+gloo`` puts several ranks on one card (each collective staged through
+host memory); nccl is the default on the card. With ``--engine --mesh``
+the engine (the KV-cache families, dense and moe; paged, contiguous or
+speculative) runs over the mesh the same way: the ranks make
 the model (and the draft) in turn, the engine takes their blocks
 (``ServeEngine(mesh=, blocks=True)``), and every rank runs the whole
 schedule on the same logits and rank 0's clock.
@@ -128,24 +131,27 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
     keeps feeding ``pad_id``. The batch decodes until every row finishes or
     ``gen_len``.
 
-    Over a ``mesh`` (the dense and moe families; ``train.servestep``)
+    Over a ``mesh`` (every family; ``train.servestep``, whose
+    ``check_mesh_family`` refuses int8 outside the dense and moe families)
     ``params`` are this rank's blocks (``make_serve_step(...).
-    shard_params``) and every rank passes the whole batch: each runs its
-    rows over the DP axes, tensor-parallel over 'model', and returns the
-    whole (B, gen_len) (the tokens gathered over the DP axes).
+    shard_params``) and every rank passes the whole batch and ``extras``:
+    each runs its rows over the DP axes (``ServeArtifacts.rows``),
+    tensor-parallel over 'model', and returns the whole (B, gen_len) (the
+    tokens gathered over the DP axes).
 
     ``record`` (a dict), if given, receives what the run measured: the
     logits of the prefill and of each decode step (this rank's rows, f32
     on the host), each step's top-2 margin of the logits that chose its
     token, the collective bytes of the prefill and of each decode step
-    (in all and by kind), and the host seconds of each (synchronized).
+    (in all and by kind), the host seconds of each (synchronized), and
+    the final decode state (``state``: over a mesh this rank's blocks).
     """
     from repro_torch.core.distributed import CollectiveCounter
 
     B = prompts.shape[0]
     device = prompts.device
     quantized = is_quantized(params)
-    check_mesh_family(cfg, mesh)
+    check_mesh_family(cfg, mesh, quantized=quantized)
     art = make_serve_step(cfg, device=device, mesh=mesh, quantized=quantized)
     state = art.init_state(B, max_len)
     inputs = art.rows({"tokens": prompts, **(extras or {})})
@@ -191,6 +197,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
         rec["decode_by_kind"].append(rec.pop("by_kind"))
         rec["decode_s"].append(secs)
         tok = pick(logits)
+    rec["state"] = state
     gen = torch.stack(out, dim=1)
     if gen.shape[1] < gen_len:  # every row hit EOS early: pad the tail
         gen = torch.nn.functional.pad(gen, (0, gen_len - gen.shape[1]),
@@ -678,6 +685,8 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
                 f"{record['prefill_bytes']}, a decode step "
                 f"{sorted(set(record['decode_bytes']))}; peak "
                 f"{_peak_gib(device):.2f} GiB")
+        if record is not None:
+            record.pop("state")
         if args.record_out:
             record.update(
                 tokens=out, launches=launched, lazy_solves=lazy,

@@ -174,6 +174,36 @@ def model_whole(t: torch.Tensor | None, *, partial: bool):
     return cd.gather_from_model(t, tp_mesh(), dim, sum_grad=partial)
 
 
+def _split_dim(shape, full) -> int | None:
+    """The one dim along which ``shape`` is a 'model' block of ``full``
+    (None: whole)."""
+    dims = [d for d, (a, b) in enumerate(zip(shape, full)) if a != b]
+    if len(shape) != len(full) or len(dims) > 1 or (
+            dims and shape[dims[0]] * tp_size() != full[dims[0]]):
+        raise ValueError(f"{tuple(shape)} is not a block over 'model' "
+                         f"({tp_size()}) of {tuple(full)}")
+    return dims[0] if dims else None
+
+
+def relayout(t: torch.Tensor, full, shape) -> torch.Tensor:
+    """``t``, a leaf of shape ``full`` as one rank holds it (whole, or its
+    'model' block along the one dim its shape shows smaller), in the
+    layout that ``shape`` shows: ``t`` itself where they agree, this
+    rank's block of a whole ``t``, the blocks gathered for a whole
+    ``shape``, else one all-to-all over 'model' (``cd.resplit``). A
+    decode state read into the layout a layer computes with, and its new
+    value written back into the state's layout (no gradient)."""
+    have, want = _split_dim(t.shape, full), _split_dim(shape, full)
+    if have == want:
+        return t
+    mesh = tp_mesh()
+    if have is None:
+        return cd.local_block(t, want, mesh, "model")
+    if want is None:
+        return cd.all_gather(t, mesh, "model", have).contiguous()
+    return cd.resplit(t, mesh, "model", have, want)
+
+
 def gathered(lp, path: str = "layers", lead: int = 1):
     """One layer's slice ``lp`` of the stacked parameter subtree at
     ``path``, whole: under a sharded step's plan (the context's ``shard``,

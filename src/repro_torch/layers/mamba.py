@@ -9,6 +9,20 @@ as a Pallas kernel. The scan is a Python loop over the tokens, one
 :func:`_ssd_step` each; the reference's chunked, checkpointed branch (``T %
 64 == 0 and T > 64``) bounds backward storage and computes the same
 forward, so one loop serves every T.
+
+Tensor parallelism over 'model' (under a sharded plan whose extent
+divides the SSM heads and which holds this rank's blocks of ``w_in``,
+``w_out`` and ``norm_g``, :func:`tp_extent`): a rank runs its H/TP
+heads. Its input columns are z and x of its heads, B and C whole and dt
+of its heads. ``w_in``'s stored block of columns cuts across the z | x B
+C | dt segments, so a rank runs one product with the block it holds, the
+ranks' outputs are all-gathered (activations, not the weight) and it
+takes its columns. The conv runs on those channels, the
+SSM scan on its heads; the gated RMSNorm's f32 sum of squares is summed
+over 'model' before the scale, and ``w_out`` is row-parallel (one
+all-reduce). The conv state stays whole on every rank: the ranks' new
+x-channel inputs are all-gathered. Otherwise the leaves are gathered
+whole and every rank computes alike.
 """
 from __future__ import annotations
 
@@ -17,6 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import distributed as cd
 from repro_torch.layers import common as cm
 
 CONV_K = 4  # depthwise causal conv width
@@ -113,14 +128,46 @@ def _ssd_step(state: torch.Tensor, xh, Bt, Ct, dt, a, d_skip
     return new, y
 
 
+def tp_extent(p: MambaParams, n_heads: int) -> int:
+    """The extent of 'model' over which :func:`mamba_block` splits its SSM
+    heads: the active plan's where it divides ``n_heads``, ``w_in`` is
+    this rank's block of columns and ``w_out`` and ``norm_g`` its blocks
+    of rows; else 1 (the leaves whole)."""
+    tp = cm.tp_size()
+    if tp == 1 or n_heads % tp or cm.block_dim(p.w_in) != 1 or \
+            cm.block_dim(p.w_out) != 0 or cm.block_dim(p.norm_g) != 0:
+        return 1
+    return tp
+
+
+def _scan(h, xh, Bf, Cf, dt, a, d_skip):
+    """The SSM recurrence over the tokens: (y (B, T, H, P), last state)."""
+    ys = []
+    for t in range(xh.shape[1]):
+        h, y = _ssd_step(h, xh[:, t], Bf[:, t], Cf[:, t], dt[:, t], a,
+                         d_skip)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
 def mamba_block(p: MambaParams, x: torch.Tensor, *, d_state: int,
                 expand: int = 2, head_dim: int = 64,
-                state: MambaState | None = None
-                ) -> tuple[torch.Tensor, MambaState]:
+                state: MambaState | None = None, state_out: bool = True
+                ) -> tuple[torch.Tensor, MambaState | None]:
     """x: (B, T, d) -> (out, new state). ``state`` None starts from zeros;
-    the new state is returned, the caller writes it where it keeps it."""
-    B, T, d = x.shape
+    the new state is returned (None without ``state_out``), the caller
+    writes it where it keeps it. Tensor-parallel (:func:`tp_extent` above
+    1) the SSM state, read and returned, holds this rank's heads; the conv
+    state is whole."""
+    d = x.shape[-1]
     d_inner, n_heads = dims(d, d_state, expand=expand, head_dim=head_dim)
+    tp = tp_extent(p, n_heads)
+    if tp > 1:
+        return _mamba_tp(p, x, tp, d_state=d_state, d_inner=d_inner,
+                         n_heads=n_heads, head_dim=head_dim, state=state,
+                         state_out=state_out)
+    p = MambaParams(*(cm.model_whole(t, partial=False) for t in p))
+    B, T, d = x.shape
     proj = cm.dense(x, p.w_in)
     z, xbc, dt_raw = torch.split(
         proj, [d_inner, d_inner + 2 * d_state, n_heads], dim=-1)
@@ -131,16 +178,70 @@ def mamba_block(p: MambaParams, x: torch.Tensor, *, d_state: int,
     xs, Bmat, Cmat = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
     dt = F.softplus(dt_raw.float() + p.dt_bias.float())      # (B, T, H)
     a = torch.exp(p.a_log.float())                            # (H,)
-    d_skip = p.d_skip.float()
     xh = xs.float().reshape(B, T, n_heads, head_dim)
-    Bf, Cf = Bmat.float(), Cmat.float()
-    h, ys = state.ssm, []
-    for t in range(T):
-        h, y = _ssd_step(h, xh[:, t], Bf[:, t], Cf[:, t], dt[:, t], a,
-                         d_skip)
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B, T, d_inner)
+    y, h = _scan(state.ssm, xh, Bmat.float(), Cmat.float(), dt, a,
+                 p.d_skip.float())
+    y = y.reshape(B, T, d_inner)
     # gated RMSNorm (Mamba-2): norm(y * silu(z))
     y = y * F.silu(z.float())
     y = cm.rms_norm(y.to(x.dtype), p.norm_g)
-    return cm.dense(y, p.w_out), MambaState(ssm=h, conv=conv_state)
+    return cm.dense(y, p.w_out), MambaState(ssm=h, conv=conv_state) \
+        if state_out else None
+
+
+def _mamba_tp(p: MambaParams, x, tp: int, *, d_state, d_inner, n_heads,
+              head_dim, state, state_out, eps: float = 1e-5):
+    """:func:`mamba_block` on this rank's ``n_heads / tp`` heads."""
+    B, T, _ = x.shape
+    mesh = cm.tp_mesh()
+    r = mesh.axis_index("model")
+    H, dl, N = n_heads // tp, d_inner // tp, d_state
+    at = lambda lo, n: torch.arange(lo, lo + n, device=x.device)
+    # its input columns: z and x of this rank's heads, B and C, dt of its
+    # heads
+    xbc_cols = torch.cat([at(d_inner + r * dl, dl), at(2 * d_inner, 2 * N)])
+    cols = torch.cat([at(r * dl, dl), xbc_cols,
+                      at(2 * d_inner + 2 * N + r * H, H)])
+    # the conv's whole leaves, whose channels feed this rank's heads only:
+    # their gradients are summed over 'model' (B's and C's are partial)
+    whole = lambda t: cm.model_whole(t, partial=True)
+    conv_cols = xbc_cols - d_inner
+    # the product of this rank's stored block of w_in, the blocks' outputs
+    # gathered (each rank reads its own columns of them)
+    proj = cd.gather_from_model(cd.column_parallel(x, p.w_in, mesh=mesh),
+                                mesh, -1, sum_grad=True).index_select(-1, cols)
+    z, xbc, dt_raw = torch.split(proj, [dl, dl + 2 * N, H], dim=-1)
+    if state is None:
+        prefix = torch.zeros((B, CONV_K - 1, dl + 2 * N), dtype=x.dtype,
+                             device=x.device)
+        h0 = torch.zeros((B, H, head_dim, N), dtype=torch.float32,
+                         device=x.device)
+    else:
+        prefix, h0 = state.conv.index_select(-1, conv_cols), state.ssm
+        if tuple(h0.shape[1:]) != (H, head_dim, N):
+            raise ValueError(f"an SSM state of {tuple(h0.shape)} for {H} "
+                             f"heads of {head_dim} a rank")
+    xbc, tail = _causal_conv(xbc, whole(p.conv_w).index_select(-1, conv_cols),
+                             whole(p.conv_b).index_select(-1, conv_cols),
+                             prefix)
+    xs, Bmat, Cmat = torch.split(xbc, [dl, N, N], dim=-1)
+    heads = lambda t: cd.scatter_to_model(t, mesh, 0).float()
+    dt = F.softplus(dt_raw.float() + heads(p.dt_bias))        # (B, T, H)
+    y, h = _scan(h0, xs.float().reshape(B, T, H, head_dim), Bmat.float(),
+                 Cmat.float(), dt, torch.exp(heads(p.a_log)),
+                 heads(p.d_skip))
+    # gated RMSNorm over the whole d_inner: the local f32 sum of squares
+    # summed over 'model' (then consumed by this rank's heads alone, so its
+    # gradient is summed back: copy_to_model)
+    y32 = (y.reshape(B, T, dl) * F.silu(z.float())).to(x.dtype).float()
+    ss = cd.copy_to_model(cd.reduce_from_model(
+        (y32 * y32).sum(-1, keepdim=True), mesh), mesh)
+    y = (y32 * torch.rsqrt(ss / d_inner + eps) * p.norm_g.float()).to(
+        x.dtype)
+    out = cd.row_parallel(y, p.w_out, mesh=mesh, out_dtype=x.dtype)
+    if not state_out:
+        return out, None
+    # the conv state whole on every rank: the ranks' x channels gathered
+    conv = torch.cat([cd.gather_from_model(tail[..., :dl].contiguous(), mesh,
+                                           -1), tail[..., dl:]], dim=-1)
+    return out, MambaState(ssm=h, conv=conv)

@@ -16,6 +16,22 @@ dtypes follow the reference: the LoRA up-projection and the mixing
 coefficients are cast to the activation dtype before use, the decay is
 ``w0`` (f32) plus a dense output rounded to the activation dtype first, and
 the recurrence and the per-head group norm run in f32.
+
+Tensor parallelism over 'model' (under a sharded plan whose extent
+divides the heads, :func:`tp_extent`): the time-mix computes this rank's
+H/TP heads. r, k, v and g are column-parallel on the blocks of ``wr``,
+``wk``, ``wv`` and ``wg`` (whole heads); the decay takes its heads'
+columns of ``w_lora_b`` and slice of ``w0``, the bonus and the group norm
+their slices of ``u``, ``ln_g`` and ``ln_b`` (no collective); the WKV
+recurrence and the group norm run on those heads; ``wo`` is row-parallel
+(one all-reduce). The token shift, the data-dependent mix and its LoRA
+tower are whole, alike on every rank. Where the extent does not divide
+the heads the leaves are gathered whole and every rank computes alike.
+The channel-mix is column-parallel on ``wk``'s block (with the relu) and
+row-parallel on ``wv``'s (one all-reduce); ``wr`` and the gate are whole.
+The layers take the token shifts whole and the WKV state in the layout
+they compute with (this rank's heads, or whole); ``models.lm`` reads and
+writes the decode state's blocks (``layers.common.relayout``).
 """
 from __future__ import annotations
 
@@ -23,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import distributed as cd
 from repro_torch.kernels import wkv as wkv_kernel
 from repro_torch.layers import common as cm
 
@@ -201,37 +218,71 @@ def _wkv_step(state, inputs):
     return new_state, y
 
 
+def tp_extent(p: RwkvTimeMixParams, n_heads: int) -> int:
+    """The extent of 'model' over which :func:`time_mix` splits its heads:
+    the active plan's where it divides ``n_heads`` and ``wr``, ``wk``,
+    ``wv``, ``wg`` are this rank's column blocks and ``wo`` its row block;
+    else 1 (the leaves whole)."""
+    tp = cm.tp_size()
+    if tp == 1 or n_heads % tp or cm.block_dim(p.wo) != 0 or any(
+            cm.block_dim(w) != 1 for w in (p.wr, p.wk, p.wv, p.wg)):
+        return 1
+    return tp
+
+
+def _whole(p):
+    """Every leaf of ``p`` whole over 'model', alike on every rank."""
+    return type(p)(*(cm.model_whole(t, partial=False) for t in p))
+
+
 def time_mix(
     p: RwkvTimeMixParams, x: torch.Tensor, *, n_heads: int,
     state: torch.Tensor | None = None, x_prev: torch.Tensor | None = None,
     eps: float = 1e-5,
 ):
-    """x: (B,T,d). Returns (out, (new_state, last_x)) for recurrent reuse."""
+    """x: (B,T,d). Returns (out, (new_state, last_x)) for recurrent reuse.
+    Tensor-parallel (:func:`tp_extent` above 1) ``state`` and the new
+    state hold this rank's heads (B, H/TP, N, N); ``x_prev`` and the last
+    x are whole."""
     B, T, d = x.shape
-    H, N = n_heads, d // n_heads
+    tp = tp_extent(p, n_heads)
+    if tp == 1:
+        p = _whole(p)
+        proj = cm.dense
+        heads = lambda t, dim=0: t
+    else:
+        mesh = cm.tp_mesh()
+        proj = lambda a, w: cd.column_parallel(a, w, mesh=mesh)
+        # this rank's heads of a whole leaf: its block, no collective
+        heads = lambda t, dim=0: cd.scatter_to_model(t, mesh, dim)
+    H, N = n_heads // tp, d // n_heads
+    dl = H * N
     sx = _token_shift(x, x_prev) - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, sx).unbind(2)
 
-    r = cm.dense(xr, p.wr).reshape(B, T, H, N)
-    k = cm.dense(xk, p.wk).reshape(B, T, H, N)
-    v = cm.dense(xv, p.wv).reshape(B, T, H, N)
-    g = cm.dense(xg, p.wg)
+    r = proj(xr, p.wr).reshape(B, T, H, N)
+    k = proj(xk, p.wk).reshape(B, T, H, N)
+    v = proj(xv, p.wv).reshape(B, T, H, N)
+    g = proj(xg, p.wg)
     g = g * _sigmoid(g)  # jax.nn.silu
     # data-dependent decay w_t in (0, 1): exp(-exp(w0 + lora(xw)))
-    wlog = p.w0.float() + cm.dense(
-        torch.tanh(cm.dense(xw, p.w_lora_a)), p.w_lora_b).float()
-    u = p.u.float().reshape(H, N)
+    wlog = heads(p.w0).float() + proj(
+        torch.tanh(cm.dense(xw, p.w_lora_a)), heads(p.w_lora_b, 1)).float()
+    u = heads(p.u).float().reshape(H, N)
 
     if state is None:
         state = torch.zeros((B, H, N, N), dtype=torch.float32,
                             device=x.device)
+    elif tuple(state.shape[1:]) != (H, N, N):
+        raise ValueError(f"a WKV state of {tuple(state.shape)} for {H} "
+                         f"heads of {N} a rank")
 
     if T % CHUNK == 0 and T > CHUNK:
         # the kernel reads r, k, v and the log decay as (B,T,H,N) where
         # they lie and writes y in that layout: no copy on the card
         log_w = (-torch.exp(wlog)).reshape(B, T, H, N)
         y, new_state = wkv_kernel.wkv_heads(r, k, v, log_w, u, state)
-        y = y.reshape(B, T, d)
+        y = y.reshape(B, T, dl)
     else:
         w = torch.exp(-torch.exp(wlog)).reshape(B, T, H, N)
         ub = u.expand(B, H, N)
@@ -241,14 +292,18 @@ def time_mix(
                 r[:, t].float(), k[:, t].float(), v[:, t].float(), w[:, t],
                 ub))
             ys.append(y_t)
-        y = torch.stack(ys, dim=1).reshape(B, T, d)
+        y = torch.stack(ys, dim=1).reshape(B, T, dl)
     # per-head group norm (its own eps, not the model's norm_eps)
     yh = y.reshape(B, T, H, N)
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + eps)
-    y = yh.reshape(B, T, d) * p.ln_g.float() + p.ln_b.float()
-    out = cm.dense(y.to(x.dtype) * g, p.wo)
+    y = yh.reshape(B, T, dl) * heads(p.ln_g).float() + heads(p.ln_b).float()
+    if tp == 1:
+        out = cm.dense(y.to(x.dtype) * g, p.wo)
+    else:
+        out = cd.row_parallel(y.to(x.dtype) * g, p.wo, mesh=mesh,
+                              out_dtype=x.dtype)
     return out, (new_state, x[:, -1])
 
 
@@ -256,10 +311,19 @@ def channel_mix(
     p: RwkvChannelMixParams, x: torch.Tensor,
     x_prev: torch.Tensor | None = None,
 ):
+    """x: (B,T,d), ``x_prev`` whole. Returns (out, last_x). Under a
+    tensor-parallel plan that holds ``wk``'s column block and ``wv``'s row
+    block, the squared-relu FFN runs on this rank's block of it."""
     sx = _token_shift(x, x_prev) - x
     xk = x + sx * p.mu_k.to(x.dtype)
     xr = x + sx * p.mu_r.to(x.dtype)
-    k = cm.dense(xk, p.wk, activation="relu")
-    kv = cm.dense(k * k, p.wv)  # squared ReLU
-    r = _sigmoid(cm.dense(xr, p.wr))
+    if cm.block_dim(p.wk) == 1 and cm.block_dim(p.wv) == 0:
+        mesh = cm.tp_mesh()
+        k = cd.column_parallel(xk, p.wk, mesh=mesh, activation="relu")
+        kv = cd.row_parallel(k * k, p.wv, mesh=mesh, out_dtype=x.dtype)
+    else:
+        p = _whole(p)
+        k = cm.dense(xk, p.wk, activation="relu")
+        kv = cm.dense(k * k, p.wv)  # squared ReLU
+    r = _sigmoid(cm.dense(xr, cm.model_whole(p.wr, partial=False)))
     return r * kv, x[:, -1]

@@ -278,9 +278,18 @@ def _ffn(cfg: ModelConfig, lp, x, token_mask=None):
     return _ffn_aux(cfg, lp, x, token_mask)[0]
 
 
-def _rwkv_block(cfg: ModelConfig, lp, x, tmix_state=None,
-                shifts=(None, None)):
-    """Returns (x, (wkv state, time-mix shift, channel-mix shift))."""
+def _rwkv_block(cfg: ModelConfig, lp, x, prev=None):
+    """Returns (x, (wkv state, time-mix shift, channel-mix shift)) in the
+    layout the layers compute with (``rwkv.time_mix``). ``prev``: the
+    layer's views of the decode state (wkv, att_shift, ffn_shift) as this
+    rank holds them (``decode_state_specs``), read into that layout."""
+    tmix_state, shifts = None, (None, None)
+    if prev is not None:
+        B, d, H = x.shape[0], cfg.d_model, cfg.n_heads
+        N = d // H
+        local = H // rwkv_lib.tp_extent(lp["tmix"], H)
+        tmix_state = cm.relayout(prev[0], (B, H, N, N), (B, local, N, N))
+        shifts = tuple(cm.relayout(t, (B, d), (B, d)) for t in prev[1:])
     h = apply_norm(cfg, lp["ln1"], x)
     y, (new_state, last_att) = rwkv_lib.time_mix(
         lp["tmix"], h, n_heads=cfg.n_heads, state=tmix_state,
@@ -316,20 +325,33 @@ def _hybrid_layer(params, cfg: ModelConfig, i: int, x, state=None,
     """Layer ``i`` of the hybrid stack: its Mamba block, then the shared
     block where ``i % shared_attn_every == 0``. With ``state`` (prefill:
     the Mamba block starts from zeros; decode: from the state) the layer's
-    SSM state and conv inputs are written back in place, and the shared
-    block's K/V go to layer i's slot of the cache; the other slots are
-    left as they are. ``lp``: layer ``i``'s tree, if already taken."""
+    SSM state and conv inputs are written back in place, in the layout
+    this rank holds them (``decode_state_specs``; ``layers.common.
+    relayout``), and the shared block's K/V go to layer i's slot of the
+    cache; the other slots are left as they are. ``lp``: layer ``i``'s
+    tree, if already taken."""
     if lp is None:
         lp = cm.gathered(_layer(params["layers"], i))
-    prev = (mb.MambaState(ssm=state["ssm"][i], conv=state["conv"][i])
-            if mode == "decode" else None)
+    B = x.shape[0]
+    d_inner, H = mb.dims(cfg.d_model, cfg.ssm_state, expand=cfg.ssm_expand,
+                         head_dim=cfg.ssm_head_dim)
+    full = {"ssm": (B, H, cfg.ssm_head_dim, cfg.ssm_state),
+            "conv": (B, mb.CONV_K - 1, d_inner + 2 * cfg.ssm_state)}
+    prev = None
+    if mode == "decode":
+        local = dict(full, ssm=(B, H // mb.tp_extent(lp["mamba"], H),
+                                *full["ssm"][2:]))
+        prev = mb.MambaState(**{k: cm.relayout(state[k][i], full[k],
+                                               local[k]) for k in full})
     y, new = mb.mamba_block(
         lp["mamba"], apply_norm(cfg, lp["ln1"], x), d_state=cfg.ssm_state,
-        expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, state=prev)
+        expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, state=prev,
+        state_out=state is not None)
     x = x + y
     if state is not None:
-        state["ssm"][i].copy_(new.ssm)
-        state["conv"][i].copy_(new.conv)
+        for k in full:
+            dst = state[k][i]
+            dst.copy_(cm.relayout(getattr(new, k), full[k], dst.shape))
     if i % (cfg.shared_attn_every or cfg.n_layers + 1) == 0:
         cache = None
         if state is not None:
@@ -347,11 +369,16 @@ def _hybrid_layers(params, cfg: ModelConfig, x, state=None,
     return x
 
 
-def _write_rwkv_state(state, i: int, new) -> None:
-    """Layer ``i``'s new (wkv, att_shift, ffn_shift) into the stacked
-    decode state, in place."""
-    for key, t in zip(("wkv", "att_shift", "ffn_shift"), new):
-        state[key][i].copy_(t)
+def _write_rwkv_state(cfg: ModelConfig, state, i: int, new) -> None:
+    """Layer ``i``'s new (wkv, att_shift, ffn_shift), as ``_rwkv_block``
+    computed them, into the stacked decode state in place, in the layout
+    this rank holds it (``layers.common.relayout``)."""
+    B, d, H = new[1].shape[0], cfg.d_model, cfg.n_heads
+    N = d // H
+    for key, t, full in zip(("wkv", "att_shift", "ffn_shift"), new,
+                            ((B, H, N, N), (B, d), (B, d))):
+        dst = state[key][i]
+        dst.copy_(cm.relayout(t, full, dst.shape))
 
 
 # ---------------------------------------------------------------- forward
@@ -554,7 +581,7 @@ def prefill(params, tokens, cfg: ModelConfig, state, last_pos=None):
         for i in range(cfg.n_layers):
             x, new = _rwkv_block(cfg, cm.gathered(_layer(params["layers"], i)),
                                  x)
-            _write_rwkv_state(state, i, new)
+            _write_rwkv_state(cfg, state, i, new)
     elif cfg.family == "hybrid":
         x = _hybrid_layers(params, cfg, x, state, mode="prefill")
         state["kv"].length.fill_(tokens.shape[1])
@@ -639,9 +666,9 @@ def decode_step(params, tokens, cfg: ModelConfig, state, active=None):
         for i in range(cfg.n_layers):
             x, new = _rwkv_block(
                 cfg, cm.gathered(_layer(params["layers"], i)), x,
-                tmix_state=state["wkv"][i],
-                shifts=(state["att_shift"][i], state["ffn_shift"][i]))
-            _write_rwkv_state(state, i, new)
+                prev=tuple(state[k][i] for k in ("wkv", "att_shift",
+                                                  "ffn_shift")))
+            _write_rwkv_state(cfg, state, i, new)
         h = apply_norm(cfg, params["final_norm"], x)
         return _logits(params, cfg, h)[:, 0], state
     kv = state["kv"]

@@ -13,13 +13,18 @@ an all-reduce; then the mean over the DP extent; over 'model', this rank's
 slice (every rank along 'model' computed the same whole leaf).
 
 Tensor parallelism: a leaf of an attention or MLP block (``AttnParams``,
-``MlpParams``) and the vocab-split embedding and unembedding keep their
-'model' block. They are gathered over the DP axes only, marked
-(``core.distributed.mark_model_block``) and consumed as blocks by the
-layers (column- and row-parallel products, the vocab-parallel lookup,
-unembedding and loss): their gradient is already this rank's block, so
-``reduce_grad`` takes no slice over 'model' for them. Any other leaf
-(rwkv's, Mamba-2's) is gathered whole as before.
+``MlpParams``), RWKV-6's time-mix projections (``wr``, ``wk``, ``wv``,
+``wg``, ``wo``) and channel-mix FFN (``wk``, ``wv``), Mamba-2's
+``w_in``, ``w_out`` and ``norm_g``, and the vocab-split embedding and
+unembedding keep their 'model' block. They are gathered over the DP axes
+only, marked (``core.distributed.mark_model_block``) and consumed as
+blocks by the layers (column- and row-parallel products, the
+vocab-parallel lookup, unembedding and loss): their gradient is already
+this rank's block, so ``reduce_grad`` takes no slice over 'model' for
+them. Any other leaf (RWKV-6's LoRA towers, per-channel vectors and
+channel-mix ``wr``; Mamba-2's conv and per-head vectors) is gathered
+whole as before; a layer that does not split its heads over 'model'
+gathers its blocks too (``layers.common.model_whole``).
 
 Expert parallelism: a MoE expert table (a leaf with the logical axis
 'expert', split over 'data') is gathered over nothing. Each rank computes
@@ -45,8 +50,10 @@ from repro_torch.core import distributed as cd
 from repro_torch.core.context import current_context, use_context
 from repro_torch.interop import tree_items, tree_map_with_path
 from repro_torch.layers.attention import AttnParams
+from repro_torch.layers.mamba import MambaParams
 from repro_torch.layers.mlp import MlpParams
 from repro_torch.layers.moe import MoeParams
+from repro_torch.layers.rwkv import RwkvChannelMixParams, RwkvTimeMixParams
 from repro_torch.parallel import sharding as shd
 
 # the top-level leaves split over 'vocab', consumed vocab-parallel
@@ -77,9 +84,18 @@ def _paths(specs, enters, path: str = "", inside: bool = False):
         yield path
 
 
+# the fields of the other layers' parameter tuples that the layers consume
+# as 'model' blocks
+TP_FIELDS = {RwkvTimeMixParams: {"wr", "wk", "wv", "wg", "wo"},
+             RwkvChannelMixParams: {"wk", "wv"},
+             MambaParams: {"w_in", "w_out", "norm_g"}}
+
+
 def _tp_paths(specs):
-    """The paths of the leaves inside an attention or MLP block."""
-    return _paths(specs, lambda c, f: isinstance(c, (AttnParams, MlpParams)))
+    """The paths of the leaves inside an attention or MLP block, and of
+    the :data:`TP_FIELDS` leaves."""
+    return _paths(specs, lambda c, f: isinstance(c, (AttnParams, MlpParams))
+                  or f in TP_FIELDS.get(type(c), ()))
 
 
 def _expert_paths(specs):

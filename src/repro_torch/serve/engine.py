@@ -235,7 +235,7 @@ class ServeEngine:
         self.prefix_cache_enabled = bool(prefix_cache)
         self.prefix_cache_blocks = prefix_cache_blocks
         self._quantized = quantized = interop.is_quantized(params)
-        check_mesh_family(cfg, mesh)
+        check_mesh_family(cfg, mesh, quantized=quantized)
         if self.spec:
             check_mesh_family(spec_draft_cfg, mesh)
         if self.paged:

@@ -30,13 +30,10 @@ from repro_torch.parallel import fsdp
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.graphs import CapturedStep
 
-# the families the static server and the engines run over a mesh
-# (tensor-parallel over 'model'; moe by expert parallelism over 'data');
-# the others raise (ROADMAP queue 1, item 2)
-MESH_FAMILIES = ("dense", "moe")
-# families whose recurrent decode state decode_state_specs splits over
-# 'model', which their layers do not consume as blocks
-STATE_FAMILIES = ("rwkv", "hybrid")
+# the families whose int8 serving (W8A8) runs over a mesh; the others
+# raise (ROADMAP queue 1, item 11). In float every family serves over a
+# mesh (the engines the KV-cache families)
+INT8_MESH_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -99,34 +96,39 @@ class ServeArtifacts:
                 for k, v in batch.items()}
 
 
-def check_mesh_family(cfg: ModelConfig, mesh) -> None:
-    """Raise for a family the static server and the engines do not run
-    over ``mesh``: one outside :data:`MESH_FAMILIES` (ROADMAP queue 1,
-    item 2). int8 weights (W8A8, tensor-parallel over 'model') and the
-    engine's int8 KV pool run over any mesh."""
+def check_mesh_family(cfg: ModelConfig, mesh, *,
+                      quantized: bool = False) -> None:
+    """Raise for what the static server and the engines do not run over
+    ``mesh``: int8 weights (``quantized``, or the context's
+    ``quant_mode="int8"``) for a family outside
+    :data:`INT8_MESH_FAMILIES` (ROADMAP queue 1, item 11). Every family
+    serves over any mesh in float; the int8 weights and the engine's int8
+    KV pool of the dense and moe families too."""
     if mesh is None:
         return
-    if cfg.family not in MESH_FAMILIES:
+    int8 = quantized or current_context().quant_mode == "int8"
+    if int8 and cfg.family not in INT8_MESH_FAMILIES:
         raise NotImplementedError(
-            f"serving the {cfg.family} family over a mesh: ROADMAP queue 1, "
-            f"item 2 (the static server and the engines run {MESH_FAMILIES} "
-            "over a mesh)")
+            f"int8 serving of the {cfg.family} family over a mesh: ROADMAP "
+            f"queue 1, item 11 (int8 runs over a mesh for "
+            f"{INT8_MESH_FAMILIES})")
 
 
 def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
                     quantized: bool = False) -> ServeArtifacts:
     """The static-batch server's steps, for every ported family; over a
-    ``mesh`` (the dense and moe families) sharded: each step runs under
-    the mesh and a ``parallel.fsdp.ShardPlan`` in ``no_grad``, the layers'
-    leaves gathered over the DP axes, tensor-parallel over 'model', the
-    MoE expert tables this rank's blocks (expert parallelism). A mesh with
-    an axis above 1 runs the decode step eager (a CUDA graph cannot
-    capture a ``gloo`` collective); a 1 x 1 mesh keeps the captured
-    step. ``quantized``: the params are ``quant.prequant.quantize_params``'
-    tree (its specs follow ``quantize_axes``). The families it serves over
-    a mesh are :data:`MESH_FAMILIES` (:func:`check_mesh_family`, which the
-    callers apply); on an abstract mesh it runs any family, for the dry
-    run's count."""
+    ``mesh`` sharded: each step runs under the mesh and a
+    ``parallel.fsdp.ShardPlan`` in ``no_grad``, the layers' leaves
+    gathered over the DP axes, tensor-parallel over 'model' (attention,
+    the MLPs, RWKV-6's time-mix and channel-mix, Mamba-2's heads), the MoE
+    expert tables this rank's blocks (expert parallelism), the decode
+    state this rank's blocks (``decode_state_specs``), which the layers
+    read and write in their own layout. A mesh with an axis above 1 runs
+    the decode step eager (a CUDA graph cannot capture a ``gloo``
+    collective); a 1 x 1 mesh keeps the captured step. ``quantized``: the
+    params are ``quant.prequant.quantize_params``' tree (its specs follow
+    ``quantize_axes``); what it refuses over a mesh is
+    :func:`check_mesh_family`'s, which the callers apply."""
 
     def decode(params, state, tokens):
         return models.decode_step(params, tokens, cfg, state)[0]
@@ -138,11 +140,6 @@ def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
         return ServeArtifacts(decode_fn=CapturedStep(decode, device),
                               prefill_fn=prefill, decode_raw=decode,
                               cfg=cfg, device=device)
-    if cfg.family in STATE_FAMILIES and mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            f"the {cfg.family} family's decode state over 'model' (its "
-            "time-mix / SSM layers compute with whole leaves and states): "
-            "ROADMAP queue 1, item 2")
     lay = _layout(cfg, mesh, None, quantized=quantized)
     decode_raw = _sharded(lay, decode)
     eager = any(n > 1 for n in mesh.shape)
@@ -368,7 +365,7 @@ def make_engine_step(cfg: ModelConfig, *, max_len: int, prompt_pad: int,
     prompt_pad) prompt; so each is one graph, and steady-state traffic
     issues one fixed GEMM-signature set.
 
-    Over a ``mesh`` (the dense and moe families, :func:`check_mesh_family`)
+    Over a ``mesh`` (the KV-cache families, dense and moe)
     the steps run sharded (:func:`_sharded`): the params this rank's blocks
     (``layout.shard_params``), the state too (``decode_state_specs``:
     the lanes over DP where its extent divides them, else the sequence,

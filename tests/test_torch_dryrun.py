@@ -292,3 +292,20 @@ def test_moe_cells_count_all_to_all_and_no_expert_gather(arch, tmp_path):
     for path, t in tree_items(got["moe"]):
         if path != "w_router":
             assert t.shape[0] == E // 16 and t.numel() == E * d * f // 256
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_recurrent_families_decode_cells_are_counted(arch, tmp_path):
+    """The rwkv and hybrid decode cells on the 16 x 16 mesh run to ``ok``
+    (their serve steps tensor-parallel over 'model', the decode states
+    read and written as their blocks), with all-reduces over 'model'
+    counted; zamba2's prefill cell stays skipped (the SSM scan's token
+    loop on the meta device)."""
+    with use_context(plan_cache=PlanCache()):
+        rec = dryrun.run_cell(arch, "decode_32k", False, str(tmp_path))
+        assert rec["status"] == "ok", rec.get("trace")
+        assert rec["cost"]["by_collective"]["all_reduce"] > 0
+        assert rec["memory"]["decode_state_bytes_per_device"] > 0
+        if arch == "zamba2-1.2b":
+            pre = dryrun.run_cell(arch, "prefill_32k", False, str(tmp_path))
+            assert pre["status"] == "skipped" and "SSM scan" in pre["reason"]

@@ -603,10 +603,23 @@ def test_launcher_engine_over_a_mesh(tmp_path):
 
 def test_engine_refusals_name_their_roadmap_items():
     abstract = Mesh(("data", "model"), (1, 2))
-    # the refusal that remains of item 2: rwkv's time-mix over 'model'
+    # rwkv serves over 'model' (item 2, no longer refused): its static
+    # decode step on the abstract mesh is tensor-parallel, one all-reduce
+    # of the (B, 1, d) f32 partials for the time-mix's wo and one for the
+    # channel-mix's wv a layer, and the vocab-parallel lookup's; int8
+    # over a mesh is refused (item 11), and so is its engine (the engines
+    # serve the KV-cache families)
     rwkv = C.smoke(C.get_config("rwkv6-3b"))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        check_mesh_family(rwkv, abstract)
+    check_mesh_family(rwkv, abstract)
+    with use_context(plan_cache=PlanCache()):
+        dec = dryrun.serve_cell(rwkv, abstract, "decode", 2, 8)
+    assert dec["cost"]["by_collective"]["all_reduce"] == \
+        (2 * rwkv.n_layers + 1) * 2 * rwkv.d_model * 4
+    with pytest.raises(NotImplementedError, match="item 11"):
+        check_mesh_family(rwkv, abstract, quantized=True)
+    with pytest.raises(ValueError, match="KV-cache family"):
+        TS.ServeEngine(rwkv, models.init(rwkv, device="meta"), num_slots=2,
+                       max_len=16, prompt_pad=8, mesh=abstract)
     # the moe engine runs over a mesh (expert parallelism): its steps on
     # the abstract mesh count all-to-alls over 'data'
     moe = C.smoke(C.get_config("olmoe-1b-7b"))

@@ -8,8 +8,9 @@ exactly: a tensor-parallel MLP call is one all-reduce of its (B, S, d) f32
 output, an attention block in 'heads' mode one more, 'seq' mode gathers
 k, v and the output rows. Also here: which leaves a plan keeps as 'model'
 blocks, the mode rule, the dry run's model-FLOPs ratio on the production
-mesh, the refusals (families the static server does not run over
-'model', the cache's sequence fallback, backends) and the W8A8 MLP's
+mesh, the refusals (int8 over a mesh for the families outside dense
+and moe, the cache's sequence fallback, backends) beside the other
+families' decode all-reduces over 'model', and the W8A8 MLP's
 count over 'model', and the launcher under
 torchrun on 8 CPU ranks against the one-device server.
 """
@@ -148,17 +149,40 @@ def test_dryrun_train_cell_useful_flops_ratio(tmp_path):
     assert rec["cost"]["by_collective"]["all_reduce"] > 0
 
 
+def _decode_all_reduce(cfg, shape) -> int:
+    """The all-reduce bytes of the static server's decode step of B rows
+    on an abstract mesh."""
+    art = make_serve_step(cfg, device="meta", mesh=Mesh(("data", "model"),
+                                                        shape))
+    params = art.shard_params(models.init(cfg, device="meta"))
+    state = art.init_state(B, 8)
+    with use_context(plan_cache=PlanCache()), CollectiveCounter() as c:
+        art.decode_raw(params, state, torch.zeros((B, 1), dtype=torch.int64,
+                                                  device="meta"))
+    return c.by_kind()["all_reduce"]
+
+
 def test_refusals():
-    abstract = Mesh(("data", "model"), (1, 2))
-    for arch in ("rwkv6-3b", "zamba2-1.2b", "whisper-base"):
+    # every family serves over 'model' (no longer refused): the decode
+    # step's all-reduces of (B, 1, d) f32 partials over 'model' = 2 (the
+    # vocab-parallel lookup's, and a layer's row-parallel products: rwkv's
+    # time-mix wo and channel-mix wv, Mamba-2's w_out beside its gated
+    # norm's (B, 1, 1) sum of squares and the shared block's attention
+    # and MLP at layer 0, whisper's decoder self, cross and MLP); int8
+    # over a mesh is refused for them (ROADMAP queue 1, item 11)
+    row = B * C.smoke(C.get_config("qwen1.5-4b")).d_model * 4
+    want = {"rwkv6-3b": (1 + 2 * 2) * row,
+            "zamba2-1.2b": (1 + 2 + 2) * row + 2 * B * 4,
+            "whisper-base": (1 + 3 * 2) * row}
+    for arch, n in want.items():
         cfg = C.smoke(C.get_config(arch))
-        tokens = torch.zeros((2, 4), dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve_batch(cfg, {}, tokens, gen_len=1, max_len=6,
-                        mesh=abstract)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_serve_step(C.smoke(C.get_config("rwkv6-3b")), device="meta",
-                        mesh=abstract)
+        assert cfg.d_model * 4 * B == row and cfg.n_layers == 2
+        assert _decode_all_reduce(cfg, (1, 2)) == n
+        with use_context(quant_mode="int8"), pytest.raises(
+                NotImplementedError, match="item 11"):
+            serve_batch(cfg, {}, torch.zeros((2, 4), dtype=torch.int64),
+                        gen_len=1, max_len=6,
+                        mesh=Mesh(("data", "model"), (1, 2)))
     cfg = C.smoke(C.get_config("qwen1.5-4b"))
     # W8A8 runs over 'model' (no longer refused): the row-parallel w_out's
     # int32 partials take the float partials' all-reduce bytes, and its

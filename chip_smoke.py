@@ -176,9 +176,8 @@ ends the run with a non-zero exit:
    (dA = dC . W^T with W read in the other layout, dB = A^T . dC, the silu
    gate's recomputed pre-activation; the f32 cotangents' dA on the CUDA
    cores) against their plain versions with their times, bounds and
-   ``torch.mm``'s, and every kernel wrapper (WKV's two, the fat GEMM's,
-   the GEMV's) raising, not launching, on a CUDA tensor that requires
-   grad; 13b ``train.trainstep.make_train_step`` at batch 8 x 128 from
+   ``torch.mm``'s, and the GEMM wrappers (the fat GEMM's, the GEMV's)
+   raising, not launching, on a CUDA tensor that requires grad; 13b ``train.trainstep.make_train_step`` at batch 8 x 128 from
    ``data.synthetic`` (seed 0), 5 steps: finite losses, every parameter
    leaf's gradient finite and nonzero after step 1, zero lazy solves
    after step 1, fat-GEMM and GEMV launches a step equal to the dispatch
@@ -297,6 +296,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2138,11 +2138,13 @@ def verify_vs_decode(torch) -> None:
 
 
 # ------------------------------------------------------------ phase 6
-def _traced(torch, fn) -> tuple[list, object, float]:
+def _traced(torch, fn, cpu: bool = True) -> tuple[list, object, float]:
     """Run ``fn`` once under ``torch.profiler``: (device rows (self device
-    us, count, name) of kernels and copies, the profile, wall s)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    us, count, name) of kernels and copies, the profile, wall s).
+    ``cpu=False`` records the device's activity only (a step of tens of
+    thousands of host ops: the host-side records cost tens of seconds)."""
+    acts = [torch.profiler.ProfilerActivity.CPU] if cpu else []
+    acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -3359,12 +3361,12 @@ def _train_rule(cfg, batch: int, seq: int) -> dict[str, int]:
 
 def check_train_kernels(torch) -> list[dict]:
     """13a: the backward's GEMMs at 13b's shapes against their plain
-    versions, timed; and every kernel wrapper raising, not launching, on a
-    CUDA tensor that requires grad (WKV has no backward kernel)."""
+    versions, timed; and the GEMM wrappers raising, not launching, on a
+    CUDA tensor that requires grad (the WKV wrappers' autograd Function is
+    phase 20a's)."""
     from repro_torch import configs as C
     from repro_torch.kernels import decode_matvec as tmv
     from repro_torch.kernels import matmul as tmm
-    from repro_torch.kernels import wkv
 
     phase("13a the training step's backward GEMMs against their plain "
           "versions (on the card), at 13b's shapes")
@@ -3373,21 +3375,14 @@ def check_train_kernels(torch) -> list[dict]:
              if c.name.startswith("bwd")]
     results = check_cases(torch, cases)
     d = lambda *shape, **kw: torch.randn(*shape, device="cuda", **kw)
-    B, T, H, N = 1, 32, 2, 64
     calls = {
-        "wkv_heads": lambda: wkv.wkv_heads(
-            d(B, T, H, N, requires_grad=True), d(B, T, H, N), d(B, T, H, N),
-            -d(B, T, H, N).abs(), d(H, N), d(B, H, N, N)),
-        "wkv": lambda: wkv.wkv(
-            d(H, T, N, requires_grad=True), d(H, T, N), d(H, T, N),
-            -d(H, T, N).abs(), d(H, N), d(H, N, N)),
         "matmul": lambda: tmm.matmul(
             d(64, 256, requires_grad=True).bfloat16(), d(256, 128),
             bm=64, bk=64, bn=128),
         "decode_matvec": lambda: tmv.decode_matvec(
             d(4, 256), d(256, 128, requires_grad=True), bk=256, bn=128),
     }
-    before = (tmm.launches, tmv.launches, wkv.launches)
+    before = (tmm.launches, tmv.launches)
     for name, call in calls.items():
         try:
             call()
@@ -3396,7 +3391,7 @@ def check_train_kernels(torch) -> list[dict]:
             continue
         raise SystemExit(f"{name} launched on a CUDA tensor that requires "
                          "grad: its gradient would be dropped")
-    if (tmm.launches, tmv.launches, wkv.launches) != before:
+    if (tmm.launches, tmv.launches) != before:
         raise SystemExit("a kernel launched before refusing autograd")
     return results
 
@@ -5115,6 +5110,676 @@ def int8_tp_engine(torch, jobs: _Jobs) -> dict[str, int]:
     return counts
 
 
+# ------------------------------------------------------------ phase 20
+# training the rwkv, hybrid, encoder-decoder, vision and MoE families on
+# the card. 20a: the WKV backward kernel against its plain version (the
+# autograd gradient of wkv_ref), tolerance 2e-4 of max(1, a gradient's
+# peak): the forward's rtol = atol = 2e-4 at unit scale, carried to
+# gradients whose peaks run to the thousands (du sums over b and t). A
+# gradient the Function hands back in bf16 (dr, dk, dv of bf16 r, k, v)
+# also carries its one rounding, 2^-8 of its magnitude.
+WKV_BWD_TOL = 2e-4
+WKV_BWD_CASES = (
+    # name, B, H, T, N, decays that reach the min(mid - ci, 60) clamp
+    ("train B8 T128 H40 N64", 8, 40, 128, 64, False),
+    ("train B2 T256 H40 N64", 2, 40, 256, 64, False),
+    ("clamp at 60 B2 T128 H40 N64", 2, 40, 128, 64, True),
+)
+RWKV_TRAIN_STEPS = 5       # 20b: rwkv6-3b whole; the last step traced
+FAMILY_TRAIN_STEPS = 3     # 20d
+# 20d's depth cuts (None: whole): olmoe's f32 AdamW state is ~16 bytes a
+# parameter and its 16 layers hold ~6.9 G parameters, so 4; zamba2 at
+# ZAMBA_STEP_CUT's 7 (the shared block at layers 0 and 6; its SSM loops
+# over the tokens in the forward, the recompute and the backward); vision
+# one group of 5 (4 self layers and the cross layer)
+FAMILY_TRAIN = {"20d olmoe": ("olmoe-1b-7b", 4),
+                "20d zamba2": ("zamba2-1.2b", 7),
+                "20d whisper": ("whisper-base", None),
+                "20d vision": ("llama-3.2-vision-11b", 5)}
+REMAT_PEAK = ("whisper-base", "llama-3.2-vision-11b")
+# whisper's unrotated key biases: the port's gradient is exactly 0 (the
+# softmax takes their q . b_k away; a documented departure, ROADMAP
+# section 3), and at
+# their zero init the weight decay leaves them at 0
+ZERO_GRAD_LEAVES = {"whisper-base": ("encoder/attn/bk", "decoder/cross/bk")}
+# 20c: batch x seq (T > 32: the chunked WKV). At this random init a bf16
+# step's gradients are mostly rounding (tools/rwkv_grad_spread.py, PERF.md
+# section 6): token 0's WKV output is exactly 0 (u = 0, a zero state), so
+# the per-head group norm multiplies its gradient by 1/sqrt(eps), and a
+# 2^-18 jitter of the CPU's own GEMM outputs moves the worst leaf's bf16
+# gradient by 0.31-0.96 (relative L2, four draws); only six leaves stay
+# within 0.025. In f32 that jitter moves none by more than 3.9e-3. So
+# every leaf's gradient is held to the CPU's with f32 activations (the
+# same kernels, in their f32 instantiations) at 5x that;
+# the bf16 step, the main path, by its loss, its launches and the leaves
+# that the CPU's jitter moves by less than half of TRAIN_GRAD_TOL, at it
+RWKV_CPU_CUT = (1, 128)
+RWKV_F32_GRAD_TOL = 2e-2   # each leaf's gradient, f32 card against f32 CPU
+RWKV_F32_LOSS_TOL = 1e-5   # the f32 loss (the jitter moves it by 1.7e-7)
+RWKV_JITTER = 2.0**-18
+
+
+def _phase20_path(name: str) -> str:
+    return os.path.join(ROOT, "build", "phase20", name)
+
+
+def _wkv_bwd_bound(B: int, H: int, T: int, N: int) -> tuple[float, str]:
+    """Bytes: r, k, v (bf16), the log decay and dy (f32) read, the chunk
+    start states (B H T/32 N N f32), u, the final state's gradient read;
+    dr, dk, dv, dwl (f32), du and the initial state's gradient written,
+    each once. Operations a chunk of C = 32: four full products (dy S^T, v
+    dS'^T, kd dS', re^T dy: C N N each), five strictly causal ones (A, dA,
+    A^T dy, dA ki, dA^T rm: C (C-1) / 2 x N each), 2 ops a multiply-add,
+    and ~30 C N elementwise."""
+    BH, C, nc, x = B * H, 32, T // 32, B * H * T * N
+    moved = (2 * 3 * x + 4 * 2 * x + 4 * BH * nc * N * N + 2 * 4 * H * N
+             + 2 * 4 * BH * N * N + 4 * 4 * x)
+    ops = BH * nc * (2 * (4 * C * N * N + 5 * C * (C - 1) // 2 * N)
+                     + 30 * C * N)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
+
+
+def _wkv_bwd_inputs(torch, gen, B, H, T, N, strong):
+    """bf16 (B, T, H, N) views of (B, T, H * N) projections, as time_mix
+    holds them, the f32 log decay (strong: e^-4 to e^-6 a step in the
+    second half of every chunk), u, a nonzero initial state, dy and the
+    final state's gradient."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (rnd(B, T, H * N).bfloat16().view(B, T, H, N)
+               for _ in range(3))
+    uni = lambda lo, hi: lo + (hi - lo) * torch.rand(
+        (B, T, H, N), generator=gen, device="cuda")
+    wl = -torch.exp(uni(-6.0, 1.0))
+    if strong:
+        second = (torch.arange(T, device="cuda") % 32 >= 16)[None, :, None,
+                                                             None]
+        wl = torch.where(second, -torch.exp(uni(1.4, 1.8)), wl)
+    return (r, k, v, wl, rnd(H, N) * 0.3, rnd(B, H, N, N) * 0.1,
+            rnd(B, T, H, N), rnd(B, H, N, N))
+
+
+def _bwd_err(got, want, extra: float = 0.0) -> tuple[float, bool]:
+    """(worst |got - want| over max(1, peak), within WKV_BWD_TOL + extra)."""
+    scale = max(1.0, want.abs().max().item())
+    err = (got.float() - want).abs().max().item() / scale
+    return err, err <= WKV_BWD_TOL + extra
+
+
+def check_wkv_bwd(torch) -> dict:
+    """20a: the WKV backward kernel (``wkv.wkv_bwd``, csrc/wkv.cu
+    ``repro_wkv_bwd``) from the forward kernel's chunk-start states against
+    ``wkv_bwd_ref`` on the card, timed; the forward's states against the
+    plain recurrence's; then ``WkvFn`` end to end (``torch.autograd.grad``
+    through ``wkv_heads``: one forward and one backward launch, and
+    through ``wkv`` on its (BH, T, N) f32 layout) against the plain
+    version."""
+    from repro_torch.kernels import wkv
+    from repro_torch.train import graphs
+
+    phase(f"20a WKV backward kernel against its plain version (on the "
+          f"card): tolerance {WKV_BWD_TOL} of max(1, a gradient's peak), "
+          f"and + 2^-8 for a gradient handed back in bf16")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    names = ("dr", "dk", "dv", "dwl", "du", "dstate")
+    record = None
+    for name, B, H, T, N, strong in WKV_BWD_CASES:
+        r, k, v, wl, u, s0, dy, ds = _wkv_bwd_inputs(torch, gen, B, H, T,
+                                                     N, strong)
+        BH = B * H
+        to_bh = lambda x: x.float().transpose(1, 2).reshape(BH, T, N)
+        u_rows = u[None].expand(B, H, N).reshape(BH, N)
+        cl = torch.cumsum(wl.double().reshape(B, T // 32, 32, H, N), 2)
+        clamp = bool(((cl - wl.double().reshape(cl.shape))[:, :, 16:17]
+                      - cl > 60).any())
+        if clamp != strong:
+            raise SystemExit(f"20a {name}: the clamp at 60 acts: {clamp}")
+        with torch.no_grad():
+            y, s_out, states = wkv._forward(r, k, v, wl, u, s0, True, None,
+                                            True)
+        kern = lambda: wkv.wkv_bwd(r, k, v, wl, u, states, dy, ds)
+        got = kern()
+        torch.cuda.synchronize()
+        plain = lambda: wkv.wkv_bwd_ref(
+            to_bh(r), to_bh(k), to_bh(v), to_bh(wl), u_rows,
+            s0.reshape(BH, N, N), to_bh(dy), ds.reshape(BH, N, N))
+        want = plain()
+        back = lambda x: x.reshape(B, H, T, N).transpose(1, 2)
+        want = [back(w) for w in want[:4]] + [
+            want[4].reshape(B, H, N).sum(0), want[5].reshape(B, H, N, N)]
+        # the forward's saved states against the plain recurrence's
+        S, worst_s = s0.reshape(BH, N, N), 0.0
+        for c in range(T // 32):
+            worst_s = max(worst_s, (states.reshape(BH, T // 32, N, N)[:, c]
+                                    - S).abs().max().item())
+            sl = slice(32 * c, 32 * c + 32)
+            _, S = wkv.wkv_ref(to_bh(r)[:, sl], to_bh(k)[:, sl],
+                               to_bh(v)[:, sl], to_bh(wl)[:, sl], u_rows, S)
+        errs = [_bwd_err(g, w) for g, w in zip(got, want)]
+        ok = all(e[1] for e in errs) and worst_s <= 2e-4 * max(
+            1.0, s0.abs().max().item())
+        rec = {"case": name, "kernel": "wkv_bwd", "shape": [B, H, T, N],
+               "max_abs_err": max(e[0] for e in errs), "tol": WKV_BWD_TOL,
+               "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+               "library_ms": None}  # no PyTorch call computes WKV's gradient
+        rec["bound_ms"], rec["bound_by"] = _wkv_bwd_bound(B, H, T, N)
+        print(f"wkv_bwd {name:28s} blocks={BH} err (of max(1, peak)) "
+              + " ".join(f"{n}={e[0]:.3g}" for n, e in zip(names, errs))
+              + f" saved states {worst_s:.3g} tol={WKV_BWD_TOL} "
+              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms=null bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']})", flush=True)
+        if not ok:
+            raise SystemExit(f"20a {name}: the backward kernel disagrees "
+                             "with its plain version")
+        if record is None:
+            record = rec
+        # the Function end to end, a fresh leaf of every input
+        xs = [t.detach().clone().requires_grad_() for t in
+              (r, k, v, wl, u, s0)]
+        launched = (wkv.launches, wkv.bwd_launches)
+        y2, s2 = wkv.wkv_heads(*xs)
+        fn_got = torch.autograd.grad((y2, s2), xs, (dy, ds))
+        torch.cuda.synchronize()
+        if (wkv.launches - launched[0], wkv.bwd_launches - launched[1]) != \
+                (1, 1) or y2.grad_fn is None:
+            raise SystemExit(f"20a {name}: wkv_heads under autograd did not "
+                             "launch one forward and one backward")
+        fn_errs = [_bwd_err(g, w, 2.0 ** -8 if g.dtype == torch.bfloat16
+                            else 0.0) for g, w in zip(fn_got, want)]
+        same = torch.equal(y2.detach(), y) and torch.equal(s2.detach(),
+                                                           s_out)
+        print(f"        WkvFn through wkv_heads: y and state equal to the "
+              f"no-grad launch's {same}; err "
+              + " ".join(f"{n}={e[0]:.3g}" for n, e in zip(names, fn_errs)),
+              flush=True)
+        if not (same and all(e[1] for e in fn_errs)):
+            raise SystemExit(f"20a {name}: WkvFn disagrees with the plain "
+                             "version")
+        del xs, fn_got, got, want, states
+    # wkv's own (BH, T, N) f32 layout under autograd: the same Function
+    BH, T, N = 16, 64, 64
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    args = (rnd(BH, T, N), rnd(BH, T, N), rnd(BH, T, N),
+            -torch.exp(-6 + 7 * torch.rand((BH, T, N), generator=gen,
+                                           device="cuda")),
+            rnd(BH, N) * 0.3, rnd(BH, N, N) * 0.1)
+    dy, ds = rnd(BH, T, N), rnd(BH, N, N)
+    xs = [t.clone().requires_grad_() for t in args]
+    y, s = wkv.wkv(*xs)
+    errs = [_bwd_err(g, w) for g, w in zip(
+        torch.autograd.grad((y, s), xs, (dy, ds)),
+        wkv.wkv_bwd_ref(*args, dy, ds))]
+    print(f"        WkvFn through wkv on (BH, T, N) = ({BH}, {T}, {N}) f32: "
+          "err " + " ".join(f"{n}={e[0]:.3g}" for n, e in zip(names, errs)),
+          flush=True)
+    if not all(e[1] for e in errs):
+        raise SystemExit("20a: WkvFn through wkv disagrees with the plain "
+                         "version")
+    graphs.reset_launches()  # the comparisons' launches count for no path
+    return record
+
+
+def _rwkv_train_rule(cfg, batch: int, seq: int,
+                     remat: bool) -> dict[str, int]:
+    """Kernel launches of one rwkv training step: M microbatches of batch
+    / M rows x seq; a layer's 11 dense products (time-mix: lora_a, r, k,
+    v, g, w_lora_a, w_lora_b, wo; channel-mix: wk with relu, wv, wr) and
+    the unembed a loss chunk, each in the forward, the remat recompute (a
+    loss chunk always) and the backward (dA, dB, the relu's recomputed
+    pre-activation), on the GEMV where decode-shaped with no epilogue
+    (core.gemm._is_skinny: w_lora_b's dB at full width), else the fat
+    GEMM; the WKV forward a layer a pass, its backward a layer
+    (tests/test_torch_train_families.py holds the GEMM part on the CPU)."""
+    from repro_torch.core.gemm import _is_skinny
+    from repro_torch.layers.rwkv import LORA_R as lr
+    from repro_torch.train.trainstep import microbatch_count
+
+    M = microbatch_count(cfg, batch)
+    rows, d, f, V = batch // M * seq, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    c = min(cfg.loss_chunk, seq)
+    chunks = seq // c if seq % c == 0 else 1
+    fwd = [(d, 5 * lr, False), (d, d, False), (d, d, False), (d, d, False),
+           (d, d, False), (d, lr, False), (lr, d, False), (d, d, False),
+           (d, f, True), (f, d, False), (d, d, False)]
+    out = {"matmul": 0, "gemv": 0}
+
+    def add(m, k, n, epi, times):
+        out["gemv" if _is_skinny(m, k, n) and not epi else "matmul"] += times
+
+    L, passes = cfg.n_layers, 2 if remat else 1
+    for k, n, epi in fwd:
+        add(rows, k, n, epi, L * passes)
+        add(rows, n, k, False, L)
+        add(k, rows, n, False, L)
+        if epi:  # the pre-activation, recomputed on the fat GEMM
+            out["matmul"] += L
+    add(rows // chunks, d, V, False, 2 * chunks)
+    add(rows // chunks, V, d, False, chunks)
+    add(d, rows // chunks, V, False, chunks)
+    return {"matmul": M * out["matmul"], "gemv": M * out["gemv"],
+            "wkv": M * L * passes, "wkv_bwd": M * L}
+
+
+def _train_family(torch, label: str, arch: str, n_layers, steps: int,
+                  wkv_share: bool = False, remat: bool = True) -> dict:
+    """``python -m repro_torch.launch.train --arch ARCH [--n-layers N]
+    --steps STEPS --batch 8 --seq 128 --ckpt-every 0`` in this process,
+    the launcher's step instrumented (ft.elastic.make_train_step wrapped):
+    CUDA-event ms, launches, the GEMM dispatches and lazy solves of each
+    step, the last step's gradient norm of every leaf (vision's cross
+    layer has none at step 1: the init zeroes its tanh gates), the last
+    state; with
+    ``wkv_share`` the last step traced. Then every leaf is held to its
+    seed-0 init: it moved. Returns the record (launches a step, peak,
+    the gates' findings)."""
+    import math
+
+    from repro_torch import configs as C
+    from repro_torch import models
+    from repro_torch.core import gemm as cg
+    from repro_torch.core.context import current_context
+    from repro_torch.ft import elastic
+    from repro_torch.interop import tree_items
+    from repro_torch.launch import train
+    from repro_torch.train import graphs
+
+    calls = {"matmul": 0, "gemv": 0}
+    rec = {"steps": [], "state": None, "norms": {}, "rows": None}
+    real_make, real_ops = elastic.make_train_step, (
+        cg.ops.balanced_matmul, cg.ops.decode_matvec)
+
+    def count(fn, key):
+        def counted(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return counted
+
+    def probe(grads):  # every step's: the last one's stays
+        items = list(tree_items(grads))
+        vals = torch.stack([torch.linalg.vector_norm(
+            g, dtype=torch.float32) for _, g in items]).tolist()
+        rec["norms"].update(zip((p for p, _ in items), vals))
+
+    def make(*a, **kw):
+        art = real_make(*a, grads_hook=probe, **kw)
+
+        def step(state, batch):
+            cache = current_context().plan_cache
+            solves, before, disp = (cache.stats.lazy_solves,
+                                    graphs.train_launches(), dict(calls))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            if wkv_share and len(rec["steps"]) == steps - 1:
+                out = []
+                rec["rows"], _, _ = _traced(
+                    torch, lambda: out.append(art.step_fn(state, batch)),
+                    cpu=False)
+                new = out[0]
+            else:
+                new = art.step_fn(state, batch)
+            ev[1].record()
+            ev[1].synchronize()
+            now = graphs.train_launches()
+            rec["steps"].append({
+                "ms": ev[0].elapsed_time(ev[1]),
+                "launches": {k: now[k] - before[k] for k in now},
+                "dispatched": {k: calls[k] - disp[k] for k in calls},
+                "lazy": cache.stats.lazy_solves - solves})
+            rec["state"] = new[0]
+            return new
+
+        return dataclasses.replace(art, step_fn=step)
+
+    cfg = C.get_config(arch)
+    if not remat:
+        real_get = C.get_config
+        C.get_config = lambda name: dataclasses.replace(real_get(name),
+                                                        remat=False)
+    args = ["--arch", arch, "--steps", str(steps), "--batch", "8", "--seq",
+            "128", "--ckpt-every", "0", "--plan-cache", "", "--log-every",
+            "1"] + ([] if n_layers is None else ["--n-layers", str(n_layers)])
+    elastic.make_train_step = make
+    cg.ops.balanced_matmul = count(real_ops[0], "matmul")
+    cg.ops.decode_matvec = count(real_ops[1], "gemv")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = train.main(args)
+    finally:
+        elastic.make_train_step = real_make
+        cg.ops.balanced_matmul, cg.ops.decode_matvec = real_ops
+        if not remat:
+            C.get_config = real_get
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params = rec.pop("state")["params"]
+    zero = ZERO_GRAD_LEAVES.get(arch, ())
+    still = []
+    with torch.no_grad():
+        init = models.init(cfg, seed=0, device="cuda")
+        for (path, t), (_, t0_) in zip(tree_items(params), tree_items(init)):
+            if torch.equal(t, t0_) != path.endswith(zero):
+                still.append(path)
+    del params, init
+    _free(torch)
+    rec.update(peak=peak, wall=wall, losses=out["losses"],
+               grad_norms=out["grad_norms"], unmoved=still, zero=zero,
+               finite=all(math.isfinite(x) for x in out["losses"]
+                          + out["grad_norms"]))
+    bad = [p for p, n in rec["norms"].items() if not math.isfinite(n)
+           or (n > 0) == p.endswith(zero)]
+    rec["bad_norms"] = bad
+    return rec
+
+
+def _train_gates(label: str, rec: dict, rule=None) -> list[str]:
+    """The gates of 20b / 20d: finite losses and gradient norms, every leaf
+    moved (whisper's zero-gradient key biases: not moved, gradient 0),
+    every leaf's last-step gradient finite and nonzero (a run of more than
+    one step), zero lazy solves after step 1, the launches a step:
+    ``rule`` (20b), else one kernel launch a planned GEMM dispatch and no
+    WKV."""
+    failed = []
+    if len(rec["steps"]) == 1:
+        rec = dict(rec, bad_norms=[])
+    if not rec["finite"]:
+        failed.append(f"a loss or gradient norm is not finite: "
+                      f"{rec['losses']} {rec['grad_norms']}")
+    if rec["unmoved"]:
+        failed.append(f"leaves that did not move as they should: "
+                      f"{rec['unmoved']}")
+    if rec["bad_norms"]:
+        failed.append(f"last-step gradients not finite and nonzero (or, for "
+                      f"{rec['zero']}, not zero): {rec['bad_norms']}")
+    if any(s["lazy"] for s in rec["steps"][1:]):
+        failed.append(f"lazy solves after step 1: "
+                      f"{[s['lazy'] for s in rec['steps']]}")
+    for s in rec["steps"]:
+        want = rule or {"matmul": s["dispatched"]["matmul"],
+                        "gemv": s["dispatched"]["gemv"], "wkv": 0,
+                        "wkv_bwd": 0}
+        if s["launches"] != want:
+            failed.append(f"launches {s['launches']} differ from the rule "
+                          f"{want}")
+            break
+    return [f"{label}: {f}" for f in failed]
+
+
+def train_rwkv(torch, smi: str) -> dict[str, int]:
+    """20b: rwkv6-3b at full width and depth through the launcher, 5 AdamW
+    steps at 8 x 128 with remat (the config's): the gates, step ms, the
+    WKV backward's share of a traced step's device time, the peak."""
+    from repro_torch import configs as C
+    from repro_torch.train.trainstep import microbatch_count
+
+    arch = "rwkv6-3b"
+    cfg = C.get_config(arch)
+    rule = _rwkv_train_rule(cfg, 8, 128, cfg.remat)
+    phase(f"20b training rwkv6-3b at full width and depth (32 layers, "
+          f"remat on, AdamW, {microbatch_count(cfg, 8)} microbatches): "
+          f"python -m repro_torch.launch.train --arch {arch} --steps "
+          f"{RWKV_TRAIN_STEPS} --batch 8 --seq 128 --ckpt-every 0; launch "
+          f"rule a step {rule}")
+    rec = _train_family(torch, "20b", arch, None, RWKV_TRAIN_STEPS,
+                        wkv_share=True)
+    ms = [s["ms"] for s in rec["steps"]]
+    busy_ms, _ = _busy(rec["rows"], 1.0)
+    bwd_ms = sum(r[0] for r in rec["rows"] if "wkv_bwd_kernel" in r[2]) / 1e3
+    fwd_ms = sum(r[0] for r in rec["rows"]
+                 if "wkv_kernel" in r[2] and "bwd" not in r[2]) / 1e3
+    print(f"losses {[round(x, 4) for x in rec['losses']]} grad norms "
+          f"{[round(x, 4) for x in rec['grad_norms']]}; step ms "
+          f"{[round(x, 1) for x in ms]} (median of steps 2-"
+          f"{RWKV_TRAIN_STEPS - 1}: {statistics.median(ms[1:-1]):.1f}; the "
+          f"last traced); traced step: kernels busy {busy_ms:.1f} ms, the "
+          f"WKV backward {bwd_ms:.2f} ms ({bwd_ms / busy_ms:.4f} of it), "
+          f"the WKV forward {fwd_ms:.2f} ms; peak {rec['peak']:.2f} GiB; "
+          f"launches a step {rec['steps'][1]['launches']}; card {smi}",
+          flush=True)
+    failed = _train_gates("20b", rec, rule)
+    if failed:
+        raise SystemExit("; ".join(failed))
+    return {k: sum(s["launches"][k] for s in rec["steps"])
+            for k in rec["steps"][0]["launches"]}
+
+
+def train_families(torch, smi: str) -> dict[str, dict[str, int]]:
+    """20d: olmoe, zamba2, whisper and vision through the launcher at full
+    width, FAMILY_TRAIN's depths, 3 AdamW steps with remat on; whisper and
+    vision again for one step with remat off (the peak it buys)."""
+    counts = {}
+    for label, (arch, layers) in FAMILY_TRAIN.items():
+        phase(f"{label} training {arch} at full width, "
+              f"{'whole' if layers is None else f'{layers} layers'}, remat "
+              f"on: python -m repro_torch.launch.train --arch {arch}"
+              f"{'' if layers is None else f' --n-layers {layers}'} --steps "
+              f"{FAMILY_TRAIN_STEPS} --batch 8 --seq 128 --ckpt-every 0")
+        rec = _train_family(torch, label, arch, layers, FAMILY_TRAIN_STEPS)
+        ms = [s["ms"] for s in rec["steps"]]
+        line = (f"losses {[round(x, 4) for x in rec['losses']]} grad norms "
+                f"{[round(x, 4) for x in rec['grad_norms']]}; step ms "
+                f"{[round(x, 1) for x in ms]} (median of steps 2-"
+                f"{FAMILY_TRAIN_STEPS}: {statistics.median(ms[1:]):.1f}); "
+                f"peak {rec['peak']:.2f} GiB")
+        failed = _train_gates(label, rec)
+        if arch in REMAT_PEAK:
+            off = _train_family(torch, label, arch, layers, 1, remat=False)
+            line += (f"; remat off, 1 step: peak {off['peak']:.2f} GiB, "
+                     f"step {off['steps'][0]['ms']:.1f} ms")
+            failed += _train_gates(label + " (remat off)", off)
+        print(f"{line}; launches a step {rec['steps'][-1]['launches']}; "
+              f"card {smi}", flush=True)
+        if failed:
+            raise SystemExit("; ".join(failed))
+        counts[f"{arch} train ({label})"] = {
+            k: sum(s["launches"][k] for s in rec["steps"])
+            for k in rec["steps"][0]["launches"]}
+    return counts
+
+
+def rwkv_vs_cpu_start() -> subprocess.Popen:
+    """20c in a process of its own (:func:`rwkv_vs_cpu`): its CPU passes
+    beside 20a and 20b, its card pass after 20b
+    (:func:`rwkv_vs_cpu_card`), its result after 20d."""
+    os.makedirs(_phase20_path(""), exist_ok=True)
+    for name in ("go", "card_done"):
+        if os.path.exists(_phase20_path(name)):
+            os.remove(_phase20_path(name))
+    code = (f"import sys; sys.path[:0] = {[ROOT, os.path.join(ROOT, 'src')]!r}"
+            "; import torch, chip_smoke; chip_smoke.rwkv_vs_cpu(torch)")
+    with open(_phase20_path("20c.log"), "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code], stdout=log,
+                                stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+
+
+def rwkv_vs_cpu_card(job: subprocess.Popen) -> None:
+    """Lets 20c's card pass run now and waits until it has left the card."""
+    phase(f"20c rwkv6-3b's training step, card against CPU: 2 layers, full "
+          f"width, batch x seq {RWKV_CPU_CUT} (the chunked WKV, forward and "
+          f"backward kernels), f32 and bf16 activations; tolerances: f32 the "
+          f"loss {RWKV_F32_LOSS_TOL} and each leaf's gradient "
+          f"{RWKV_F32_GRAD_TOL} (relative L2); bf16 the loss "
+          f"{TRAIN_LOSS_TOL}, and {TRAIN_GRAD_TOL} for each leaf that a "
+          f"{RWKV_JITTER:.3g} jitter of the CPU's GEMMs moves by less than "
+          f"half that; in a process of its own, its card passes now, its "
+          "output after 20d")
+    open(_phase20_path("go"), "w").close()
+    t0 = time.perf_counter()
+    while not os.path.exists(_phase20_path("card_done")) and job.poll() is None:
+        time.sleep(0.2)
+    print(f"(20c's card pass done; waited {time.perf_counter() - t0:.1f}s)",
+          flush=True)
+
+
+def rwkv_vs_cpu_end(job: subprocess.Popen) -> None:
+    try:
+        job.wait(timeout=600)
+    finally:
+        _stop(job)
+    phase("20c's result")
+    with open(_phase20_path("20c.log")) as f:
+        print(f.read().rstrip(), flush=True)
+    if job.returncode != 0:
+        raise SystemExit(f"20c: its process exited {job.returncode}")
+
+
+def _first_step(torch, cfg, params0, batch: int, seq: int, device) -> dict:
+    """One make_train_step step on ``device`` from ``params0`` (CPU
+    tensors) and fresh AdamW state, on data.synthetic (seed 0): the loss,
+    the launches and every leaf's gradient (on the CPU)."""
+    from repro_torch import interop
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.train import graphs
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainstep import (default_opt_config,
+                                             make_train_step)
+
+    grads = {}
+
+    def probe(tree):
+        grads.update((p, g.detach().to("cpu", copy=True))
+                     for p, g in interop.tree_items(tree))
+
+    art = make_train_step(cfg, global_batch=batch, seq_len=seq,
+                          device=device, grads_hook=probe)
+    params = interop.tree_map(lambda t: t.to(device, copy=True), params0)
+    state = {"params": params,
+             "opt": opt_lib.make_optimizer(default_opt_config(cfg)).init(
+                 params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    before = graphs.train_launches()
+    _, m = art.step_fn(state, batch_for(cfg, seq, batch, 0))
+    now = graphs.train_launches()
+    return {"loss": float(m["loss"]), "grads": grads,
+            "launches": {k: now[k] - before[k] for k in now}}
+
+
+@contextlib.contextmanager
+def _jittered_gemms(torch, scale: float, dtype, seed: int = 0):
+    """Within it, the CPU's GEMM and GEMV plain versions perturb each
+    ``dtype`` output by ``scale`` of itself (normal, from ``seed``) in f32,
+    before rounding it: another summation order's f32 error, as the card's
+    kernels have."""
+    from repro_torch.kernels import decode_matvec as tmv
+    from repro_torch.kernels import matmul as tmm
+
+    gen = torch.Generator().manual_seed(seed)
+    real = (tmm.matmul, tmv.decode_matvec)
+
+    def wrap(fn):
+        def jittered(a, *x, out_dtype=None, **y):
+            if (out_dtype or a.dtype) != dtype:
+                return fn(a, *x, out_dtype=out_dtype, **y)
+            c = fn(a, *x, out_dtype=torch.float32, **y)
+            noise = torch.randn(c.shape, generator=gen)
+            return (c * (1 + scale * noise)).to(dtype)
+        return jittered
+
+    tmm.matmul, tmv.decode_matvec = wrap(real[0]), wrap(real[1])
+    try:
+        yield
+    finally:
+        tmm.matmul, tmv.decode_matvec = real
+
+
+def rwkv_vs_cpu(torch) -> None:
+    """20c: rwkv6-3b's first training step at 2 layers and full width, from
+    one seed's weights, on the CPU and on the card, each with f32 and with
+    bf16 activations, and on the CPU in bf16 with its GEMM outputs
+    jittered (:func:`_jittered_gemms`). Held (see RWKV_CPU_CUT): the f32
+    card step's loss and every leaf's gradient to the f32 CPU step's; the
+    bf16 card step's loss, and the gradients of the leaves that the
+    jitter leaves within half of TRAIN_GRAD_TOL, to the bf16 CPU step's;
+    both card steps' launches to the rule. The other bf16 leaves are
+    printed beside the CPU's own jitter spread."""
+    from repro_torch import configs as C
+    from repro_torch import models
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+
+    torch.set_num_threads(TRAIN_CPU_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = dataclasses.replace(C.get_config("rwkv6-3b"), n_layers=2)
+    f32 = dataclasses.replace(bf16, activation_dtype="float32")
+    params0 = models.init(bf16, seed=1, device="cpu")
+    batch, seq = RWKV_CPU_CUT
+    rel = lambda x, y: ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+    res = {}
+    for key, cfg, dev in (("cpu f32", f32, "cpu"), ("cpu bf16", bf16, "cpu"),
+                          ("cpu bf16, GEMMs jittered", bf16, "cpu"),
+                          ("card f32", f32, "cuda"),
+                          ("card bf16", bf16, "cuda")):
+        if dev == "cuda":
+            while not os.path.exists(_phase20_path("go")):
+                time.sleep(0.2)
+        with use_context(hw="h100", plan_cache=PlanCache()), (
+                _jittered_gemms(torch, RWKV_JITTER, torch.bfloat16)
+                if "jitter" in key else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            res[key] = _first_step(torch, cfg, params0, batch, seq, dev)
+        print(f"  {key}: loss {res[key]['loss']:.6f} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        _free(torch)
+    open(_phase20_path("card_done"), "w").close()
+    want = _rwkv_train_rule(bf16, batch, seq, bf16.remat)
+    loss_err = lambda a, b: abs(res[a]["loss"] - res[b]["loss"]) / abs(
+        res[b]["loss"])
+    grad_err = lambda a, b: {k: rel(res[a]["grads"][k], res[b]["grads"][k])
+                             for k in res[b]["grads"]}
+    f32_err = grad_err("card f32", "cpu f32")
+    bf16_err = grad_err("card bf16", "cpu bf16")
+    jitter = grad_err("cpu bf16, GEMMs jittered", "cpu bf16")
+    held = sorted(k for k, e in jitter.items() if e < TRAIN_GRAD_TOL / 2)
+    worst = lambda errs, keys: max((errs[k], k) for k in keys)
+    f32_worst = worst(f32_err, f32_err)
+    held_worst = worst(bf16_err, held) if held else (0.0, "none")
+    free = sorted((k for k in bf16_err if k not in held),
+                  key=lambda k: -bf16_err[k])
+    print(f"  f32, card against the CPU: loss "
+          f"{loss_err('card f32', 'cpu f32'):.3g} (tolerance "
+          f"{RWKV_F32_LOSS_TOL}); every leaf's gradient within "
+          f"{f32_worst[0]:.4g} ({f32_worst[1]}; tolerance "
+          f"{RWKV_F32_GRAD_TOL}); launches {res['card f32']['launches']}",
+          flush=True)
+    print(f"  bf16, card against the CPU: loss "
+          f"{loss_err('card bf16', 'cpu bf16'):.3g} (tolerance "
+          f"{TRAIN_LOSS_TOL}); the {len(held)} leaves the CPU's 2^-18 GEMM "
+          f"jitter moves by less than {TRAIN_GRAD_TOL / 2} ("
+          + ", ".join(f"{k} {jitter[k]:.3g}" for k in held)
+          + f") within {held_worst[0]:.4g} ({held_worst[1]}; tolerance "
+          f"{TRAIN_GRAD_TOL}); the others, card against CPU (the CPU's "
+          "jitter): " + ", ".join(f"{k} {bf16_err[k]:.3g} ({jitter[k]:.3g})"
+                                  for k in free)
+          + "; the bf16 CPU step against the f32 one: the worst "
+          + ", ".join(f"{k} {e:.3g}" for e, k in sorted(
+              ((e, k) for k, e in grad_err("cpu bf16", "cpu f32").items()),
+              reverse=True)[:4])
+          + f"; launches {res['card bf16']['launches']} (rule {want})",
+          flush=True)
+    failed = []
+    if not loss_err("card f32", "cpu f32") <= RWKV_F32_LOSS_TOL:
+        failed.append("the f32 card step's loss is beyond the CPU's "
+                      "tolerance")
+    if not f32_worst[0] <= RWKV_F32_GRAD_TOL:
+        failed.append("an f32 gradient is beyond the CPU's tolerance")
+    if not loss_err("card bf16", "cpu bf16") <= TRAIN_LOSS_TOL:
+        failed.append("the bf16 card step's loss is beyond the CPU's "
+                      "tolerance")
+    if not held or not held_worst[0] <= TRAIN_GRAD_TOL:
+        failed.append("a bf16 gradient that the jitter leaves steady is "
+                      "beyond the CPU's tolerance")
+    for key in ("card f32", "card bf16"):
+        if res[key]["launches"] != want:
+            failed.append(f"the {key} step's launches differ from the rule")
+    if failed:
+        raise SystemExit("20c: " + "; ".join(failed))
+
+
 ZAMBA_STEP_CUT = {"n_layers": 7}  # 10a / 10b's static steps (main)
 
 
@@ -5158,6 +5823,8 @@ def main() -> int:
     try:
         more, train_bwd, dist_rows = _phases_7_to_19(torch, profile,
                                                      train_cpu, pools)
+        counts.update(more)
+        more, record["wkv_bwd"] = phase20_training(torch, smi)
     finally:
         _stop(train_cpu)
         for pool in pools:
@@ -5169,11 +5836,17 @@ def main() -> int:
            "gemv": ("src/repro_torch/kernels/csrc/decode_matvec.cu",
                     "src/repro/kernels/decode_matvec.py:83"),
            "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
-                   "src/repro/kernels/wkv.py:86")}
+                   "src/repro/kernels/wkv.py:86"),
+           # the gradient of the Pallas kernel's function, which the
+           # reference trains through jax.grad of its jnp chunk-parallel
+           # form (no Pallas backward)
+           "wkv_bwd": ("src/repro_torch/kernels/csrc/wkv.cu",
+                       "src/repro/kernels/wkv.py:86")}
     kernels = []
-    for name in ("matmul", "gemv", "wkv"):
+    for name in ("matmul", "gemv", "wkv", "wkv_bwd"):
         r = record[name]
-        by_path = {arch: c[name] for arch, c in counts.items() if c[name]}
+        by_path = {arch: c.get(name, 0) for arch, c in counts.items()
+                   if c.get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": sum(by_path.values()),
@@ -5197,6 +5870,22 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase20_training(torch, smi: str):
+    """Phase 20, 20c's process beside 20a and 20b. Returns the launch
+    counts by path and 20a's record."""
+    counts = {}
+    side = rwkv_vs_cpu_start()
+    try:
+        record = check_wkv_bwd(torch)
+        counts["rwkv6-3b train (20b)"] = train_rwkv(torch, smi)
+        rwkv_vs_cpu_card(side)
+        counts.update(train_families(torch, smi))
+        rwkv_vs_cpu_end(side)
+    finally:
+        _stop(side)
+    return counts, record
 
 
 def _phases_7_to_19(torch, profile: bool, train_cpu, pools: list):

@@ -150,6 +150,14 @@ class _BalancedGemm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a2, b, bias, out_dtype, b_layout, activation, plan, hw):
+        if plan is None:
+            # solved here, not in _dispatch, so that the backward's
+            # recompute runs the forward's plan (not an unsolved default
+            # whose tile may not fit the route's shared memory)
+            plan = plan_for(a2.shape[0], a2.shape[1],
+                            b.shape[0] if b_layout == "col" else b.shape[1],
+                            in_dtype=a2.dtype, out_dtype=out_dtype,
+                            b_layout=b_layout, hw=hw)
         ctx.save_for_backward(a2, b, bias)
         ctx.args = (b_layout, activation, plan, hw)
         ctx.gemm_context = current_context()

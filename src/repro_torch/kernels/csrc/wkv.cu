@@ -79,7 +79,8 @@
 //
 // Build: kernels/build.py compiles this file once per part, in parallel:
 // -DREPRO_PART=1..4 instantiate the kernels of one input type and load
-// route each; part 0 holds the C entry point.
+// route each, 5..6 the backward's of one input type; part 0 holds the C
+// entry points.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,8 +108,31 @@ struct Args {
   const float* s0;
   float* y;
   float* s_out;
+  float* states;  // (B, H, T / C, N, N) chunk-start states, or null
   int B, H, T;
   Strides sr, sk, sv, sw, sy;
+  cudaStream_t stream;
+};
+
+// The backward (repro_wkv_bwd): one block per (b, h) row, walking the
+// chunks in reverse.
+struct BwdArgs {
+  const void* r;
+  const void* k;
+  const void* v;
+  const float* wl;
+  const float* u;
+  const float* states;  // (B, H, T / C, N, N): the forward's chunk-start states
+  const float* dy;
+  const float* ds;      // (B, H, N, N) gradient of the final state, or null
+  float* dr;
+  float* dk;
+  float* dv;
+  float* dwl;
+  float* du_rows;       // (B, H, N): this row's share of du
+  float* ds0;           // (B, H, N, N) gradient of the initial state, or null
+  int B, H, T;
+  Strides sr, sk, sv, sw, sdy, sg;  // sg: the four (B, T, H, N)-like gradients
   cudaStream_t stream;
 };
 
@@ -116,6 +140,8 @@ cudaError_t run_f32_vec(const Args& p, int N, int MS);
 cudaError_t run_f32_scalar(const Args& p, int N, int MS);
 cudaError_t run_bf16_vec(const Args& p, int N, int MS);
 cudaError_t run_bf16_scalar(const Args& p, int N, int MS);
+cudaError_t run_bwd_f32(const BwdArgs& p, int N);
+cudaError_t run_bwd_bf16(const BwdArgs& p, int N);
 
 }  // namespace wkv_cu
 
@@ -345,6 +371,14 @@ wkv_kernel(const Args p) {
   for (int t0 = 0; t0 < p.T; t0 += C) {
     if constexpr (VEC) cp_async_wait_all();
     __syncthreads();  // the chunk is staged; the last chunk's products are done
+    if (p.states != nullptr) {  // the state this chunk starts from (training)
+      float* sg = p.states +
+                  ((static_cast<size_t>(b) * p.H + h) * (p.T / C) + t0 / C) * N * N + m0;
+      for (int i = tid; i < N * MS; i += THREADS) {
+        const int n = i / MS, m = i - n * MS;
+        sg[static_cast<size_t>(n) * N + m] = S[i];
+      }
+    }
 
     // 1. exclusive cumsum of wl along t, in place: lane = 4 * tg + q owns 4
     //    columns and the 4 steps of group tg; 8 groups scanned by shuffles
@@ -583,6 +617,319 @@ cudaError_t by_shape(const Args& p, int N, int MS) {
 }  // namespace
 #endif
 
+// ---------------------------------------------------------------- backward
+//
+// repro_wkv_bwd: the gradient of what wkv_chunk_parallel computes, given
+// dy (the gradient of y, f32) and dS' (of the final state; null: zero),
+// from r, k, v (f32 or bf16), wl, u and the forward's chunk-start states
+// (repro_wkv's `states` output). One block owns one (b, h) row and walks
+// its chunks in reverse, carrying dS (N x N, f32) in shared memory. Per
+// chunk, with everything below recomputed from the chunk's inputs (cl, ci,
+// ce, mid, the four decay-scaled tiles re, rm, ki, kd, A and the bonus
+// diagonal D):
+//   dre = dy S^T      dA = tril_{-1}(dy v^T)     dkd = v dS'^T
+//   drm = dA ki       dki = dA^T rm               dD = rowsum(dy . v)
+//   dv  = A^T dy + D dy + kd dS'
+//   dr  = dre e^cl + drm e^(cl-mid) + dD u k
+//   dk  = dki e^min(mid-ci, 60) + dkd e^min(ce-ci, 0) + dD u r
+//   du += sum_t dD r k
+//   dS  = e^ce dS' + re^T dy                       (carried to chunk c - 1)
+// and the log decay's: the clamps pass no gradient past 60 and 0 (a tie
+// passes it, as torch.clamp's gradient does), ci = cl + wl, cl the
+// exclusive cumsum, ce its total, mid = cl[C/2]:
+//   dci = -dki ki [mid-ci <= 60] - dkd kd [ce-ci <= 0]
+//   dce = e^ce sum_m S dS' + sum_t dkd kd [ce-ci <= 0]
+//   dmid = sum_t (dki ki [mid-ci <= 60] - drm rm)
+//   dwl[t] = dci[t] + sum_{t' > t} (dre re + drm rm + dci)[t'] + dce
+//            + [t < C/2] dmid                   (a reverse exclusive cumsum)
+//
+// What bounds it at the training path's shape (B 8, T 128, H 40, N 64):
+// bytes (counted as chip_smoke.py's _wkv_bwd_bound counts them). It reads
+// r, k, v (bf16), wl, dy and the states (f32) and writes dr, dk, dv, dwl
+// (f32), ~110 MB, 0.033 ms at 3.35 TB/s; its products are ~1.83 GFLOP of
+// f32, 0.027 ms at 67 TFLOP/s on the CUDA cores. This
+// first design is simple, not fast: each thread computes output elements
+// one at a time from shared memory (two loads an FMA), so shared-memory
+// bandwidth, not the FMA rate, sets its pace; the tiles are padded to odd
+// row lengths so that a warp's loads fall in distinct banks. Nothing
+// crosses blocks: du is written per row and summed over b by the wrapper
+// in a fixed order, so the result is deterministic. N <= 64 (shared
+// memory, kernels/wkv.bwd_smem_bytes: 142.5 KB at N = 64, one block an
+// SM).
+#if REPRO_PART >= 5
+namespace {
+
+using wkv_cu::BwdArgs;
+using wkv_cu::C;
+using wkv_cu::THREADS;
+
+template <int N>
+struct BwdLayout {
+  static constexpr int LD = N + 1;   // [C][N] and [N][N] rows
+  static constexpr int LC = C + 1;   // [C][C] rows
+  static constexpr int TILE = C * LD;
+  static constexpr int R = 0, K = R + TILE, V = K + TILE, W = V + TILE, DY = W + TILE;
+  static constexpr int CL = DY + TILE;
+  static constexpr int RE = CL + TILE, RM = RE + TILE, KI = RM + TILE, KD = KI + TILE;
+  static constexpr int DRE = KD + TILE;  // dre, then dcl + dci
+  static constexpr int DKD = DRE + TILE; // dkd, then dci
+  static constexpr int S = DKD + TILE;   // the chunk-start state  [N][LD]
+  static constexpr int DS = S + N * LD;  // dS, carried           [N][LD]
+  static constexpr int A = DS + N * LD;  // [C][LC]
+  static constexpr int DA = A + C * LC;  // [C][LC]
+  static constexpr int CE = DA + C * LC, MID = CE + N, U = MID + N, DCE = U + N;
+  static constexpr int D = DCE + N, DD = D + C;
+  static constexpr int G = THREADS / N;  // thread groups of the pointwise pass
+  static constexpr int PMID = DD + C, PCE = PMID + G * N, PDU = PCE + G * N;
+  static constexpr int WORDS = PDU + G * N;
+};
+
+template <typename Tin, int N>
+__global__ void __launch_bounds__(THREADS, 1) wkv_bwd_kernel(const BwdArgs p) {
+  using L = BwdLayout<N>;
+  constexpr int LD = L::LD, LC = L::LC, G = L::G;
+  extern __shared__ __align__(16) float smem[];
+  float* R = smem + L::R;
+  float* K = smem + L::K;
+  float* V = smem + L::V;
+  float* W = smem + L::W;
+  float* DY = smem + L::DY;
+  float* CL = smem + L::CL;
+  float* RE = smem + L::RE;
+  float* RM = smem + L::RM;
+  float* KI = smem + L::KI;
+  float* KD = smem + L::KD;
+  float* DRE = smem + L::DRE;
+  float* DKD = smem + L::DKD;
+  float* S = smem + L::S;
+  float* DS = smem + L::DS;
+  float* A = smem + L::A;
+  float* DA = smem + L::DA;
+  float* CE = smem + L::CE;
+  float* MID = smem + L::MID;
+  float* U = smem + L::U;
+  float* DCE = smem + L::DCE;
+  float* D = smem + L::D;
+  float* DD = smem + L::DD;
+  float* PMID = smem + L::PMID;
+  float* PCE = smem + L::PCE;
+  float* PDU = smem + L::PDU;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const int nc = p.T / C;
+  const size_t row = static_cast<size_t>(b) * p.H + h;
+  // the pointwise pass: thread (g, n) owns column n of rows g, g + G, ...
+  const int pn = tid % N, pg = tid / N;
+  float du_acc = 0.f;
+
+  for (int i = tid; i < N; i += THREADS) U[i] = p.u[static_cast<size_t>(h) * N + i];
+  for (int i = tid; i < N * N; i += THREADS) {
+    const int n = i / N, m = i - n * N;
+    DS[n * LD + m] = p.ds == nullptr ? 0.f : p.ds[row * N * N + i];
+  }
+
+  for (int c = nc - 1; c >= 0; --c) {
+    const int t0 = c * C;
+    __syncthreads();  // the last chunk's reads of the tiles are done
+    {
+      const Tin* rg = static_cast<const Tin*>(p.r) + b * p.sr.b + h * p.sr.h;
+      const Tin* kg = static_cast<const Tin*>(p.k) + b * p.sk.b + h * p.sk.h;
+      const Tin* vg = static_cast<const Tin*>(p.v) + b * p.sv.b + h * p.sv.h;
+      const float* wg = p.wl + b * p.sw.b + h * p.sw.h;
+      const float* dg = p.dy + b * p.sdy.b + h * p.sdy.h;
+      for (int i = tid; i < C * N; i += THREADS) {
+        const int t = i / N, n = i - t * N;
+        R[t * LD + n] = to_f32(rg[(t0 + t) * p.sr.t + n]);
+        K[t * LD + n] = to_f32(kg[(t0 + t) * p.sk.t + n]);
+        V[t * LD + n] = to_f32(vg[(t0 + t) * p.sv.t + n]);
+        W[t * LD + n] = wg[(t0 + t) * p.sw.t + n];
+        DY[t * LD + n] = dg[(t0 + t) * p.sdy.t + n];
+      }
+      const float* sg = p.states + (row * nc + c) * N * N;
+      for (int i = tid; i < N * N; i += THREADS) {
+        const int n = i / N, m = i - n * N;
+        S[n * LD + m] = sg[i];
+      }
+    }
+    __syncthreads();
+
+    // 1. the exclusive cumsum of wl along t, a thread a column
+    for (int n = tid; n < N; n += THREADS) {
+      float run = 0.f;
+      for (int t = 0; t < C; ++t) {
+        if (t == C / 2) MID[n] = run;
+        CL[t * LD + n] = run;
+        run += W[t * LD + n];
+      }
+      CE[n] = run;
+    }
+    __syncthreads();
+
+    // 2. the tiles scaled by the decay (expf and the forward's clamps), the
+    //    bonus diagonal D and its gradient dD, and e^ce sum_m S dS'
+    for (int i = tid; i < C * N; i += THREADS) {
+      const int t = i / N, n = i - t * N, o = t * LD + n;
+      const float cl = CL[o], ci = cl + W[o], mid = MID[n], ce = CE[n];
+      RE[o] = R[o] * expf(cl);
+      RM[o] = R[o] * expf(cl - mid);
+      KI[o] = K[o] * expf(fminf(mid - ci, 60.f));
+      KD[o] = K[o] * expf(fminf(ce - ci, 0.f));
+    }
+    for (int t = tid; t < C; t += THREADS) {
+      float d = 0.f, dd = 0.f;
+      for (int n = 0; n < N; ++n) {
+        d += R[t * LD + n] * U[n] * K[t * LD + n];
+        dd += DY[t * LD + n] * V[t * LD + n];
+      }
+      D[t] = d;
+      DD[t] = dd;
+    }
+    for (int n = tid; n < N; n += THREADS) {
+      float acc = 0.f;
+      for (int m = 0; m < N; ++m) acc += S[n * LD + m] * DS[n * LD + m];
+      DCE[n] = expf(CE[n]) * acc;
+    }
+    __syncthreads();
+
+    // 3. A, dA (strictly lower), dre = dy S^T, dkd = v dS'^T
+    for (int i = tid; i < C * C; i += THREADS) {
+      const int t = i / C, s = i - t * C;
+      float a = 0.f, da = 0.f;
+      if (s < t) {
+        for (int n = 0; n < N; ++n) {
+          a += RM[t * LD + n] * KI[s * LD + n];
+          da += DY[t * LD + n] * V[s * LD + n];
+        }
+      }
+      A[t * LC + s] = a;
+      DA[t * LC + s] = da;
+    }
+    for (int i = tid; i < C * N; i += THREADS) {
+      const int t = i / N, n = i - t * N;
+      float dre = 0.f, dkd = 0.f;
+      for (int m = 0; m < N; ++m) {
+        dre += DY[t * LD + m] * S[n * LD + m];
+        dkd += V[t * LD + m] * DS[n * LD + m];
+      }
+      DRE[t * LD + n] = dre;
+      DKD[t * LD + n] = dkd;
+    }
+    __syncthreads();
+
+    // 4. dv; then, a thread an element (t, n) of the pointwise pass, drm,
+    //    dki, dr, dk, du's share and the log decay's per-step terms
+    {
+      float* dvg = p.dv + b * p.sg.b + h * p.sg.h;
+      for (int i = tid; i < C * N; i += THREADS) {
+        const int s = i / N, m = i - s * N;
+        float acc = D[s] * DY[s * LD + m];
+        for (int t = s + 1; t < C; ++t) acc += A[t * LC + s] * DY[t * LD + m];
+        for (int n = 0; n < N; ++n) acc += KD[s * LD + n] * DS[n * LD + m];
+        dvg[(t0 + s) * p.sg.t + m] = acc;
+      }
+    }
+    {
+      float* drg = p.dr + b * p.sg.b + h * p.sg.h;
+      float* dkg = p.dk + b * p.sg.b + h * p.sg.h;
+      float pmid = 0.f, pce = 0.f;
+      const int n = pn;
+      const float u = U[n], mid = MID[n], ce = CE[n];
+      for (int t = pg; t < C; t += G) {
+        const int o = t * LD + n;
+        float drm = 0.f, dki = 0.f;
+        for (int s = 0; s < t; ++s) drm += DA[t * LC + s] * KI[s * LD + n];
+        for (int q = t + 1; q < C; ++q) dki += DA[q * LC + t] * RM[q * LD + n];
+        const float cl = CL[o], ci = cl + W[o], r = R[o], k = K[o];
+        const float xki = mid - ci, xkd = ce - ci;
+        const float dre = DRE[o], dkd = DKD[o], dd = DD[t];
+        drg[(t0 + t) * p.sg.t + n] = dre * expf(cl) + drm * expf(cl - mid) + dd * u * k;
+        dkg[(t0 + t) * p.sg.t + n] =
+            dki * expf(fminf(xki, 60.f)) + dkd * expf(fminf(xkd, 0.f)) + dd * u * r;
+        du_acc += dd * r * k;
+        const float gki = xki <= 60.f ? dki * KI[o] : 0.f;
+        const float gkd = xkd <= 0.f ? dkd * KD[o] : 0.f;
+        const float dci = -gki - gkd;
+        DRE[o] = dre * RE[o] + drm * RM[o] + dci;  // d cl, with ci = cl + wl
+        DKD[o] = dci;
+        pmid += gki - drm * RM[o];
+        pce += gkd;
+      }
+      PMID[pg * N + n] = pmid;
+      PCE[pg * N + n] = pce;
+    }
+    __syncthreads();
+
+    // 5. dwl by a reverse exclusive cumsum, a thread a column; the carried
+    //    dS = e^ce dS' + re^T dy, in place (every read of dS' is done)
+    {
+      float* dwg = p.dwl + b * p.sg.b + h * p.sg.h;
+      for (int n = tid; n < N; n += THREADS) {
+        float dce = DCE[n], dmid = 0.f;
+        for (int g = 0; g < G; ++g) {
+          dce += PCE[g * N + n];
+          dmid += PMID[g * N + n];
+        }
+        float acc = 0.f;
+        for (int t = C - 1; t >= 0; --t) {
+          const int o = t * LD + n;
+          dwg[(t0 + t) * p.sg.t + n] = DKD[o] + acc + dce + (t < C / 2 ? dmid : 0.f);
+          acc += DRE[o];
+        }
+      }
+    }
+    for (int i = tid; i < N * N; i += THREADS) {
+      const int n = i / N, m = i - n * N;
+      float acc = expf(CE[n]) * DS[n * LD + m];
+      for (int t = 0; t < C; ++t) acc += RE[t * LD + n] * DY[t * LD + m];
+      DS[n * LD + m] = acc;
+    }
+  }
+
+  PDU[pg * N + pn] = du_acc;
+  __syncthreads();
+  if (p.ds0 != nullptr)
+    for (int i = tid; i < N * N; i += THREADS) {
+      const int n = i / N, m = i - n * N;
+      p.ds0[row * N * N + i] = DS[n * LD + m];
+    }
+  for (int n = tid; n < N; n += THREADS) {
+    float acc = 0.f;
+    for (int g = 0; g < G; ++g) acc += PDU[g * N + n];
+    p.du_rows[row * N + n] = acc;
+  }
+}
+
+template <typename Tin, int N>
+cudaError_t launch_bwd(const BwdArgs& p) {
+  constexpr size_t smem = 4 * static_cast<size_t>(BwdLayout<N>::WORDS);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wkv_bwd_kernel<Tin, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const long long blocks = static_cast<long long>(p.B) * p.H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wkv_bwd_kernel<Tin, N><<<static_cast<unsigned>(blocks), THREADS, smem, p.stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename Tin>
+cudaError_t bwd_by_shape(const BwdArgs& p, int N) {
+  switch (N) {
+    case 16: return launch_bwd<Tin, 16>(p);
+    case 32: return launch_bwd<Tin, 32>(p);
+    case 64: return launch_bwd<Tin, 64>(p);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+#endif
+
 #if REPRO_PART == 1
 cudaError_t wkv_cu::run_f32_vec(const Args& p, int N, int MS) {
   return by_shape<float, true>(p, N, MS);
@@ -599,15 +946,25 @@ cudaError_t wkv_cu::run_bf16_vec(const Args& p, int N, int MS) {
 cudaError_t wkv_cu::run_bf16_scalar(const Args& p, int N, int MS) {
   return by_shape<__nv_bfloat16, false>(p, N, MS);
 }
+#elif REPRO_PART == 5
+cudaError_t wkv_cu::run_bwd_f32(const BwdArgs& p, int N) {
+  return bwd_by_shape<float>(p, N);
+}
+#elif REPRO_PART == 6
+cudaError_t wkv_cu::run_bwd_bf16(const BwdArgs& p, int N) {
+  return bwd_by_shape<__nv_bfloat16>(p, N);
+}
 #else
 // Returns a cudaError_t: 0 when the launch was accepted. The value-column
 // slice MS and the load route are the wrapper's (kernels/wkv.py partition,
 // route); this checks only what no kernel can take. `strides` holds the
-// (b, h, t) element strides of r, k, v, wl and y, in that order.
+// (b, h, t) element strides of r, k, v, wl and y, in that order. `states`
+// (null when serving) receives the (B, H, T / C, N, N) state each chunk
+// starts from, which the backward reads.
 extern "C" int repro_wkv(const void* r, const void* k, const void* v,
                          const void* wl, const void* u, const void* s0,
-                         void* y, void* s_out, int B, int H, int T, int N,
-                         int ms, int in_bf16, int vec,
+                         void* y, void* s_out, void* states, int B, int H,
+                         int T, int N, int ms, int in_bf16, int vec,
                          const long long* strides, void* stream) {
   using namespace wkv_cu;
   if (B <= 0 || H <= 0 || T < 0 || T % C != 0 || strides == nullptr ||
@@ -615,7 +972,7 @@ extern "C" int repro_wkv(const void* r, const void* k, const void* v,
     return cudaErrorInvalidValue;
   Args p{r, k, v, static_cast<const float*>(wl), static_cast<const float*>(u),
          static_cast<const float*>(s0), static_cast<float*>(y),
-         static_cast<float*>(s_out), B, H, T,
+         static_cast<float*>(s_out), static_cast<float*>(states), B, H, T,
          {strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
          {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]},
          {strides[12], strides[13], strides[14]}, static_cast<cudaStream_t>(stream)};
@@ -632,5 +989,32 @@ extern "C" int repro_wkv(const void* r, const void* k, const void* v,
   }
   if (in_bf16) return vec ? run_bf16_vec(p, N, ms) : run_bf16_scalar(p, N, ms);
   return vec ? run_f32_vec(p, N, ms) : run_f32_scalar(p, N, ms);
+}
+
+// The backward: a cudaError_t, 0 when the launch was accepted. `strides`
+// holds the (b, h, t) element strides of r, k, v, wl, dy and of the four
+// gradients dr, dk, dv, dwl (one layout), in that order; u, the states, ds,
+// du_rows and ds0 are contiguous. ds and ds0 may be null.
+extern "C" int repro_wkv_bwd(const void* r, const void* k, const void* v,
+                             const void* wl, const void* u, const void* states,
+                             const void* dy, const void* ds, void* dr, void* dk,
+                             void* dv, void* dwl, void* du_rows, void* ds0,
+                             int B, int H, int T, int N, int in_bf16,
+                             const long long* strides, void* stream) {
+  using namespace wkv_cu;
+  if (B <= 0 || H <= 0 || T <= 0 || T % C != 0 || strides == nullptr ||
+      states == nullptr)
+    return cudaErrorInvalidValue;
+  const long long* s = strides;
+  BwdArgs p{r, k, v, static_cast<const float*>(wl), static_cast<const float*>(u),
+            static_cast<const float*>(states), static_cast<const float*>(dy),
+            static_cast<const float*>(ds), static_cast<float*>(dr),
+            static_cast<float*>(dk), static_cast<float*>(dv),
+            static_cast<float*>(dwl), static_cast<float*>(du_rows),
+            static_cast<float*>(ds0), B, H, T,
+            {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
+            {s[9], s[10], s[11]}, {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
+            static_cast<cudaStream_t>(stream)};
+  return in_bf16 ? run_bwd_bf16(p, N) : run_bwd_f32(p, N);
 }
 #endif

@@ -1,8 +1,8 @@
-"""RWKV-6 WKV recurrence, chunk-parallel: wrappers of the CUDA kernel
+"""RWKV-6 WKV recurrence, chunk-parallel: wrappers of the CUDA kernels
 ``csrc/wkv.cu`` (counterpart of the Pallas kernel ``repro.kernels.wkv.wkv``).
 
-Two wrappers launch the same kernel, which reads its inputs in place
-through their (b, h, t) strides:
+Two wrappers launch the same forward kernel, which reads its inputs in
+place through their (b, h, t) strides:
 
 * ``wkv`` takes the reference kernel's arguments: r, k, v and wlog (the
   log of the decay) as (BH, T, N) f32, u as (BH, N) rows, the state as
@@ -16,14 +16,23 @@ T must be a multiple of ``CHUNK``. On a CUDA tensor a wrapper launches the
 kernel or raises; on a CPU tensor it runs the plain version, :func:`wkv_ref`
 (``wkv_heads`` through ``wkv`` on the (BH, T, N) f32 copies, the
 arithmetic of the plain path, which autograd differentiates); on a meta
-tensor it returns the outputs' shapes only. The kernel has no backward: on
-a CUDA tensor that requires grad (grad mode on) a wrapper raises.
-``launches`` counts kernel launches and nothing else.
+tensor it returns the outputs' shapes only. ``launches`` counts forward
+kernel launches and nothing else.
 
-A block owns (b, h, a slice of ``ms`` value columns): :func:`partition`
-picks ``ms`` and the grid, :func:`route` the load route, both before the
-launch; :func:`wkv_msplit_ref` is the slice-by-slice algebra in plain
-torch.
+Under autograd (grad mode on and an input that requires grad) a wrapper
+on CUDA tensors goes through :class:`WkvFn`: its forward launches the
+forward kernel, which also writes the state each chunk starts from
+((B, H, T / CHUNK, N, N) f32, saved for the backward); its backward
+launches the backward kernel (``repro_wkv_bwd``, N <= 64) through
+:func:`wkv_bwd`, counted in ``bwd_launches``. The backward's plain
+version is :func:`wkv_bwd_ref`: ``torch.autograd.grad`` through
+:func:`wkv_ref`.
+
+A forward block owns (b, h, a slice of ``ms`` value columns):
+:func:`partition` picks ``ms`` and the grid, :func:`route` the load
+route, both before the launch; :func:`wkv_msplit_ref` is the
+slice-by-slice algebra in plain torch. A backward block owns a whole
+(b, h) row.
 """
 from __future__ import annotations
 
@@ -45,11 +54,10 @@ MAX_BLOCKS_PER_SM = 2_048 // THREADS
 
 VECTOR, SCALAR = "vector", "scalar"
 
-launches = 0
+BWD_HEAD_SIZES = (16, 32, 64)  # the backward kernel's (shared memory)
 
-_NO_BWD = ("the WKV kernel has no backward kernel (the reference trains "
-           "rwkv through its jnp recurrence), so rwkv does not train on the "
-           "card yet")
+launches = 0
+bwd_launches = 0
 
 
 def smem_bytes(N: int, ms: int, itemsize: int) -> int:
@@ -145,6 +153,21 @@ def wkv_ref(r, k, v, wlog, u, state):
     return y.reshape(BH, T, N), s.reshape(BH, N, N)
 
 
+def wkv_bwd_ref(r, k, v, wlog, u, state, dy, ds=None):
+    """The backward's plain version, on the (BH, T, N) layout of
+    :func:`wkv_ref`: ``torch.autograd.grad`` through it, given dy and the
+    final state's gradient ``ds`` (None: zero). Returns (dr, dk, dv, dwlog,
+    du (BH, N), dstate), in f32 (f64 for f64 inputs)."""
+    dt = torch.promote_types(r.dtype, torch.float32)
+    with torch.enable_grad():
+        xs = [t.detach().to(dt).requires_grad_()
+              for t in (r, k, v, wlog, u, state)]
+        y, s = wkv_ref(*xs)
+        outs, grads = ((y,), (dy.to(dt),)) if ds is None else \
+            ((y, s), (dy.to(dt), ds.to(dt)))
+        return torch.autograd.grad(outs, xs, grads)
+
+
 def wkv_msplit_ref(r, k, v, wlog, u, state, ms: int):
     """The kernel's algebra in plain torch: every slice of ``ms`` value
     columns on its own, from the (BH, T, N) layout. Each slice recomputes
@@ -188,9 +211,11 @@ def wkv_msplit_ref(r, k, v, wlog, u, state, ms: int):
 def _lib() -> ctypes.CDLL:
     lib = build.load("wkv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_wkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                              p, p]
+    lib.repro_wkv.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                              i, p, p]
     lib.repro_wkv.restype = i
+    lib.repro_wkv_bwd.argtypes = [p] * 14 + [i] * 5 + [p, p]
+    lib.repro_wkv_bwd.restype = i
     return lib
 
 
@@ -235,10 +260,12 @@ def _check_heads(r, k, v, log_w, u, state) -> tuple[int, int, int, int]:
 
 
 def _launch(r, k, v, wl, u, state, y, s_out, *, B, H, T, N, strides,
-            ms) -> None:
+            ms, states=None) -> None:
     """One kernel launch; ``strides`` are the (b, h, t) element strides of
-    r, k, v, wl and y. Picks the slice width (unless given) and the load
-    route before the launch; raises on anything the kernel cannot take."""
+    r, k, v, wl and y; ``states`` (contiguous (B, H, T / CHUNK, N, N) f32,
+    or None) receives each chunk's starting state. Picks the slice width
+    (unless given) and the load route before the launch; raises on
+    anything the kernel cannot take."""
     global launches
     if N not in HEAD_SIZES:
         raise ValueError(f"wkv kernel takes N in {HEAD_SIZES}, got {N}")
@@ -265,11 +292,138 @@ def _launch(r, k, v, wl, u, state, y, s_out, *, B, H, T, N, strides,
     err = _lib().repro_wkv(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), wl.data_ptr(),
         u.data_ptr(), state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-        B, H, T, N, ms, int(r.dtype == torch.bfloat16), int(vec),
+        None if states is None else states.data_ptr(), B, H, T, N, ms,
+        int(r.dtype == torch.bfloat16), int(vec),
         ctypes.cast(flat, ctypes.c_void_p),
         torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "repro_wkv")
     launches += 1
+
+
+def bwd_smem_bytes(N: int) -> int:
+    """Dynamic shared memory of one backward block (csrc/wkv.cu
+    BwdLayout): twelve (C, N + 1) f32 tiles, the state and dS (N, N + 1),
+    A and dA (C, C + 1), four (N,) and two (C,) vectors, and three
+    (THREADS,) partials."""
+    C = CHUNK
+    return 4 * (12 * C * (N + 1) + 2 * N * (N + 1) + 2 * C * (C + 1)
+                + 4 * N + 2 * C + 3 * THREADS)
+
+
+def _launch_bwd(r, k, v, wl, u, states, dy, ds, grads, du_rows, ds0, *,
+                B, H, T, N, strides) -> None:
+    """One backward launch. ``grads`` are dr, dk, dv, dwl (f32, one
+    layout); ``strides`` the (b, h, t) element strides of r, k, v, wl, dy
+    and of the gradients. ``ds`` and ``ds0`` may be None."""
+    global bwd_launches
+    if N not in BWD_HEAD_SIZES:
+        raise ValueError(f"wkv backward kernel takes N in {BWD_HEAD_SIZES}, "
+                         f"got {N}")
+    for name, t in (("u", u), ("states", states), ("ds", ds),
+                    ("du_rows", du_rows), ("ds0", ds0)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"wkv backward kernel takes a contiguous {name}")
+    for name, t in (("dy", dy), *zip(("dr", "dk", "dv", "dwl"), grads)):
+        if t.dtype != torch.float32 or (N > 1 and t.stride(-1) != 1):
+            raise ValueError(f"wkv backward kernel takes float32 {name} with "
+                             f"unit stride along N")
+    props = _device_props(r.device.index if r.device.index is not None
+                          else torch.cuda.current_device())
+    need, have = bwd_smem_bytes(N), props.shared_memory_per_block_optin
+    if need > have:
+        raise ValueError(f"wkv backward kernel at N={N} needs {need} bytes "
+                         f"of shared memory, the device allows {have}")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    flat = (ctypes.c_longlong * 18)(*(x for s in strides for x in s))
+    err = _lib().repro_wkv_bwd(
+        *(ptr(t) for t in (r, k, v, wl, u, states, dy, ds, *grads, du_rows,
+                           ds0)),
+        B, H, T, N, int(r.dtype == torch.bfloat16),
+        ctypes.cast(flat, ctypes.c_void_p),
+        torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "repro_wkv_bwd")
+    bwd_launches += 1
+
+
+def _geometry(r, heads: bool):
+    """(B, H, the (b, h, t) element strides of a tensor) of ``wkv_heads``'s
+    (B, T, H, N) layout or, ``heads`` False, ``wkv``'s (BH, T, N) layout
+    (one batch row of BH heads, u read as (BH, N))."""
+    if heads:
+        return r.shape[0], r.shape[2], lambda t: (t.stride(0), t.stride(2),
+                                                  t.stride(1))
+    return 1, r.shape[0], lambda t: (0, t.stride(0), t.stride(1))
+
+
+def _forward(r, k, v, wl, u, state, heads: bool, ms, save: bool):
+    """One forward launch in either layout: (y f32 in r's shape, the new
+    state in ``state``'s shape, the chunk-start states or None)."""
+    B, H, rows = _geometry(r, heads)
+    T, N = r.shape[1], r.shape[-1]
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    s_out = torch.empty(state.shape, dtype=torch.float32, device=r.device)
+    states = torch.empty((B, H, T // CHUNK, N, N), dtype=torch.float32,
+                         device=r.device) if save else None
+    _launch(r, k, v, wl, u, state, y, s_out, B=B, H=H, T=T, N=N,
+            strides=[rows(t) for t in (r, k, v, wl, y)], ms=ms,
+            states=states)
+    return y, s_out, states
+
+
+def wkv_bwd(r, k, v, wl, u, states, dy, ds=None, *, heads: bool = True,
+            state_grad: bool = True):
+    """The backward kernel on CUDA tensors: given the forward's inputs,
+    its chunk-start ``states`` (B, H, T / CHUNK, N, N), dy and the final
+    state's gradient ``ds`` (None: zero), returns (dr, dk, dv, dwl, du,
+    dstate or None) in f32, in the layout of ``wkv_heads`` (``heads``) or
+    of ``wkv``; du is summed over b in a fixed order."""
+    B, H, rows = _geometry(r, heads)
+    T, N = r.shape[1], r.shape[-1]
+    if dy.stride(-1) != 1 or dy.dtype != torch.float32:
+        dy = dy.float().contiguous()
+    if ds is not None:
+        ds = ds.float().contiguous()
+    grads = [torch.empty(r.shape, dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    du_rows = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, N, N) if heads else (H, N, N),
+                      dtype=torch.float32, device=r.device) \
+        if state_grad else None
+    _launch_bwd(r, k, v, wl, u, states, dy, ds, grads, du_rows, ds0, B=B,
+                H=H, T=T, N=N,
+                strides=[rows(t) for t in (r, k, v, wl, dy, grads[0])])
+    du = du_rows.sum(0) if heads else du_rows[0]
+    return (*grads, du, ds0)
+
+
+class WkvFn(torch.autograd.Function):
+    """The WKV recurrence on CUDA tensors under autograd: the forward
+    kernel, which saves the chunk-start states, and the backward kernel
+    (:func:`wkv_bwd`). Gradients come back in each input's dtype (bf16 r,
+    k, v: the kernel's f32 rounded once)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, wl, u, state, heads, ms):
+        ctx.set_materialize_grads(False)
+        y, s_out, states = _forward(r, k, v, wl, u, state, heads, ms, True)
+        ctx.save_for_backward(r, k, v, wl, u, states)
+        ctx.heads = heads
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, wl, u, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dwl, du, ds0 = wkv_bwd(
+            r, k, v, wl, u, states, dy, ds, heads=ctx.heads,
+            state_grad=ctx.needs_input_grad[5])
+        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dwl, du,
+                ds0, None, None)
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def wkv(r, k, v, wlog, u, state, *, ms: int | None = None):
@@ -289,7 +443,6 @@ def wkv(r, k, v, wlog, u, state, *, ms: int | None = None):
         return wkv_ref(r, k, v, wlog, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv kernel runs on cuda, not {r.device}")
-    build.refuse_autograd("wkv kernel", (r, k, v, wlog, u, state), _NO_BWD)
     for name, t, shape in (("k", k, (BH, T, N)), ("v", v, (BH, T, N)),
                            ("wlog", wlog, (BH, T, N)), ("u", u, (BH, N)),
                            ("state", state, (BH, N, N))):
@@ -302,13 +455,10 @@ def wkv(r, k, v, wlog, u, state, *, ms: int | None = None):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"wkv kernel takes contiguous float32 {name}, "
                              f"got {t.dtype}")
-    y = torch.empty_like(r)
-    s_out = torch.empty((BH, N, N), dtype=torch.float32, device=r.device)
-    # BH rows as H heads of one batch row: u is read as (H, N)
-    bh = lambda t: (0, t.stride(0), t.stride(1))
-    _launch(r, k, v, wlog, u, state, y, s_out, B=1, H=BH, T=T, N=N,
-            strides=[bh(t) for t in (r, k, v, wlog, y)], ms=ms)
-    return y, s_out
+    args = (r, k, v, wlog, u, state)
+    if _needs_grad(args):
+        return WkvFn.apply(*args, False, ms)
+    return _forward(*args, False, ms, False)[:2]
 
 
 def wkv_heads(r, k, v, log_w, u, state, *, ms: int | None = None):
@@ -318,8 +468,8 @@ def wkv_heads(r, k, v, log_w, u, state, *, ms: int | None = None):
     Returns (y (B, T, H, N) f32, new_state (B, H, N, N)). T must be a
     multiple of CHUNK; every input needs unit stride along N. On a CUDA
     tensor the kernel reads the inputs where they lie and writes y in this
-    layout: no copy. Elsewhere: ``wkv`` on the (B*H, T, N) f32 copies,
-    transposed back (a view).
+    layout: no copy (under autograd through :class:`WkvFn`). Elsewhere:
+    ``wkv`` on the (B*H, T, N) f32 copies, transposed back (a view).
     """
     B, T, H, N = _check_heads(r, k, v, log_w, u, state)
     if r.device.type != "cuda":
@@ -329,10 +479,7 @@ def wkv_heads(r, k, v, log_w, u, state, *, ms: int | None = None):
                       state.reshape(B * H, N, N))
         return (y_bh.reshape(B, H, T, N).transpose(1, 2),
                 s.reshape(B, H, N, N))
-    build.refuse_autograd("wkv kernel", (r, k, v, log_w, u, state), _NO_BWD)
-    y = torch.empty((B, T, H, N), dtype=torch.float32, device=r.device)
-    s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    bth = lambda t: (t.stride(0), t.stride(2), t.stride(1))
-    _launch(r, k, v, log_w, u, state, y, s_out, B=B, H=H, T=T, N=N,
-            strides=[bth(t) for t in (r, k, v, log_w, y)], ms=ms)
-    return y, s_out
+    args = (r, k, v, log_w, u, state)
+    if _needs_grad(args):
+        return WkvFn.apply(*args, True, ms)
+    return _forward(*args, True, ms, False)[:2]

@@ -30,7 +30,8 @@ one card (each collective staged through host memory); nccl is the
 default there. ``--n-layers`` cuts the config's depth (its width stays);
 ``--record-out PATH`` has rank 0 write each step's loss, gradient norm,
 collective bytes and host seconds, its kernel launches and the final
-parameters, whole, to PATH (``torch.save``). ``--ckpt-every 0`` writes no
+parameters, whole, to PATH (``torch.save``; the launches include the
+WKV backward kernel's, ``wkv_bwd``). ``--ckpt-every 0`` writes no
 checkpoint at all (a run at full width, whose state is tens of GB).
 """
 from __future__ import annotations
@@ -158,7 +159,7 @@ def _run(args) -> dict:
         if args.ckpt_every > 0 else None
     monitor = StragglerMonitor()
     losses, seconds, coll, gnorms = [], [], [], []
-    before = graphs.launches()
+    before = graphs.train_launches()
     for step in range(start, args.steps):
         b = batch_for(cfg, args.seq, args.batch, step)
         t0 = time.perf_counter()
@@ -200,8 +201,8 @@ def _run(args) -> dict:
         _record(args.record_out, art, state, mesh, lead,
                 {"losses": losses, "grad_norms": gnorms, "step_s": seconds,
                  "collective_bytes": coll, "start_step": start,
-                 "launches": {k: n - before[k]
-                              for k, n in graphs.launches().items()}})
+                 "launches": {k: n - before[k] for k, n in
+                              graphs.train_launches().items()}})
     return {"start_step": start, "losses": losses, "step_s": seconds,
             "collective_bytes": coll, "microbatches": art.microbatches,
             "grad_norms": gnorms}

@@ -8,9 +8,11 @@ WKV recurrence follows the reference's branch rule: a sequence with
 hand-written kernel ``kernels/csrc/wkv.cu`` through
 :func:`repro_torch.kernels.wkv.wkv_heads`, which reads the (B, T, H, N)
 projections in place (its plain version on a CPU tensor is
-:func:`wkv_chunk_parallel` below); any other length, decode included, runs
-the token scan :func:`_wkv_step` in plain torch ops, as the reference keeps
-it in XLA code.
+:func:`wkv_chunk_parallel` below; under autograd on the card the wrapper's
+``WkvFn`` launches the forward kernel and, in the backward, the backward
+kernel, tensor-parallel on a rank's heads alike); any other length, decode
+included, runs the token scan :func:`_wkv_step` in plain torch ops, as the
+reference keeps it in XLA code (training too).
 
 dtypes follow the reference: the LoRA up-projection and the mixing
 coefficients are cast to the activation dtype before use, the decay is

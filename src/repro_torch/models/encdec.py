@@ -24,8 +24,8 @@ from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.models.lm import (_embed, _heads_kw, _layer, _logits,
-                                   _prefix_axes, apply_norm, init_norm,
-                                   norm_axes)
+                                   _prefix_axes, _remat, _unstack,
+                                   apply_norm, init_norm, norm_axes)
 
 
 def init_encdec(cfg: ModelConfig, *, seed: int = 0, device
@@ -91,17 +91,23 @@ def encdec_axes(cfg: ModelConfig):
     return ax
 
 
+def _encoder_layer(cfg: ModelConfig, lp, x):
+    lp = cm.gathered(lp, "encoder")
+    x = x + attn.self_attention(
+        lp["attn"], apply_norm(cfg, lp["ln1"], x), causal=False,
+        use_rope=False, rope_theta=cfg.rope_theta, **_kw(cfg))
+    return x + mlp_lib.mlp(lp["mlp"], apply_norm(cfg, lp["ln2"], x),
+                           activation=cfg.activation)
+
+
 def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     """frames: precomputed (B, encoder_len, d) frame embeddings (the
-    frontend stub) -> the encoder's normed output."""
+    frontend stub) -> the encoder's normed output. With ``cfg.remat``
+    under grad each layer is recomputed in the backward, as the
+    reference's."""
     x = frames.to(cfg.dtype)
-    for i in range(cfg.n_encoder_layers):
-        lp = cm.gathered(_layer(params["encoder"], i), "encoder")
-        x = x + attn.self_attention(
-            lp["attn"], apply_norm(cfg, lp["ln1"], x), causal=False,
-            use_rope=False, rope_theta=cfg.rope_theta, **_kw(cfg))
-        x = x + mlp_lib.mlp(lp["mlp"], apply_norm(cfg, lp["ln2"], x),
-                            activation=cfg.activation)
+    for lp in _unstack(params["encoder"], cfg.n_encoder_layers):
+        x = _remat(cfg, lambda x, lp: _encoder_layer(cfg, lp, x))(x, lp)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -113,17 +119,23 @@ def _cross_mlp(cfg: ModelConfig, lp, x, enc):
                            activation=cfg.activation)
 
 
+def _decoder_layer(cfg: ModelConfig, lp, x, enc):
+    lp = cm.gathered(lp, "decoder")
+    x = x + attn.self_attention(
+        lp["attn"], apply_norm(cfg, lp["ln1"], x), causal=True,
+        rope_theta=cfg.rope_theta, **_kw(cfg))
+    return _cross_mlp(cfg, lp, x, enc)
+
+
 def forward(params, batch, cfg: ModelConfig):
     """batch = {'frames': (B, enc_len, d), 'tokens': (B, S)} -> (hidden,
-    aux_loss 0)."""
+    aux_loss 0). With ``cfg.remat`` under grad each encoder and decoder
+    layer is recomputed in the backward, as the reference's."""
     enc = encode(params, batch["frames"], cfg)
     x = _embed(params, batch["tokens"], cfg)
-    for i in range(cfg.n_layers):
-        lp = cm.gathered(_layer(params["decoder"], i), "decoder")
-        x = x + attn.self_attention(
-            lp["attn"], apply_norm(cfg, lp["ln1"], x), causal=True,
-            rope_theta=cfg.rope_theta, **_kw(cfg))
-        x = _cross_mlp(cfg, lp, x, enc)
+    for lp in _unstack(params["decoder"], cfg.n_layers):
+        x = _remat(cfg, lambda x, lp: _decoder_layer(cfg, lp, x, enc))(
+            x, lp)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

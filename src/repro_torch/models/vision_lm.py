@@ -9,9 +9,10 @@ cross-attention layer, so the parameter tree has two stacked levels:
 ``groups.self`` leaves are (G, n_self, ...), ``groups.cross`` leaves (G,
 ...), and the tanh gates ``gate_attn`` / ``gate_mlp`` are (G,) in the
 param dtype, zeros at init (a cross layer then adds exactly nothing). The
-reference's two-level ``lax.scan`` becomes one Python loop over the
-layers in its order, each layer a view of its slice of the stacked leaves
-(``_stack_layer``). Every decode step recomputes the cross K/V from
+reference's two-level ``lax.scan`` becomes Python loops over the layers
+in its order, each layer a view of its slice of the stacked leaves
+(``_stack_layer``; the forward recomputes each group under remat, as the
+reference's ``group_body``). Every decode step recomputes the cross K/V from
 ``img``, as the reference does.
 
 The decode state is the self layers' contiguous KV cache (G, n_self, B,
@@ -31,8 +32,8 @@ from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.models.lm import (_embed, _heads_kw, _layer, _logits,
-                                   _prefix_axes, apply_norm, init_norm,
-                                   norm_axes)
+                                   _prefix_axes, _remat, _unstack,
+                                   apply_norm, init_norm, norm_axes)
 
 
 def group_dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -167,14 +168,27 @@ def _stack_layer(params, cfg: ModelConfig, i: int, x, img, mode="full",
         mode, cache)
 
 
+def _group(cfg: ModelConfig, gp_self, gp_cross, x, img):
+    """One group, the reference's ``group_body``: its self layers
+    (``gp_self``'s leaves (n_self, ...)), then its cross layer, each layer
+    gathered inside the remat boundary."""
+    for lp in _unstack(gp_self, cfg.cross_attn_every - 1):
+        x = _self_block(cfg, cm.gathered(lp, "groups/self", 2), x)
+    return _cross_block(cfg, cm.gathered(gp_cross, "groups/cross"), x, img)
+
+
 def forward(params, batch, cfg: ModelConfig):
     """batch = {'tokens': (B, S), 'image_embeds': (B, n_img, d)} ->
-    (hidden, aux_loss 0)."""
-    group_dims(cfg)
+    (hidden, aux_loss 0). With ``cfg.remat`` under grad each group is
+    recomputed in the backward (the reference's remat of ``group_body``)."""
+    G, _ = group_dims(cfg)
     img = batch["image_embeds"].to(cfg.dtype)
     x = _embed(params, batch["tokens"], cfg)
-    for i in range(cfg.n_layers):
-        x = _stack_layer(params, cfg, i, x, img)
+    groups = zip(_unstack(params["groups"]["self"], G),
+                 _unstack(params["groups"]["cross"], G))
+    for gp_self, gp_cross in groups:
+        x = _remat(cfg, lambda x, s, c: _group(cfg, s, c, x, img))(
+            x, gp_self, gp_cross)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

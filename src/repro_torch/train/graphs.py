@@ -54,10 +54,19 @@ def launches() -> dict[str, int]:
     return {k: n + replayed[k] for k, n in eager_launches().items()}
 
 
+def train_launches() -> dict[str, int]:
+    """:func:`launches` and the WKV backward kernel's, which only a
+    training step launches (no graph captures one): the serving paths'
+    launch rules name the three forward kernels."""
+    return {**launches(), "wkv_bwd": wkv.bwd_launches}
+
+
 def reset_launches() -> None:
+    """Every counter to 0, the WKV backward's too."""
     for k, mod in _KERNELS.items():
         mod.launches = 0
         replayed[k] = 0
+    wkv.bwd_launches = 0
 
 
 @contextlib.contextmanager

@@ -217,16 +217,18 @@ def test_no_grad_forward_is_unchanged():
 
 
 def test_kernel_wrappers_refuse_autograd():
-    """The CUDA branch of every kernel wrapper calls this before a launch:
-    a tensor that requires grad under grad mode raises (chip_smoke.py
-    phase 13 checks the WKV raise on the card); under no_grad, or with no
-    input requiring grad, it passes."""
+    """The CUDA branch of the GEMM wrappers calls this before a launch
+    (the WKV wrappers take :class:`WkvFn` under autograd instead): a
+    tensor that requires grad under grad mode raises (chip_smoke.py phase
+    13 checks the raise on the card); under no_grad, or with no input
+    requiring grad, it passes."""
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        build.refuse_autograd("wkv kernel", (x, None), wkv._NO_BWD)
+    why = "call core.gemm.balanced_gemm, whose backward launches the kernels"
+    with pytest.raises(RuntimeError, match="balanced_gemm"):
+        build.refuse_autograd("matmul kernel", (x, None), why)
     with torch.no_grad():
-        build.refuse_autograd("wkv kernel", (x,), wkv._NO_BWD)
-    build.refuse_autograd("wkv kernel", (x.detach(),), wkv._NO_BWD)
+        build.refuse_autograd("matmul kernel", (x,), why)
+    build.refuse_autograd("matmul kernel", (x.detach(),), why)
 
 
 def test_wkv_heads_on_cpu_stays_differentiable():

@@ -126,7 +126,7 @@ def build(names) -> None:
 def _load(name: str):
     lib = ctypes.CDLL(os.path.join(OUT, name, "lib.so"))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_wkv.argtypes = [p] * 8 + [i] * 7 + [p, p]
+    lib.repro_wkv.argtypes = [p] * 9 + [i] * 7 + [p, p]
     lib.repro_wkv.restype = i
     return lib
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7-18; one CUDA card
+  python3 chip_smoke.py            # phases 1-5 and 7-21; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
@@ -218,9 +218,10 @@ ends the run with a non-zero exit:
 15. tensor parallelism over 'model' with two ranks on the one card: a (1,
    2) (data, model) mesh over gloo (``--backend gloo``: each collective
    staged through host memory, the products on the kernels), one process
-   a rank under ``torchrun --nproc-per-node 2`` (phases 15-19's 13 such
-   jobs start together, MESH_SLOTS at a time, beside this process's
-   one-device yardsticks): 15a ``launch.serve
+   a rank under ``torchrun --nproc-per-node 2`` (phases 15-19's and 21's
+   9 such jobs start together, MESH_SLOTS at a time, beside this
+   process's one-device yardsticks; the launch.serve runs of a phase share
+   one job, 17c and 15b aside): 15a ``launch.serve
    --mesh 1x2`` at qwen1.5-4b's full width, 2 layers (4 x 128, 16
    tokens) against the same path at 1 x 1: the prefill's logits, the
    greedy tokens (12c's rule), both ranks' tokens equal, each rank's
@@ -248,7 +249,7 @@ ends the run with a non-zero exit:
    ranks on the one card over gloo (the first DP extent above 1 here:
    the attention leaves' FSDP gathers staged through host memory), the
    ranks building the model one at a time: 17a ``launch.serve --mesh
-   2x1`` at full width and 4 layers (4 x 128, 16 tokens) against the same
+   2x1`` at full width and 2 layers (4 x 128, 16 tokens) against the same
    path on one device with ``moe_ep_plain`` over 2 shards (the mesh's
    semantics): both ranks' tokens equal, the tokens equal before each
    near-tie, the first-token logits within PATH_TOL, each rank's launches
@@ -290,6 +291,24 @@ ends the run with a non-zero exit:
    the GEMV), the prefill's and each decode step's bytes by kind the dry
    run's; each rank's peak beside the one device's. 3a holds the local
    GEMM and GEMV shapes, 3b the WKV kernel on a rank's 20 heads.
+20. training the rwkv, hybrid, encoder-decoder, vision and MoE families
+   (the WKV backward kernel, 20a-20d).
+21. serving over a mesh with nothing refused: 21a-21d phase 19's four
+   jobs with ``--quantize int8`` (W8A8 inside RWKV-6's time-mix and
+   channel-mix, Mamba-2's stored ``w_in`` block, whisper's encoder and
+   decoder, the vision model's gated cross layers), each against the same
+   path on one device in this process with 15a's gates, its family's int8
+   launch rule and its ``scale_max`` (one 4-byte MAX a row-parallel
+   product); qwen1.5-4b at 2 layers over a (1, 3) mesh, three gloo ranks
+   on the card: 'model' = 3 divides neither its 20 kv heads nor head_dim
+   128, so 21e's static server (``--gen 15``: max_len 144, which 3
+   divides) lays its cache's sequence over 'model' (each rank writes the
+   positions it holds, the softmax normalized over 'model') and
+   21f's paged engine keeps its pool whole on every rank; 21e against
+   15a's one-device record (its first 15 steps), 21f against 16a's, with
+   the same gates (21f's pool whole), and 21e's decode steps' logits on
+   each row's equal tokens within PATH_TOL too. 3a holds the local
+   shapes.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -299,6 +318,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -885,6 +905,63 @@ CASES = [
                             ("wo int32 out", 1280, 2560, "int32"),
                             ("w_out int32 out", 3456, 2560, "int32")]
     for M in (4, 512)
+] + [
+    # W8A8 over 'model' = 2 for the other families (phase 21a-21d): each
+    # product's local shape at a decode step's 4 rows and at the rows its
+    # prefill gives it (512; whisper's encoder and cross K/V 4 x 1500
+    # frames, the vision model's cross K/V 4 x 1600 image tokens);
+    # column-parallel with the fused epilogue (rwkv's decay up-projection
+    # the dynamic path: its weight is float in a pre-quantized tree),
+    # row-parallel with int32 out and no epilogue, the vocabulary block
+    # with f32 out
+    Case(f"W8A8 TP {name} M={M}", "matmul", M, K, N, a_dtype="int8",
+         b_dtype="int8", out_dtype=out, layout="col", bias=bias,
+         activation=act, scale=out != "int32")
+    for name, Ms, K, N, out, bias, act in [
+        ("rwkv r/k/v/g", (4, 512), 2560, 1280, "bfloat16", False, None),
+        ("rwkv decay up-projection", (4, 512), 32, 1280, "bfloat16", False,
+         None),
+        ("rwkv cmix wk + relu", (4, 512), 2560, 4480, "bfloat16", False,
+         "relu"),
+        ("rwkv cmix wv int32 out", (4, 512), 4480, 2560, "int32", False,
+         None),
+        ("rwkv unembed block f32 out", (4,), 2560, 32768, "float32", False,
+         None),
+        ("zamba2 w_in block", (4, 512), 2048, 4192, "bfloat16", False, None),
+        ("zamba2 w_out int32 out", (4, 512), 2048, 2048, "int32", False,
+         None),
+        ("zamba2 unembed block f32 out", (4,), 2048, 16000, "float32", False,
+         None),
+        ("whisper q/k/v + bias", (4, 6000), 512, 256, "bfloat16", True,
+         None),
+        ("whisper wo int32 out", (4, 6000), 256, 512, "int32", False, None),
+        ("whisper MLP in + bias + gelu", (4, 6000), 512, 1024, "bfloat16",
+         True, "gelu"),
+        ("whisper MLP out int32 out", (4, 6000), 1024, 512, "int32", False,
+         None),
+        ("vision q", (4, 512), 4096, 2048, "bfloat16", False, None),
+        ("vision k/v", (4, 6400), 4096, 512, "bfloat16", False, None),
+        ("vision wo int32 out", (4, 512), 2048, 4096, "int32", False, None),
+        ("vision gate + silu", (4, 512), 4096, 7168, "bfloat16", False,
+         "silu"),
+        ("vision w_out int32 out", (4, 512), 7168, 4096, "int32", False,
+         None),
+        ("vision unembed block f32 out", (4,), 4096, 64128, "float32", False,
+         None),
+    ]
+    for M in Ms
+] + [
+    # qwen1.5-4b over 'model' = 3 (phase 21e, 21f): of its products only
+    # the MLP's splits (d_ff 6912 / 3); attention (20 heads of 128) and
+    # the vocabulary stay whole on every rank
+    Case("tp3 gate + silu", "matmul", 512, 2560, 2304, activation="silu"),
+    Case("tp3 w_out f32 out", "matmul", 512, 2304, 2560,
+         out_dtype="float32"),
+    Case("tp3 decode gate + silu", "matmul", 4, 2560, 2304,
+         activation="silu"),
+    Case("tp3 decode w_in", "gemv", 4, 2560, 2304),
+    Case("tp3 decode w_out f32 out", "gemv", 4, 2304, 2560,
+         out_dtype="float32"),
 ]
 # GEMV cases held to their plain version but not timed: every dtype pair,
 # both layouts, 1..128 rows, ragged K and N, both routes
@@ -3885,11 +3962,9 @@ def _cut_step(torch, cfg, mesh) -> tuple[list[float], dict]:
 
 
 def _free_port() -> int:
-    import socket
+    from repro_torch.launch.mesh import free_port
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
+    return free_port()
 
 
 def dist_smoke_start() -> _Jobs:
@@ -4057,14 +4132,16 @@ MESH_SLOTS = 4
 
 class _Job:
     """One torchrun of ``target`` (``-m module args`` or a script and its
-    arguments) over ``nproc`` ranks; :class:`_Jobs` starts it."""
+    arguments) over ``nproc`` ranks; :class:`_Jobs` starts it. ``also``:
+    the other tags a job serves under (:func:`_serve_many`)."""
 
     def __init__(self, tag: str, target: list[str], timeout: int = 600,
-                 nproc: int = 2):
+                 nproc: int = 2, also: tuple[str, ...] = ()):
         self.tag, self.target, self.timeout = tag, target, timeout
-        self.nproc = nproc
+        self.nproc, self.also = nproc, also
         self.proc, self.out, self.err, self.rc = None, "", "", None
         self.started = self.seconds = 0.0
+        self.reported = False
         self.done = threading.Event()
 
 
@@ -4074,14 +4151,15 @@ class _Jobs:
     ends every one still running and starts no other."""
 
     def __init__(self, jobs: list[_Job], slots: int = MESH_SLOTS):
-        self.jobs = {j.tag: j for j in jobs}
+        self.order = jobs
+        self.jobs = {t: j for j in jobs for t in (j.tag, *j.also)}
         self.slots = threading.Semaphore(slots)
         self.lock = threading.Lock()
         self.closed = False
         threading.Thread(target=self._dispatch, daemon=True).start()
 
     def _dispatch(self) -> None:
-        for job in self.jobs.values():
+        for job in self.order:
             self.slots.acquire()
             with self.lock:
                 if self.closed:
@@ -4119,8 +4197,10 @@ class _Jobs:
         job = self.jobs[tag]
         job.done.wait()
         print(f"exit {job.rc} in {job.seconds:.1f}s (started at "
-              f"{job.started - _T0:.1f}s, beside the other jobs): "
-              + _lines(job.out, heads), flush=True)
+              f"{job.started - _T0:.1f}s, beside the other jobs)"
+              + (f" (job {job.tag}'s, read above)" if job.reported else
+                 ": " + _lines(job.out, heads)), flush=True)
+        job.reported = True
         if job.rc != 0:
             raise SystemExit(f"{label}: the ranks failed: "
                              + job.err[-3000:])
@@ -4129,7 +4209,7 @@ class _Jobs:
     def stop(self) -> None:
         with self.lock:
             self.closed = True
-            running = [j.proc for j in self.jobs.values() if j.proc]
+            running = [j.proc for j in self.order if j.proc]
         for proc in running:
             _stop(proc)
 
@@ -4143,18 +4223,23 @@ def _mesh(mesh: str, where: str, tag: str) -> list[str]:
             os.path.join(out, tag)]
 
 
-def _records(torch, where: str, tag: str) -> list:
+def _records(torch, where: str, tag: str, n: int = 2) -> list:
     return [torch.load(os.path.join(ROOT, "build", where,
                                     f"{tag}.rank{r}.pt"), weights_only=False)
-            for r in range(2)]
+            for r in range(n)]
+
+
+def _ranks(mesh: str) -> int:
+    """The ranks of a mesh named as ``--mesh`` takes it ("1x3": 3)."""
+    return math.prod(int(n) for n in mesh.split("x"))
 
 
 def _static_args(arch: str, layers: int | None,
-                 extra: list[str] = ()) -> list[str]:
-    """The static server's arguments (4 x 128, 16 tokens), ``layers`` None:
-    the full depth."""
+                 extra: list[str] = (), gen: int = GEN) -> list[str]:
+    """The static server's arguments (4 x 128, ``gen`` tokens), ``layers``
+    None: the full depth."""
     return (["--arch", arch, "--batch", str(BATCH), "--prompt-len",
-             str(PROMPT), "--gen", str(GEN), "--plan-cache", ""]
+             str(PROMPT), "--gen", str(gen), "--plan-cache", ""]
             + ([] if layers is None else ["--n-layers", str(layers)])
             + list(extra))
 
@@ -4194,7 +4279,7 @@ def _int8_engine_args() -> list[str]:
 
 
 def start_mesh_jobs() -> _Jobs:
-    """Phases 15-19's jobs, in the order the phases read them."""
+    """Phases 15-19's and 21's jobs, in the order the phases read them."""
     serve = ["-m", "repro_torch.launch.serve"]
     os.makedirs(os.path.join(ROOT, "build", "phase15"), exist_ok=True)
     prog = os.path.join(ROOT, "build", "phase17", "ep_layer.py")
@@ -4205,22 +4290,70 @@ def start_mesh_jobs() -> _Jobs:
         _Job("15a", serve + _tp_static_args([])
              + _mesh(TP_MESH, "phase15", "tp_cut")),
         _Job("15b", ["-m", "repro_torch.launch.train"] + _tp_train_args()),
-        _Job("16a", serve + _tp_engine_args()
-             + _mesh(TP_MESH, "phase16", "engine_cut")),
-        _Job("16b", serve + _tp_engine_args(spec=True)
-             + _mesh(TP_MESH, "phase16", "spec")),
-        _Job("17a", serve + _ep_args() + _mesh(EP_MESH, "phase17", "ep")),
+        _serve_many("16", {
+            "16a": _tp_engine_args() + _mesh(TP_MESH, "phase16",
+                                             "engine_cut"),
+            "16b": _tp_engine_args(spec=True) + _mesh(TP_MESH, "phase16",
+                                                      "spec")}, "phase16"),
+        _serve_many("17", {
+            "17a": _ep_args() + _mesh(EP_MESH, "phase17", "ep"),
+            "17b": _ep_engine_args() + _mesh(EP_MESH, "phase17",
+                                             "ep_engine")}, "phase17"),
         _Job("17c", [prog, os.path.join(ROOT, "build", "phase17",
                                         "ep_layer")]),
-        _Job("17b", serve + _ep_engine_args()
-             + _mesh(EP_MESH, "phase17", "ep_engine")),
-        _Job("18a", serve + _tp_static_args(["--quantize", "int8"])
-             + _mesh(TP_MESH, "phase18", "int8_tp")),
-        _Job("18b", serve + _int8_engine_args()
-             + _mesh(TP_MESH, "phase18", "engine")),
-    ] + [_Job(label, serve + _static_args(arch, layers)
-              + _mesh(TP_MESH, "phase19", label))
-         for label, (arch, layers) in FAMILY_TP.items()])
+        _serve_many("18", {
+            "18a": _tp_static_args(["--quantize", "int8"])
+            + _mesh(TP_MESH, "phase18", "int8_tp"),
+            "18b": _int8_engine_args() + _mesh(TP_MESH, "phase18",
+                                               "engine")}, "phase18"),
+        _serve_many("19", {label: _static_args(arch, layers)
+                           + _mesh(TP_MESH, "phase19", label)
+                           for label, (arch, layers) in FAMILY_TP.items()},
+                    "phase19"),
+        _serve_many("21int8", {
+            label: _static_args(arch, layers, INT8)
+            + _mesh(TP_MESH, "phase21", label)
+            for label, (arch, layers) in FAMILY_INT8_TP.items()}, "phase21"),
+        _serve_many("21tp3", {
+            "21e": _static_args("qwen1.5-4b", TP_CUT, gen=TP3_GEN)
+            + _mesh(TP3_MESH, "phase21", "21e"),
+            "21f": _tp_engine_args() + _mesh(TP3_MESH, "phase21", "21f")},
+            "phase21", nproc=_ranks(TP3_MESH)),
+    ])
+
+
+# one torchrun job that serves several launch.serve runs in turn: one
+# start-up (the interpreters, the process group, the CUDA contexts) for
+# them all, each run its own record (``--record-out``)
+SERVE_MANY_PROG = r'''
+import gc, json, sys
+
+import torch
+
+from repro_torch.launch import serve
+
+for argv in json.load(open(sys.argv[1])):
+    serve.main(argv)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+'''
+
+
+def _serve_many(tag: str, runs: dict[str, list[str]], where: str,
+                nproc: int = 2) -> _Job:
+    """A job over ``nproc`` ranks that runs ``launch.serve`` with each of
+    ``runs``' argument lists in turn (SERVE_MANY_PROG), under its own tag
+    and each run's."""
+    out = os.path.join(ROOT, "build", where)
+    os.makedirs(out, exist_ok=True)
+    prog, argv = (os.path.join(out, f"{tag}.{ext}") for ext in ("py",
+                                                                 "json"))
+    with open(prog, "w") as f:
+        f.write(SERVE_MANY_PROG)
+    with open(argv, "w") as f:
+        json.dump(list(runs.values()), f)
+    return _Job(tag, [prog, argv], nproc=nproc, also=tuple(runs))
 
 
 def _lines(out: str, heads: tuple[str, ...]) -> str:
@@ -4229,21 +4362,29 @@ def _lines(out: str, heads: tuple[str, ...]) -> str:
 
 
 def _tp_serve_run(torch, jobs: _Jobs, label: str, args: list[str],
-                  tag: str, where: str) -> tuple[dict, list]:
-    """The static server at 1 x 1 in this process, then the ranks of job
-    ``label`` over the (1, 2) mesh: (the 1 x 1 record, the ranks')."""
+                  tag: str, where: str, n: int = 2,
+                  reuse: str | None = None) -> tuple[dict, list]:
+    """The static server at 1 x 1 in this process (``reuse``: the record
+    an earlier phase wrote under build/, of the same model and prompts),
+    then the ``n`` ranks of job ``label``: (the 1 x 1 record, the
+    ranks')."""
     from repro_torch.launch import serve
 
     out = os.path.join(ROOT, "build", where)
     os.makedirs(out, exist_ok=True)
-    _free(torch)
-    torch.cuda.reset_peak_memory_stats()
-    one = serve.main(args + ["--record-out", os.path.join(out, tag + "1")])
-    ref = one["record"]
-    del one
-    _free(torch)
+    if reuse is not None:
+        ref = torch.load(os.path.join(ROOT, "build", reuse + ".rank0.pt"),
+                         weights_only=False)
+    else:
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        one = serve.main(args + ["--record-out", os.path.join(out,
+                                                               tag + "1")])
+        ref = one["record"]
+        del one
+        _free(torch)
     jobs.result(label, label, ("[mesh]", "[serve]", "[plan-cache]"))
-    return ref, _records(torch, where, tag)
+    return ref, _records(torch, where, tag, n)
 
 
 def _logit_err(a, b) -> float:
@@ -4262,15 +4403,21 @@ def tp_serve(torch, jobs: _Jobs) -> dict[str, int]:
 
 
 def _tp_static(torch, jobs: _Jobs, label: str, extra: list[str],
-               arch: str = "qwen1.5-4b", layers: int | None = TP_CUT
-               ) -> dict[str, int]:
-    """15a (float), 18a (``extra`` = ``--quantize int8``) and 19a-19d
-    (``arch`` at ``layers``, None: the full depth): the static server over
-    the (1, 2) mesh against the same path at 1 x 1 in this process. The
-    collective bytes by kind are the float step's dry-run cell's, and
-    besides them (int8) the W8A8 scales' MAX over 'model': one 4-byte
-    absmax for each row-parallel product (wo and w_out a layer). The
-    launches: the one-device rule at the local shapes (``_tp_rule``)."""
+               arch: str = "qwen1.5-4b", layers: int | None = TP_CUT,
+               mesh: str = TP_MESH, gen: int = GEN,
+               reuse: str | None = None,
+               decode_gate: bool = False) -> dict[str, int]:
+    """15a (float), 18a (``extra`` = ``--quantize int8``), 19a-19d and
+    21a-21d (``arch`` at ``layers``, None: the full depth; 21a-21d int8)
+    and 21e (``mesh`` 1x3, ``gen`` tokens): the static server over
+    ``mesh`` against the same path at 1 x 1 in this process (``reuse``:
+    an earlier phase's record of it). The collective bytes by kind are the
+    float step's dry-run cell's, and besides them (int8) the W8A8 scales'
+    MAX over 'model': one 4-byte absmax for each row-parallel product
+    (``_scale_max``). The launches: the one-device rule at the local
+    shapes (``_tp_rule``). Gated: the prefill's logits, the greedy tokens
+    up to each row's first near-tie and (``decode_gate``) the decode
+    steps' logits while a row's tokens are the 1 x 1 run's."""
     import dataclasses as dc
 
     from repro_torch import configs as C
@@ -4280,42 +4427,60 @@ def _tp_static(torch, jobs: _Jobs, label: str, extra: list[str],
     from repro_torch.launch.mesh import Mesh
 
     quant = "--quantize" in extra
-    args = _static_args(arch, layers, extra)
+    args = _static_args(arch, layers, extra, gen)
+    n = _ranks(mesh)
     phase(f"{label} tensor-parallel static server"
           + (" with int8 weights (W8A8 over 'model')" if quant else "")
-          + f": torchrun --nproc-per-node 2 -m repro_torch.launch.serve "
-          f"--mesh {TP_MESH} --backend gloo " + " ".join(
+          + f": torchrun --nproc-per-node {n} -m repro_torch.launch.serve "
+          f"--mesh {mesh} --backend gloo " + " ".join(
               a if a else "''" for a in args)
-          + " (full width), against the same path at 1 x 1 in this process")
+          + " (full width), against the same path at 1 x 1 "
+          + ("in this process" if reuse is None else
+             f"(build/{reuse}: its first {gen} steps)"))
     t0 = time.perf_counter()
-    tag, where = (("int8_tp", "phase18") if quant else ("tp_cut", "phase15")
-                  if label == "15a" else (label, "phase19"))
-    ref, recs = _tp_serve_run(torch, jobs, label, args, tag, where)
+    tag, where = {"15a": ("tp_cut", "phase15"),
+                  "18a": ("int8_tp", "phase18")}.get(
+                      label, (label, "phase" + label[:2]))
+    ref, recs = _tp_serve_run(torch, jobs, label, args, tag, where, n,
+                              reuse)
     cfg = C.get_config(arch)
     if layers is not None:
         cfg = dc.replace(cfg, n_layers=layers).validate()
     with use_context(hw="h100", plan_cache=PlanCache()):
-        abstract = Mesh(("data", "model"), (1, 2))
+        abstract = Mesh(("data", "model"), tuple(
+            int(d) for d in mesh.split("x")))
         want_pre = dryrun.serve_cell(cfg, abstract, "prefill", BATCH,
                                      PROMPT)["cost"]["by_collective"]
         want_dec = dryrun.serve_cell(cfg, abstract, "decode", BATCH,
-                                     PROMPT + GEN + 1)["cost"]["by_collective"]
+                                     PROMPT + gen + 1)["cost"]["by_collective"]
     L = cfg.n_layers
-    scale = 2 * 4 * L if quant else 0
-    rule = _tp_rule(cfg, quant)
+    scale = _scale_max(cfg) if quant else (0, 0)
+    rule = _tp_rule(cfg, quant, gen)
     pre_err = _logit_err(recs[0]["logits"][0], ref["logits"][0])
     # greedy tokens: each row up to its first position whose 1 x 1 top-2
-    # margin is within the tolerance
-    held = same = 0
+    # margin is within the tolerance; the decode steps' logits of a row
+    # while its tokens so far are the 1 x 1 run's (step t + 1 read
+    # tokens 0..t)
+    held = same = n_dec = 0
+    dec_err = 0.0
     for row in range(BATCH):
-        for t in range(GEN):
+        for t in range(gen):
             top2 = ref["logits"][t][row, :cfg.vocab_size].topk(2).values
             if not top2[0] - top2[1] > PATH_TOL * (1 + top2[0].abs()):
                 break
             held += 1
             same += int(recs[0]["tokens"][row, t] == ref["tokens"][row, t])
+        for t in range(gen):
+            if not torch.equal(recs[0]["tokens"][row, :t + 1],
+                               ref["tokens"][row, :t + 1]):
+                break
+            dec_err = max(dec_err, _logit_err(
+                recs[0]["logits"][t + 1][row], ref["logits"][t + 1][row]))
+            n_dec += 1
     failed = []
-    if not torch.equal(recs[0]["tokens"], recs[1]["tokens"]):
+    ranks_equal = all(torch.equal(recs[0]["tokens"], rec["tokens"])
+                      for rec in recs[1:])
+    if not ranks_equal:
         failed.append("the ranks' tokens differ")
     if same != held:
         failed.append(f"greedy tokens {same}/{held}")
@@ -4328,7 +4493,8 @@ def _tp_static(torch, jobs: _Jobs, label: str, extra: list[str],
               f"collective bytes prefill {rec['prefill_by_kind']} (dry run "
               f"{want_pre}), decode steps "
               f"{sorted(set(rec['decode_bytes']))} (dry run {want_dec}"
-              + (f", and scale_max {scale} a step" if quant else "")
+              + (f", and scale_max {scale[0]} / {scale[1]} a prefill / "
+                 "step" if quant else "")
               + f"); peak serving {rec['peak_gib']:.2f} GiB (one device "
               f"{ref['peak_gib']:.2f}), the load {rec['init_peak_gib']:.2f} "
               f"(one device {ref['init_peak_gib']:.2f}); prefill "
@@ -4342,18 +4508,24 @@ def _tp_static(torch, jobs: _Jobs, label: str, extra: list[str],
             failed.append(f"rank {r} was not plan-warm")
         if _less(steps[0], "scale_max") != want_pre or any(
                 _less(k, "scale_max") != want_dec for k in steps[1:]) or \
-                any(k.get("scale_max", 0) != scale for k in steps):
+                steps[0].get("scale_max", 0) != scale[0] or any(
+                    k.get("scale_max", 0) != scale[1] for k in steps[1:]):
             failed.append(f"rank {r} collective bytes differ from the dry "
                           "run's" + (" plus scale_max" if quant else ""))
     print(f"{L} layers: prefill logits max |tp - one| / (1 + |one|) = "
           f"{pre_err:.4g} (tol {PATH_TOL}); greedy tokens equal at "
           f"{same}/{held} positions whose top-2 margin exceeds {PATH_TOL}; "
-          f"the ranks' tokens equal: "
-          f"{torch.equal(recs[0]['tokens'], recs[1]['tokens'])}; phase "
+          f"decode logits on the rows' equal tokens {dec_err:.4g} over "
+          f"{n_dec} of {BATCH * gen} row-steps"
+          + (" (gated)" if decode_gate else "")
+          + f"; the ranks' tokens equal: {ranks_equal}; phase "
           f"{label} {time.perf_counter() - t0:.1f}s", flush=True)
     if not pre_err <= PATH_TOL:
         failed.append(f"prefill logits at {L} layers {pre_err} > "
                       f"{PATH_TOL}")
+    if decode_gate and not (n_dec and dec_err <= PATH_TOL):
+        failed.append(f"decode logits at {L} layers {dec_err} over {n_dec} "
+                      f"row-steps, tol {PATH_TOL}")
     counts = recs[0]["launches"]
     del recs, ref
     _free(torch)
@@ -4362,16 +4534,32 @@ def _tp_static(torch, jobs: _Jobs, label: str, extra: list[str],
     return counts
 
 
-def _tp_rule(cfg, quant: bool = False) -> dict[str, int]:
-    """A rank's launches of the static server over 'model' = 2 (prefill,
-    GEN decode steps): the one-device rule of PATHS at ``cfg``'s depth, at
-    the local shapes. qwen1.5-4b int8 (4c): every product fat. whisper:
-    the decoder's MLP out is row-parallel, its bias added after the sum,
-    so at decode its local product has no epilogue and takes the GEMV
-    (7 fat GEMMs and 3 GEMVs a decoder layer a step, 8 and 2 on one
-    device); every other family's local products keep their kernel."""
-    L, g = cfg.n_layers, GEN
+def _tp_rule(cfg, quant: bool = False, gen: int = GEN) -> dict[str, int]:
+    """A rank's launches of the static server over 'model' (prefill,
+    ``gen`` decode steps): the one-device rule of PATHS at ``cfg``'s
+    depth, at the local shapes. whisper: the decoder's MLP out is
+    row-parallel, its bias added after the sum, so at decode its local
+    product has no epilogue and takes the GEMV (7 fat GEMMs and 3 GEMVs a
+    decoder layer a step, 8 and 2 on one device); every other family's
+    local products keep their kernel. int8 (4c, 5d, 10b, 11c, 12b): every
+    W8A8 product fat, a row-parallel block's int32 partials too, at
+    prefill and at each step: qwen1.5-4b and the vision model 7 a layer
+    and the dynamic unembed's block; rwkv6-3b 11 a layer and the unembed,
+    the WKV kernel once a layer at prefill; zamba2-1.2b 2 a Mamba layer
+    and 7 a shared-block call and the unembed; whisper-base the encoder's
+    6 a layer (prefill) and 10 a decoder layer, its tied unembed the float
+    GEMV."""
+    L, g = cfg.n_layers, gen
     if quant:
+        if cfg.family == "rwkv":
+            return {"matmul": (g + 1) * (11 * L + 1), "gemv": 0, "wkv": L}
+        if cfg.family == "hybrid":
+            S = -(-L // cfg.shared_attn_every)
+            return {"matmul": (g + 1) * (2 * L + 7 * S + 1), "gemv": 0,
+                    "wkv": 0}
+        if cfg.family == "encdec":
+            return {"matmul": 6 * cfg.n_encoder_layers + 10 * L
+                    + g * 10 * L, "gemv": 1 + g, "wkv": 0}
         return {"matmul": (g + 1) * (7 * L + 1), "gemv": 0, "wkv": 0}
     if cfg.family == "rwkv":
         return {"matmul": 11 * L + g * 3 * L, "gemv": 1 + g * (8 * L + 1),
@@ -4389,6 +4577,24 @@ def _tp_rule(cfg, quant: bool = False) -> dict[str, int]:
                 "gemv": 1 + g * (6 * (L - X) + 4 * X + 1), "wkv": 0}
     return {"matmul": 7 * L + g * 4 * L, "gemv": 1 + g * (3 * L + 1),
             "wkv": 0}
+
+
+def _scale_max(cfg) -> tuple[int, int]:
+    """The bytes of a rank's W8A8 scale reductions over 'model' (prefill,
+    a decode step): one 4-byte MAX of the activation absmax for each
+    row-parallel product (a pre-quantized block keeps its whole
+    ``w_scale``): attention's wo and the MLP's w_out a layer (qwen1.5-4b,
+    the vision model's self and cross layers); rwkv6-3b's time-mix wo and
+    channel-mix wv; zamba2-1.2b's Mamba w_out a layer and the shared
+    block's wo and w_out a call; whisper-base's encoder wo and w_out a
+    layer (prefill) and its decoder's self and cross wo and MLP out."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        n = L + 2 * -(-L // cfg.shared_attn_every)
+        return 4 * n, 4 * n
+    if cfg.family == "encdec":
+        return 4 * (2 * cfg.n_encoder_layers + 3 * L), 4 * 3 * L
+    return 4 * 2 * L, 4 * 2 * L
 
 
 # ------------------------------------------------------------ phase 19
@@ -4409,6 +4615,78 @@ def family_tp(torch, jobs: _Jobs) -> dict[str, dict[str, int]]:
             f"{'all' if layers is None else layers} layers)":
             _tp_static(torch, jobs, label, [], arch, layers)
             for label, (arch, layers) in FAMILY_TP.items()}
+
+
+# ------------------------------------------------------------ phase 21
+# serving over a mesh with nothing refused (module docstring, 21): 21a-21d
+# phase 19's jobs with int8 weights; qwen1.5-4b over (1, 3), where 'model'
+# divides neither its 20 kv heads nor head_dim 128: 21e the static server
+# at TP3_GEN tokens (max_len = 128 + 15 + 1 = 144, which 3 divides: the
+# cache's sequence over 'model'), 21f the paged engine (its pool whole),
+# each held to 15a's / 16a's one-device record (the same weights, prompts
+# and engine), so no model is built twice
+INT8 = ["--quantize", "int8"]
+FAMILY_INT8_TP = {"21" + label[2:]: v for label, v in FAMILY_TP.items()}
+TP3_MESH, TP3_GEN = "1x3", 15
+
+
+def int8_family_tp(torch, jobs: _Jobs) -> dict[str, dict[str, int]]:
+    """21a-21d: each family's static server with int8 weights over the
+    (1, 2) mesh against the same path on one device; a rank's launches by
+    family."""
+    return {f"{arch} int8 tp serve (1x2, a rank, "
+            f"{'all' if layers is None else layers} layers)":
+            _tp_static(torch, jobs, label, INT8, arch, layers)
+            for label, (arch, layers) in FAMILY_INT8_TP.items()}
+
+
+def seq_cache_tp(torch, jobs: _Jobs) -> dict[str, int]:
+    """21e: the static server over (1, 3), its cache's sequence over
+    'model', against 15a's one-device record; its decode steps' logits
+    gated too (they alone normalize the softmax over 'model')."""
+    return _tp_static(torch, jobs, "21e", [], mesh=TP3_MESH, gen=TP3_GEN,
+                      reuse="phase15/tp_cut1", decode_gate=True)
+
+
+def whole_pool_tp_engine(torch, jobs: _Jobs) -> dict[str, int]:
+    """21f: 16a's engine over (1, 3), its pool whole on every rank,
+    against 16a's one-device record."""
+    import dataclasses as dc
+
+    from repro_torch import configs as C
+
+    args = _tp_engine_args()
+    n = _ranks(TP3_MESH)
+    phase(f"21f the engine over a (1, 3) mesh, its pool whole on every "
+          f"rank: torchrun --nproc-per-node {n} -m repro_torch.launch.serve "
+          + " ".join(a if a else "''" for a in args)
+          + f" --mesh {TP3_MESH} --backend gloo (full width, {TP_CUT} "
+          "layers), against 16a's one device (build/phase16/engine_cut1)")
+    t0 = time.perf_counter()
+    ref, recs = _tp_engine_run(torch, jobs, "21f", args, "21f", "phase21",
+                               n, reuse="phase16/engine_cut1")
+    cut = dc.replace(C.get_config("qwen1.5-4b"), n_layers=TP_CUT)
+    cells = _engine_cells(torch, cut, ref["engine"], False, shape=(1, n))
+
+    def rule(dispatches):
+        steps = sum(dispatches.values())
+        return {k: m * steps for k, m in TP_SPEC_STEP.items()}
+
+    failed = _tp_engine_gates(torch, f"{TP_CUT} layers over {TP3_MESH}",
+                              ref, recs, rule, cells, pool_div=1)
+    err = _first_logits_err(ref, recs[0])
+    print(f"first-token logits max |mesh - one| / (1 + |one|): {TP_CUT} "
+          f"layers {err:.4g} (tol {PATH_TOL}); phase 21f "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not err <= PATH_TOL:
+        failed.append(f"first-token logits at {TP_CUT} layers {err} > "
+                      f"{PATH_TOL}")
+    counts = recs[0]["launches"]
+    del ref, recs
+    _free(torch)
+    if failed:
+        raise SystemExit("21f: " + "; ".join(failed))
+    return counts
 
 
 def tp_train(torch, jobs: _Jobs) -> dict[str, int]:
@@ -4537,22 +4815,27 @@ TP_SPEC_STEP = {"matmul": 4 * TP_CUT, "gemv": 3 * TP_CUT + 1, "wkv": 0}
 
 
 def _tp_engine_run(torch, jobs: _Jobs, label: str, args: list[str],
-                   tag: str, where: str = "phase16") -> tuple[dict, list]:
-    """The engine on one device in this process, then the ranks of job
-    ``label``: (the one device's record, the ranks')."""
+                   tag: str, where: str = "phase16", n: int = 2,
+                   reuse: str | None = None) -> tuple[dict, list]:
+    """The engine on one device in this process (``reuse``: the record an
+    earlier phase wrote under build/ of the same engine), then the ``n``
+    ranks of job ``label``: (the one device's record, the ranks')."""
     from repro_torch.launch import serve
 
     out = os.path.join(ROOT, "build", where)
     os.makedirs(out, exist_ok=True)
-    _free(torch)
-    one = serve.main(args + ["--record-out", os.path.join(out, tag + "1")])
-    del one
-    _free(torch)
-    ref = torch.load(os.path.join(out, tag + "1.rank0.pt"),
+    if reuse is None:
+        _free(torch)
+        one = serve.main(args + ["--record-out", os.path.join(out,
+                                                               tag + "1")])
+        del one
+        _free(torch)
+        reuse = os.path.join(where, tag + "1")
+    ref = torch.load(os.path.join(ROOT, "build", reuse + ".rank0.pt"),
                      weights_only=False)
     jobs.result(label, label, ("[mesh]", "[engine]", "[spec]", "[kv-quant]",
                                "[plan-cache] serving"))
-    return ref, _records(torch, where, tag)
+    return ref, _records(torch, where, tag, n)
 
 
 def _held_tokens(ref: dict, rec: dict) -> tuple[int, int]:
@@ -4572,15 +4855,19 @@ def _held_tokens(ref: dict, rec: dict) -> tuple[int, int]:
 
 def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
                      cells: dict, gate_tokens: bool = True,
-                     scale: int = 0) -> list[str]:
-    """Phase 16's gates shared by 16a, 16b, 17b and 18b; prints each
+                     scale: int = 0, pool_div: int = 2) -> list[str]:
+    """Phase 16's gates shared by 16a, 16b, 17b, 18b and 21f; prints each
     rank's numbers. ``gate_tokens``: the tokens held to the one device's
     before each near-tie (else printed). ``scale``: the bytes of the W8A8
     and int8-pool scales' MAX reductions a step (``scale_max``) besides
-    the float step's dry-run cell. Returns the failures."""
+    the float step's dry-run cell. ``pool_div``: a rank's share of the
+    pool (1: whole on every rank). Returns the failures."""
     failed = []
-    a, b = recs
-    if a["tokens"] != b["tokens"] or a["admissions"] != b["admissions"]:
+    a = recs[0]
+    ranks_equal = all(a["tokens"] == b["tokens"]
+                      and a["admissions"] == b["admissions"]
+                      for b in recs[1:])
+    if not ranks_equal:
         failed.append("the ranks' tokens or admissions differ")
     held, same = _held_tokens(ref, a)
     if same != held and gate_tokens:
@@ -4613,15 +4900,14 @@ def _tp_engine_gates(torch, label: str, ref: dict, recs: list, rule,
                 for k, v in rec["step_kinds"].items() for kinds in v):
             failed.append(f"rank {r} collective bytes differ from the dry "
                           "run's" + (" plus scale_max" if scale else ""))
-        if 2 * rec["pool_bytes"] != ref["pool_bytes"]:
-            failed.append(f"rank {r} pool {rec['pool_bytes']} is not half "
-                          f"of {ref['pool_bytes']}")
+        if pool_div * rec["pool_bytes"] != ref["pool_bytes"]:
+            failed.append(f"rank {r} pool {rec['pool_bytes']} is not "
+                          f"1/{pool_div} of {ref['pool_bytes']}")
     total = sum(map(len, ref["tokens"].values()))
     print(f"{label}: tokens equal to the one device's at {same}/{held} "
           f"positions before a near-tie ({total} in all"
           + ("" if gate_tokens else "; printed, not gated")
-          + f"); the ranks' tokens equal: {a['tokens'] == b['tokens']}",
-          flush=True)
+          + f"); the ranks' tokens equal: {ranks_equal}", flush=True)
     return failed
 
 
@@ -4775,8 +5061,9 @@ def tp_spec_engine(torch, jobs: _Jobs) -> dict[str, int]:
 # (256 a rank) and the decode's (2 a rank), each rank's output within
 # EP_LAYER_TOL of 1 + |y| of layers.moe.moe_ep_plain on the card.
 # Printed: each rank's load and serving peaks beside the one device's.
-# 17b's engine at 2 layers: the whole script's time
-EP_MESH, EP_SHAPE, EP_CUT, EP_ENGINE_CUT = "2x1", (2, 1), 4, 2
+# 17b's engine at 2 layers: the whole script's time; 17a at 2 (4 before
+# phase 21 joined the mesh jobs: its time made room for them)
+EP_MESH, EP_SHAPE, EP_CUT, EP_ENGINE_CUT = "2x1", (2, 1), 2, 2
 EP_LAYER_TOL = 2 ** -7
 EP_LAYER_PROG = r'''
 import os, sys
@@ -5584,8 +5871,8 @@ def train_families(torch, smi: str) -> dict[str, dict[str, int]]:
 
 def rwkv_vs_cpu_start() -> subprocess.Popen:
     """20c in a process of its own (:func:`rwkv_vs_cpu`): its CPU passes
-    beside 20a and 20b, its card pass after 20b
-    (:func:`rwkv_vs_cpu_card`), its result after 20d."""
+    from phase 14 on, its card pass after 20b (:func:`rwkv_vs_cpu_card`),
+    its result after 20d."""
     os.makedirs(_phase20_path(""), exist_ok=True)
     for name in ("go", "card_done"):
         if os.path.exists(_phase20_path(name)):
@@ -5819,14 +6106,16 @@ def main() -> int:
     kernel_vs_plain(torch, "rwkv6-3b", "5d", quant=True)
     verify_vs_decode(torch)
     train_cpu = train_vs_cpu_start()
-    pools = []  # the background jobs' pools (14c's launcher, 15-18)
+    pools = []  # the background jobs' pools (14c's launcher, 15-21)
+    sides = []  # 20c's process, started after 13c's card runs
     try:
-        more, train_bwd, dist_rows = _phases_7_to_19(torch, profile,
-                                                     train_cpu, pools)
+        more, train_bwd, dist_rows = _phases_7_to_21(torch, profile,
+                                                     train_cpu, pools, sides)
         counts.update(more)
-        more, record["wkv_bwd"] = phase20_training(torch, smi)
+        more, record["wkv_bwd"] = phase20_training(torch, smi, sides[0])
     finally:
-        _stop(train_cpu)
+        for side in [train_cpu, *sides]:
+            _stop(side)
         for pool in pools:
             pool.stop()
     counts.update(more)
@@ -5872,11 +6161,11 @@ def main() -> int:
     return 0
 
 
-def phase20_training(torch, smi: str):
-    """Phase 20, 20c's process beside 20a and 20b. Returns the launch
-    counts by path and 20a's record."""
+def phase20_training(torch, smi: str, side: subprocess.Popen):
+    """Phase 20; 20c's process (``side``, started before phase 14: its CPU
+    passes are done by now) runs its card pass after 20b. Returns the
+    launch counts by path and 20a's record."""
     counts = {}
-    side = rwkv_vs_cpu_start()
     try:
         record = check_wkv_bwd(torch)
         counts["rwkv6-3b train (20b)"] = train_rwkv(torch, smi)
@@ -5888,10 +6177,12 @@ def phase20_training(torch, smi: str):
     return counts, record
 
 
-def _phases_7_to_19(torch, profile: bool, train_cpu, pools: list):
-    """Phases 7-19, 13c's CPU runs beside them in ``train_cpu``; the mesh
-    jobs' pool goes to ``pools`` (for ``main`` to stop). Returns the launch
-    counts by path, 13a's records and 14a's."""
+def _phases_7_to_21(torch, profile: bool, train_cpu, pools: list,
+                    sides: list):
+    """Phases 7-19 and 21 (20 follows them in ``main``), 13c's CPU runs
+    beside them in ``train_cpu``; the mesh jobs' pool goes to ``pools``
+    and 20c's process to ``sides`` (for ``main`` to stop). Returns the
+    launch counts by path, 13a's records and 14a's."""
     counts = {}
     if profile:
         profile_path(torch, "qwen1.5-4b", "6a")
@@ -5967,6 +6258,9 @@ def _phases_7_to_19(torch, profile: bool, train_cpu, pools: list):
     pools.append(smoke)
     counts["qwen1.5-4b-smoke train launcher"] = train_launcher(torch)
     train_vs_cpu_card(train_cpu)
+    # 20c's CPU passes from here on, beside phase 14 (on the host's cores
+    # that 13c's CPU passes used), so that phase 20 need not wait for them
+    sides.append(rwkv_vs_cpu_start())
     # 14: distribution at world size 1 (nccl, the script's own process)
     dist_rows = dist_gemms(torch)
     dist_pipeline(torch)
@@ -6003,6 +6297,13 @@ def _phases_7_to_19(torch, profile: bool, train_cpu, pools: list):
     # 19: the static server over the same mesh for the rwkv, hybrid,
     # encoder-decoder and vision families
     counts.update(family_tp(torch, jobs))
+    # 21: int8 over the same mesh for those families, and qwen1.5-4b over
+    # (1, 3): its cache's sequence over 'model', its pool whole
+    counts.update(int8_family_tp(torch, jobs))
+    counts[f"qwen1.5-4b seq-cache tp serve ({TP3_MESH}, a rank, {TP_CUT} "
+           "layers)"] = seq_cache_tp(torch, jobs)
+    counts[f"qwen1.5-4b whole-pool tp engine ({TP3_MESH}, a rank, {TP_CUT} "
+           "layers)"] = whole_pool_tp_engine(torch, jobs)
     return counts, train_bwd, dist_rows
 
 

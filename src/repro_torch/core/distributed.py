@@ -394,16 +394,22 @@ def axes_extent(mesh, entry) -> int:
     return math.prod(mesh.axis_size(n) for n in entry_axes(entry))
 
 
+def entry_index(mesh, entry) -> int:
+    """This rank's block index along a dim split over a spec entry's axes
+    (major first)."""
+    index = 0
+    for name in entry_axes(entry):
+        index = index * mesh.axis_size(name) + mesh.axis_index(name)
+    return index
+
+
 def data_parallel(mesh) -> tuple[object, int, int]:
     """The DP axes' spec entry (``batch_specs``' entry: one name, a tuple
     major first, or None), their extent and this rank's index over
     them."""
     dp = mesh.dp_axes()
     entry = (dp if len(dp) > 1 else dp[0]) if dp else None
-    index = 0
-    for name in dp:
-        index = index * mesh.axis_size(name) + mesh.axis_index(name)
-    return entry, axes_extent(mesh, entry), index
+    return entry, axes_extent(mesh, entry), entry_index(mesh, entry)
 
 
 # ---------------------------------------------------- tensor parallelism

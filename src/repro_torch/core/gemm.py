@@ -280,7 +280,8 @@ def plan_model(
 
         art = make_serve_step(
             cfg, device="meta", mesh=mesh.as_abstract(),
-            quantized=params is not None and interop.is_quantized(params))
+            quantized=params is not None and interop.is_quantized(params),
+            batch=batch, max_len=max_len)
     if params is None:
         params = models.init(cfg, device="meta")
         if art is not None:

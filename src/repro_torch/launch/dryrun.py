@@ -193,7 +193,8 @@ def serve_cell(cfg, mesh, kind: str, batch: int, seq_len: int) -> dict:
     the batch; the state bytes from the params' and decode state's
     specs."""
     params, memory = serve_state(cfg, mesh, batch, seq_len)
-    art = servestep.make_serve_step(cfg, device="meta", mesh=mesh)
+    art = servestep.make_serve_step(cfg, device="meta", mesh=mesh,
+                                    batch=batch, max_len=seq_len)
     params = art.shard_params(params)
     state = art.init_state(batch, seq_len)
     if kind == "prefill":
@@ -206,9 +207,11 @@ def serve_cell(cfg, mesh, kind: str, batch: int, seq_len: int) -> dict:
         fn = lambda: art.decode_raw(params, state, tok)
     cost = count_step(fn)
     cost["collective_plan"] = ("tensor parallel over 'model' (column / row "
-                               "pairs, vocab-parallel embed and unembed); "
-                               "the layers' leaves gathered over the DP "
-                               "axes a layer at a time")
+                               "pairs, vocab-parallel embed and unembed; a "
+                               "cache's sequence over 'model': its softmax's "
+                               "max and sum gathered, its weighted V summed); "
+                               "the layers' leaves "
+                               "gathered over the DP axes a layer at a time")
     return {"local_batch": _local_batch(mesh, batch), "memory": memory,
             "cost": cost}
 

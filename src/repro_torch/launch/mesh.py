@@ -11,6 +11,8 @@ reference's ``np.array(devices).reshape(shape)`` lays devices out: on a
   process groups, this rank at the origin. The sharding rules and the dry
   run read its shape; the port's collective helpers on it count bytes and
   move nothing (on meta tensors).
+* ``free_port`` picks the port a new group's store listens on
+  (``MASTER_PORT``, torchrun's ``--master-port``).
 * ``init_mesh`` / ``make_local_mesh`` join the default process group,
   starting it if need be: with torchrun's ``RANK`` / ``WORLD_SIZE`` /
   ``MASTER_ADDR`` / ``MASTER_PORT`` set, over ``env://``; with none set, a
@@ -31,6 +33,8 @@ import dataclasses
 import itertools
 import math
 import os
+import random
+import socket
 from typing import Any
 
 import torch
@@ -164,6 +168,28 @@ def _init_default_group(backend: str, device: torch.device) -> None:
 
 
 BACKENDS = ("nccl", "gloo")
+# free_port's range: below Linux's default ephemeral ports (32768-60999),
+# which the kernel hands to any socket bound to port 0 (gloo's pair
+# connections, another group's store)
+_PORTS = (20000, 32768)
+
+
+def free_port() -> int:
+    """A localhost port that nothing listens on, for a process group's
+    store (``MASTER_PORT``). Drawn at random below the ephemeral range:
+    a port the kernel picked (a bind to port 0) could be handed to another
+    process's socket between this check and the store's bind, which then
+    fails with EADDRINUSE when several groups start at once."""
+    draw = random.SystemRandom()
+    for _ in range(1000):
+        port = draw.randrange(*_PORTS)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {_PORTS}")
 
 
 def init_mesh(shape, axis_names, *, device=None, backend=None) -> Mesh:

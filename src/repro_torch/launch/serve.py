@@ -56,12 +56,14 @@ the CUDA graphs are captured with the refined plans);
 ``--rebalance-drifted`` re-solves the plans the balance auditor flags as
 drifted after a traced run.
 
-With ``--mesh DATAxMODEL`` the static server (every family; int8 for the
-dense and moe families) runs over a (data, model) mesh of the world's
-ranks, one process a rank under torchrun: the ranks make the whole model
-from seed 0 one at a time (the others wait at a barrier), each keeping its
-blocks (``parallel.sharding.param_specs``) and freeing the whole before
-the next begins, so the card holds one whole model at a time; each serves
+With ``--mesh DATAxMODEL`` the static server (every family, float or
+``--quantize int8``) runs over a (data, model) mesh of the world's ranks,
+one process a rank under torchrun: the ranks make the whole model from
+seed 0 one at a time (the others wait at a barrier), each quantizing the
+whole weights (int8) and keeping its blocks
+(``parallel.sharding.param_specs``; a row-parallel block keeps the whole
+``w_scale``) and freeing the whole before the next begins, so the card
+holds one whole model at a time; each serves
 its rows over 'data' (encdec's frames and vlm's image embeddings, drawn
 whole as on one device, cut to the same rows), tensor-parallel over
 'model' (attention, the MLPs, RWKV-6's time-mix and channel-mix,
@@ -114,8 +116,7 @@ from repro_torch.launch.train import parse_mesh
 from repro_torch.models import param_count
 from repro_torch.quant.prequant import quantize_params
 from repro_torch.train import graphs
-from repro_torch.train.servestep import (check_mesh_family, make_serve_step,
-                                         prefill_input_shapes)
+from repro_torch.train.servestep import make_serve_step, prefill_input_shapes
 
 
 def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
@@ -131,8 +132,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
     keeps feeding ``pad_id``. The batch decodes until every row finishes or
     ``gen_len``.
 
-    Over a ``mesh`` (every family; ``train.servestep``, whose
-    ``check_mesh_family`` refuses int8 outside the dense and moe families)
+    Over a ``mesh`` (every family, float or int8; ``train.servestep``)
     ``params`` are this rank's blocks (``make_serve_step(...).
     shard_params``) and every rank passes the whole batch and ``extras``:
     each runs its rows over the DP axes (``ServeArtifacts.rows``),
@@ -151,8 +151,8 @@ def serve_batch(cfg, params, prompts: torch.Tensor, *, gen_len: int,
     B = prompts.shape[0]
     device = prompts.device
     quantized = is_quantized(params)
-    check_mesh_family(cfg, mesh, quantized=quantized)
-    art = make_serve_step(cfg, device=device, mesh=mesh, quantized=quantized)
+    art = make_serve_step(cfg, device=device, mesh=mesh, quantized=quantized,
+                          batch=B, max_len=max_len)
     state = art.init_state(B, max_len)
     inputs = art.rows({"tokens": prompts, **(extras or {})})
     rec = record if record is not None else {}
@@ -609,7 +609,6 @@ def main(argv: list[str] | None = None, *, measure_factory=None) -> dict:
             cfg = C.smoke(cfg)
         if args.n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=args.n_layers).validate()
-        check_mesh_family(cfg, mesh)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         # over a mesh this rank's blocks, the ranks loading one at a time

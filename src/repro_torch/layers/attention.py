@@ -22,7 +22,11 @@ full-sequence attention, prefill, the contiguous decode and the paged
 prefill chunk, decode tick and verify pass are tensor-parallel
 (:func:`_attend_full`, :func:`decode_attention`, :func:`_paged_attention`):
 a cache or pool holds this rank's kv heads, or its head_dim block where the
-kv heads do not divide 'model' (``decode_state_specs``). An int8 pool's
+kv heads do not divide 'model' (``decode_state_specs``). Where neither
+does, a contiguous cache holds this rank's block of the sequence (where
+'model' divides it: each rank writes the positions it holds and attends
+over them, the softmax normalized over 'model') or the whole
+cache, and a pool stays whole on every rank. An int8 pool's
 scales follow its kv heads, or stay whole on every rank of a head_dim
 pool, whose quantizer takes each block's absmax over 'model'
 (:func:`_pool_reduce`). W8A8 projections run through
@@ -398,10 +402,14 @@ def init_kv_cache(batch, max_len, n_kv_heads, head_dim,
                    length=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def _cache_layout(n_kv: int, hd: int) -> str:
+def _cache_layout(n_kv: int, hd: int, dp: _DP | None = None) -> str:
     """How a contiguous cache lies over 'model' (``decode_state_specs``):
-    'whole' (no tensor-parallel plan), 'heads' (the kv heads divide it) or
-    'head_dim'. The sequence fallback (neither divides) is not ported."""
+    'whole' (no tensor-parallel plan, or every rank holds all of it),
+    'heads' (the kv heads divide it), 'head_dim' (its head_dim does), or
+    'seq' where neither does and ``dp`` (:func:`_over_dp`) holds this
+    rank's block of the sequence over 'model' (the reference's sequence
+    fallback, where 'model' divides ``max_len``). A pool never takes the
+    sequence fallback: it stays whole."""
     tp = cm.tp_size()
     if tp == 1:
         return "whole"
@@ -409,10 +417,10 @@ def _cache_layout(n_kv: int, hd: int) -> str:
         return "heads"
     if hd % tp == 0:
         return "head_dim"
-    raise NotImplementedError(
-        f"a KV cache of {n_kv} kv heads x {hd} over a 'model' axis of {tp} "
-        "(the decode cache's sequence fallback; a pool the reference "
-        "keeps whole): ROADMAP queue 1, item 10")
+    if dp is not None and dp.held is not None and "model" in cd.entry_axes(
+            dp.over):
+        return "seq"
+    return "whole"
 
 
 def _cache_block(t, shape, layout: str):
@@ -431,35 +439,38 @@ def _cache_block(t, shape, layout: str):
 
 
 class _DP(NamedTuple):
-    """How a step's rows and a decode state lie over the DP axes."""
+    """How a step's rows and a decode state lie over the mesh: the lanes
+    over the DP axes, and the block held here of a dim split over the DP
+    axes (a pool's blocks, a contiguous cache's sequence) or over 'model'
+    (a contiguous cache's sequence)."""
     mesh: Any
     entry: Any                         # the DP axes' spec entry
-    size: int                          # their extent
     lanes: slice | None                # this rank's lanes (None: every one)
     held: tuple[int, int] | None       # (first, count) of the split dim
+    over: Any                          # the spec entry it is split over
 
 
 def _over_dp(total: int, rows: int, dim: int, local: int) -> _DP | None:
-    """The DP layout of a step under the active plan, or None (no plan
-    naming the state's layout, no DP axis above 1, nothing split). A step
-    of ``rows`` rows over a state of ``total`` lanes holds this rank's
-    lanes where they differ; ``dim`` is the stacked K leaf's dim that DP
-    may split besides the lanes (1: a pool's blocks, 2: a contiguous
-    cache's sequence), of which ``local`` are held here."""
+    """The layout of a step's rows and state under the active plan, or
+    None (no plan naming the state's layout, nothing split). A step of
+    ``rows`` rows over a state of ``total`` lanes holds this rank's lanes
+    where they differ; ``dim`` is the stacked K leaf's dim that may be
+    split besides the lanes (-4: a pool's blocks, over DP; -3: a
+    contiguous cache's sequence, over DP or 'model'), of which ``local``
+    are held here."""
     plan = current_context().shard
     if plan is None or plan.kv is None:
         return None
     mesh = plan.mesh
-    entry, size, index = cd.data_parallel(mesh)
-    if size == 1:
-        return None
+    entry, _, index = cd.data_parallel(mesh)
     lanes = None if rows == total else slice(index * rows, (index + 1) * rows)
-    split = plan.kv[dim] if len(plan.kv) > dim else None
-    held = ((index * local, local)
-            if set(cd.entry_axes(split)) & set(mesh.dp_axes()) else None)
+    over = plan.kv[dim]
+    held = None
+    if cd.axes_extent(mesh, over) > 1:
+        held = (cd.entry_index(mesh, over) * local, local)
     if lanes is None and held is None:
         return None
-    return _DP(mesh, entry, size, lanes, held)
+    return _DP(mesh, entry, lanes, held, over)
 
 
 def _dp_sum(t: torch.Tensor, dp: _DP) -> torch.Tensor:
@@ -490,11 +501,11 @@ def _held(t: torch.Tensor, idx: torch.Tensor, held) -> torch.Tensor:
 def _qkv(p: AttnParams, x, layout: str, n_kv: int, hd: int, positions,
          rope_theta: float, shape):
     """q, k, v of x (B, S, d), rotated at ``positions``: with the whole
-    leaves (``layout`` 'whole'), or tensor-parallel: q of this rank's
-    heads ('heads', column-parallel) or of every head ('head_dim': the
-    column blocks' outputs gathered); k and v as a cache whose trailing
-    dims are ``shape`` stores them (:func:`_cache_block`)."""
-    if layout == "whole":
+    leaves (no tensor-parallel plan), or tensor-parallel: q of this rank's
+    heads ('heads', column-parallel) or of every head (the other layouts:
+    the column blocks' outputs gathered); k and v as a cache whose
+    trailing dims are ``shape`` stores them (:func:`_cache_block`)."""
+    if cm.tp_size() == 1:
         return _qkv_rotary(p, x, n_kv, hd, positions, rope_theta)
     mesh = cm.tp_mesh()
     B, S, _ = x.shape
@@ -510,22 +521,28 @@ def _qkv(p: AttnParams, x, layout: str, n_kv: int, hd: int, positions,
 def _contract(p: AttnParams, q, x, gk, gv, valid, layout: str):
     """The masked contraction of ``q`` against a cache's gathered keys and
     values, then ``wo`` (:func:`_decode_contract` with the whole leaves).
-    Tensor-parallel: this rank's heads ('heads'), or its head_dim block
-    with the scores summed over 'model' before the softmax and the output
-    gathered over head_dim ('head_dim'); ``wo`` row-parallel."""
-    if layout == "whole":
+    Tensor-parallel: this rank's heads ('heads'); its head_dim block with
+    the scores summed over 'model' before the softmax and the output
+    gathered over head_dim ('head_dim'); every head over this rank's block
+    of the positions, the softmax normalized and the weighted V summed
+    over 'model' ('seq', :func:`_softmax_over_model`); every head over
+    every position ('whole'). ``wo`` row-parallel (of this rank's heads'
+    rows) where it is a block of rows."""
+    if cm.tp_size() == 1:
         return _decode_contract(p, q, x, gk, gv, valid)
     mesh = cm.tp_mesh()
     r = mesh.axis_index("model")
     B, S = x.shape[:2]
     qs = _scaled(q).to(gk.dtype)
-    if layout == "heads":
-        o = _attend(qs, gk, gv, valid)
-    else:
+    if layout == "head_dim":
         hd = gk.shape[-1]
         o = _attend(qs[..., r * hd:(r + 1) * hd], gk, gv, valid,
                     scores=lambda s: cd.reduce_from_model(s, mesh))
         o = cd.gather_from_model(o, mesh, -1)
+    elif layout == "seq":
+        o = _attend(qs, gk, gv, valid, mesh=mesh)
+    else:
+        o = _attend(qs, gk, gv, valid)
     o = o.reshape(B, S, -1).to(x.dtype)
     if cm.block_dim(p.wo) != 0:
         return cd.local_gemm(o, p.wo)
@@ -551,8 +568,9 @@ def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     B, S, _ = x.shape
     n_kv = n_kv_heads or cache.k.shape[2]
     hd = head_dim or cache.k.shape[3]
-    layout = _cache_layout(n_kv, hd)
-    if n_heads is None and layout != "whole":
+    dp = _over_dp(cache.k.shape[0], cache.k.shape[0], -3, cache.k.shape[1])
+    layout = _cache_layout(n_kv, hd, dp)
+    if n_heads is None and cm.tp_size() > 1:
         raise ValueError("a tensor-parallel prefill needs the model's head "
                          "counts")
     y, k, v = _attend_full(
@@ -561,7 +579,6 @@ def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
         rope_theta=rope_theta)
     k = _cache_block(k, cache.k.shape[-2:], layout)
     v = _cache_block(v, cache.k.shape[-2:], layout)
-    dp = _over_dp(cache.k.shape[0], cache.k.shape[0], 2, cache.k.shape[1])
     if dp is None or dp.held is None:
         cache.k[:, :S] = k
         cache.v[:, :S] = v
@@ -573,13 +590,16 @@ def prefill_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     return y, cache
 
 
-def _attend(qs, gk, gv, valid, scores=None) -> torch.Tensor:
+def _attend(qs, gk, gv, valid, scores=None, mesh=None) -> torch.Tensor:
     """The masked contraction: ``qs`` (B, S, H, D), scaled and in the
     cache's storage dtype, against the (B, K, Hkv, D) keys and values,
     accumulated in f32; ``valid`` (B, K) for one query a row (decode), (B,
     S, K) for S (verify). ``scores`` (if given) maps the raw scores before
-    the mask (the sum over 'model' of head_dim blocks). Returns o (B, S,
-    H, D) f32."""
+    the mask (the sum over 'model' of head_dim blocks). ``mesh`` (if
+    given): the keys, values and ``valid``'s last dim are this rank's
+    block of positions split over 'model' (:func:`_softmax_over_model`),
+    and the weighted V is summed over 'model'. Returns o (B, S, H, D)
+    f32."""
     n_heads, n_kv = qs.shape[2], gk.shape[2]
     kr = _repeat_kv(gk, n_heads // n_kv)
     vr = _repeat_kv(gv, n_heads // n_kv)
@@ -589,9 +609,28 @@ def _attend(qs, gk, gv, valid, scores=None) -> torch.Tensor:
     if valid.dim() == 2:
         valid = valid[:, None, :]
     s = torch.where(valid[:, None], s, NEG_INF)
-    prob = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", prob.to(vr.dtype).float(),
-                        vr.float())
+    prob = (torch.softmax(s, dim=-1) if mesh is None
+            else _softmax_over_model(s, mesh))
+    o = torch.einsum("bhqk,bkhd->bqhd", prob.to(vr.dtype).float(),
+                     vr.float())
+    return o if mesh is None else cd.all_reduce(o, mesh, "model")
+
+
+def _softmax_over_model(s, mesh) -> torch.Tensor:
+    """The softmax of the f32 scores ``s`` (..., K) whose last dim is this
+    rank's block of positions split over 'model': each rank's max and sum
+    of exponentials all-gathered over 'model', and this rank's block of
+    the probabilities normalized by the global max and sum, as one
+    device's softmax normalizes them, so they round alike before the
+    weighted V. A rank that holds no valid position weighs 0. Every rank
+    combines the same parts in rank order."""
+    m = s.amax(-1, keepdim=True)
+    parts = cd.all_gather(torch.cat(
+        [m, torch.exp(s - m).sum(-1, keepdim=True)], -1)[None], mesh,
+        "model", 0)
+    top = parts[..., :1].amax(0)
+    total = (parts[..., 1:] * torch.exp(parts[..., :1] - top)).sum(0)
+    return torch.exp(s - top) / total
 
 
 def _decode_contract(p: AttnParams, q, x, gk, gv, valid) -> torch.Tensor:
@@ -638,7 +677,11 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
     head (the column blocks' outputs gathered), this rank's head_dim block
     written and contracted, the scores summed over 'model' before the
     softmax, the output gathered over head_dim before ``wo``
-    (row-parallel) (:func:`_qkv`, :func:`_contract`).
+    (row-parallel) (:func:`_qkv`, :func:`_contract`). Where neither
+    divides 'model', q, k and v of every head: the rank holding the
+    position writes it (as over DP) and each rank contracts its block of
+    the sequence, the softmax normalized over 'model' ('seq'), or
+    every rank writes and contracts the whole cache ('whole').
 
     Over DP (a plan naming the state's layout) ``x`` may be this rank's
     lanes of the whole (B,) length, and the cache its lanes, or its block
@@ -651,7 +694,7 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
         raise ValueError(f"decode takes one token per row, got {S1}")
     S_loc, n_kv, hd = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
     per_slot = cache.length.dim() == 1
-    dp = _over_dp(cache.length.shape[0] if per_slot else B, B, 2, S_loc)
+    dp = _over_dp(cache.length.shape[0] if per_slot else B, B, -3, S_loc)
     pos = cache.length
     if dp is not None and dp.lanes is not None:
         pos = pos[dp.lanes]
@@ -661,12 +704,13 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
         if n_kv_heads is None or head_dim is None:
             raise ValueError("a tensor-parallel decode needs the model's "
                              "head counts")
-        layout = _cache_layout(n_kv_heads, head_dim)
+        layout = _cache_layout(n_kv_heads, head_dim, dp)
         n_kv, hd = n_kv_heads, head_dim
     q, k, v = _qkv(p, x, layout, n_kv, hd, positions, rope_theta,
                    cache.k.shape[-2:])
     seq = None if dp is None else dp.held
-    S_max = S_loc if seq is None else S_loc * dp.size
+    S_max = S_loc if seq is None else S_loc * cd.axes_extent(dp.mesh,
+                                                             dp.over)
     at = pos.clamp(max=S_max - 1)
     own = None
     if seq is not None:  # the position's rank writes it
@@ -691,8 +735,10 @@ def decode_attention(p: AttnParams, x: torch.Tensor, cache: KVCache, *,
             c.index_copy_(1, at, new)
         valid = (kpos <= pos).expand(B, S_max)
     gk, gv = cache.k, cache.v
-    if seq is not None:
-        gk, gv = (cd.all_gather_over(t, dp.mesh, dp.entry, 1)
+    if layout == "seq":  # this rank's positions, normalized over 'model'
+        valid = valid[:, seq[0]:seq[0] + S_loc]
+    elif seq is not None:
+        gk, gv = (cd.all_gather_over(t, dp.mesh, dp.over, 1)
                   for t in (gk, gv))
     return _contract(p, q, x, gk, gv, valid, layout), cache
 
@@ -907,10 +953,13 @@ def _pool_write(cache: PagedKVCache, k, v, row, start, n, spill, span: int,
 
 def _pool_layout(cache: PagedKVCache, n_kv: int, hd: int) -> str:
     """How a pool lies over 'model' (``decode_state_specs(paged=True)``):
-    as :func:`_cache_layout` lays a contiguous cache. An int8 pool's
-    ``(num_blocks, Hkv)`` scales follow its kv heads ('heads': each rank
-    quantizes its own) or stay whole on every rank ('head_dim': each
-    block's absmax taken over 'model', :func:`_pool_reduce`)."""
+    as :func:`_cache_layout` lays a contiguous cache, whole where neither
+    its kv heads nor its head_dim divide 'model' (every rank holds every
+    block and writes the new rows whole). An int8 pool's ``(num_blocks,
+    Hkv)`` scales follow its kv heads ('heads': each rank quantizes its
+    own) or stay whole on every rank ('head_dim': each block's absmax
+    taken over 'model', :func:`_pool_reduce`; 'whole': every rank
+    quantizes every block alike)."""
     return _cache_layout(n_kv, hd)
 
 
@@ -927,7 +976,7 @@ def _pool_dp(cache: PagedKVCache, rows: int | None) -> _DP | None:
     prefill chunk, one request on every rank), its blocks split where the
     plan's layout splits them."""
     total = cache.table.shape[0]
-    return _over_dp(total, total if rows is None else rows, 1,
+    return _over_dp(total, total if rows is None else rows, -4,
                     cache.k.shape[0])
 
 
@@ -973,8 +1022,8 @@ def _paged_attention(p: AttnParams, x, cache: PagedKVCache, *, positions,
     :func:`_paged_write`), the rows' K/V gathered back
     (:func:`_paged_kv`), each query attending causally to its lane's
     written prefix (:func:`_contract`). Under a tensor-parallel plan the
-    pool is this rank's kv heads or head_dim block (:func:`_pool_layout`,
-    ``heads`` the model's head counts)."""
+    pool is this rank's kv heads or head_dim block, or whole
+    (:func:`_pool_layout`, ``heads`` the model's head counts)."""
     bs, n_kv, hd = cache.k.shape[1:]
     mb = row.shape[1]
     layout = "whole"

@@ -194,9 +194,10 @@ class ShardPlan:
     (empty when 'model' has extent 1); ``experts``: the paths of the MoE
     expert tables, which keep their blocks (empty on a mesh whose every
     extent is 1). ``kv``: the spec of the decode state's stacked K leaf
-    (``decode_state_specs``; None: not given), by which the attention
-    layers read how the KV cache lies over the DP axes (the engine's lanes
-    or the cache's sequence, a pool's blocks). ``rows_whole``: the step's
+    (``decode_state_specs``, an entry for each dim; None: not given), by
+    which the attention layers read how the KV cache lies over the DP axes
+    (the engine's lanes or the cache's sequence, a pool's blocks) and
+    'model' (a contiguous cache's sequence). ``rows_whole``: the step's
     rows are every rank's, not this rank's over the DP axes (an engine's
     chunk or admission, lanes the DP extent does not divide), which the
     MoE block splits over 'data' itself."""

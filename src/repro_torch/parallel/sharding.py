@@ -267,15 +267,6 @@ def local_bytes(x, spec, mesh) -> int:
         x.element_size()
 
 
-def _index(mesh, entry) -> int:
-    """This rank's block index along a dim sharded over ``entry`` (axes
-    major first)."""
-    i = 0
-    for name in cd.entry_axes(entry):
-        i = i * mesh.axis_size(name) + mesh.axis_index(name)
-    return i
-
-
 def is_sharded(spec, mesh) -> bool:
     return any(cd.axes_extent(mesh, e) > 1 for e in spec)
 
@@ -294,7 +285,7 @@ def shard_leaf(full: torch.Tensor, spec, mesh) -> torch.Tensor:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not "
                              f"split over {entry} ({n})")
         size = out.shape[dim] // n
-        out = out.narrow(dim, _index(mesh, entry) * size, size)
+        out = out.narrow(dim, cd.entry_index(mesh, entry) * size, size)
     return out.clone(memory_format=torch.contiguous_format)
 
 

@@ -96,9 +96,9 @@ from repro_torch.serve.prefixcache import PrefixCache
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.scheduler import SlotScheduler
 from repro_torch.serve import spec as spec_lib
-from repro_torch.train.servestep import (
-    check_mesh_family, make_engine_step, make_paged_engine_step,
-    make_spec_step)
+from repro_torch.train.servestep import (make_engine_step,
+                                         make_paged_engine_step,
+                                         make_spec_step)
 
 
 def chunk_buckets(chunk: int) -> tuple[int, ...]:
@@ -235,9 +235,6 @@ class ServeEngine:
         self.prefix_cache_enabled = bool(prefix_cache)
         self.prefix_cache_blocks = prefix_cache_blocks
         self._quantized = quantized = interop.is_quantized(params)
-        check_mesh_family(cfg, mesh, quantized=quantized)
-        if self.spec:
-            check_mesh_family(spec_draft_cfg, mesh)
         if self.paged:
             self.kv_block_size = int(kv_block_size)
             # default pool: full contiguous capacity (+ the null block)

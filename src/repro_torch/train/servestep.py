@@ -30,12 +30,6 @@ from repro_torch.parallel import fsdp
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.graphs import CapturedStep
 
-# the families whose int8 serving (W8A8) runs over a mesh; the others
-# raise (ROADMAP queue 1, item 11). In float every family serves over a
-# mesh (the engines the KV-cache families)
-INT8_MESH_FAMILIES = ("dense", "moe")
-
-
 @dataclasses.dataclass
 class ServeArtifacts:
     """``decode_fn(params, state, tokens)``: one (batch, 1) decode step,
@@ -47,7 +41,8 @@ class ServeArtifacts:
     Over a ``mesh`` the params are this rank's blocks (``param_specs``,
     :meth:`shard_params`), the decode state too (``decode_state_specs``,
     :meth:`init_state`) and the batch this rank's rows over the DP axes
-    (:meth:`rows`)."""
+    (:meth:`rows`); ``layout`` is the steps' layout over it, the decode
+    state's that of the batch and ``max_len`` the steps were made for."""
 
     decode_fn: Callable
     prefill_fn: Callable
@@ -56,6 +51,7 @@ class ServeArtifacts:
     param_specs: Any = None
     cfg: ModelConfig | None = None
     device: Any = None
+    layout: _Layout | None = None
 
     def shard_params(self, params):
         """This rank's blocks of a whole parameter tree."""
@@ -65,18 +61,17 @@ class ServeArtifacts:
 
     def init_state(self, batch: int, max_len: int):
         """The decode state of ``batch`` rows: over a mesh this rank's
-        blocks of it, allocated as such."""
+        blocks of it, allocated as such, of the batch and ``max_len`` the
+        steps were made for (a family without a KV cache: any)."""
         if self.mesh is None:
             return models.init_decode_state(self.cfg, batch, max_len,
                                             device=self.device)
         full = models.init_decode_state(self.cfg, batch, max_len,
                                         device="meta")
-        spec_of = dict(tree_items(shd.decode_state_specs(full, self.cfg,
-                                                         self.mesh)))
-        return tree_map_with_path(
-            lambda p, t: torch.zeros(
-                shd.local_shape(tuple(t.shape), spec_of[p], self.mesh),
-                dtype=t.dtype, device=self.device), full)
+        self.layout.check_whole(full)
+        return dataclasses.replace(
+            self.layout, whole=full, state_specs=shd.decode_state_specs(
+                full, self.cfg, self.mesh)).init_state(self.device)
 
     def rows(self, batch: dict) -> dict:
         """This rank's rows of a prefill batch (``batch_specs``). The moe
@@ -96,39 +91,24 @@ class ServeArtifacts:
                 for k, v in batch.items()}
 
 
-def check_mesh_family(cfg: ModelConfig, mesh, *,
-                      quantized: bool = False) -> None:
-    """Raise for what the static server and the engines do not run over
-    ``mesh``: int8 weights (``quantized``, or the context's
-    ``quant_mode="int8"``) for a family outside
-    :data:`INT8_MESH_FAMILIES` (ROADMAP queue 1, item 11). Every family
-    serves over any mesh in float; the int8 weights and the engine's int8
-    KV pool of the dense and moe families too."""
-    if mesh is None:
-        return
-    int8 = quantized or current_context().quant_mode == "int8"
-    if int8 and cfg.family not in INT8_MESH_FAMILIES:
-        raise NotImplementedError(
-            f"int8 serving of the {cfg.family} family over a mesh: ROADMAP "
-            f"queue 1, item 11 (int8 runs over a mesh for "
-            f"{INT8_MESH_FAMILIES})")
-
-
 def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
-                    quantized: bool = False) -> ServeArtifacts:
+                    quantized: bool = False, batch: int | None = None,
+                    max_len: int | None = None) -> ServeArtifacts:
     """The static-batch server's steps, for every ported family; over a
     ``mesh`` sharded: each step runs under the mesh and a
     ``parallel.fsdp.ShardPlan`` in ``no_grad``, the layers' leaves
     gathered over the DP axes, tensor-parallel over 'model' (attention,
     the MLPs, RWKV-6's time-mix and channel-mix, Mamba-2's heads), the MoE
     expert tables this rank's blocks (expert parallelism), the decode
-    state this rank's blocks (``decode_state_specs``), which the layers
-    read and write in their own layout. A mesh with an axis above 1 runs
-    the decode step eager (a CUDA graph cannot capture a ``gloo``
+    state this rank's blocks (``decode_state_specs`` of a state of
+    ``batch`` rows and ``max_len`` positions, as the reference's
+    ``make_serve_step`` takes them; a family with a KV cache needs them
+    over a mesh: its cache's layout follows them), which the layers read
+    and write in their own layout. A mesh with an axis above 1 runs the
+    decode step eager (a CUDA graph cannot capture a ``gloo``
     collective); a 1 x 1 mesh keeps the captured step. ``quantized``: the
     params are ``quant.prequant.quantize_params``' tree (its specs follow
-    ``quantize_axes``); what it refuses over a mesh is
-    :func:`check_mesh_family`'s, which the callers apply."""
+    ``quantize_axes``); every family serves int8 over any mesh."""
 
     def decode(params, state, tokens):
         return models.decode_step(params, tokens, cfg, state)[0]
@@ -140,13 +120,16 @@ def make_serve_step(cfg: ModelConfig, *, device, mesh=None,
         return ServeArtifacts(decode_fn=CapturedStep(decode, device),
                               prefill_fn=prefill, decode_raw=decode,
                               cfg=cfg, device=device)
-    lay = _layout(cfg, mesh, None, quantized=quantized)
-    decode_raw = _sharded(lay, decode)
+    whole = None if max_len is None else models.init_decode_state(
+        cfg, batch, max_len, device="meta")
+    lay = _layout(cfg, mesh, whole, quantized=quantized)
+    decode_raw = _sharded(lay, decode, state_of=True)
     eager = any(n > 1 for n in mesh.shape)
     return ServeArtifacts(
         decode_fn=decode_raw if eager else CapturedStep(decode_raw, device),
-        prefill_fn=_sharded(lay, prefill), decode_raw=decode_raw, mesh=mesh,
-        param_specs=lay.param_specs, cfg=cfg, device=device)
+        prefill_fn=_sharded(lay, prefill, state_of=True),
+        decode_raw=decode_raw, mesh=mesh, param_specs=lay.param_specs,
+        cfg=cfg, device=device, layout=lay)
 
 
 def prefill_input_shapes(cfg: ModelConfig, batch: int, seq: int
@@ -182,8 +165,8 @@ def _check_engine_family(cfg: ModelConfig, what: str) -> None:
 class _Layout:
     """A step's params and state over a mesh: the params' specs and the
     shard plan the steps run under (its ``kv`` the state's K leaf spec),
-    the state's specs and its whole shapes (meta; None for the static
-    server, whose state is sized per batch)."""
+    the state's specs and its whole shapes (meta; None for a static
+    server made without a batch and ``max_len``)."""
 
     mesh: Any
     param_specs: Any
@@ -208,6 +191,36 @@ class _Layout:
     def shard_params(self, params):
         return shd.shard_tree(params, self.param_specs, self.mesh)
 
+    def check_whole(self, whole) -> None:
+        """Raise unless a state of whole shapes ``whole`` lies as the
+        steps' plan reads it: its KV cache that of the state the steps
+        were made for (no KV cache: any)."""
+        if "kv" not in whole:
+            return
+        got = tuple(whole["kv"].k.shape)
+        want = None if self.whole is None else tuple(self.whole["kv"].k.shape)
+        if got != want:
+            raise ValueError(
+                f"a decode state whose KV cache is {got} over the mesh: the "
+                f"steps were made for {want} (make_serve_step's batch= and "
+                f"max_len=; the cache's layout over the mesh follows them)")
+
+    def check_state(self, state) -> None:
+        """Raise unless ``state``'s KV cache is this rank's block of the
+        one the steps were made for."""
+        if "kv" not in state:
+            return
+        if self.whole is None:
+            self.check_whole(state)  # raises: made without batch, max_len
+        spec = dict(tree_items(self.state_specs))["kv/k"]
+        want = shd.local_shape(tuple(self.whole["kv"].k.shape), spec,
+                               self.mesh)
+        if tuple(state["kv"].k.shape) != want:
+            raise ValueError(
+                f"this rank's KV cache is {tuple(state['kv'].k.shape)}: the "
+                f"steps read it as {want}, this rank's block of "
+                f"{tuple(self.whole['kv'].k.shape)}")
+
 
 def _layout(cfg: ModelConfig, mesh, whole_state, *, quantized: bool,
             paged: bool = False) -> _Layout:
@@ -223,12 +236,23 @@ def _layout(cfg: ModelConfig, mesh, whole_state, *, quantized: bool,
     sspecs = None if whole_state is None else shd.decode_state_specs(
         whole_state, cfg, mesh, paged=paged)
     return _Layout(mesh, specs, fsdp.ShardPlan(
-        mesh, specs, kv=None if sspecs is None else sspecs["kv"].k),
+        mesh, specs, kv=None if sspecs is None else _kv_spec(sspecs,
+                                                             whole_state)),
         fsdp.stacked_keys(axes), sspecs, whole_state)
 
 
+def _kv_spec(specs, state):
+    """The spec of ``state``'s stacked K leaf with an entry for each of its
+    dims (the layers read its lanes or blocks at -4 and its sequence at
+    -3), or None: no KV cache."""
+    if "kv" not in state:
+        return None
+    spec, nd = specs["kv"].k, state["kv"].k.dim()
+    return shd.P(*spec, *(None,) * (nd - len(spec)))
+
+
 def _sharded(lay: _Layout, fn, *, lanes=(), gather: bool = False,
-             whole: bool = False):
+             whole: bool = False, state_of: bool = False):
     """``fn`` as a step over the mesh: under the mesh and the plan, in
     ``no_grad``, the leaves outside the stacked subtrees gathered once a
     call. The inputs at positions ``lanes`` (after params and state) are
@@ -236,11 +260,15 @@ def _sharded(lay: _Layout, fn, *, lanes=(), gather: bool = False,
     them (``batch_specs``); with ``gather`` the output's lanes are then
     all-gathered back, so every rank returns the whole. The plan's
     ``rows_whole`` says whether the step's rows are every rank's: ``whole``
-    (a chunk, an admission), or lanes left uncut."""
+    (a chunk, an admission), or lanes left uncut. ``state_of``: first
+    check that the state is this rank's block of the layout's
+    (:meth:`_Layout.check_state`)."""
     mesh = lay.mesh
     entry, size, _ = cd.data_parallel(mesh)
 
     def step(params, state, *inputs):
+        if state_of:
+            lay.check_state(state)
         inputs, split = list(inputs), False
         for i in lanes:
             t = inputs[i]
@@ -274,12 +302,13 @@ def _slot_admit(params, state, prompt, slot, true_len, *, cfg, prompt_pad,
 
     Over a mesh (``sub``: the one-row state's layout) the one-row state is
     this rank's block of it (``decode_state_specs``: its kv heads or
-    head_dim over 'model', its sequence over DP where that divides it),
-    the prefill runs under the plan naming that layout, a sequence split
-    over DP is all-gathered, and the copy writes what this rank holds of
-    the lane cache: the lane where the lanes are split over DP (the others
-    write the lane's old bytes back), its block of the positions where the
-    sequence is."""
+    head_dim over 'model', else its sequence over 'model' where that
+    divides it; its sequence over DP where that divides it), the prefill
+    runs under the plan naming that layout, a split sequence is
+    all-gathered, and the copy writes what this rank holds of the lane
+    cache: the lane where the lanes are split over DP (the others write
+    the lane's old bytes back), its block of the positions where the
+    sequence is split (over DP or 'model')."""
     if sub is None:
         sub_state = models.init_decode_state(cfg, 1, prompt_pad,
                                              device=prompt.device)
@@ -300,28 +329,27 @@ def _slot_admit(params, state, prompt, slot, true_len, *, cfg, prompt_pad,
             dst[:, :, :prompt_pad].index_copy_(1, lane, src)
     else:
         mesh = sub.mesh
-        entry, _, index = cd.data_parallel(mesh)
-        split = lambda spec, dim: bool(set(cd.entry_axes(
-            spec[dim] if len(spec) > dim else None)) & set(mesh.dp_axes()))
-        if split(sub.plan.kv, 2):
-            srcs = [cd.all_gather_over(t, mesh, entry, 2) for t in srcs]
-        eng = plan.kv
+        over = lambda spec, dim: (spec[dim] if cd.axes_extent(
+            mesh, spec[dim]) > 1 else None)
+        if over(sub.plan.kv, -3) is not None:  # the prompt's K/V whole
+            srcs = [cd.all_gather_over(t, mesh, over(sub.plan.kv, -3), 2)
+                    for t in srcs]
+        lanes, seq = over(plan.kv, -4), over(plan.kv, -3)
+        at, own, lo, m = lane, None, 0, prompt_pad
+        if lanes is not None:  # lanes over DP: the lane's rank writes it
+            n = kv.k.shape[1]
+            at = lane - cd.entry_index(mesh, lanes) * n
+            own = (at >= 0) & (at < n)
+            at = at.clamp(0, n - 1)
+        if seq is not None:  # the sequence over DP or 'model': its block
+            n = kv.k.shape[2]
+            lo = cd.entry_index(mesh, seq) * n
+            m = max(0, min(n, prompt_pad - lo))
         for dst, src in zip((kv.k, kv.v), srcs):
-            if split(eng, 1):  # lanes over DP: the lane's rank writes it
-                n = dst.shape[1]
-                at = slot.reshape(1).long() - index * n
-                own = (at >= 0) & (at < n)
-                at = at.clamp(0, n - 1)
-                old = dst[:, :, :prompt_pad].index_select(1, at)
-                dst[:, :, :prompt_pad].index_copy_(
-                    1, at, torch.where(own, src, old))
-            elif split(eng, 2):  # the sequence over DP: this rank's block
-                n = dst.shape[2]
-                m = max(0, min(n, prompt_pad - index * n))
-                dst[:, :, :m].index_copy_(
-                    1, lane, src[:, :, index * n:index * n + m])
-            else:
-                dst[:, :, :prompt_pad].index_copy_(1, lane, src)
+            src = src[:, :, lo:lo + m]
+            if own is not None:  # the others write the lane's bytes back
+                src = torch.where(own, src, dst[:, :, :m].index_select(1, at))
+            dst[:, :, :m].index_copy_(1, at, src)
     kv.length.index_copy_(0, lane, true_len.reshape(1).to(kv.length.dtype))
     return logits[0]
 

@@ -34,7 +34,6 @@ is exact.
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -61,7 +60,7 @@ from repro_torch.core.context import use_context
 from repro_torch.core.plancache import PlanCache
 from repro_torch.interop import tree_items
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, free_port
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.trainstep import make_train_step
 
@@ -185,10 +184,11 @@ def serve(arch, tag):
     it = iter([torch.from_numpy(z["params/" + p].copy())
                for p, _ in tree_items(shapes)])
     whole = tree_map(lambda _: next(it), shapes)
-    art = make_serve_step(scfg, device="cpu", mesh=mesh)
+    max_len = SP + SGEN + 1
+    art = make_serve_step(scfg, device="cpu", mesh=mesh, batch=SB,
+                          max_len=max_len)
     params = art.shard_params(whole)
     prompts = torch.from_numpy(z["prompts"]).long()
-    max_len = SP + SGEN + 1
     rec = {{}}
     gen = serve_batch(scfg, params, prompts, gen_len=SGEN, max_len=max_len,
                       mesh=mesh, record=rec)
@@ -319,14 +319,9 @@ dist.destroy_process_group()
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 def _spawn(prog_path: str, mode: str, n: int, work: str) -> list:
-    port, procs = _free_port(), []
+    port, procs = free_port(), []
     for rank in range(n):
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
                "RANK": str(rank), "WORLD_SIZE": str(n),
@@ -602,7 +597,7 @@ def _torchrun(n: int, args: list[str], timeout: float = 240):
     return subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
          str(n), "--master-addr", "localhost", "--master-port",
-         str(_free_port()), "-m", "repro_torch.launch.train", *args],
+         str(free_port()), "-m", "repro_torch.launch.train", *args],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
 
 

@@ -47,7 +47,6 @@ state's tick within 1e-4 of 1 + |logit| of the reference's.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -71,12 +70,11 @@ from repro_torch.core.context import use_context
 from repro_torch.core.plancache import PlanCache
 from repro_torch.interop import tree_items
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, free_port
 from repro_torch.layers import attention as attn
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.fsdp import ShardPlan
 from repro_torch.quant.prequant import quantize_params
-from repro_torch.train.servestep import check_mesh_family
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("qwen1.5-4b", "internlm2-20b")
@@ -259,14 +257,9 @@ dist.destroy_process_group()
 exec(MODES_SRC)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 def _spawn(prog_path: str, mode: str, n: int, work: str) -> list:
-    port, procs = _free_port(), []
+    port, procs = free_port(), []
     for rank in range(n):
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
                "RANK": str(rank), "WORLD_SIZE": str(n),
@@ -587,7 +580,7 @@ def test_launcher_engine_over_a_mesh(tmp_path):
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
          "2", "--master-addr", "localhost", "--master-port",
-         str(_free_port()), "-m", "repro_torch.launch.serve", "--engine",
+         str(free_port()), "-m", "repro_torch.launch.serve", "--engine",
          "--kv-block-size", "4", "--mesh", "1x2", "--smoke", "--device",
          "cpu", "--plan-cache", "", "--record-out", prefix],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=240)
@@ -607,23 +600,24 @@ def test_engine_refusals_name_their_roadmap_items():
     # decode step on the abstract mesh is tensor-parallel, one all-reduce
     # of the (B, 1, d) f32 partials for the time-mix's wo and one for the
     # channel-mix's wv a layer, and the vocab-parallel lookup's; int8
-    # over a mesh is refused (item 11), and so is its engine (the engines
-    # serve the KV-cache families)
+    # over a mesh runs too (item 11, no longer refused): the dynamic W8A8
+    # step moves the float step's bytes and its scales' MAX reductions;
+    # its engine is refused (the engines serve the KV-cache families)
     rwkv = C.smoke(C.get_config("rwkv6-3b"))
-    check_mesh_family(rwkv, abstract)
     with use_context(plan_cache=PlanCache()):
         dec = dryrun.serve_cell(rwkv, abstract, "decode", 2, 8)
     assert dec["cost"]["by_collective"]["all_reduce"] == \
         (2 * rwkv.n_layers + 1) * 2 * rwkv.d_model * 4
-    with pytest.raises(NotImplementedError, match="item 11"):
-        check_mesh_family(rwkv, abstract, quantized=True)
+    with use_context(plan_cache=PlanCache(), quant_mode="int8"):
+        q = dryrun.serve_cell(rwkv, abstract, "decode", 2, 8)
+    q = dict(q["cost"]["by_collective"])
+    assert q.pop("scale_max") > 0 and q == dec["cost"]["by_collective"]
     with pytest.raises(ValueError, match="KV-cache family"):
         TS.ServeEngine(rwkv, models.init(rwkv, device="meta"), num_slots=2,
                        max_len=16, prompt_pad=8, mesh=abstract)
     # the moe engine runs over a mesh (expert parallelism): its steps on
     # the abstract mesh count all-to-alls over 'data'
     moe = C.smoke(C.get_config("olmoe-1b-7b"))
-    check_mesh_family(moe, abstract)
     with use_context(plan_cache=PlanCache()):
         cells = dryrun.engine_cells(
             moe, Mesh(("data", "model"), (2, 2)), num_slots=2, max_len=16,
@@ -633,14 +627,18 @@ def test_engine_refusals_name_their_roadmap_items():
     # longer refused): the paged tick on the abstract mesh counts the
     # W8A8 scales' MAX reductions beside the float tick's collectives, and
     # the pool lies by its kv heads (qwen-smoke's 4 over 'model' = 2, the
-    # scales split with them) or its head_dim (over 8, the scales whole)
+    # scales split with them) or its head_dim (over 8, the scales whole),
+    # or whole where 'model' divides neither (over 3: item 10, no longer
+    # refused; every weight whole too at this width, so no scale spans
+    # 'model')
     cfg = C.smoke(C.get_config("qwen1.5-4b"))
     for shape, layout, hkv in (((1, 2), "heads", 2), ((1, 8), "head_dim",
-                                                      4)):
+                                                      4), ((1, 3), "whole",
+                                                           4)):
         mesh = Mesh(("data", "model"), shape)
         got = {q: _paged_tick(cfg, mesh, q) for q in (False, True)}
         assert got[True][1] == [hkv] * 2
-        assert got[True][0].pop("scale_max") > 0
+        assert (got[True][0].pop("scale_max", 0) > 0) == (layout != "whole")
         assert got[True][0] == got[False][0]
         specs = shd.param_specs(models.axes(cfg), models.init(
             cfg, device="meta"), mesh)

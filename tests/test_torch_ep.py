@@ -45,7 +45,6 @@ writes its results; the tests compare.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -70,7 +69,7 @@ from repro_torch.core.context import use_context
 from repro_torch.core.plancache import PlanCache
 from repro_torch.interop import tree_items
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, free_port
 from repro_torch.layers import moe
 from repro_torch.quant.int8 import QuantizedLinear
 from repro_torch.train import optimizer as opt_lib
@@ -420,14 +419,9 @@ dist.destroy_process_group()
 exec(ENGINE_SRC)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 def _spawn(prog_path: str, mode: str, n: int, work: str) -> list:
-    port, procs = _free_port(), []
+    port, procs = free_port(), []
     for rank in range(n):
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
                "RANK": str(rank), "WORLD_SIZE": str(n),
@@ -760,7 +754,7 @@ def test_launcher_serves_moe_int8_over_data(tmp_path):
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
          "2", "--master-addr", "localhost", "--master-port",
-         str(_free_port()), "-m", "repro_torch.launch.serve", *args,
+         str(free_port()), "-m", "repro_torch.launch.serve", *args,
          "--mesh", "2x1", "--record-out", prefix],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=240)
     assert run.returncode == 0, run.stderr[-3000:]

@@ -47,7 +47,6 @@ now) the float cell's.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -66,7 +65,7 @@ from repro_torch.core.distributed import CollectiveCounter
 from repro_torch.core.plancache import PlanCache
 from repro_torch.interop import tree_items
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, free_port
 from repro_torch.layers.attention import init_paged_kv_cache
 from repro_torch.quant.prequant import quantize_params
 from repro_torch.train.servestep import make_serve_step
@@ -324,14 +323,9 @@ dist.destroy_process_group()
 exec(ENGINE_SRC)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
 
 def _spawn(prog_path: str, mode: str, n: int, work: str) -> list:
-    port, procs = _free_port(), []
+    port, procs = free_port(), []
     for rank in range(n):
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
                "RANK": str(rank), "WORLD_SIZE": str(n),
@@ -512,7 +506,8 @@ def _quantized_steps(arch, mesh):
     cfg = C.smoke(C.get_config(arch))
     B, P, gen = SERVE
     abstract = Mesh(("data", "model"), MESHES[mesh])
-    art = make_serve_step(cfg, device="meta", mesh=abstract, quantized=True)
+    art = make_serve_step(cfg, device="meta", mesh=abstract, quantized=True,
+                          batch=B, max_len=P + gen + 1)
     params = art.shard_params(quantize_params(models.init(cfg,
                                                           device="meta")))
     state = art.init_state(B, P + gen + 1)

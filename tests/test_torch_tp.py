@@ -8,15 +8,14 @@ exactly: a tensor-parallel MLP call is one all-reduce of its (B, S, d) f32
 output, an attention block in 'heads' mode one more, 'seq' mode gathers
 k, v and the output rows. Also here: which leaves a plan keeps as 'model'
 blocks, the mode rule, the dry run's model-FLOPs ratio on the production
-mesh, the refusals (int8 over a mesh for the families outside dense
-and moe, the cache's sequence fallback, backends) beside the other
-families' decode all-reduces over 'model', and the W8A8 MLP's
-count over 'model', and the launcher under
-torchrun on 8 CPU ranks against the one-device server.
+mesh, the other families' decode all-reduces over 'model' in float and
+int8, the W8A8 MLP's count over 'model', a cache whose kv heads and
+head_dim 'model' divides neither (its sequence over 'model', or whole),
+the backends' refusals, and the launcher under torchrun on 8 CPU ranks
+against the one-device server.
 """
 import os
 import re
-import socket
 import subprocess
 import sys
 
@@ -29,8 +28,8 @@ from repro_torch.core.context import use_context
 from repro_torch.core.distributed import CollectiveCounter
 from repro_torch.core.plancache import PlanCache
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import Mesh, init_mesh, make_production_mesh
-from repro_torch.launch.serve import serve_batch
+from repro_torch.launch.mesh import (Mesh, free_port, init_mesh,
+                                     make_production_mesh)
 from repro_torch.layers import attention as attn
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.models import lm
@@ -149,17 +148,55 @@ def test_dryrun_train_cell_useful_flops_ratio(tmp_path):
     assert rec["cost"]["by_collective"]["all_reduce"] > 0
 
 
-def _decode_all_reduce(cfg, shape) -> int:
-    """The all-reduce bytes of the static server's decode step of B rows
-    on an abstract mesh."""
+def _decode_kinds(cfg, shape) -> dict[str, int]:
+    """The collective bytes by kind of the static server's decode step of
+    B rows on an abstract mesh (the float tree: under quant_mode="int8"
+    the dynamic W8A8 path)."""
     art = make_serve_step(cfg, device="meta", mesh=Mesh(("data", "model"),
-                                                        shape))
+                                                        shape), batch=B,
+                          max_len=8)
     params = art.shard_params(models.init(cfg, device="meta"))
     state = art.init_state(B, 8)
     with use_context(plan_cache=PlanCache()), CollectiveCounter() as c:
         art.decode_raw(params, state, torch.zeros((B, 1), dtype=torch.int64,
                                                   device="meta"))
-    return c.by_kind()["all_reduce"]
+    return c.by_kind()
+
+
+def test_static_steps_serve_the_state_they_were_made_for():
+    """Over (1, 3), where 3 divides neither qwen-smoke's 4 kv heads nor its
+    head_dim 16, the cache's layout follows ``max_len`` (12: the sequence
+    over 'model', a rank's 4 positions; 13: whole): the static steps are
+    made for one batch and ``max_len`` and refuse a state of another,
+    however it was made, rather than write it in another layout; a family
+    without a KV cache takes any."""
+    cfg = C.smoke(C.get_config("qwen1.5-4b"))
+    mesh = Mesh(("data", "model"), (1, 3), coords=(0, 2))
+    seq = make_serve_step(cfg, device="meta", mesh=mesh, batch=B, max_len=12)
+    whole = make_serve_step(cfg, device="meta", mesh=mesh, batch=B,
+                            max_len=13)
+    params = seq.shard_params(models.init(cfg, device="meta"))
+    tok = torch.zeros((B, 1), dtype=torch.int64, device="meta")
+    assert seq.init_state(B, 12)["kv"].k.shape[2] == 4
+    assert whole.init_state(B, 13)["kv"].k.shape[2] == 13
+    with use_context(plan_cache=PlanCache()):
+        seq.decode_raw(params, seq.init_state(B, 12), tok)
+        for art, other in ((seq, (B, 13)), (whole, (B, 12)),
+                           (seq, (B + 1, 12))):
+            with pytest.raises(ValueError, match="made for"):
+                art.init_state(*other)
+        with pytest.raises(ValueError, match="steps read it as"):
+            seq.decode_raw(params, whole.init_state(B, 13), tok)
+        bare = make_serve_step(cfg, device="meta", mesh=mesh)
+        for call in (lambda: bare.init_state(B, 12),
+                     lambda: bare.decode_raw(params, seq.init_state(B, 12),
+                                             tok)):
+            with pytest.raises(ValueError, match="max_len="):
+                call()
+        rwkv = C.smoke(C.get_config("rwkv6-3b"))
+        art = make_serve_step(rwkv, device="meta", mesh=mesh)
+        art.decode_raw(art.shard_params(models.init(rwkv, device="meta")),
+                       art.init_state(B, 9), tok)
 
 
 def test_refusals():
@@ -169,7 +206,9 @@ def test_refusals():
     # time-mix wo and channel-mix wv, Mamba-2's w_out beside its gated
     # norm's (B, 1, 1) sum of squares and the shared block's attention
     # and MLP at layer 0, whisper's decoder self, cross and MLP); int8
-    # over a mesh is refused for them (ROADMAP queue 1, item 11)
+    # over a mesh runs for them too (no longer refused): the int32
+    # partials of the row-parallel W8A8 products take the float partials'
+    # all-reduce bytes, beside their scales' MAX over 'model'
     row = B * C.smoke(C.get_config("qwen1.5-4b")).d_model * 4
     want = {"rwkv6-3b": (1 + 2 * 2) * row,
             "zamba2-1.2b": (1 + 2 + 2) * row + 2 * B * 4,
@@ -177,12 +216,10 @@ def test_refusals():
     for arch, n in want.items():
         cfg = C.smoke(C.get_config(arch))
         assert cfg.d_model * 4 * B == row and cfg.n_layers == 2
-        assert _decode_all_reduce(cfg, (1, 2)) == n
-        with use_context(quant_mode="int8"), pytest.raises(
-                NotImplementedError, match="item 11"):
-            serve_batch(cfg, {}, torch.zeros((2, 4), dtype=torch.int64),
-                        gen_len=1, max_len=6,
-                        mesh=Mesh(("data", "model"), (1, 2)))
+        assert _decode_kinds(cfg, (1, 2))["all_reduce"] == n
+        with use_context(quant_mode="int8"):
+            got = _decode_kinds(cfg, (1, 2))
+        assert got.pop("scale_max") > 0 and got["all_reduce"] == n
     cfg = C.smoke(C.get_config("qwen1.5-4b"))
     # W8A8 runs over 'model' (no longer refused): the row-parallel w_out's
     # int32 partials take the float partials' all-reduce bytes, and its
@@ -192,21 +229,23 @@ def test_refusals():
         got = _count(cfg, (1, 2), lambda lp, x: mlp_lib.mlp(lp["mlp"], x))
     assert got == {"all_reduce": B * S * cfg.d_model * 4,
                    "scale_max": 4 + 4 * cfg.d_model}
-    # neither 4 kv heads nor head_dim 16 divide 'model' = 32
-    lp, plan = _layer0(cfg, Mesh(("data", "model"), (1, 32)))
+    # neither 4 kv heads nor head_dim 16 divide 'model' = 32 (no longer
+    # refused): the cache's sequence lies over 'model' where the state's
+    # layout puts it there (its last block at rank 31), else it is whole
+    lp, plan = _layer0(cfg, Mesh(("data", "model"), (1, 32),
+                                 coords=(0, 31)))
     with use_context(mesh=plan.mesh, shard=plan):
-        with pytest.raises(NotImplementedError, match="sequence fallback"):
-            attn._cache_layout(4, 16)
+        assert attn._cache_layout(4, 16) == "whole"
+    kv = shd.P(None, None, "model", None, None)
+    with use_context(mesh=plan.mesh, shard=plan.with_kv(kv)):
+        dp = attn._over_dp(B, B, -3, 2)
+        assert dp.held == (62, 2) and dp.lanes is None
+        assert attn._cache_layout(4, 16, dp) == "seq"
     with pytest.raises(ValueError, match="nccl needs a CUDA device"):
         init_mesh((1, 1), ("data", "model"), device="cpu", backend="nccl")
     assert Mesh(("data", "model"), (1, 2), backend="gloo").describe() == \
         "1x2 {'data': 1, 'model': 2} backend=gloo"
 
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _serve_cli(args, n: int | None = None):
@@ -216,7 +255,7 @@ def _serve_cli(args, n: int | None = None):
     if n is not None:
         head += ["-m", "torch.distributed.run", "--nproc-per-node", str(n),
                  "--master-addr", "localhost", "--master-port",
-                 str(_free_port())]
+                 str(free_port())]
     return subprocess.run(
         head + ["-m", "repro_torch.launch.serve", "--smoke", "--device",
                 "cpu", "--plan-cache", "", *args],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one H100.
 
-  python3 chip_smoke.py            # phases 1-5 and 7-21; one CUDA card
+  python3 chip_smoke.py            # phases 1-5 and 7-22; one CUDA card
   python3 chip_smoke.py --profile  # and phase 6 and the traced engine run
   python3 chip_smoke.py --out DIR  # phase 8's traces and metrics in DIR
 
@@ -137,10 +137,10 @@ ends the run with a non-zero exit:
    shared attention + MLP block at every 6th layer, vocab 32,000): 10a
    the static path and 10b with ``--quantize int8``, phase 4's gates
    (launches: 38 x 2 Mamba projections, 7 shared-block calls of 7 GEMMs,
-   the unembed), then at 7 layers (for the script's time)
-   the decode step eager against replayed, the eager prefill's ms and
-   the share of it the SSM steps take (the prefill again with them
-   stubbed); 10c, 10d phase 5's card against CPU at 4
+   the unembed), the decode step eager against replayed, the eager
+   prefill's ms (beside 1,077.45 ms, the same prefill when the SSM scan
+   looped over the tokens) and the share of it the chunked SSM scan takes (the
+   prefill again with the scan stubbed); 10c, 10d phase 5's card against CPU at 4
    layers with the shared block every 2, and the stack layer by layer
    from the CPU's input to each layer (each layer's output and the head
    within the tolerance), beside the CPU path's own spread (its embedding
@@ -309,6 +309,20 @@ ends the run with a non-zero exit:
    the same gates (21f's pool whole), and 21e's decode steps' logits on
    each row's equal tokens within PATH_TOL too. 3a holds the local
    shapes.
+22. training what was left: 22a zamba2-1.2b at its full width and depth
+   (38 Mamba-2 layers, the shared block every 6th) through the launcher,
+   remat on, AdamW, 1 x 4096 (train_4k's sequence: 4 groups of 16 SSM
+   chunks of 64 tokens a layer), 2 steps: finite losses, 20d's gates;
+   printed: step ms, peak, and what one Mamba layer under grad at 1 x
+   4096 saves for its backward (``saved_tensors_hooks``): one SSM state a
+   group against the reference's one a chunk; 22b ``remat_policy="dots"``
+   at 13b's shape (qwen1.5-4b, 40 layers, 8 x 128, AdamW): step 1's loss
+   and every leaf's gradient against "full" remat's on the same inputs
+   (deterministic algorithms on) within DOTS_TOL of the leaf's peak (0
+   expected; where they differ, a second "full" run's spread is printed
+   and gates instead), each policy's launches a step its rule (dots:
+   13b's less the layers' recomputed products, 280), step ms and peak of
+   both. Alone on the card.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor repro.
@@ -1438,7 +1452,7 @@ def serve_split(torch, cfg, params, art, state, batch,
     every other fat GEMM of a step is at M = 4). The eager prefill, warm:
     its wall ms (host clock around it, synchronised), its CUDA-event ms,
     and, traced once, its kernels and device busy ms. ``ssm_share`` (10a):
-    the same prefill again with each SSM step stubbed: the steps' share of
+    the same prefill again with the SSM scan stubbed: the scan's share of
     it."""
     from repro_torch.layers import mamba as mb
 
@@ -1500,18 +1514,19 @@ def serve_split(torch, cfg, params, art, state, batch,
         print(f"  {t / 1e3:8.3f} ms x{n:<6d} {key.replace('void ', '')[:90]}")
     if not ssm_share:
         return
-    # the same prefill with each SSM step a stub that launches nothing
-    # (the token loop's Python and every other op kept): what the steps'
-    # kernels and their launches cost the prefill
-    step, mb._ssd_step = mb._ssd_step, lambda h, xh, *rest: (h, xh)
+    # the same prefill with the SSM scan a stub that launches nothing
+    # (every other op kept): what the chunked scan costs the prefill
+    scan, mb._scan = mb._scan, lambda h, xh, *rest: (xh, h)
     try:
         bare, bare_ev = timed(prefill)
     finally:
-        mb._ssd_step = step
-    print(f"the SSM steps ({cfg.n_layers} layers x {PROMPT} tokens): the "
-          f"prefill without them wall {bare:.2f} ms, CUDA events "
-          f"{bare_ev:.2f} ms; their share of the prefill's wall "
-          f"{1 - bare / wall:.3f}", flush=True)
+        mb._scan = scan
+    print(f"the SSM scan ({cfg.n_layers} layers x {PROMPT} tokens in chunks "
+          f"of {mb.CHUNK}): the prefill without it wall {bare:.2f} ms, CUDA "
+          f"events {bare_ev:.2f} ms; its share of the prefill's wall "
+          f"{1 - bare / wall:.3f}; the prefill {wall:.2f} ms against "
+          f"{ZAMBA_PREFILL_LOOP_MS} ms when the scan looped over the tokens "
+          "(38 layers)", flush=True)
 
 
 def static_steps(torch, arch: str, label: str, quant: bool = False,
@@ -5415,12 +5430,11 @@ WKV_BWD_CASES = (
 RWKV_TRAIN_STEPS = 5       # 20b: rwkv6-3b whole; the last step traced
 FAMILY_TRAIN_STEPS = 3     # 20d
 # 20d's depth cuts (None: whole): olmoe's f32 AdamW state is ~16 bytes a
-# parameter and its 16 layers hold ~6.9 G parameters, so 4; zamba2 at
-# ZAMBA_STEP_CUT's 7 (the shared block at layers 0 and 6; its SSM loops
-# over the tokens in the forward, the recompute and the backward); vision
-# one group of 5 (4 self layers and the cross layer)
+# parameter and its 16 layers hold ~6.9 G parameters, so 4; zamba2 whole
+# (7 layers before its SSM scan ran in chunks); vision one group of 5 (4
+# self layers and the cross layer)
 FAMILY_TRAIN = {"20d olmoe": ("olmoe-1b-7b", 4),
-                "20d zamba2": ("zamba2-1.2b", 7),
+                "20d zamba2": ("zamba2-1.2b", None),
                 "20d whisper": ("whisper-base", None),
                 "20d vision": ("llama-3.2-vision-11b", 5)}
 REMAT_PEAK = ("whisper-base", "llama-3.2-vision-11b")
@@ -5651,9 +5665,10 @@ def _rwkv_train_rule(cfg, batch: int, seq: int,
 
 
 def _train_family(torch, label: str, arch: str, n_layers, steps: int,
-                  wkv_share: bool = False, remat: bool = True) -> dict:
+                  wkv_share: bool = False, remat: bool = True,
+                  batch: int = 8, seq: int = 128) -> dict:
     """``python -m repro_torch.launch.train --arch ARCH [--n-layers N]
-    --steps STEPS --batch 8 --seq 128 --ckpt-every 0`` in this process,
+    --steps STEPS --batch BATCH --seq SEQ --ckpt-every 0`` in this process,
     the launcher's step instrumented (ft.elastic.make_train_step wrapped):
     CUDA-event ms, launches, the GEMM dispatches and lazy solves of each
     step, the last step's gradient norm of every leaf (vision's cross
@@ -5725,9 +5740,10 @@ def _train_family(torch, label: str, arch: str, n_layers, steps: int,
         real_get = C.get_config
         C.get_config = lambda name: dataclasses.replace(real_get(name),
                                                         remat=False)
-    args = ["--arch", arch, "--steps", str(steps), "--batch", "8", "--seq",
-            "128", "--ckpt-every", "0", "--plan-cache", "", "--log-every",
-            "1"] + ([] if n_layers is None else ["--n-layers", str(n_layers)])
+    args = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--ckpt-every", "0", "--plan-cache", "",
+            "--log-every", "1"] + ([] if n_layers is None else
+                                   ["--n-layers", str(n_layers)])
     elastic.make_train_step = make
     cg.ops.balanced_matmul = count(real_ops[0], "matmul")
     cg.ops.decode_matvec = count(real_ops[1], "gemv")
@@ -6067,7 +6083,240 @@ def rwkv_vs_cpu(torch) -> None:
         raise SystemExit("20c: " + "; ".join(failed))
 
 
-ZAMBA_STEP_CUT = {"n_layers": 7}  # 10a / 10b's static steps (main)
+# 10a: zamba2's eager prefill (4 x 128, 38 layers) on an H100 when the SSM
+# scan looped over the tokens (PERF.md section 5)
+ZAMBA_PREFILL_LOOP_MS = 1077.45
+
+
+# ------------------------------------------------------------ phase 22
+# training what was left. 22a: zamba2-1.2b whole at train_4k's sequence;
+# its SSM scan runs in groups of 16 chunks of 64 tokens (layers/mamba.py)
+ZAMBA_TRAIN = ("zamba2-1.2b", 1, 4096, 2)   # arch, batch, seq, steps
+# 22b: remat_policy="dots" against "full" at 13b's shape, step 1 under
+# deterministic algorithms: the loss and each leaf's gradient within
+# DOTS_TOL of the leaf's peak (the same products, kept rather than
+# recomputed: 0 expected)
+DOTS_TOL = 1e-6
+DOTS_STEPS = 3
+
+
+def _mamba_saved(torch, cfg, seq: int) -> tuple[str, list[str]]:
+    """One Mamba layer of ``cfg`` at its full width on the card, under grad
+    at 1 x ``seq`` (seed-0 weights and input): what autograd keeps for its
+    backward (``saved_tensors_hooks``, each storage once, the weights
+    aside), and how many of those are SSM states (1, H, P, N) f32: one a
+    group of chunks (layers/mamba.py), where the reference keeps one a
+    chunk and a loop over the tokens one or more a token."""
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.layers import mamba as mb
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    kw = dict(expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim)
+    p = mb.init_mamba(gen, cfg.d_model, cfg.ssm_state, device="cuda", **kw)
+    p = mb.MambaParams(*(t.requires_grad_() for t in p))
+    weights = {t.untyped_storage().data_ptr() for t in p}
+    x = torch.randn((1, seq, cfg.d_model), generator=gen, device="cuda",
+                    dtype=cfg.dtype).requires_grad_()
+    _, H = mb.dims(cfg.d_model, cfg.ssm_state, **kw)
+    state = (1, H, cfg.ssm_head_dim, cfg.ssm_state)
+    kept, states = {}, [0]
+
+    def pack(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in weights:
+            kept[ptr] = t.untyped_storage().nbytes()
+        states[0] += tuple(t.shape) == state
+        return t
+
+    with use_context(hw="h100", plan_cache=PlanCache()), \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y, _ = mb.mamba_block(p, x, d_state=cfg.ssm_state, **kw)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    mib = lambda b: b / 2**20
+    one = 4 * math.prod(state)
+    groups = -(-seq // (mb.CHUNK * mb.GROUP))
+    chunks = -(-seq // mb.CHUNK)
+    line = (f"one Mamba layer under grad at 1 x {seq}: the backward keeps "
+            f"{len(kept)} storages, {mib(sum(kept.values())):.1f} MiB (the "
+            f"weights aside), of them {states[0]} SSM states {state} f32 "
+            f"({mib(states[0] * one):.1f} MiB): one a group of {mb.GROUP} "
+            f"chunks ({groups}); the reference keeps one a chunk ({chunks}, "
+            f"{mib(chunks * one):.1f} MiB), a loop over the tokens one or "
+            f"more a token (>= {seq}, >= {mib(seq * one):.0f} MiB)")
+    failed = [] if states[0] == groups else [
+        f"the backward keeps {states[0]} SSM states, not {groups}"]
+    del p, x, y
+    _free(torch)
+    return line, failed
+
+
+def train_zamba_4k(torch, smi: str) -> dict[str, int]:
+    """22a: zamba2-1.2b at its full width and depth through the launcher,
+    remat on, AdamW, 1 x 4096, 2 steps: 20d's gates; step ms, the peak and
+    one Mamba layer's saved bytes (:func:`_mamba_saved`)."""
+    from repro_torch import configs as C
+
+    arch, batch, seq, steps = ZAMBA_TRAIN
+    cfg = C.get_config(arch)
+    phase(f"22a training {arch} at full width and depth ({cfg.n_layers} "
+          f"Mamba-2 layers, the shared block every {cfg.shared_attn_every}"
+          f"), remat on, AdamW, {batch} x {seq}: python -m "
+          f"repro_torch.launch.train --arch {arch} --steps {steps} --batch "
+          f"{batch} --seq {seq} --ckpt-every 0")
+    saved, failed = _mamba_saved(torch, cfg, seq)
+    print(saved, flush=True)
+    rec = _train_family(torch, "22a", arch, None, steps, batch=batch,
+                        seq=seq)
+    ms = [s["ms"] for s in rec["steps"]]
+    print(f"losses {[round(x, 4) for x in rec['losses']]} grad norms "
+          f"{[round(x, 4) for x in rec['grad_norms']]}; step ms "
+          f"{[round(x, 1) for x in ms]}; peak {rec['peak']:.2f} GiB; "
+          f"launches a step {rec['steps'][-1]['launches']}; card {smi}",
+          flush=True)
+    failed += _train_gates("22a", rec)
+    if failed:
+        raise SystemExit("22a: " + "; ".join(failed))
+    return {k: sum(s["launches"][k] for s in rec["steps"])
+            for k in rec["steps"][0]["launches"]}
+
+
+def _policy_run(torch, cfg, capture) -> dict:
+    """make_train_step(cfg) at 13b's batch from the seed-0 init on
+    data.synthetic (seed 0), DOTS_STEPS AdamW steps: step 1 under
+    deterministic algorithms, its gradients handed to ``capture(items)``
+    between the backward and the optimizer; each step's loss, CUDA-event
+    ms and launches, and the peak of the steps after the first (whose
+    capture copies leaves to and from the host)."""
+    from repro_torch.core.context import use_context
+    from repro_torch.core.plancache import PlanCache
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.interop import tree_items
+    from repro_torch.train import graphs
+    from repro_torch.train.trainstep import make_train_step
+
+    got = []
+
+    def probe(grads):
+        if not got:
+            got.append(capture(list(tree_items(grads))))
+
+    rec = {"losses": [], "ms": [], "launches": []}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with use_context(hw="h100", plan_cache=PlanCache()):
+            art = make_train_step(cfg, global_batch=TRAIN_BATCH,
+                                  seq_len=TRAIN_SEQ, device="cuda",
+                                  grads_hook=probe)
+            state = art.init_fn(0)
+            data = SyntheticLM(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, seed=0))
+            for step in range(DOTS_STEPS):
+                torch.use_deterministic_algorithms(step == 0, warn_only=True)
+                before = graphs.launches()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                state, m = art.step_fn(state, data.batch(step))
+                ev[1].record()
+                ev[1].synchronize()
+                now = graphs.launches()
+                rec["launches"].append({k: now[k] - before[k] for k in now})
+                rec["ms"].append(ev[0].elapsed_time(ev[1]))
+                rec["losses"].append(float(m["loss"]))
+                if step == 0:
+                    torch.cuda.reset_peak_memory_stats()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec.update(peak=torch.cuda.max_memory_allocated() / 2**30,
+               captured=got[0])
+    del state, art, m
+    _free(torch)
+    return rec
+
+
+def remat_dots(torch, smi: str) -> dict[str, int]:
+    """22b: qwen1.5-4b at 13b's shape with remat_policy "full" and "dots":
+    step 1's loss and every leaf's gradient equal (DOTS_TOL; a second
+    "full" run's spread where they differ), each policy's launches a step
+    its rule, both policies' step ms and peaks."""
+    from repro_torch import configs as C
+
+    full = C.get_config(TRAIN_ARCH)
+    dots = dataclasses.replace(full, remat_policy="dots")
+    want = {"full": _train_rule(full, TRAIN_BATCH, TRAIN_SEQ),
+            "dots": _train_rule(dataclasses.replace(full, remat=False),
+                                TRAIN_BATCH, TRAIN_SEQ)}
+    phase(f"22b remat_policy=\"dots\" against \"full\": {TRAIN_ARCH} at "
+          f"full width and depth, AdamW, batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"from data.synthetic (seed 0), {DOTS_STEPS} steps each, step 1 "
+          f"under deterministic algorithms; launch rules a step {want}")
+
+    def to_host(items):
+        return {p: g.detach().to("cpu", copy=True) for p, g in items}
+
+    def against(ref):
+        def errs(items):
+            out = {}
+            for p, g in items:
+                r = ref[p].to("cuda")
+                out[p] = (g - r).abs().max() / r.abs().max().clamp_min(1e-30)
+            return dict(zip(out, torch.stack(list(out.values())).tolist()))
+        return errs
+
+    runs = {"full": _policy_run(torch, full, to_host)}
+    ref = runs["full"].pop("captured")
+    runs["dots"] = _policy_run(torch, dots, against(ref))
+    err = runs["dots"].pop("captured")
+    worst = max(err, key=err.get)
+    loss_err = abs(runs["dots"]["losses"][0] - runs["full"]["losses"][0]) \
+        / abs(runs["full"]["losses"][0])
+    tol = DOTS_TOL
+    line = (f"step 1, dots against full: loss {loss_err:.3g}, gradients "
+            f"{sum(e == 0 for e in err.values())} of {len(err)} leaves equal, "
+            f"the worst {err[worst]:.3g} of its peak ({worst})")
+    if err[worst] > 0 or loss_err > 0:
+        spread = _policy_run(torch, full, against(ref))
+        s = spread.pop("captured")
+        tol = max(tol, max(s.values()))
+        line += (f"; a second full run against the first: the worst "
+                 f"{max(s.values()):.3g}, loss "
+                 f"{abs(spread['losses'][0] / runs['full']['losses'][0] - 1):.3g}"
+                 f" (the gate)")
+    del ref
+    print(line, flush=True)
+    for policy, r in runs.items():
+        print(f"{policy}: losses {[round(x, 4) for x in r['losses']]}; step ms "
+              f"{[round(x, 1) for x in r['ms']]} (median of steps 2-"
+              f"{DOTS_STEPS}: {statistics.median(r['ms'][1:]):.1f}); peak "
+              f"of steps 2-{DOTS_STEPS} {r['peak']:.2f} GiB; launches a step "
+              f"{r['launches'][-1]}", flush=True)
+    print(f"dots launches {sum(want['full'].values()) - sum(want['dots'].values())}"
+          f" fewer products a step (the layers' recompute); card {smi}",
+          flush=True)
+    failed = []
+    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"]):
+        failed.append("a loss is not finite")
+    if not (err[worst] <= tol and loss_err <= tol):
+        failed.append(f"dots against full: gradients {err[worst]} "
+                      f"({worst}), loss {loss_err}, tolerance {tol}")
+    for policy, r in runs.items():
+        if any(c != want[policy] for c in r["launches"]):
+            failed.append(f"{policy}: launches {r['launches']} differ from "
+                          f"the rule {want[policy]}")
+    if failed:
+        raise SystemExit("22b: " + "; ".join(failed))
+    return {k: sum(c[k] for c in runs["dots"]["launches"])
+            for k in runs["dots"]["launches"][0]}
+
+
+def phase22_training(torch, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 22, alone on the card. Returns the launch counts by path."""
+    return {f"{ZAMBA_TRAIN[0]} train 1x{ZAMBA_TRAIN[2]} (22a)":
+            train_zamba_4k(torch, smi),
+            f"{TRAIN_ARCH} train dots (22b)": remat_dots(torch, smi)}
 
 
 def main() -> int:
@@ -6113,6 +6362,7 @@ def main() -> int:
                                                      train_cpu, pools, sides)
         counts.update(more)
         more, record["wkv_bwd"] = phase20_training(torch, smi, sides[0])
+        more.update(phase22_training(torch, smi))
     finally:
         for side in [train_cpu, *sides]:
             _stop(side)
@@ -6216,13 +6466,9 @@ def _phases_7_to_21(torch, profile: bool, train_cpu, pools: list,
     # 10: the hybrid family, zamba2-1.2b at its full width and depth
     zamba = "zamba2-1.2b"
     counts[zamba] = run_path(torch, zamba, "10a")
-    # the static steps at 7 layers (the shared block at layers 0 and 6):
-    # the eager prefill's SSM loop over the tokens dominates them (169 s at
-    # 38 layers, 41 s for both at 12), and the script's time limit cut
-    # them; 10a / 10b's paths above keep the full depth
-    static_steps(torch, zamba, "10a", cut=ZAMBA_STEP_CUT)
+    static_steps(torch, zamba, "10a")
     counts[zamba + " int8"] = run_path(torch, zamba + " int8", "10b")
-    static_steps(torch, zamba, "10b", quant=True, cut=ZAMBA_STEP_CUT)
+    static_steps(torch, zamba, "10b", quant=True)
     # 4 layers with the shared block every 2: layers 0 and 2 run it (at 2
     # layers only layer 0 would)
     cut = {"n_layers": 4, "shared_attn_every": 2}

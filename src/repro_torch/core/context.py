@@ -19,7 +19,7 @@
 The last three ride the context so that autograd's device thread, which
 the context variable does not reach, gets them back wherever the GEMM
 context is re-installed (``core.gemm._BalancedGemm``,
-``models.lm._checkpointed``, ``parallel.fsdp.Gather``).
+``core.gemm.checkpointed``, ``parallel.fsdp.Gather``).
 
 There is no kernel-backend field: the device of the tensors decides (CUDA
 launches the hand-written kernels, CPU runs their plain versions).

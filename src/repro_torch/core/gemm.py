@@ -15,6 +15,13 @@ backward launches the same hand-written kernels as the forward. The
 kernels' wrappers raise rather than launch on a CUDA tensor that requires
 grad: nothing is detached silently.
 
+``checkpointed(fn, policy)`` is the remat of the training path
+(``torch.utils.checkpoint``, non-reentrant): "full" recomputes every
+activation in the backward, "dots" keeps the output of every product that
+runs through :class:`_BalancedGemm` (the reference's
+``dots_with_no_batch_dims_saveable`` under ``backend="xla"``: its
+projections, the unembed, the router) and recomputes the rest.
+
 ``plan_model(cfg)`` pre-solves every GEMM signature a model issues when
 serving by running prefill and one decode step on the ``meta`` device (the
 counterpart of ``jax.eval_shape``): every ``balanced_gemm`` resolves its
@@ -23,9 +30,11 @@ computed or allocated.
 """
 from __future__ import annotations
 
+from contextvars import ContextVar
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import balance, perfmodel as pm
 from repro_torch.core.context import current_context, resolve_hw, use_context
@@ -132,6 +141,77 @@ def _activation_grad(pre: torch.Tensor, activation: str,
     return d
 
 
+class _Products:
+    """``remat_policy="dots"``: the outputs of the balanced GEMMs of one
+    checkpointed call, recorded in its forward and handed back, in call
+    order, to its recompute, which then launches none of them. The two
+    contexts are ``torch.utils.checkpoint``'s ``context_fn``; the
+    recompute's may be entered more than once (each starts from the
+    first product)."""
+
+    def __init__(self):
+        self.saved = []     # (output, its version, its plan) in call order
+        self.next = None    # None: recording; else the next to hand back
+
+    def contexts(self):
+        return _Taping(self, replay=False), _Taping(self, replay=True)
+
+    def take(self):
+        out, version, plan = self.saved[self.next]
+        if out._version != version:
+            raise RuntimeError(
+                "remat_policy='dots': a product's output was written in "
+                "place after its forward; its recompute would read that")
+        self.next += 1
+        return out.detach(), plan
+
+
+_PRODUCTS: ContextVar[_Products | None] = ContextVar("gemm_products",
+                                                     default=None)
+
+
+class _Taping:
+    def __init__(self, products: _Products, replay: bool):
+        self.products, self.replay, self.tokens = products, replay, []
+
+    def __enter__(self):
+        if self.replay:
+            self.products.next = 0
+        self.tokens.append(_PRODUCTS.set(self.products))
+
+    def __exit__(self, *exc):
+        _PRODUCTS.reset(self.tokens.pop())
+
+
+REMAT_POLICIES = ("full", "dots")
+
+
+def checkpointed(fn, policy: str = "full"):
+    """``fn`` whose activations are recomputed in the backward instead of
+    kept (``torch.utils.checkpoint``, non-reentrant, as ``jax.checkpoint``).
+    ``policy`` "dots" keeps the balanced GEMMs' outputs (:class:`_Products`)
+    and recomputes the rest; FSDP's gathers (``cm.gathered`` inside ``fn``)
+    run again either way, as the products save their gathered operands.
+    The forward draws no random numbers, so no RNG state is stashed. The
+    recompute runs under the forward's GEMM context: autograd runs the
+    backward of CUDA tensors on a device thread of its own, which the
+    context variable does not reach."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={policy!r}: one of {REMAT_POLICIES}")
+    gemm_context = current_context()
+
+    def run(*args):
+        with use_context(gemm_context):
+            return fn(*args)
+
+    def call(*args):
+        kw = {"context_fn": _Products().contexts} if policy == "dots" else {}
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return call
+
+
 class _BalancedGemm(torch.autograd.Function):
     """``act(A @ B + bias)`` whose backward is balanced GEMMs as well.
 
@@ -146,24 +226,34 @@ class _BalancedGemm(torch.autograd.Function):
     :func:`balanced_gemm`, its plan from the cache like any other. The
     backward runs under the forward's GEMM context: autograd runs the
     backward of CUDA tensors on a device thread of its own, which the
-    context variable does not reach."""
+    context variable does not reach. Inside a "dots" remat
+    (:func:`checkpointed`) the forward records its output and plan, and
+    the recompute takes them back instead of launching."""
 
     @staticmethod
     def forward(ctx, a2, b, bias, out_dtype, b_layout, activation, plan, hw):
-        if plan is None:
-            # solved here, not in _dispatch, so that the backward's
-            # recompute runs the forward's plan (not an unsolved default
-            # whose tile may not fit the route's shared memory)
-            plan = plan_for(a2.shape[0], a2.shape[1],
-                            b.shape[0] if b_layout == "col" else b.shape[1],
-                            in_dtype=a2.dtype, out_dtype=out_dtype,
-                            b_layout=b_layout, hw=hw)
+        products = _PRODUCTS.get()
+        if products is not None and products.next is not None:
+            out, plan = products.take()
+        else:
+            if plan is None:
+                # solved here, not in _dispatch, so that the backward's
+                # recompute runs the forward's plan (not an unsolved
+                # default whose tile may not fit the route's shared memory)
+                plan = plan_for(
+                    a2.shape[0], a2.shape[1],
+                    b.shape[0] if b_layout == "col" else b.shape[1],
+                    in_dtype=a2.dtype, out_dtype=out_dtype,
+                    b_layout=b_layout, hw=hw)
+            out = _dispatch(a2, b, bias, out_dtype=out_dtype,
+                            b_layout=b_layout, activation=activation,
+                            out_scale=None, plan=plan, hw=hw)
+            if products is not None:
+                products.saved.append((out.detach(), out._version, plan))
         ctx.save_for_backward(a2, b, bias)
         ctx.args = (b_layout, activation, plan, hw)
         ctx.gemm_context = current_context()
-        return _dispatch(a2, b, bias, out_dtype=out_dtype, b_layout=b_layout,
-                         activation=activation, out_scale=None, plan=plan,
-                         hw=hw)
+        return out
 
     @staticmethod
     def backward(ctx, dc):

@@ -36,9 +36,8 @@ Every family's serve cells are counted: the rwkv and hybrid families'
 layers are tensor-parallel over 'model' and read and write their decode
 states' blocks (an all-to-all takes the WKV state, whose key dim the
 reference's rule splits over 'model', to this rank's heads and back).
-The hybrid family's train and prefill cells are recorded as skipped
-(``UNCOUNTED``): its SSM scan is a Python loop over the tokens, which the
-meta device runs token by token.
+The hybrid family's train and prefill cells are counted like every
+other: its SSM scan runs in chunks of 64 tokens.
 
 One JSON per cell under ``--out`` (default ``build/dryrun``, which git
 ignores); the exit code is 1 if any cell errs. Usage:
@@ -76,13 +75,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 OUT_DIR = os.path.join(ROOT, "build", "dryrun")
 MESH_NAMES = {False: "16x16", True: "2x16x16"}
-# (family, kind) cells the meta device cannot count in useful time: the
-# hybrid family's SSM scan (layers/mamba.py) is a Python loop over the
-# tokens, so zamba2's step took ~1.1 s a token in training and ~0.11 s in
-# prefill on the meta device (~75 and ~60 minutes a cell). Recorded as
-# skipped, with that reason, until the scan is chunked (ROADMAP)
-UNCOUNTED = {("hybrid", "train"): 1.1, ("hybrid", "prefill"): 0.11}
-
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
@@ -286,12 +278,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str
     rec = {"arch": arch, "shape": shape_name, "mesh": MESH_NAMES[multi_pod],
            "chips": mesh.size, "kind": shape.kind}
     ok, why = shape_applicable(cfg, shape)
-    per_token = UNCOUNTED.get((cfg.family, shape.kind))
-    if ok and per_token is not None:
-        ok, why = False, (
-            f"not counted on the meta device: the {cfg.family} family's SSM "
-            f"scan loops over the tokens (~{per_token} s a token here, "
-            f"~{per_token * shape.seq_len / 60:.0f} min for this cell)")
     t0 = time.perf_counter()
     if not ok:
         rec.update(status="skipped", reason=why)

@@ -5,10 +5,17 @@ The in and out projections are GEMMs through :func:`cm.dense` (the fat
 GEMM and GEMV kernels). The depthwise causal conv and the SSM state update
 (a per-head outer-product recurrence, state ``head_dim x d_state`` in f32)
 are torch ops: the reference runs them as jnp code and a ``lax.scan``, not
-as a Pallas kernel. The scan is a Python loop over the tokens, one
-:func:`_ssd_step` each; the reference's chunked, checkpointed branch (``T %
-64 == 0 and T > 64``) bounds backward storage and computes the same
-forward, so one loop serves every T.
+as a Pallas kernel. A decode step (T = 1) is one :func:`_ssd_step`; longer
+inputs run in chunks of ``CHUNK`` tokens (the reference's ``chunk``; any T,
+the last chunk padded) in the SSD chunk form (:func:`_ssd_chunks`), a
+group of ``GROUP`` chunks at a time, each group from the state the one
+before left and, under grad, recomputed in the backward
+(``core.gemm.checkpointed``): the backward keeps one state a group, where
+the reference's ``jax.checkpoint`` of each chunk's scan keeps one a chunk,
+and a group's work while its backward runs. The forward is the
+reference's recurrence in another summation order. Grouping bounds the
+torch ops a layer runs (~45 a group): the meta device's dry run counts a
+32k-token prefill in seconds, and the card's launches drop with them.
 
 Tensor parallelism over 'model' (under a sharded plan whose extent
 divides the SSM heads and which holds this rank's blocks of ``w_in``,
@@ -32,9 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import distributed as cd
+from repro_torch.core.gemm import checkpointed
 from repro_torch.layers import common as cm
 
 CONV_K = 4  # depthwise causal conv width
+CHUNK = 64  # tokens a chunk of the SSM scan (the reference's ``chunk``)
+GROUP = 16  # chunks computed together, and recomputed together under grad
 
 
 class MambaParams(NamedTuple):
@@ -140,14 +150,73 @@ def tp_extent(p: MambaParams, n_heads: int) -> int:
     return tp
 
 
+def _decays(x: torch.Tensor) -> torch.Tensor:
+    """``[..., t, s] = exp(Σ_{s<r<=t} x_r)`` for s <= t, else 0, over x's
+    last dim (log decays): the segment sums as a masked cumsum, not a
+    difference of two cumsums, so a strong decay underflows to 0 rather
+    than cancelling."""
+    n = x.shape[-1]
+    causal = torch.ones((n, n), dtype=x.dtype, device=x.device).tril()
+    return (x[..., None] * causal.tril(-1)).cumsum(-2).exp() * causal
+
+
+def _ssd_chunks(h, xh, Bc, Cc, dt, a, d_skip
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_ssd_step` over K chunks of L tokens at once (the SSD chunk
+    form, f32): (y (B, K, L, H, P), the state after the last token). xh:
+    (B, K, L, H, P); Bc, Cc: (B, K, L, N); dt: (B, K, L, H). Within a chunk,
+    with ``la = -a dt``, ``seg[t, s] = Σ_{s<r<=t} la_r`` and ``cum_t =
+    Σ_{r<=t} la_r``: ``y_t = Σ_{s<=t} e^seg[t,s] (C_t·B_s) dt_s x_s +
+    e^cum_t C_t·h_k + D x_t`` (y_t reads the state that includes token t,
+    as :func:`_ssd_step`'s does), where ``h_k`` is the state entering the
+    chunk; chunk k adds ``Σ_s e^seg[L,s] dt_s x_s ⊗ B_s`` to ``e^cum_L
+    h_k``, and the states entering the chunks are those adds carried by
+    the chunks' total decays (:func:`_decays` over the chunks)."""
+    la = (dt * -a).permute(0, 1, 3, 2)                        # (B, K, H, L)
+    decay = _decays(la)                                       # [t, s]
+    cum = la.cumsum(-1)
+    dtx = (dt[..., None] * xh).transpose(2, 3)                # (B, K, H, L, P)
+    y = ((Cc @ Bc.transpose(2, 3))[:, :, None] * decay) @ dtx
+    adds = (decay[..., -1, :, None] * dtx).transpose(3, 4) @ Bc[:, :, None]
+    # the states entering chunks 0..K-1 and the last: h and the chunks'
+    # adds, each carried by the total decays of the chunks after it
+    B, K, H, P, N = adds.shape
+    carry = _decays(F.pad(cum[..., -1].transpose(1, 2), (1, 0)))
+    states = (carry @ torch.cat([h[:, None], adds], 1).reshape(
+        B, K + 1, H, P * N).transpose(1, 2)).reshape(B, H, K + 1, P, N)
+    y = y + (Cc[:, :, None] @ states[:, :, :K].transpose(1, 2).transpose(
+        3, 4)) * cum.exp()[..., None]
+    return y.transpose(2, 3) + d_skip[:, None] * xh, states[:, :, K]
+
+
 def _scan(h, xh, Bf, Cf, dt, a, d_skip):
-    """The SSM recurrence over the tokens: (y (B, T, H, P), last state)."""
-    ys = []
-    for t in range(xh.shape[1]):
-        h, y = _ssd_step(h, xh[:, t], Bf[:, t], Cf[:, t], dt[:, t], a,
+    """The SSM recurrence over the tokens: (y (B, T, H, P), last state). T
+    = 1 (a decode step) is one :func:`_ssd_step`. Else chunks of ``CHUNK``
+    tokens (one of T below it; above it the tokens padded to a multiple of
+    it with dt = x = B = C = 0, which leave the state and the real tokens'
+    outputs exactly as they were), ``GROUP`` chunks a
+    :func:`_ssd_chunks`, each group from the state the previous one left
+    and, under grad, recomputed in the backward: it keeps one state a
+    group."""
+    B, T, H, P = xh.shape
+    if T == 1:
+        h, y = _ssd_step(h, xh[:, 0], Bf[:, 0], Cf[:, 0], dt[:, 0], a,
                          d_skip)
+        return y[:, None], h
+    L = min(T, CHUNK)
+    pad = -T % L
+    chunks = lambda t: F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)).reshape(
+        B, (T + pad) // L, L, *t.shape[2:])
+    xh, Bf, Cf, dt = map(chunks, (xh, Bf, Cf, dt))
+    group = checkpointed(_ssd_chunks) if torch.is_grad_enabled() \
+        else _ssd_chunks
+    ys = []
+    for k in range(0, xh.shape[1], GROUP):
+        part = slice(k, k + GROUP)
+        y, h = group(h, xh[:, part], Bf[:, part], Cf[:, part], dt[:, part],
+                     a, d_skip)
         ys.append(y)
-    return torch.stack(ys, dim=1), h
+    return torch.cat(ys, 1).reshape(B, T + pad, H, P)[:, :T], h
 
 
 def mamba_block(p: MambaParams, x: torch.Tensor, *, d_state: int,

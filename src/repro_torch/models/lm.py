@@ -24,12 +24,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import distributed as cd
-from repro_torch.core.context import current_context, use_context
+from repro_torch.core.gemm import checkpointed
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mamba as mb
@@ -215,31 +214,13 @@ def _unstack(layers, n: int) -> list:
             for i in range(n)]
 
 
-def _checkpointed(fn):
-    """``fn`` whose activations are recomputed in the backward instead of
-    kept (``torch.utils.checkpoint``, non-reentrant, as ``jax.checkpoint``).
-    The recompute runs under the forward's GEMM context: autograd runs the
-    backward of CUDA tensors on a device thread of its own, which the
-    context variable does not reach."""
-    gemm_context = current_context()
-
-    def run(*args):
-        with use_context(gemm_context):
-            return fn(*args)
-
-    return lambda *args: checkpoint(run, *args, use_reentrant=False)
-
-
 def _remat(cfg: ModelConfig, fn):
     """The reference's ``_maybe_remat``: with ``cfg.remat`` and grad on,
-    ``fn`` is :func:`_checkpointed`."""
+    ``fn`` is ``core.gemm.checkpointed`` under ``cfg.remat_policy`` ("full"
+    or "dots")."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: the port recomputes whole "
-            "layers only ('full')")
-    return _checkpointed(fn)
+    return checkpointed(fn, cfg.remat_policy)
 
 
 def _attn_kw(cfg: ModelConfig):
@@ -479,7 +460,7 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig):
         c = S  # fallback: uneven chunks
     body = lambda h, lab: _chunk_nll(params, cfg, h, lab)
     if torch.is_grad_enabled():
-        body = _checkpointed(body)
+        body = checkpointed(body)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
     for j in range(0, S, c):

@@ -14,7 +14,8 @@ JAX (``torch.distributed`` over loopback, torchrun's environment):
   bytes, the first step's gradients and the parameters after two, gathered;
   the same with Adafactor (its factored moments resharded); one step of
   the rwkv, hybrid, encoder-decoder and vision families and of a dense
-  config with remat and 2 microbatches; a checkpoint;
+  config with remat ("full" and "dots") and 2 microbatches; a
+  checkpoint;
 * 2 ranks (2 x 1) and 1 rank (1 x 1): the checkpoint restored onto their
   mesh and gathered back; the 1 x 1 job also runs two steps of the mesh
   step, held bit for bit to the one-device step (mesh=None).
@@ -69,15 +70,19 @@ ARCH, SEQ, BATCH, STEPS, SEED = "internlm2-20b", 32, 8, 2, 7
 ADAFACTOR = dict(name="adafactor", b1=0.0, state_dtype="float32")
 # the other families whose forwards gather a layer slice at a time (the
 # MoE family's capacity and aux loss are reckoned per DP shard, so its
-# sharded step is not the one-device step), and a dense config with remat
-# (the recompute gathers again, inside the backward) and 2 microbatches
+# sharded step is not the one-device step), and a dense config with remat,
+# "full" and "dots" (the recompute gathers again, inside the backward;
+# "dots" takes the products' outputs back, not their operands) and 2
+# microbatches
 # (the unstacked leaves' gradients reduced once over both): (name, arch,
 # the smoke config's overrides)
 FAMILIES = (("rwkv6-3b", "rwkv6-3b", {}), ("zamba2-1.2b", "zamba2-1.2b", {}),
             ("whisper-base", "whisper-base", {}),
             ("llama-3.2-vision-11b", "llama-3.2-vision-11b", {}),
             ("qwen1.5-4b remat mb2", "qwen1.5-4b",
-             {"remat": True, "microbatches": 2}))
+             {"remat": True, "microbatches": 2}),
+            ("qwen1.5-4b dots mb2", "qwen1.5-4b",
+             {"remat": True, "remat_policy": "dots", "microbatches": 2}))
 FIXTURE_TIMEOUT = 300  # seconds, for all three jobs
 # the static server's parity runs (tensor parallelism): archs, batch,
 # prompt, generated tokens

@@ -3,9 +3,13 @@ attention + MLP block) against the reference's, on the CPU, from the same
 numpy-seeded inputs and the same weights (``interop.params_from_jax``).
 
 * ``layers/mamba.py``: ``_causal_conv``, ``_ssd_step`` and
-  ``mamba_block`` (from zeros and from a carried state, and over 128
-  tokens, where the reference takes its chunked, checkpointed scan) at
-  1e-5 (one layer call, f32: only summation order differs).
+  ``mamba_block`` (T 1, 5, 64, 65, 128 and 130, from zeros and from a
+  carried state, and strong decays: the port's scan in chunks of 64, the
+  last one padded, the reference's token scan or, at 128, its
+  chunked, checkpointed one) at 1e-5 (one layer call, f32: only
+  summation order differs); under grad the port's backward keeps one SSM
+  state a group of 16 chunks (counted through ``saved_tensors_hooks``),
+  the token loop one a token.
 * zamba2-1.2b-smoke at 4 layers (the shared block at layers 0 and 2):
   forward, prefill + 3 decode steps and the int8 path at 1e-4 (f32
   activations, ``tests/test_torch_lm.py``'s and
@@ -108,12 +112,20 @@ def test_ssd_step_matches_reference():
     _close(gy, wy, LAYER_TOL)
 
 
-@pytest.mark.parametrize("T,carried", [(5, False), (5, True), (128, False)])
-def test_mamba_block_matches_reference(T, carried):
-    """From zeros and from a carried state; T = 128 is where the
-    reference takes its chunked scan (T % 64 == 0, T > 64)."""
+@pytest.mark.parametrize("T,carried,strong", [
+    (T, carried, False) for T in (1, 5, 64, 65, 128, 130)
+    for carried in (False, True)] + [(130, True, True)])
+def test_mamba_block_matches_reference(T, carried, strong):
+    """From zeros and from a carried state. The port's scan: T = 1 one
+    step, else chunks of 64 (65 and 130 end in a padded chunk); the
+    reference's: the token scan, or at 128 its chunked scan (T % 64 == 0,
+    T > 64). ``strong``: dt near 3 (the bias at +3) on a up to 16, a
+    decay of e^-48 a token: the chunk's segment sums underflow to 0."""
     rng = np.random.default_rng(T + carried)
-    rp, tp = _both(_mamba_params(rng))
+    p = _mamba_params(rng)
+    if strong:
+        p["dt_bias"] = p["dt_bias"] + 6
+    rp, tp = _both(p)
     x = rng.standard_normal((2, T, D)).astype(np.float32)
     rs = ts = None
     if carried:
@@ -132,6 +144,68 @@ def test_mamba_block_matches_reference(T, carried):
     _close(got, want, LAYER_TOL)
     _close(gst.ssm, wst.ssm, LAYER_TOL)
     _close(gst.conv, wst.conv, LAYER_TOL)  # w_in's last 3 rows
+
+
+def _token_scan(h, xh, Bf, Cf, dt, a, d_skip):
+    """The recurrence one ``_ssd_step`` a token: the chunked scan's
+    oracle."""
+    ys = []
+    for i in range(xh.shape[1]):
+        h, y = TMB._ssd_step(h, xh[:, i], Bf[:, i], Cf[:, i], dt[:, i], a,
+                             d_skip)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
+def _saved_states(fn, shape) -> int:
+    """Run ``fn`` under grad and count the tensors of ``shape`` (an SSM
+    state's) that autograd saves for the backward."""
+    n = [0]
+
+    def pack(t):
+        n[0] += tuple(t.shape) == shape
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn()
+    return n[0]
+
+
+@pytest.mark.parametrize("T", [512, 2 * 1024 + 64])
+def test_scan_backward_keeps_one_state_a_group(T, monkeypatch):
+    """Under grad, ``mamba_block`` saves one SSM state (B, H, P, N) a group
+    of 16 chunks of 64 tokens (the state its recompute starts from) and no
+    other: 1 at T = 512, 3 at 2112, within the reference's one a chunk
+    (ceil(T / 64): 8, 33). The token loop saves one a token (the state its
+    decay multiplies; the new state that ``C`` reads is kept reshaped
+    besides): 512 at T = 512, where the gradients agree."""
+    rng = np.random.default_rng(7)
+    _, tp = _both(_mamba_params(rng))
+    _, H = RMB.dims(D, N, head_dim=P)
+    B = 2
+    x = t(rng.standard_normal((B, T, D)).astype(np.float32))
+    scans = {"chunks": TMB._scan, "tokens": _token_scan}
+    saved, grads = {}, {}
+    for name, scan in scans.items() if T == 512 else [("chunks",
+                                                          TMB._scan)]:
+        monkeypatch.setattr(TMB, "_scan", scan)
+        leaves = TMB.MambaParams(*(v.clone().requires_grad_() for v in tp))
+        out = {}
+
+        def run():
+            with t_use_context(plan_cache=TPlanCache()):
+                out["y"], _ = TMB.mamba_block(leaves, x, d_state=N,
+                                              head_dim=P)
+
+        saved[name] = _saved_states(run, (B, H, P, N))
+        out["y"].square().sum().backward()
+        grads[name] = [v.grad for v in leaves]
+    per_group = TMB.CHUNK * TMB.GROUP
+    assert saved["chunks"] == -(-T // per_group) <= -(-T // TMB.CHUNK)
+    if T == 512:
+        assert saved["tokens"] == T
+        for g, w in zip(grads["chunks"], grads["tokens"]):
+            _close(g, w, LAYER_TOL * float(w.abs().max()))
 
 
 def test_init_mamba_shapes_match_reference():

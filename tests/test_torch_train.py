@@ -11,7 +11,10 @@
 * ``data.synthetic``: batches equal to the reference's bit for bit;
 * ``lm_loss`` with masked and out-of-range labels, value and gradients;
 * the train step from ``interop.state_from_jax``, 5 steps, against the
-  reference's ``make_train_step`` on a 1 x 1 local mesh;
+  reference's ``make_train_step`` on a 1 x 1 local mesh (remat off, full
+  and ``remat_policy="dots"``);
+* "dots" against "full" and no remat bit for bit, on the dense, hybrid,
+  encoder-decoder and vision families, with no product launched again;
 * the launches a step makes through the planned entry points (forward,
   the remat recompute and the backward), the rule chip_smoke.py phase 13b
   holds the card to.
@@ -383,13 +386,68 @@ def test_lm_loss_matches_reference(S):
     _close(tu.grad, wu, "float32", "d_unembed")
 
 
-def test_remat_dots_policy_raises_under_grad():
-    _, tcfg = _pair(remat=True, remat_policy="dots")
+def _count_gemms(monkeypatch) -> dict[str, int]:
+    """The planned entry points' calls (the kernels' launches on a card)."""
+    calls = {"fat": 0, "gemv": 0}
+    for name, key in (("balanced_matmul", "fat"), ("decode_matvec", "gemv")):
+        fn = getattr(TG.ops, name)
+
+        def counted(*x, _fn=fn, _key=key, **y):
+            calls[_key] += 1
+            return _fn(*x, **y)
+        monkeypatch.setattr(TG.ops, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "zamba2-1.2b",
+                                  "whisper-base", "llama-3.2-vision-11b"])
+def test_remat_dots_equals_full_bit_for_bit(arch, monkeypatch):
+    """``remat_policy="dots"`` (the products' outputs kept, the rest
+    recomputed) gives the loss and every leaf's gradient of "full" remat
+    and of no remat bit for bit, and its backward launches no forward
+    product again: its launches are no remat's, "full"'s less one forward
+    of the layers' products (the loss chunks' unembed is recomputed under
+    every policy, as the reference's ``jax.checkpoint`` of its loss scan
+    does)."""
+    from repro_torch.data import synthetic as TSyn
+    _, tcfg = _pair(arch)
+    params = TM.init(tcfg, seed=3, device="cpu")
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in TSyn.batch_for(tcfg, 32, 2, 0).items()}
+    calls = _count_gemms(monkeypatch)
+    out, launches, forward = {}, {}, {}
+    for policy in ("off", "full", "dots"):
+        cfg = dataclasses.replace(tcfg, remat=policy != "off",
+                                  remat_policy="full" if policy == "off"
+                                  else policy)
+        p = interop.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                             params)
+        calls.update(fat=0, gemv=0)
+        with use_context(plan_cache=PlanCache()):
+            hidden, aux = TM.forward(p, batch, cfg)
+            forward[policy] = dict(calls)
+            loss = TM.lm_loss(p, hidden, batch["labels"], cfg) + aux
+            loss.backward()
+        launches[policy] = dict(calls)
+        out[policy] = (loss.detach(), {
+            k: torch.zeros_like(t) if t.grad is None else t.grad
+            for k, t in interop.tree_items(p)})
+    for policy in ("full", "dots"):
+        assert torch.equal(out[policy][0], out["off"][0]), policy
+        for k, g in out["off"][1].items():
+            assert torch.equal(out[policy][1][k], g), (policy, k)
+    assert launches["dots"] == launches["off"]
+    again = {k: launches["full"][k] - launches["dots"][k] for k in calls}
+    assert again == forward["full"] and sum(again.values()) > 0, again
+
+
+def test_remat_refuses_an_unknown_policy():
+    _, tcfg = _pair(remat=True, remat_policy="selective")
     params = TM.init(tcfg, device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.long)
     with torch.no_grad():  # serving: no remat, no refusal
         TM.forward(params, {"tokens": tokens}, tcfg)
-    with pytest.raises(NotImplementedError, match="dots"):
+    with pytest.raises(ValueError, match="selective"):
         TM.forward(params, {"tokens": tokens}, tcfg)
 
 
@@ -397,6 +455,8 @@ def test_remat_dots_policy_raises_under_grad():
 STEP_CASES = {
     "qwen": ("qwen1.5-4b", {}),
     "qwen_remat": ("qwen1.5-4b", {"remat": True}),
+    "qwen_remat_dots": ("qwen1.5-4b", {"remat": True,
+                                       "remat_policy": "dots"}),
     "qwen_microbatches": ("qwen1.5-4b", {"microbatches": 2}),
     "olmoe": ("olmoe-1b-7b", {}),
 }
@@ -472,20 +532,16 @@ def _launch_rule(cfg, M: int, remat: bool, chunks: int) -> dict[str, int]:
 
 
 @pytest.mark.parametrize("batch,seq,remat", [(2, 80, True), (1, 64, True),
-                                             (1, 64, False)])
+                                             (1, 64, False), (2, 80, "dots"),
+                                             (1, 64, "dots")])
 def test_train_step_launch_rule(batch, seq, remat, monkeypatch):
     """The planned entry points a step calls, against the rule; at d_model
-    256 the GEMV's K >= 256 holds, so batch 1 x 64 takes it."""
-    _, tcfg = _pair(d_model=256, head_dim=64, d_ff=512, remat=remat,
+    256 the GEMV's K >= 256 holds, so batch 1 x 64 takes it. "dots": the
+    layers' products are not launched again (the rule without remat)."""
+    _, tcfg = _pair(d_model=256, head_dim=64, d_ff=512, remat=bool(remat),
+                    remat_policy="dots" if remat == "dots" else "full",
                     loss_chunk=64)
-    calls = {"fat": 0, "gemv": 0}
-    for name, key in (("balanced_matmul", "fat"), ("decode_matvec", "gemv")):
-        fn = getattr(TG.ops, name)
-
-        def counted(*x, _fn=fn, _key=key, **y):
-            calls[_key] += 1
-            return _fn(*x, **y)
-        monkeypatch.setattr(TG.ops, name, counted)
+    calls = _count_gemms(monkeypatch)
     art = make_train_step(tcfg, global_batch=batch, seq_len=seq,
                           device="cpu")
     state = art.init_fn(0)
@@ -493,5 +549,5 @@ def test_train_step_launch_rule(batch, seq, remat, monkeypatch):
         state, m = art.step_fn(state, TS.batch_for(tcfg, seq, batch, 0))
     c = min(tcfg.loss_chunk, seq)
     chunks = seq // c if seq % c == 0 else 1
-    assert calls == _launch_rule(tcfg, batch * seq, remat, chunks)
+    assert calls == _launch_rule(tcfg, batch * seq, remat is True, chunks)
     assert np.isfinite(float(m["loss"]))

@@ -16,7 +16,8 @@ the port, on the CPU, against the reference.
   state) with that algebra standing in for the kernels;
 * 5 AdamW steps from ``interop.state_from_jax`` against the reference's
   ``make_train_step``: rwkv at seq 32 (the token scan) and 64 (the chunked
-  WKV), zamba2, whisper, vision with and without remat;
+  WKV), zamba2 at seq 32 and 128 (the reference's chunked, checkpointed
+  SSM scan), whisper, vision with and without remat;
 * remat on and off give the same loss and gradients bit for bit (whisper,
   vision); the launcher takes a step of every family; the rwkv step's
   launches through the planned GEMM entry points and the WKV wrapper
@@ -321,6 +322,8 @@ STEP_CASES = {
     "rwkv_seq32": ("rwkv6-3b", {}, 32, 5e-4),
     "rwkv_seq64": ("rwkv6-3b", {}, 64, 5e-4),
     "zamba2": ("zamba2-1.2b", {}, 32, 1e-5),
+    # T % 64 == 0 and T > 64: the reference's chunked, checkpointed scan
+    "zamba2_seq128": ("zamba2-1.2b", {}, 128, 1e-5),
     "whisper": ("whisper-base", {}, 32, 1e-5),
     "vision": ("llama-3.2-vision-11b", {}, 32, 1e-5),
     "vision_remat": ("llama-3.2-vision-11b", {"remat": True}, 32, 1e-5),
